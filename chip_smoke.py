@@ -1,0 +1,440 @@
+#!/usr/bin/env python3
+"""GPU smoke run of the PyTorch/CUDA port (``src/repro_torch``).
+
+    python3 chip_smoke.py            # needs one CUDA card, exits 0 if all pass
+
+Phases, each printing its own lines; any failure exits non-zero before the
+result line:
+
+1. device   -- card name and power limit, TF32 off, kernels built from
+               ``src/repro_torch/kernels/csrc`` (build time, ptxas report);
+2. generator -- the ``generate_tile`` kernel against the plain generator:
+               bits bit-exact for every distribution, samples bit-exact
+               except normal (held to a stated tolerance);
+3. kernels  -- ``project_packed`` and ``reconstruct_apply_packed`` against
+               their plain versions on full-width qwen2-0.5b slices (one
+               layer's 12 segments plus ``final_norm``; one dir-block of
+               ``embed`` over all its positions): errors, zero padding,
+               bit-identical reruns, in-place apply;
+4. training -- ``repro_torch.launch.train`` at full qwen2-0.5b width and
+               depth, 3 steps; exactly two kernel launches per step;
+5. loss     -- the reduced tinyllama run of the reference's
+               ``test_lm_training_reduces_loss``: loss drops by > 0.1;
+6. timing   -- the plain versions at the main path's full shapes (timed,
+               and held against the kernels there), the bound of each
+               kernel, then the ``kernels`` line and the result line.
+
+It imports nothing of JAX or of the reference package ``repro``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+STEPS = 3
+ARCH_ARGS = ["--arch", "qwen2-0.5b", "--mode", "sharedseed", "--data", "1",
+             "--rbd-backend", "cuda", "--rbd-dim", "1024", "--batch", "8",
+             "--seq", "128", "--steps", str(STEPS), "--kernel-times"]
+DISTS = ("normal", "uniform", "rademacher", "sparse")
+# Tolerances (reasons in PERF.md):
+NORMAL_SAMPLE_ATOL = 1e-6   # normal samples: CUDA logf/cosf vs torch's, ulps
+U_RTOL = 2e-5    # |du| / (||g_seg|| sqrt(sq/Q)): f32 sums in another order
+SQ_RTOL = 2e-5   # |dsq| / sq: f32 sums of squares in another order
+THETA_RTOL = 1e-4  # |dtheta| / max|update|, plus 2 ulp of max|theta|
+# Operation count of one live basis value (see csrc/rbd_step.cu), counted
+# from the source as a floor: Threefry-2x32-20 is 20 x (add, funnel shift,
+# xor) + 5 x 2 injection adds + 3 set-up ops; the sample mapping adds
+# FP32/SFU instructions per distribution (normal: two uniforms, logf,
+# sqrtf, cosf, three multiplies); the contraction adds FMAs.  Integer adds
+# may also issue on the FP32 pipe (as IMAD), so the bound is total issue:
+# 4 schedulers x 32 lanes per SM per clock, at the card's max SM clock.
+INT_OPS_PER_VALUE = 73
+FP_OPS_PER_VALUE = {"normal": 41, "uniform": 6, "rademacher": 1,
+                    "sparse": 5}
+FMA_PER_VALUE = {"project_packed": 2, "reconstruct_apply_packed": 1}
+ISSUE_LANES_PER_SM = 128
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM
+
+
+def log(msg: str = "") -> None:
+    print(msg, flush=True)
+
+
+def check(ok: bool, msg: str) -> None:
+    if not ok:
+        raise RuntimeError(f"check failed: {msg}")
+
+
+def nvidia_smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, repeat: int = 1) -> list[float]:
+    import torch
+
+    out = []
+    for _ in range(repeat):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+
+def phase_device():
+    import torch
+    from repro_torch.kernels import rbd_step
+
+    log("== phase 1: device")
+    smi = nvidia_smi("name,power.limit")
+    log(f"nvidia-smi: {smi}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn={torch.backends.cudnn.allow_tf32}")
+    t0 = time.perf_counter()
+    built = rbd_step.library()
+    log(f"kernels built in {time.perf_counter() - t0:.1f} s "
+        f"(nvcc {built.seconds:.1f} s) -> {built.path.name}")
+    for line in built.log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            log(f"  ptxas: {line.strip()}")
+    props = torch.cuda.get_device_properties(0)
+    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    log(f"SMs {props.multi_processor_count}, max SM clock {clock_mhz} MHz")
+    return {"smi": smi, "sms": props.multi_processor_count,
+            "clock_hz": clock_mhz * 1e6}
+
+
+def phase_generator():
+    import torch
+    from repro_torch.core import rng
+    from repro_torch.kernels import rbd_step
+
+    log("== phase 2: generator (generate_tile kernel vs plain)")
+    seed = int(rng.to_uint32(rng.fold_seed(5)))
+    for dist in ("normal", "uniform", "bernoulli", "rademacher", "sparse"):
+        for row0, col0 in ((16, 1024), (2**32 - 4, 2**32 - 300), (0, 0)):
+            kb0, kb1, ks = rbd_step.generate_tile(
+                seed, row0, col0, (8, 512), dist, device="cuda")
+            for where in ("cuda", "cpu"):
+                r, c = rng.tile_counters(row0, col0, (8, 512), where)
+                pb0, pb1 = rng._bits_for_counters(seed, c, r)
+                ps = rng.bits_to_sample(dist, pb0, pb1)
+                check(torch.equal(kb0.cpu(), pb0.cpu())
+                      and torch.equal(kb1.cpu(), pb1.cpu()),
+                      f"{dist} bits differ from plain ({where})")
+                diff = (ks.cpu() - ps.cpu()).abs()
+                n_diff = int((diff != 0).sum())
+                if dist == "normal":
+                    check(float(diff.max()) <= NORMAL_SAMPLE_ATOL,
+                          f"normal samples off by {float(diff.max())}")
+                else:
+                    check(n_diff == 0, f"{dist} samples differ ({where})")
+                log(f"  {dist:10s} tile ({row0},{col0}) vs plain on {where}:"
+                    f" bits exact, samples max|d|={float(diff.max()):.3g}"
+                    f" ({n_diff} of 4096 differ)")
+
+
+def _sub_plans(full_plan):
+    """One layer's segments plus final_norm, and one dir-block of embed,
+    both at full width, as plans of unstacked leaves."""
+    from repro_torch.core.compartments import Plan
+
+    by_name = {lp.name: lp for lp in full_plan.leaves}
+    layer = [dataclasses.replace(lp, shape=lp.shape[1:], stacked=False,
+                                 n_stack=1)
+             for lp in full_plan.leaves if lp.stacked]
+    layer.append(by_name["final_norm"])
+    emb = dataclasses.replace(by_name["embed"], dim=8)
+
+    def plan(leaves):
+        return Plan(leaves=tuple(leaves),
+                    total_dim=sum(lp.dim for lp in leaves),
+                    total_params=sum(lp.size for lp in leaves),
+                    distribution=full_plan.distribution,
+                    normalization=full_plan.normalization)
+
+    return {"layer0+final_norm": plan(layer), "embed[dir-block 0]":
+            plan([emb])}
+
+
+def _valid_mask(layout, device):
+    import torch
+
+    mask = torch.zeros((layout.q_packed,), dtype=torch.bool, device=device)
+    for off, size in zip(layout.seg_param_off, layout.seg_size):
+        mask[int(off): int(off) + int(size)] = True
+    return mask
+
+
+def _check_project(case, u, sq, up, sqp, g, lay) -> float:
+    """Kernel (u, sq) against the plain version's; returns max|du|."""
+    import torch
+
+    gnorm = torch.zeros_like(u)
+    for s in range(lay.n_segments):
+        o, p = int(lay.seg_param_off[s]), int(lay.seg_size[s])
+        c, n = int(lay.seg_coord_off[s]), int(lay.seg_pdim[s])
+        gnorm[c: c + n] = g[o: o + p].norm() / math.sqrt(p)
+    du = (u - up).abs()
+    rel_u = float((du / (gnorm * torch.sqrt(sqp)).clamp(min=1e-30)).max())
+    rel_sq = float(((sq - sqp).abs() / sqp.clamp(min=1e-30)).max())
+    log(f"    {case} project: max|du|={float(du.max()):.3g} rel={rel_u:.3g} "
+        f"(tol {U_RTOL}), max rel dsq={rel_sq:.3g} (tol {SQ_RTOL})")
+    check(rel_u <= U_RTOL and rel_sq <= SQ_RTOL,
+          f"{case}: projection outside tolerance")
+    return float(du.max())
+
+
+def _check_apply(case, out, ref, theta) -> float:
+    """Kernel theta' against the plain version's; returns max|dtheta|."""
+    dt = float((out - ref).abs().max())
+    upd = float((ref - theta).abs().max())
+    tol = THETA_RTOL * upd + 2 * 2.0**-23 * float(theta.abs().max())
+    log(f"    {case} apply: max|dtheta|={dt:.3g} (tol {tol:.3g}, "
+        f"max|update|={upd:.3g})")
+    check(dt <= tol, f"{case}: apply outside tolerance")
+    return dt
+
+
+def phase_kernels(full_plan):
+    import torch
+    from repro_torch.core import projector, rng
+    from repro_torch.kernels import rbd_step
+
+    log("== phase 3: kernels vs plain at full qwen2-0.5b width")
+    errs = {"project_packed": 0.0, "reconstruct_apply_packed": 0.0}
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for name, sub in _sub_plans(full_plan).items():
+        lay = sub.packed()
+        valid = _valid_mask(lay, "cuda")
+        log(f"  case {name}: {lay.n_segments} segments, "
+            f"{int(lay.seg_size.sum()):,} parameters, d_packed "
+            f"{lay.d_packed}, q_packed {lay.q_packed:,}")
+        for dist in (DISTS if name.startswith("layer") else ("normal",)):
+            seeds = projector.segment_seeds(sub, rng.fold_seed(0, 0))
+            g = torch.randn(lay.q_packed, generator=gen, device="cuda")
+            g = torch.where(valid, g, 0.0)
+            u, sq = rbd_step.project_packed(seeds, g, lay, dist)
+            u2, sq2 = rbd_step.project_packed(seeds, g, lay, dist)
+            check(torch.equal(u, u2) and torch.equal(sq, sq2),
+                  f"{name}/{dist}: projection reruns differ")
+            log(f"    {name}/{dist}: projection reruns bit-identical")
+            up, sqp = rbd_step.project_packed_plain(seeds, g, lay, dist)
+            du = _check_project(f"{name}/{dist}", u, sq, up, sqp, g, lay)
+            errs["project_packed"] = max(errs["project_packed"], du)
+
+            theta = torch.where(valid, torch.randn(
+                lay.q_packed, generator=gen, device="cuda"), 0.0)
+            scale = torch.randn(lay.d_packed, generator=gen, device="cuda")
+            scale = scale * 1e-3 * torch.from_numpy(lay.coord_valid).cuda()
+            out = rbd_step.reconstruct_apply_packed(seeds, scale, theta, lay,
+                                                    dist)
+            out2 = rbd_step.reconstruct_apply_packed(seeds, scale, theta,
+                                                     lay, dist)
+            inplace = theta.clone()
+            rbd_step.reconstruct_apply_packed(seeds, scale, inplace, lay,
+                                              dist, out=inplace)
+            check(torch.equal(out, out2) and torch.equal(out, inplace),
+                  f"{name}/{dist}: apply reruns / in-place differ")
+            check(bool((out[~valid] == 0).all()),
+                  f"{name}/{dist}: padding of theta is not exactly 0")
+            log(f"    {name}/{dist}: apply reruns and in-place bit-identical,"
+                " padding exactly 0")
+            ref = rbd_step.reconstruct_apply_packed_plain(seeds, scale,
+                                                          theta, lay, dist)
+            dt = _check_apply(f"{name}/{dist}", out, ref, theta)
+            errs["reconstruct_apply_packed"] = max(
+                errs["reconstruct_apply_packed"], dt)
+    return errs
+
+
+def phase_training():
+    import torch
+    from repro_torch.kernels import rbd_step
+    from repro_torch.launch import train as launcher
+
+    log("== phase 4: training qwen2-0.5b at full width and depth")
+    log("  python -m repro_torch.launch.train " + " ".join(ARCH_ARGS))
+    rbd_step.reset_counts()
+    res = launcher.main(ARCH_ARGS)
+    launches = dict(rbd_step.LAUNCHES)
+    log(f"  launches: {launches}")
+    check(res.sub_opt.plan_execution().strategy == "fused_packed",
+          "update path is not fused_packed")
+    check(all(math.isfinite(x) for x in res.losses), f"losses {res.losses}")
+    theta_sum = float(res.state.params.double().sum())
+    check(theta_sum != res.theta_init_sum, "theta did not change")
+    check(launches["project_packed"] == STEPS
+          and launches["reconstruct_apply_packed"] == STEPS
+          and launches["generate_tile"] == 0,
+          f"expected 2 port-kernel launches per step, got {launches}")
+    log(f"  peak memory {res.peak_bytes / 2**30:.2f} GiB, theta sum "
+        f"{res.theta_init_sum:.6g} -> {theta_sum:.6g}")
+    return res, launches
+
+
+def phase_loss():
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RBDConfig, TrainConfig
+    from repro_torch.data import synthetic
+    from repro_torch.models.registry import get_model
+    from repro_torch.train import step as steplib
+
+    log("== phase 5: loss goes down (reduced tinyllama, 30 steps)")
+    cfg = get_config("tinyllama-1.1b").reduced(compute_dtype="float32")
+    model = get_model(cfg)
+    tcfg = TrainConfig(model=cfg, rbd=RBDConfig(total_dim=512,
+                                                backend="cuda"),
+                       learning_rate=0.5, steps=30)
+    init_state, train_step = steplib.make_train_step(model, tcfg,
+                                                     device="cuda")
+    state = init_state(0)
+    data = synthetic.lm_batches(0, 8, 64, cfg.vocab, device="cuda")
+    losses = []
+    for _ in range(30):
+        state, m = train_step(state, next(data))
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    log(f"  losses[::10] {[round(x, 4) for x in losses[::10]]} last "
+        f"{losses[-1]:.4f}")
+    check(losses[-1] < losses[0] - 0.1, f"loss did not drop: {losses}")
+
+
+def phase_timing(full_plan, res, launches, errs, dev):
+    import torch
+    from repro_torch.core import projector, rng
+    from repro_torch.kernels import rbd_step
+
+    log("== phase 6: plain versions at the main path's shapes, bounds")
+    lay = full_plan.packed()
+    seeds = projector.segment_seeds(full_plan, rng.fold_seed(0, 0))
+    theta = res.state.params
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    g = torch.where(_valid_mask(lay, "cuda"),
+                    torch.randn(lay.q_packed, generator=gen, device="cuda"),
+                    0.0)
+    scale = torch.randn(lay.d_packed, generator=gen, device="cuda") * 1e-4
+    scale = scale * torch.from_numpy(lay.coord_valid).cuda()
+    dist = full_plan.distribution
+    plain = {}
+    plain_ms = {
+        "project_packed": cuda_ms(lambda: plain.update(
+            proj=rbd_step.project_packed_plain(seeds, g, lay, dist)))[0],
+        "reconstruct_apply_packed": cuda_ms(lambda: plain.update(
+            apply=rbd_step.reconstruct_apply_packed_plain(
+                seeds, scale, theta, lay, dist)))[0],
+    }
+    u, sq = rbd_step.project_packed(seeds, g, lay, dist)
+    errs["project_packed"] = max(errs["project_packed"], _check_project(
+        "full width", u, sq, *plain["proj"], g, lay))
+    out = rbd_step.reconstruct_apply_packed(seeds, scale, theta, lay, dist)
+    errs["reconstruct_apply_packed"] = max(
+        errs["reconstruct_apply_packed"],
+        _check_apply("full width", out, plain["apply"], theta))
+    del plain, out
+    values = int((lay.seg_dim * lay.seg_size).sum())
+    # the TPU kernel bodies each wrapper's pl.pallas_call runs
+    # (project_packed:241 -> pallas_call:286, reconstruct_apply_packed:314
+    # -> pallas_call:361)
+    sources = {
+        "project_packed": "src/repro/kernels/rbd_step.py:100",
+        "reconstruct_apply_packed": "src/repro/kernels/rbd_step.py:144",
+    }
+    rows = []
+    for name in ("project_packed", "reconstruct_apply_packed"):
+        if name == "project_packed":
+            nbytes = 4 * lay.q_packed + 4 * lay.n_segments + 8 * lay.d_packed
+        else:
+            nbytes = 8 * lay.q_packed + 4 * lay.n_segments + 4 * lay.d_packed
+        ops = values * (INT_OPS_PER_VALUE + FP_OPS_PER_VALUE[dist]
+                        + FMA_PER_VALUE[name])
+        t_ops = ops / (dev["sms"] * ISSUE_LANES_PER_SM * dev["clock_hz"])
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        times = sorted(res.kernel_ms[name])
+        ms = times[len(times) // 2]
+        bound_ms = 1e3 * max(t_ops, t_bytes)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rbd_step.cu",
+            "replaces": sources[name],
+            "launches": launches[name],
+            "max_abs_err": errs[name],
+            "ms": ms, "plain_ms": plain_ms[name],
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None,
+        })
+        log(f"  {name}: {values:,} basis values; ms {ms:.3f} (median of "
+            f"{len(times)} main-path launches), plain {plain_ms[name]:.1f},"
+            f" bound {bound_ms:.3f} ({rows[-1]['bound_by']}), "
+            f"{bound_ms / ms:.1%} of bound")
+    return rows
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs a CUDA card", file=sys.stderr, flush=True)
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RBDConfig
+    from repro_torch.core import compartments
+    from repro_torch.kernels import rbd_step
+    from repro_torch.models.registry import get_model
+    from repro_torch.train import step as steplib
+
+    t0 = time.perf_counter()
+    dev = phase_device()
+    phase_generator()
+    full_plan = steplib.make_plan(get_model(get_config("qwen2-0.5b")),
+                                  RBDConfig(total_dim=1024))
+    lay = full_plan.packed()
+    blocks = compartments.segment_tables(lay, rbd_step.PROJECT_POS_CHUNK)
+    log(f"full plan: q {full_plan.total_params:,} q_packed {lay.q_packed:,}"
+        f" segments {lay.n_segments} d_packed {lay.d_packed} total_dim "
+        f"{full_plan.total_dim} projection tiles {lay.n_proj_tiles:,}; "
+        f"basis values per launch {int((lay.seg_pdim * lay.seg_size).sum()):,}"
+        f" generated, {int((lay.seg_dim * lay.seg_size).sum()):,} live; CUDA "
+        f"blocks {int(blocks['proj_blocks'][-1]):,} (project), "
+        f"{int(blocks['recon_blocks'][-1]):,} (apply)")
+    errs = phase_kernels(full_plan)
+    res, launches = phase_training()
+    phase_loss()
+    rows = phase_timing(full_plan, res, launches, errs, dev)
+    log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(dev["smi"], flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,337 @@
+"""Compartmentalization plans and the packed layout (port of
+``repro.core.compartments``).
+
+A parameter "tree" in the port is a flat mapping from the reference's
+leaf names (``"layers/attn/wq"``) to tensors or shapes.  The reference
+orders leaves as ``jax.tree_util.tree_flatten_with_path`` does over
+nested dicts -- keys sorted at every level -- which is the order of the
+names sorted by their ``/``-separated components (:func:`leaf_order`).
+That order fixes every ``seed_tag``, every packed offset and every
+segment seed, so it is reproduced exactly.
+
+The packed layout's per-tile tables (``pt_*``/``rt_*``) are built with
+vectorized numpy and only on request: the CUDA kernels never read them.
+They read the small per-segment tables instead
+(:func:`segment_tables`), and each CUDA block finds its
+segment by a binary search over a prefix sum of blocks per segment.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Callable, Mapping
+
+import numpy as np
+
+# Normalizations the packed kernels support (factor-style scales).
+PACKABLE_NORMALIZATIONS = ("rsqrt_dim", "exact", "none")
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafPlan:
+    """Projection plan for one leaf (see the reference's ``LeafPlan``)."""
+
+    name: str
+    leaf_idx: int
+    shape: tuple[int, ...]
+    stacked: bool
+    n_stack: int           # number of compartments carried by this leaf
+    size: int              # flat size per compartment
+    dim: int               # d_k per compartment
+    seed_tag: int          # unique per-leaf PRNG domain separator
+
+    @property
+    def n_coeffs(self) -> int:
+        return self.n_stack * self.dim
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    leaves: tuple[LeafPlan, ...]
+    total_dim: int
+    total_params: int
+    distribution: str = "normal"
+    normalization: str = "rsqrt_dim"
+    flatten: bool = False
+    pad: int = 0
+
+    def packed(self, pos_block: int = 512,
+               dir_block: int = 8) -> "PackedLayout":
+        return packed_layout(self, pos_block, dir_block)
+
+
+def leaf_order(names) -> list[str]:
+    """Leaf names in the reference's pytree order."""
+    return sorted(names, key=lambda n: n.split("/"))
+
+
+def _shape_of(x) -> tuple[int, ...]:
+    return tuple(int(s) for s in (x.shape if hasattr(x, "shape") else x))
+
+
+def _allocate(weights: np.ndarray, total_dim: int, min_dim: int) -> np.ndarray:
+    """Largest-remainder allocation of total_dim coefficients by weight."""
+    w = weights / weights.sum()
+    raw = w * total_dim
+    dims = np.maximum(np.floor(raw).astype(int), min_dim)
+    deficit = total_dim - dims.sum()
+    if deficit > 0:
+        order = np.argsort(-(raw - np.floor(raw)))
+        for i in range(deficit):
+            dims[order[i % len(dims)]] += 1
+    return dims
+
+
+def make_plan(
+    params: Mapping[str, Any],
+    total_dim: int,
+    *,
+    granularity: str = "layer",
+    allocation: str = "proportional",
+    distribution: str = "normal",
+    normalization: str = "rsqrt_dim",
+    is_stacked: Callable[[str], bool] | None = None,
+    min_dim: int = 1,
+    n_compartments: int = 1,
+) -> Plan:
+    """Compartment plan for a flat ``{leaf name: tensor or shape}`` map;
+    the same plan the reference builds for the equivalent pytree."""
+    if granularity not in ("global", "even", "leaf", "layer"):
+        raise ValueError(f"unknown granularity {granularity!r}")
+    if allocation not in ("proportional", "sqrt", "uniform"):
+        raise ValueError(f"unknown allocation {allocation!r}")
+
+    names = leaf_order(params)
+    shapes = [_shape_of(params[n]) for n in names]
+
+    if granularity in ("global", "even"):
+        k = 1 if granularity == "global" else max(1, n_compartments)
+        d_total = int(sum(int(np.prod(s, dtype=np.int64)) for s in shapes))
+        pad = (-d_total) % k
+        size = (d_total + pad) // k
+        lp = LeafPlan(
+            name="<flat>", leaf_idx=0, shape=(k, size), stacked=(k > 1),
+            n_stack=k, size=size, dim=min(max(min_dim, total_dim // k),
+                                          size),
+            seed_tag=0,
+        )
+        return Plan(
+            leaves=(lp,), total_dim=lp.n_coeffs, total_params=d_total,
+            distribution=distribution, normalization=normalization,
+            flatten=True, pad=pad,
+        )
+
+    entries = []  # (name, leaf_idx, shape, stacked, n_stack, size)
+    for i, (name, shape) in enumerate(zip(names, shapes)):
+        stacked = (
+            granularity == "layer"
+            and is_stacked is not None
+            and is_stacked(name)
+            and len(shape) >= 2
+        )
+        if stacked:
+            n_stack = shape[0]
+            size = int(np.prod(shape[1:], dtype=np.int64))
+        else:
+            n_stack = 1
+            size = int(np.prod(shape, dtype=np.int64))
+        entries.append((name, i, shape, stacked, n_stack, size))
+
+    total_params = sum(n * s for *_, n, s in entries)
+    if allocation == "proportional":
+        weights = np.array([n * s for *_, n, s in entries], dtype=np.float64)
+    elif allocation == "sqrt":
+        weights = np.sqrt(np.array([n * s for *_, n, s in entries],
+                                   dtype=np.float64))
+    else:
+        weights = np.ones(len(entries), dtype=np.float64)
+
+    budgets = _allocate(weights, total_dim, min_dim)
+    plans = []
+    for (name, idx, shape, stacked, n_stack, size), budget in zip(entries,
+                                                                  budgets):
+        dim = max(min_dim, int(round(budget / n_stack)))
+        dim = min(dim, size)  # never more directions than parameters
+        plans.append(LeafPlan(name=name, leaf_idx=idx, shape=shape,
+                              stacked=stacked, n_stack=n_stack, size=size,
+                              dim=dim, seed_tag=idx))
+    return Plan(
+        leaves=tuple(plans),
+        total_dim=sum(p.n_coeffs for p in plans),
+        total_params=total_params,
+        distribution=distribution,
+        normalization=normalization,
+    )
+
+
+# ---------------------------------------------------------------------------
+# packed layout
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PackedLayout:
+    """Host-side static description of the packed two-launch step (see
+    the reference's ``PackedLayout``): each segment's parameters are
+    zero-padded to a multiple of ``pos_block`` in one ``(q_packed,)``
+    buffer, its coordinates to a multiple of ``dir_block`` in one
+    ``(d_packed,)`` buffer."""
+
+    pos_block: int
+    dir_block: int
+    n_segments: int
+    q_packed: int
+    d_packed: int
+    seg_leaf: np.ndarray      # index into plan.leaves
+    seg_layer: np.ndarray     # layer index within the (possibly) stacked leaf
+    seg_size: np.ndarray      # valid parameter count Q_k
+    seg_dim: np.ndarray       # valid coefficient count d_k
+    seg_psize: np.ndarray     # Q_k padded to pos_block
+    seg_pdim: np.ndarray      # d_k padded to dir_block
+    seg_param_off: np.ndarray  # segment start in the packed parameter buffer
+    seg_coord_off: np.ndarray  # segment start in the packed coordinate buffer
+    coord_valid: np.ndarray   # (d_packed,) 1.0 on live slots, 0.0 on padding
+    coord_inv_sqrt_q: np.ndarray  # rsqrt_dim factors per slot (0 on padding)
+
+    @property
+    def n_proj_tiles(self) -> int:
+        return int(((self.seg_pdim // self.dir_block)
+                    * (self.seg_psize // self.pos_block)).sum())
+
+    @property
+    def n_recon_tiles(self) -> int:
+        return self.n_proj_tiles
+
+    # -- the reference's per-tile tables, built on request ----------------
+
+    @functools.cached_property
+    def _proj_tiles(self) -> dict[str, np.ndarray]:
+        return self._tiles(position_innermost=True)
+
+    @functools.cached_property
+    def _recon_tiles(self) -> dict[str, np.ndarray]:
+        return self._tiles(position_innermost=False)
+
+    def _tiles(self, *, position_innermost: bool) -> dict[str, np.ndarray]:
+        """Linearized (segment, dir-block, pos-block) tiles: position-
+        innermost per (segment, dir-block) for the projection,
+        direction-innermost per (segment, pos-block) for the apply."""
+        pb, db = self.pos_block, self.dir_block
+        n_di = self.seg_pdim // db
+        n_pj = self.seg_psize // pb
+        counts = n_di * n_pj
+        seg = np.repeat(np.arange(self.n_segments, dtype=np.int64), counts)
+        start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        local = np.arange(int(counts.sum()), dtype=np.int64) - start[seg]
+        if position_innermost:
+            di, pj = local // n_pj[seg], local % n_pj[seg]
+            init = pj == 0
+        else:
+            pj, di = local // n_di[seg], local % n_di[seg]
+            init = di == 0
+        return {
+            "seg": seg.astype(np.int32),
+            "row0": (di * db).astype(np.uint32),
+            "col0": (pj * pb).astype(np.uint32),
+            "gblk": (self.seg_param_off[seg] // pb + pj).astype(np.int32),
+            "cblk": (self.seg_coord_off[seg] // db + di).astype(np.int32),
+            "init": init.astype(np.int32),
+            "q": self.seg_size[seg].astype(np.int32),
+        }
+
+    pt_seg = property(lambda self: self._proj_tiles["seg"])
+    pt_row0 = property(lambda self: self._proj_tiles["row0"])
+    pt_col0 = property(lambda self: self._proj_tiles["col0"])
+    pt_gblk = property(lambda self: self._proj_tiles["gblk"])
+    pt_ublk = property(lambda self: self._proj_tiles["cblk"])
+    pt_init = property(lambda self: self._proj_tiles["init"])
+    pt_q = property(lambda self: self._proj_tiles["q"])
+    rt_seg = property(lambda self: self._recon_tiles["seg"])
+    rt_row0 = property(lambda self: self._recon_tiles["row0"])
+    rt_col0 = property(lambda self: self._recon_tiles["col0"])
+    rt_gblk = property(lambda self: self._recon_tiles["gblk"])
+    rt_sblk = property(lambda self: self._recon_tiles["cblk"])
+    rt_init = property(lambda self: self._recon_tiles["init"])
+    rt_q = property(lambda self: self._recon_tiles["q"])
+
+    @functools.cached_property
+    def param_valid(self) -> np.ndarray:
+        """(q_packed,) 1.0 on live parameter slots, 0.0 on padding."""
+        out = np.zeros((self.q_packed,), np.float32)
+        for off, size in zip(self.seg_param_off, self.seg_size):
+            out[off: off + size] = 1.0
+        return out
+
+
+@functools.lru_cache(maxsize=32)
+def segment_tables(layout: PackedLayout, pos_chunk: int
+                   ) -> dict[str, np.ndarray]:
+    """Small (n_segments,)-sized tables for the kernels.
+
+    ``size``/``psize``/``pdim``/``param_off``/``coord_off`` describe each
+    segment; ``proj_blocks`` is the prefix sum (n_segments + 1 entries) of
+    projection blocks per segment -- one block per (dir-block, chunk of
+    ``pos_chunk`` consecutive pos-blocks) -- and ``recon_blocks`` the
+    prefix sum of apply blocks, one per pos-block."""
+    n_pj = layout.seg_psize // layout.pos_block
+    n_chunk = -(-n_pj // pos_chunk)
+    n_di = layout.seg_pdim // layout.dir_block
+    return {
+        "size": layout.seg_size.astype(np.int64),
+        "psize": layout.seg_psize.astype(np.int64),
+        "pdim": layout.seg_pdim.astype(np.int32),
+        "param_off": layout.seg_param_off.astype(np.int64),
+        "coord_off": layout.seg_coord_off.astype(np.int64),
+        "n_chunk": n_chunk.astype(np.int32),
+        "proj_blocks": np.concatenate(
+            [[0], np.cumsum(n_di * n_chunk)]).astype(np.int64),
+        "recon_blocks": np.concatenate(
+            [[0], np.cumsum(n_pj)]).astype(np.int64),
+    }
+
+
+@functools.lru_cache(maxsize=32)
+def packed_layout(plan: Plan, pos_block: int = 512,
+                  dir_block: int = 8) -> PackedLayout:
+    """Precompute the packed layout for a plan (host-side, vectorized)."""
+    n_stack = np.array([lp.n_stack for lp in plan.leaves], np.int64)
+    seg_leaf = np.repeat(np.arange(len(plan.leaves)), n_stack).astype(
+        np.int32)
+    seg_layer = np.concatenate(
+        [np.arange(n) for n in n_stack]).astype(np.int32)
+    seg_size = np.repeat([lp.size for lp in plan.leaves], n_stack).astype(
+        np.int64)
+    seg_dim = np.repeat([lp.dim for lp in plan.leaves], n_stack).astype(
+        np.int64)
+
+    seg_psize = -(-seg_size // pos_block) * pos_block
+    seg_pdim = -(-seg_dim // dir_block) * dir_block
+    seg_param_off = np.concatenate([[0], np.cumsum(seg_psize)[:-1]])
+    seg_coord_off = np.concatenate([[0], np.cumsum(seg_pdim)[:-1]])
+    d_packed = int(seg_pdim.sum())
+
+    slot = np.arange(d_packed, dtype=np.int64)
+    seg_of_slot = np.searchsorted(seg_coord_off, slot, side="right") - 1
+    within = slot - seg_coord_off[seg_of_slot]
+    coord_valid = (within < seg_dim[seg_of_slot]).astype(np.float32)
+    coord_inv_sqrt_q = coord_valid / np.sqrt(
+        seg_size[seg_of_slot].astype(np.float64)).astype(np.float32)
+
+    return PackedLayout(
+        pos_block=pos_block,
+        dir_block=dir_block,
+        n_segments=int(seg_leaf.shape[0]),
+        q_packed=int(seg_psize.sum()),
+        d_packed=d_packed,
+        seg_leaf=seg_leaf,
+        seg_layer=seg_layer,
+        seg_size=seg_size,
+        seg_dim=seg_dim,
+        seg_psize=seg_psize.astype(np.int64),
+        seg_pdim=seg_pdim.astype(np.int64),
+        seg_param_off=seg_param_off.astype(np.int64),
+        seg_coord_off=seg_coord_off.astype(np.int64),
+        coord_valid=coord_valid,
+        coord_inv_sqrt_q=coord_inv_sqrt_q,
+    )

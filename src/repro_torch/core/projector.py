@@ -1,0 +1,218 @@
+"""Packed projection into / reconstruction from on-demand random bases
+(port of the packed half of ``repro.core.projector``).
+
+Every compartment is packed into one ``(q_packed,)`` parameter buffer
+and one ``(d_packed,)`` coordinate buffer (``core.compartments``), so one
+optimizer step is two launches whatever the number of compartments:
+
+  project:       u = P g, sq = sum P^2          (launch 1)
+  apply:         theta' = theta - (eta c_hat) P  (launch 2)
+
+with normalization folded into the coordinate scale: ``rsqrt_dim``
+(phi / sqrt(Q)), ``exact`` (phi / ||phi||, norms from launch 1) or
+``none``.  The per-leaf paths (``project``/``reconstruct`` and the
+``orthonormal`` normalization) are not ported yet (ROADMAP.md Queue A 16).
+
+Backends: ``"torch"`` runs the plain PyTorch versions on the tensors'
+device; ``"cuda"`` runs the kernel wrappers of
+``repro_torch.kernels.rbd_step`` (which take the plain versions for CPU
+tensors, as the tests do).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core import rng
+from repro_torch.core.compartments import LeafPlan, Plan, leaf_order
+
+
+def _leaf_seed(base_seed, lp: LeafPlan) -> torch.Tensor:
+    return rng.fold_seed(base_seed, lp.seed_tag)
+
+
+def segment_seeds(plan: Plan, seed) -> torch.Tensor:
+    """(n_segments,) uint32 segment seeds (int32 bits, on the CPU), in
+    packed segment order: leaf seed = fold(step_seed, seed_tag), and a
+    stacked leaf folds the layer index on top."""
+    parts = []
+    for lp in plan.leaves:
+        lseed = _leaf_seed(seed, lp)
+        if lp.stacked:
+            layers = torch.arange(lp.n_stack, dtype=torch.int32)
+            parts.append(rng.fold_seed(lseed, layers).reshape(-1))
+        else:
+            parts.append(lseed.reshape(1))
+    return torch.cat(parts)
+
+
+def _ravel_tree(tree: Mapping[str, torch.Tensor], plan: Plan):
+    """Parameter map -> the (K, size) virtual leaf of a flatten plan."""
+    vec = torch.cat([tree[n].reshape(-1).to(torch.float32)
+                     for n in leaf_order(tree)])
+    if plan.pad:
+        vec = torch.cat([vec, vec.new_zeros(plan.pad)])
+    lp = plan.leaves[0]
+    return vec.reshape(lp.n_stack, lp.size)
+
+
+def pack_tree(tree: Mapping[str, torch.Tensor], plan: Plan,
+              layout) -> torch.Tensor:
+    """Parameter map -> (q_packed,) float32 packed buffer: each
+    compartment zero-padded to a multiple of ``layout.pos_block``."""
+    if plan.flatten:
+        sources = {"<flat>": _ravel_tree(tree, plan)}
+    else:
+        sources = tree
+    parts = []
+    for lp in plan.leaves:
+        x = sources[lp.name].to(torch.float32).reshape(lp.n_stack, lp.size)
+        psize = -(-lp.size // layout.pos_block) * layout.pos_block
+        if psize != lp.size:
+            x = torch.nn.functional.pad(x, (0, psize - lp.size))
+        parts.append(x.reshape(-1))
+    return torch.cat(parts)
+
+
+def unpack_tree(packed: torch.Tensor, plan: Plan, layout,
+                template: Mapping[str, torch.Tensor]) -> dict:
+    """(q_packed,) packed buffer -> parameter map shaped and typed like
+    ``template`` (tensors, possibly on the ``meta`` device).  The leaves
+    are views or copies of ``packed`` that autograd follows, so the
+    gradient of a loss on them arrives as a packed buffer, zero on the
+    padding."""
+    if plan.flatten:
+        lp = plan.leaves[0]
+        psize = -(-lp.size // layout.pos_block) * layout.pos_block
+        vec = packed[: lp.n_stack * psize].reshape(lp.n_stack, psize)[
+            :, : lp.size].reshape(-1)
+        out, off = {}, 0
+        for name in leaf_order(template):
+            ref = template[name]
+            n = int(np.prod(ref.shape, dtype=np.int64))
+            out[name] = vec[off: off + n].reshape(ref.shape).to(ref.dtype)
+            off += n
+        return out
+    out, off = {}, 0
+    for lp in plan.leaves:
+        psize = -(-lp.size // layout.pos_block) * layout.pos_block
+        n = lp.n_stack * psize
+        x = packed[off: off + n].reshape(lp.n_stack, psize)[:, : lp.size]
+        ref = template[lp.name]
+        out[lp.name] = x.reshape(ref.shape).to(ref.dtype)
+        off += n
+    return out
+
+
+def unpack_coords(packed_coords: torch.Tensor, plan: Plan,
+                  layout) -> list[torch.Tensor]:
+    """Packed (d_packed,) coordinates -> per-LeafPlan (n_stack, dim)."""
+    out, off = [], 0
+    for lp in plan.leaves:
+        pdim = -(-lp.dim // layout.dir_block) * layout.dir_block
+        n = lp.n_stack * pdim
+        out.append(packed_coords[off: off + n].reshape(
+            lp.n_stack, pdim)[:, : lp.dim])
+        off += n
+    return out
+
+
+def packed_norm_factor(plan: Plan, layout, sq=None, device=None):
+    """Per-slot normalization factor, zero on padding slots (applied once
+    for the exchanged coordinates and once more for the apply scale)."""
+    device = sq.device if sq is not None else device
+
+    def table(a):
+        return torch.from_numpy(a).to(device)
+
+    if plan.normalization == "rsqrt_dim":
+        return table(layout.coord_inv_sqrt_q)
+    if plan.normalization == "exact":
+        return table(layout.coord_valid) * torch.rsqrt(
+            torch.clamp(sq, min=1e-30))
+    if plan.normalization == "none":
+        return table(layout.coord_valid)
+    raise ValueError(
+        f"normalization {plan.normalization!r} is not supported by the "
+        "packed path; use the per-leaf project/reconstruct API")
+
+
+def project_packed(grads, plan: Plan, seed, *, backend: str = "torch",
+                   layout=None, return_norms: bool = False,
+                   prepacked: bool = False, prng="threefry"):
+    """Normalized coordinates for ALL compartments in one (d_packed,)
+    buffer -- one kernel launch on the cuda backend.  ``prepacked=True``
+    takes ``grads`` as the packed (q_packed,) buffer."""
+    rng.check_threefry(prng)
+    layout = layout if layout is not None else plan.packed()
+    seeds = segment_seeds(plan, seed)
+    g_packed = (grads.to(torch.float32) if prepacked
+                else pack_tree(grads, plan, layout))
+    u, sq = _get_backend(backend).project_packed(
+        seeds, g_packed, layout, plan.distribution)
+    coords = u * packed_norm_factor(plan, layout, sq)
+    if return_norms:
+        return coords, sq
+    return coords
+
+
+def reconstruct_apply_packed(coords_packed, plan: Plan, seed, params, eta,
+                             *, backend: str = "torch", row_sq=None,
+                             layout=None, prepacked: bool = False,
+                             prng="threefry", out=None):
+    """Fused packed update ``theta' = theta - eta * (c_hat @ P)`` in one
+    kernel launch; the reconstructed delta never exists in memory.
+
+    ``row_sq`` (from ``project_packed(..., return_norms=True)``) is needed
+    only by 'exact' normalization; when None it is regenerated with a
+    zero-gradient projection.  ``prepacked=True`` takes and returns the
+    packed (q_packed,) buffer; ``out=params`` then updates it in place."""
+    rng.check_threefry(prng)
+    layout = layout if layout is not None else plan.packed()
+    seeds = segment_seeds(plan, seed)
+    be = _get_backend(backend)
+    if plan.normalization == "exact" and row_sq is None:
+        _, row_sq = be.project_packed(
+            seeds, torch.zeros((layout.q_packed,), dtype=torch.float32,
+                               device=coords_packed.device),
+            layout, plan.distribution)
+    # the factor is zero on padding slots, so phantom padded basis rows
+    # never contribute to the applied update
+    factor = packed_norm_factor(plan, layout, row_sq,
+                                 device=coords_packed.device)
+    scale = (coords_packed * factor) * float(np.float32(eta))
+    theta = (params.to(torch.float32) if prepacked
+             else pack_tree(params, plan, layout))
+    new = be.reconstruct_apply_packed(seeds, scale, theta, layout,
+                                      plan.distribution, out=out)
+    if prepacked:
+        return new
+    return unpack_tree(new, plan, layout, params)
+
+
+# ---------------------------------------------------------------------------
+# backend dispatch (plain PyTorch vs the CUDA kernels)
+# ---------------------------------------------------------------------------
+
+
+@functools.cache
+def _get_backend(name: str):
+    from repro_torch.kernels import rbd_step
+
+    if name == "torch":
+        return _Backend(rbd_step.project_packed_plain,
+                        rbd_step.reconstruct_apply_packed_plain)
+    if name == "cuda":
+        return _Backend(rbd_step.project_packed,
+                        rbd_step.reconstruct_apply_packed)
+    raise ValueError(f"unknown projector backend {name!r}")
+
+
+class _Backend:
+    def __init__(self, project, reconstruct_apply):
+        self.project_packed = project
+        self.reconstruct_apply_packed = reconstruct_apply

@@ -1,0 +1,75 @@
+"""Synthetic LM data (port of ``lm_batches`` of ``repro.data.synthetic``).
+
+A Zipf-distributed sparse Markov chain, so the loss is learnable.  The
+transition table is the reference's (the same numpy construction gives
+the same table); the start tokens and branch choices are drawn from a
+``torch.Generator`` seeded per batch from ``(seed, step)``, so the
+batches differ from the reference's ``jax.random`` draws.  Parity tests
+feed both packages the reference's batches.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from repro_torch.core import rng
+
+
+class CounterStream:
+    """Iterator over a pure ``make(step)`` batch function."""
+
+    def __init__(self, make):
+        self._make = make
+        self.step = 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        out = self._make(self.step)
+        self.step += 1
+        return out
+
+
+@functools.lru_cache(maxsize=8)
+def _markov_table(seed: int, vocab: int, branch: int = 4) -> np.ndarray:
+    """Each token has ``branch`` likely successors drawn from a Zipf
+    prior (the reference's table)."""
+    gen = np.random.default_rng(seed + 1)
+    zipf_p = 1.0 / np.arange(1, vocab + 1)
+    zipf_p /= zipf_p.sum()
+    succ = gen.choice(vocab, size=(vocab, branch), p=zipf_p)
+    return succ.astype(np.int32)
+
+
+def token_stream(gen: torch.Generator, batch: int, seq_len: int, vocab: int,
+                 *, seed: int = 0, branch: int = 4) -> torch.Tensor:
+    """(B, S+1) int64 Markov chains (on the CPU)."""
+    succ = torch.from_numpy(_markov_table(seed, vocab, branch)).long()
+    first = torch.randint(0, vocab, (batch,), generator=gen)
+    choices = torch.randint(0, branch, (batch, seq_len), generator=gen)
+    toks = [first]
+    for t in range(seq_len):
+        toks.append(succ[toks[-1], choices[:, t]])
+    return torch.stack(toks, dim=1)
+
+
+def lm_batches(seed: int, batch: int, seq_len: int, vocab: int, *,
+               device="cuda") -> Iterator:
+    """Infinite iterator of {"tokens", "labels"} (B, S) int64 batches on
+    ``device``."""
+    from repro_torch.models.registry import resolve_device
+
+    device = resolve_device(device)
+
+    def make(step):
+        key = int(rng.to_uint32(rng.fold_seed(seed, step)))
+        toks = token_stream(torch.Generator().manual_seed(key), batch,
+                            seq_len, vocab, seed=seed).to(device)
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    return CounterStream(make)

@@ -1,0 +1,308 @@
+// Packed RBD step kernels for Hopper (sm_90a): the two launches of one
+// optimizer step, plus a debug entry that writes one basis tile.
+//
+//   rbd_project_packed        replaces repro/kernels/rbd_step.py:
+//                             project_packed -> _project_kernel
+//   rbd_reconstruct_apply_packed
+//                             replaces repro/kernels/rbd_step.py:
+//                             reconstruct_apply_packed -> _recon_apply_kernel
+//   rbd_generate_tile         debug: bits and samples of one tile
+//
+// Bound on this card.  Both kernels regenerate every basis value they use:
+// per value one Threefry-2x32-20 (about 75 integer instructions: 20 x
+// add/funnel-shift/xor plus the key injections and counter set-up) and, for
+// the normal distribution, a Box-Muller step (two uniforms, logf, sqrtf,
+// cosf: about 60 more, mostly FP32 and SFU).  The bytes are one read of the
+// gradient or of theta and one write of the output, 4 bytes per parameter
+// against (coordinates per segment) x 8 generated values per parameter, so
+// the kernels are bound by instruction issue, not by memory: at full
+// qwen2-0.5b width a launch generates about 4.5e10 values.
+//
+// What the design does about it: every value is generated exactly once per
+// launch, in registers, and consumed at once (a fused multiply-add into the
+// coordinate or theta accumulator); nothing of the basis touches memory.
+// Columns past a segment's size are not generated at all.  The contraction
+// uses FP32 FMAs on the CUDA cores (no tensor cores, no TF32): the product
+// is GEMV-shaped and generation dominates.  Making generation cheaper
+// (instruction count, occupancy, the Box-Muller transcendentals) is later
+// work.
+//
+// Segment lookup: the kernels read only per-segment tables (size, padded
+// size, padded dim, parameter and coordinate offsets, seeds) and a prefix
+// sum of CUDA blocks per segment; each block finds its segment by binary
+// search.  No per-tile table exists on the device.
+//
+// Determinism: no float atomics.  Every sum runs in a fixed order, so two
+// launches on the same inputs give bit-identical outputs.
+//
+// Kernels launch on the caller's stream, allocate nothing and return
+// cudaGetLastError() so the Python wrapper can raise on a refused launch.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "threefry.cuh"
+
+namespace rbd {
+
+constexpr int kDirBlock = 8;       // directions per coordinate block
+constexpr int kThreads = 256;      // threads per CUDA block
+constexpr int kWarps = kThreads / 32;
+constexpr int kAcc = 2 * kDirBlock;  // u and sq per direction
+
+// Index of the segment owning CUDA block `bid`: the largest s with
+// prefix[s] <= bid (prefix has n_seg + 1 entries, prefix[0] == 0).
+__device__ __forceinline__ int find_segment(const int64_t* prefix, int n_seg,
+                                            int64_t bid) {
+  int lo = 0, hi = n_seg - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (prefix[mid] <= bid) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  return lo;
+}
+
+// Fixed-order sum over the block of each of the kAcc accumulators: a
+// shuffle tree within each warp, then the warp totals in warp order.
+// Afterwards thread k (k < kAcc) holds the block total of accumulator k in
+// acc[0].
+__device__ __forceinline__ void block_sum(float (&acc)[kAcc],
+                                          float (&smem)[kAcc][kWarps]) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < kAcc; ++k) {
+    float v = acc[k];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      v += __shfl_down_sync(0xffffffffu, v, off);
+    }
+    if (lane == 0) smem[k][warp] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < kAcc) {
+    float t = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) t += smem[threadIdx.x][w];
+    acc[0] = t;  // thread k holds the block total of accumulator k
+  }
+}
+
+// Kernel 1: u = P g and sq = sum P^2 for every segment's 8-direction
+// coordinate blocks.  One CUDA block owns one (segment, dir-block, chunk)
+// triple: it sweeps `pos_chunk` consecutive pos-blocks of the segment,
+// reduces its 16 sums in a fixed order and stores them as partials.  The
+// last block of a (segment, dir-block) to finish -- found with a
+// __threadfence and an integer counter -- adds the partials in chunk
+// order and writes the 8 coordinates and 8 squared norms.
+template <int DIST>
+__global__ void __launch_bounds__(kThreads)
+project_kernel(const float* __restrict__ g, const uint32_t* __restrict__ seed,
+               const int64_t* __restrict__ size,
+               const int64_t* __restrict__ param_off,
+               const int64_t* __restrict__ coord_off,
+               const int32_t* __restrict__ n_chunk,
+               const int64_t* __restrict__ blocks, int n_seg, int pos_block,
+               int pos_chunk, float* __restrict__ partial,
+               int32_t* __restrict__ arrived, float* __restrict__ u,
+               float* __restrict__ sq) {
+  __shared__ float smem[kAcc][kWarps];
+  __shared__ bool is_last;
+
+  const int64_t bid = blockIdx.x;
+  const int s = find_segment(blocks, n_seg, bid);
+  const int64_t local = bid - blocks[s];
+  const int nch = n_chunk[s];
+  const int di = static_cast<int>(local / nch);
+  const int chunk = static_cast<int>(local % nch);
+  const uint32_t sd = seed[s];
+  const int64_t q = size[s];
+  const uint32_t row0 = static_cast<uint32_t>(di * kDirBlock);
+  const float* gs = g + param_off[s];
+
+  float acc[kAcc];
+#pragma unroll
+  for (int k = 0; k < kAcc; ++k) acc[k] = 0.0f;
+
+  // columns at or beyond the segment's size are masked: not generated,
+  // contributing zero to both u and sq
+  const int64_t c0 = static_cast<int64_t>(chunk) * pos_chunk * pos_block;
+  const int64_t c_end = c0 + static_cast<int64_t>(pos_chunk) * pos_block;
+  const int64_t c1 = c_end < q ? c_end : q;
+  for (int64_t col = c0 + threadIdx.x; col < c1; col += kThreads) {
+    const float gv = gs[col];
+    const uint32_t c32 = static_cast<uint32_t>(col);
+#pragma unroll
+    for (int i = 0; i < kDirBlock; ++i) {
+      const float p = basis_sample<DIST>(sd, row0 + i, c32);
+      acc[i] = fmaf(p, gv, acc[i]);
+      acc[kDirBlock + i] = fmaf(p, p, acc[kDirBlock + i]);
+    }
+  }
+
+  block_sum(acc, smem);
+  if (threadIdx.x < kAcc) {
+    partial[bid * kAcc + threadIdx.x] = acc[0];
+    __threadfence();
+  }
+  __syncthreads();
+  const int64_t cblk = coord_off[s] / kDirBlock + di;
+  if (threadIdx.x == 0) {
+    is_last = (atomicAdd(&arrived[cblk], 1) == nch - 1);
+  }
+  __syncthreads();
+  if (is_last && threadIdx.x < kAcc) {
+    __threadfence();
+    const int64_t first = bid - chunk;  // block of chunk 0
+    float t = 0.0f;
+    for (int c = 0; c < nch; ++c) {
+      t += __ldcg(&partial[(first + c) * kAcc + threadIdx.x]);
+    }
+    const int k = threadIdx.x;
+    if (k < kDirBlock) {
+      u[cblk * kDirBlock + k] = t;
+    } else {
+      sq[cblk * kDirBlock + (k - kDirBlock)] = t;
+    }
+  }
+}
+
+// Kernel 2: theta' = theta - s P for every segment.  One CUDA block owns one
+// (segment, pos-block): each thread loads its theta values, loops over the
+// segment's dir-blocks in order, forms part_j = sum_{i<8} s_i P_ij in row
+// order and subtracts it (dot first, then subtract -- the reference's
+// association), and writes each value once.  Columns at or beyond the
+// segment's size are copied unchanged, so the zero padding of a resident
+// theta stays exactly zero.  `out` may alias `theta`: each block reads and
+// writes only its own pos-block, each element is read before it is written
+// by the same thread, so the in-place update is safe.
+template <int DIST>
+__global__ void __launch_bounds__(kThreads)
+reconstruct_apply_kernel(const float* scale, const float* theta, float* out,
+                         const uint32_t* __restrict__ seed,
+                         const int64_t* __restrict__ size,
+                         const int32_t* __restrict__ pdim,
+                         const int64_t* __restrict__ param_off,
+                         const int64_t* __restrict__ coord_off,
+                         const int64_t* __restrict__ blocks, int n_seg,
+                         int pos_block) {
+  const int64_t bid = blockIdx.x;
+  const int s = find_segment(blocks, n_seg, bid);
+  const int64_t pj = bid - blocks[s];
+  const uint32_t sd = seed[s];
+  const int64_t q = size[s];
+  const int n_db = pdim[s] / kDirBlock;
+  const float* sc = scale + coord_off[s];
+  const int64_t base = param_off[s];
+
+  const int64_t c0 = pj * pos_block;
+  for (int64_t col = c0 + threadIdx.x; col < c0 + pos_block;
+       col += kThreads) {
+    float th = theta[base + col];
+    if (col < q) {
+      const uint32_t c32 = static_cast<uint32_t>(col);
+      for (int db = 0; db < n_db; ++db) {
+        const uint32_t row0 = static_cast<uint32_t>(db * kDirBlock);
+        float part = 0.0f;
+#pragma unroll
+        for (int i = 0; i < kDirBlock; ++i) {
+          part = fmaf(__ldg(&sc[db * kDirBlock + i]),
+                      basis_sample<DIST>(sd, row0 + i, c32), part);
+        }
+        th = __fsub_rn(th, part);
+      }
+    }
+    out[base + col] = th;
+  }
+}
+
+template <int DIST>
+__global__ void generate_tile_kernel(uint32_t seed, uint32_t row0,
+                                     uint32_t col0, int rows, int cols,
+                                     uint32_t* b0, uint32_t* b1, float* out) {
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (idx >= static_cast<int64_t>(rows) * cols) return;
+  const uint32_t r = row0 + static_cast<uint32_t>(idx / cols);
+  const uint32_t c = col0 + static_cast<uint32_t>(idx % cols);
+  uint32_t x0, x1;
+  basis_bits(seed, r, c, x0, x1);
+  b0[idx] = x0;
+  b1[idx] = x1;
+  out[idx] = bits_to_sample<DIST>(x0, x1);
+}
+
+}  // namespace rbd
+
+#define RBD_DISPATCH(dist, KERNEL, GRID, ...)                               \
+  switch (dist) {                                                           \
+    case rbd::kNormal:                                                      \
+      rbd::KERNEL<rbd::kNormal><<<GRID, rbd::kThreads, 0, st>>>(__VA_ARGS__); \
+      break;                                                                \
+    case rbd::kUniform:                                                     \
+      rbd::KERNEL<rbd::kUniform><<<GRID, rbd::kThreads, 0, st>>>(__VA_ARGS__); \
+      break;                                                                \
+    case rbd::kRademacher:                                                  \
+      rbd::KERNEL<rbd::kRademacher><<<GRID, rbd::kThreads, 0, st>>>(        \
+          __VA_ARGS__);                                                     \
+      break;                                                                \
+    case rbd::kSparse:                                                      \
+      rbd::KERNEL<rbd::kSparse><<<GRID, rbd::kThreads, 0, st>>>(__VA_ARGS__); \
+      break;                                                                \
+    default:                                                                \
+      return static_cast<int>(cudaErrorInvalidValue);                       \
+  }
+
+extern "C" {
+
+// `arrived` must hold d_packed / 8 zeros; `partial` n_blocks * 16 floats.
+int rbd_project_packed(const float* g, const uint32_t* seed,
+                       const int64_t* size, const int64_t* param_off,
+                       const int64_t* coord_off, const int32_t* n_chunk,
+                       const int64_t* blocks, int n_seg, int64_t n_blocks,
+                       int pos_block, int pos_chunk, int dist, float* partial,
+                       int32_t* arrived, float* u, float* sq, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>(n_blocks));
+  RBD_DISPATCH(dist, project_kernel, grid, g, seed, size, param_off,
+               coord_off, n_chunk, blocks, n_seg, pos_block, pos_chunk,
+               partial, arrived, u, sq);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int rbd_reconstruct_apply_packed(const float* scale, const float* theta,
+                                 float* out, const uint32_t* seed,
+                                 const int64_t* size, const int32_t* pdim,
+                                 const int64_t* param_off,
+                                 const int64_t* coord_off,
+                                 const int64_t* blocks, int n_seg,
+                                 int64_t n_blocks, int pos_block, int dist,
+                                 void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>(n_blocks));
+  RBD_DISPATCH(dist, reconstruct_apply_kernel, grid, scale, theta, out, seed,
+               size, pdim, param_off, coord_off, blocks, n_seg, pos_block);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int rbd_generate_tile(uint32_t seed, uint32_t row0, uint32_t col0, int rows,
+                      int cols, int dist, uint32_t* b0, uint32_t* b1,
+                      float* out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t n = static_cast<int64_t>(rows) * cols;
+  const dim3 grid(static_cast<unsigned>((n + rbd::kThreads - 1) /
+                                        rbd::kThreads));
+  RBD_DISPATCH(dist, generate_tile_kernel, grid, seed, row0, col0, rows, cols,
+               b0, b1, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* rbd_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -1,0 +1,329 @@
+"""The packed RBD step's two kernels, each beside its plain PyTorch version.
+
+* :func:`project_packed` -- one launch: raw projections ``u`` and squared
+  row norms ``sq`` for every segment (replaces the reference's
+  ``repro/kernels/rbd_step.py: project_packed -> _project_kernel``).
+* :func:`reconstruct_apply_packed` -- one launch:
+  ``theta' = theta - scale @ P`` for every segment (replaces
+  ``reconstruct_apply_packed -> _recon_apply_kernel``).
+* :func:`generate_tile` -- debug entry: the bits and samples of one tile,
+  to hold the device generator against :mod:`repro_torch.core.rng`.
+
+Each wrapper takes its plain version for a tensor on the CPU, and only
+then.  For a CUDA tensor it launches the hand-written kernel of
+``csrc/rbd_step.cu`` (built by :mod:`repro_torch.kernels.build` at first
+use) or raises; nothing falls back.  ``LAUNCHES[name]`` counts kernel
+launches and is incremented right after a launch succeeds and nowhere
+else; ``CALLS[name]`` counts wrapper calls on any device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.core import rng
+from repro_torch.core.compartments import PackedLayout, segment_tables
+
+KERNELS = ("project_packed", "reconstruct_apply_packed", "generate_tile")
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+CALLS = dict.fromkeys(KERNELS, 0)
+SOURCE = "rbd_step.cu"
+# pos-blocks swept by one CUDA block of the projection kernel
+PROJECT_POS_CHUNK = 64
+_DIST_CODE = {"normal": 0, "uniform": 1, "bernoulli": 2, "rademacher": 2,
+              "sparse": 3}
+# live basis elements per chunk of the plain versions (on the CPU a chunk
+# and its temporaries stay in the L2 cache)
+_PLAIN_BUDGET = {"cpu": 1 << 16, "cuda": 1 << 24}
+# the CPU projection's blocks kept for the apply of the same step
+_PLAIN_KEEP_BYTES = 256 << 20
+_KEPT: dict = {}
+_TIMING = {"on": False, "events": {k: [] for k in KERNELS}}
+
+
+def reset_counts() -> None:
+    for k in KERNELS:
+        LAUNCHES[k] = 0
+        CALLS[k] = 0
+
+
+def set_timing(on: bool) -> None:
+    """Record a CUDA event pair around every launch while ``on``."""
+    _TIMING["on"] = bool(on)
+    for k in KERNELS:
+        _TIMING["events"][k] = []
+
+
+def kernel_times_ms() -> dict[str, list[float]]:
+    """Milliseconds of every launch recorded since :func:`set_timing`."""
+    if any(_TIMING["events"].values()):
+        torch.cuda.synchronize()
+    return {k: [a.elapsed_time(b) for a, b in v]
+            for k, v in _TIMING["events"].items()}
+
+
+# ---------------------------------------------------------------------------
+# the CUDA library
+# ---------------------------------------------------------------------------
+
+_P, _I, _I64, _U32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                      ctypes.c_uint32)
+_SIGNATURES = {
+    "rbd_project_packed": [_P, _P, _P, _P, _P, _P, _P, _I, _I64, _I, _I, _I,
+                           _P, _P, _P, _P, _P],
+    "rbd_reconstruct_apply_packed": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                     _I64, _I, _I, _P],
+    "rbd_generate_tile": [_U32, _U32, _U32, _I, _I, _I, _P, _P, _P, _P],
+}
+
+
+@functools.cache
+def library():
+    """The built kernel library (built at first call)."""
+    from repro_torch.kernels import build
+
+    built = build.build_all([SOURCE])[SOURCE]
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(built.lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    built.lib.rbd_error_string.argtypes = [ctypes.c_int]
+    built.lib.rbd_error_string.restype = ctypes.c_char_p
+    return built
+
+
+def _launch(name: str, fn, *args) -> None:
+    timed = _TIMING["on"]
+    if timed:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        msg = library().lib.rbd_error_string(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({rc})")
+    if timed:
+        end.record()
+        _TIMING["events"][name].append((start, end))
+    LAUNCHES[name] += 1
+
+
+def _check(t: torch.Tensor, name: str, shape, dtype=torch.float32) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {dtype} of shape {tuple(shape)}, "
+                         f"got {t.dtype} {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_layout(layout: PackedLayout, distribution: str) -> None:
+    if layout.dir_block != 8:
+        raise ValueError("the CUDA kernels take dir_block == 8, got "
+                         f"{layout.dir_block}")
+    if distribution not in _DIST_CODE:
+        raise ValueError(f"unknown distribution {distribution!r}")
+
+
+@functools.lru_cache(maxsize=16)
+def _device_tables(layout: PackedLayout, device: torch.device):
+    host = segment_tables(layout, PROJECT_POS_CHUNK)
+    dev = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+    dev["n_proj_blocks"] = int(host["proj_blocks"][-1])
+    dev["n_recon_blocks"] = int(host["recon_blocks"][-1])
+    return dev
+
+
+def _seeds_on(seg_seeds: torch.Tensor, layout: PackedLayout, device):
+    seeds = rng.as_u32(seg_seeds).to(device).contiguous()
+    if tuple(seeds.shape) != (layout.n_segments,):
+        raise ValueError(f"seg_seeds must have shape ({layout.n_segments},),"
+                         f" got {tuple(seeds.shape)}")
+    return seeds
+
+
+# ---------------------------------------------------------------------------
+# kernel 1: projection
+# ---------------------------------------------------------------------------
+
+
+def project_packed(seg_seeds, g_packed: torch.Tensor, layout: PackedLayout,
+                   distribution: str = "normal"):
+    """Raw projections and squared row norms for ALL segments: returns
+    ``(u, sq)``, each ``(d_packed,)`` float32.  ``seg_seeds`` holds the
+    ``(n_segments,)`` uint32 segment seeds as int32 bits."""
+    CALLS["project_packed"] += 1
+    if g_packed.device.type == "cpu":
+        return project_packed_plain(seg_seeds, g_packed, layout,
+                                    distribution)
+    _check(g_packed, "g_packed", (layout.q_packed,))
+    _check_layout(layout, distribution)
+    dev = g_packed.device
+    t = _device_tables(layout, dev)
+    seeds = _seeds_on(seg_seeds, layout, dev)
+    n_blocks = t["n_proj_blocks"]
+    partial = torch.empty((n_blocks * 16,), dtype=torch.float32, device=dev)
+    arrived = torch.zeros((layout.d_packed // 8,), dtype=torch.int32,
+                          device=dev)
+    u = torch.empty((layout.d_packed,), dtype=torch.float32, device=dev)
+    sq = torch.empty_like(u)
+    _launch("project_packed", library().lib.rbd_project_packed,
+            g_packed.data_ptr(), seeds.data_ptr(), t["size"].data_ptr(),
+            t["param_off"].data_ptr(), t["coord_off"].data_ptr(),
+            t["n_chunk"].data_ptr(), t["proj_blocks"].data_ptr(),
+            layout.n_segments, n_blocks, layout.pos_block,
+            PROJECT_POS_CHUNK, _DIST_CODE[distribution], partial.data_ptr(),
+            arrived.data_ptr(), u.data_ptr(), sq.data_ptr())
+    return u, sq
+
+
+def _plain_blocks(seg_seeds, layout: PackedLayout, distribution: str,
+                  device: torch.device, *, keep: bool):
+    """Yield ``(segment, first column, block)`` over every segment's
+    (padded dim, columns) basis blocks, in segment and column order.
+
+    On the CPU the projection (``keep=True``) keeps its blocks, up to
+    ``_PLAIN_KEEP_BYTES``, and the apply that follows with the same seeds
+    takes them instead of generating them again: a training step then
+    generates each block once.  Blocks are a pure function of their key,
+    so this changes no result."""
+    budget = _PLAIN_BUDGET["cuda" if device.type == "cuda" else "cpu"]
+    seeds = rng.as_u32(seg_seeds).cpu().tolist()
+    keeping = keep and device.type == "cpu"
+    if keeping:
+        _KEPT.clear()
+    kept_bytes = 0
+    for s in range(layout.n_segments):
+        q = int(layout.seg_size[s])
+        pdim = int(layout.seg_pdim[s])
+        cols = min(q, max(1, budget // pdim))
+        for c0 in range(0, q, cols):
+            nc = min(cols, q - c0)
+            key = (seeds[s], c0, nc, pdim, distribution, device.type)
+            blk = None if keep else _KEPT.pop(key, None)
+            if blk is None:
+                blk = rng.generate_block(seeds[s], 0, c0, (pdim, nc),
+                                         distribution, device=device)
+            if keeping and kept_bytes + 4 * blk.numel() <= _PLAIN_KEEP_BYTES:
+                _KEPT[key] = blk
+                kept_bytes += 4 * blk.numel()
+            yield s, c0, blk
+
+
+def project_packed_plain(seg_seeds, g_packed: torch.Tensor,
+                         layout: PackedLayout, distribution: str = "normal"):
+    """Plain PyTorch version of :func:`project_packed`: per segment and
+    chunk of positions, on ``g_packed``'s device."""
+    dev = g_packed.device
+    g_packed = g_packed.to(torch.float32)
+    u = torch.zeros((layout.d_packed,), dtype=torch.float32, device=dev)
+    sq = torch.zeros_like(u)
+    for s, c0, blk in _plain_blocks(seg_seeds, layout, distribution, dev,
+                                    keep=True):
+        poff = int(layout.seg_param_off[s]) + c0
+        coff = int(layout.seg_coord_off[s])
+        rows = slice(coff, coff + blk.shape[0])
+        u[rows] += torch.mv(blk, g_packed[poff: poff + blk.shape[1]])
+        sq[rows] += (blk * blk).sum(1)
+    return u, sq
+
+
+# ---------------------------------------------------------------------------
+# kernel 2: fused reconstruct-apply
+# ---------------------------------------------------------------------------
+
+
+def reconstruct_apply_packed(seg_seeds, scale_packed: torch.Tensor,
+                             theta_packed: torch.Tensor,
+                             layout: PackedLayout,
+                             distribution: str = "normal", *, out=None):
+    """``theta - scale @ P`` for ALL segments, fused; returns ``out``.
+
+    ``scale_packed`` ((d_packed,) float32) folds in learning rate and
+    normalization and is zero on padding slots.  Positions past each
+    segment's size keep their input value.  ``out=None`` allocates the
+    result; ``out=theta_packed`` updates theta in place."""
+    CALLS["reconstruct_apply_packed"] += 1
+    if theta_packed.device.type == "cpu":
+        return reconstruct_apply_packed_plain(
+            seg_seeds, scale_packed, theta_packed, layout, distribution,
+            out=out)
+    _check(theta_packed, "theta_packed", (layout.q_packed,))
+    _check(scale_packed, "scale_packed", (layout.d_packed,))
+    _check_layout(layout, distribution)
+    dev = theta_packed.device
+    if out is None:
+        out = torch.empty_like(theta_packed)
+    _check(out, "out", (layout.q_packed,))
+    t = _device_tables(layout, dev)
+    seeds = _seeds_on(seg_seeds, layout, dev)
+    _launch("reconstruct_apply_packed",
+            library().lib.rbd_reconstruct_apply_packed,
+            scale_packed.data_ptr(), theta_packed.data_ptr(), out.data_ptr(),
+            seeds.data_ptr(), t["size"].data_ptr(), t["pdim"].data_ptr(),
+            t["param_off"].data_ptr(), t["coord_off"].data_ptr(),
+            t["recon_blocks"].data_ptr(), layout.n_segments,
+            t["n_recon_blocks"], layout.pos_block, _DIST_CODE[distribution])
+    return out
+
+
+def reconstruct_apply_packed_plain(seg_seeds, scale_packed: torch.Tensor,
+                                   theta_packed: torch.Tensor,
+                                   layout: PackedLayout,
+                                   distribution: str = "normal", *,
+                                   out=None):
+    """Plain PyTorch version of :func:`reconstruct_apply_packed`.  Per
+    segment and chunk of positions it forms each dir-block's part
+    ``sum_i s_i P_ij`` and subtracts the parts in dir-block order, the
+    kernel's (and the reference's) association."""
+    dev = theta_packed.device
+    db = layout.dir_block
+    if out is None:
+        out = theta_packed.to(torch.float32).clone()
+    elif out is not theta_packed:
+        out.copy_(theta_packed)
+    scale = scale_packed.to(torch.float32)
+    for s, c0, blk in _plain_blocks(seg_seeds, layout, distribution, dev,
+                                    keep=False):
+        pdim, nc = blk.shape
+        coff = int(layout.seg_coord_off[s])
+        sc = scale[coff: coff + pdim].reshape(pdim, 1)
+        parts = (sc * blk).reshape(pdim // db, db, nc).sum(1)
+        poff = int(layout.seg_param_off[s]) + c0
+        th = out[poff: poff + nc]
+        for b in range(pdim // db):
+            th -= parts[b]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# debug: one tile of the generator
+# ---------------------------------------------------------------------------
+
+
+def generate_tile(seed: int, row0: int, col0: int, shape: tuple[int, int],
+                  distribution: str = "normal", *, device="cuda"):
+    """Bits ``(b0, b1)`` (int32 tensors of uint32 bits) and float32 samples
+    of the (rows, cols) basis tile at (row0, col0), from the kernel on a
+    CUDA device or from :mod:`repro_torch.core.rng` on the CPU."""
+    CALLS["generate_tile"] += 1
+    device = torch.device(device)
+    rows, cols = shape
+    if device.type == "cpu":
+        r, c = rng.tile_counters(row0, col0, shape)
+        b0, b1 = rng._bits_for_counters(seed, c, r)
+        return b0, b1, rng.bits_to_sample(distribution, b0, b1)
+    if distribution not in _DIST_CODE:
+        raise ValueError(f"unknown distribution {distribution!r}")
+    b0 = torch.empty(shape, dtype=torch.int32, device=device)
+    b1 = torch.empty_like(b0)
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    _launch("generate_tile", library().lib.rbd_generate_tile,
+            seed & 0xFFFFFFFF, row0 & 0xFFFFFFFF, col0 & 0xFFFFFFFF, rows,
+            cols, _DIST_CODE[distribution], b0.data_ptr(), b1.data_ptr(),
+            out.data_ptr())
+    return b0, b1, out

@@ -1,0 +1,84 @@
+"""Uniform model API (port of ``repro.models.registry``), plus the bridge
+that carries the reference's parameters into the port."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; asking for CUDA where there is none
+    raises instead of running on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA device requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run on the CPU")
+    return device
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    forward: Callable            # (params, batch) -> (logits, aux)
+    stacked_prefixes: tuple[str, ...]
+
+    def is_stacked(self, leaf_name: str) -> bool:
+        return leaf_name.startswith(self.stacked_prefixes)
+
+    def param_shapes(self) -> dict[str, tuple[int, ...]]:
+        return transformer.param_shapes(self.cfg)
+
+    def param_template(self) -> dict[str, torch.Tensor]:
+        """Leaf name -> meta tensor of the leaf's shape and dtype."""
+        from repro_torch.models.layers import dtype_of
+
+        dt = dtype_of(self.cfg.param_dtype)
+        return {k: torch.empty(s, dtype=dt, device="meta")
+                for k, s in self.param_shapes().items()}
+
+    def init(self, seed: int = 0, *, device="cuda") -> dict:
+        device = resolve_device(device)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return transformer.init_params(self.cfg, gen, device)
+
+
+def get_model(cfg: ModelConfig) -> Model:
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            "encoder-decoder models are not ported yet (ROADMAP.md Queue "
+            "A 18)")
+    return Model(
+        cfg=cfg,
+        forward=lambda params, batch: transformer.forward(
+            cfg, params, batch["tokens"]),
+        stacked_prefixes=transformer.STACKED_PREFIXES,
+    )
+
+
+def params_from_reference(tree: Mapping[str, np.ndarray], *,
+                          device="cuda") -> dict[str, torch.Tensor]:
+    """The reference's parameters, flattened by leaf name (``layers/attn/
+    wq`` ...), as the port's parameter map: same names, same stacked
+    (L, ...) shapes, same leaf order, same dtypes."""
+    device = resolve_device(device)
+    from repro_torch.core.compartments import leaf_order
+
+    return {name: torch.from_numpy(np.array(tree[name])).to(device)
+            for name in leaf_order(tree)}
+
+
+def pack_reference(tree: Mapping[str, np.ndarray], plan, *,
+                   device="cuda") -> torch.Tensor:
+    """The reference's parameters as the port's (q_packed,) buffer."""
+    from repro_torch.core import projector
+
+    return projector.pack_tree(params_from_reference(tree, device=device),
+                               plan, plan.packed())

@@ -1,0 +1,582 @@
+"""Coordinate-space subspace optimizer (port of ``repro.optim.subspace``).
+
+:class:`SubspaceOptimizer` owns the whole update chain of one step
+
+    packed gradient -> project (launch 1) -> coordinate-space optimizer
+    (sgd | momentum | adam on the (d_packed,) buffer) -> reconstruct-apply
+    (launch 2)
+
+on the ``fused_packed`` strategy: the parameters stay packed in one
+``(q_packed,)`` float32 buffer across steps, and the step is two kernel
+launches whatever the number of compartments.  :func:`plan_from_flags`
+is the reference's decision function, strategy names and reason strings
+unchanged.
+
+This slice runs ``fused_packed`` on one device (``axis_name=None``,
+shared basis).  The data-parallel exchange (ROADMAP.md Queue A 11),
+independent bases (12), resilience hooks (13), model-sharded slabs (14),
+materialized bases and second-order optimizers (15) and the per-leaf
+strategies (16) raise ``NotImplementedError`` naming their item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs.base import BASIS_SPECS, KERNEL_BACKEND
+from repro_torch.core import projector, rng
+from repro_torch.core.compartments import PACKABLE_NORMALIZATIONS
+from repro_torch.core.rbd import RandomBasesTransform, RBDState
+from repro_torch.optim import transforms as opt
+
+_NOT_PORTED = {
+    "materialized_packed": "ROADMAP.md Queue A 15 (basis layer)",
+    "fused_per_leaf": "ROADMAP.md Queue A 16 (per-leaf strategies)",
+    "coord_unfused": "ROADMAP.md Queue A 16 (per-leaf strategies)",
+    "full_space": "ROADMAP.md Queue A 16 (per-leaf strategies)",
+}
+
+
+class ExecutionPlan(NamedTuple):
+    """Static decision of how one optimizer step executes, with a
+    structured reason code (surfaced by ``launch/dryrun.py``)."""
+
+    strategy: str          # fused_packed | materialized_packed
+                           # | fused_per_leaf | coord_unfused | full_space
+    packed_resident: bool  # TrainState stores params packed across steps
+    reason: str            # human-readable decision trail
+    prng_impl: str = "threefry"   # EFFECTIVE core.rng.PrngSpec impl (the
+                                  # requested impl after reason-coded
+                                  # degradation: hw off-TPU -> emulated,
+                                  # tile-keyed on per-leaf -> threefry)
+    prng_reason: str = ""         # why that impl was selected
+    overlap_exchange: str = "none"  # issue_early | sync | none -- where
+                                    # the one coordinate collective is
+                                    # issued relative to the split step
+                                    # (sketch-time vs finish-time vs no
+                                    # collective at all)
+    overlap_reason: str = ""        # why that schedule was selected
+    basis: str = "random"           # EFFECTIVE core.rbd BasisSpec (the
+                                    # requested spec after reason-coded
+                                    # degradation: materialized specs
+                                    # fall back to random redraw where
+                                    # no resident basis can exist)
+    basis_reason: str = ""          # why that basis was selected
+
+    @property
+    def fused(self) -> bool:
+        return self.strategy in ("fused_packed", "fused_per_leaf")
+
+    @property
+    def coord_space(self) -> bool:
+        """Optimizer state lives in the d-dimensional coordinate space."""
+        return self.strategy != "full_space"
+
+    @property
+    def materialized(self) -> bool:
+        """The basis is a stored (d, q_packed) array on RBDState, not
+        regenerated from (seed, counters) each step."""
+        return self.strategy == "materialized_packed"
+
+
+def plan_from_flags(*, optimizer: str = "sgd", weight_decay: float = 0.0,
+                    rbd_enabled: bool = True, use_packed: bool = False,
+                    normalization: str = "rsqrt_dim", backend: str = "jnp",
+                    mode: str = "shared_basis", axis_name=None,
+                    model_sharded: bool = False,
+                    model_axis=None,
+                    k_workers: int = 1,
+                    prng_impl: str = "threefry",
+                    hw_prng_available: bool = False,
+                    overlap: str = "auto",
+                    basis: str = "random") -> ExecutionPlan:
+    """The one fuse/state-placement decision point: a pure function of
+    the config flags with the reference's strategy names and reason
+    strings, so both packages share one catalog (docs/PLANS.md).  The
+    port's kernel backend ``"cuda"`` plays the reference's ``"pallas"``.
+    Strategies the port does not run yet are still planned here;
+    :class:`SubspaceOptimizer` raises on them, naming the ROADMAP item.
+    """
+    del optimizer  # all optimizers have coordinate-space state now
+    if basis not in BASIS_SPECS:
+        raise ValueError(
+            f"unknown basis spec {basis!r}; expected one of {BASIS_SPECS}")
+    model_sharded = model_sharded or model_axis is not None
+    joint = (mode == "independent_bases"
+             and (axis_name is not None or k_workers > 1))
+
+    def _resolve_basis():
+        """(effective basis, reason, materialized ExecutionPlan | None).
+
+        The RANDOM path must stay byte-identical, so this never touches
+        the random reason codes -- it only decides whether a requested
+        materialized spec can actually hold a resident basis."""
+        if basis == "random":
+            return "random", (
+                "per-step random redraw (paper default): the basis is "
+                "regenerated from (seed, counters), never stored"), None
+        if not rbd_enabled:
+            return "random", (
+                f"{basis} requested but rbd is disabled -> no subspace "
+                "exists, basis spec unused"), None
+        if weight_decay:
+            return "random", (
+                f"{basis} requested but weight_decay forces the "
+                "full-space sketch path -> no resident coordinate "
+                "subspace to materialize; per-step random redraw"), None
+        if joint:
+            return "random", (
+                f"{basis} requested but independent_bases workers each "
+                "redraw a per-worker basis; per-worker trajectory "
+                "buffers do not compose with the joint (K, d) exchange "
+                "-> per-step random redraw"), None
+        if model_sharded:
+            return "random", (
+                f"{basis} requested but the model-sharded layout "
+                "regenerates basis slabs device-locally; a materialized "
+                "(d, q) basis would itself need sharding -> per-step "
+                "random redraw"), None
+        source = ("PCA of the trajectory ring buffer"
+                  if basis == "trajectory_pca"
+                  else "SVD of the packed gradient-sketch history")
+        why = (
+            f"{basis}: resident (d, q_packed) row-orthonormal basis on "
+            f"RBDState, refreshed from {source} by the loop's collector "
+            "-- orthonormal by construction, so every normalization's "
+            "scale is exactly 1")
+        mplan = ExecutionPlan(
+            "materialized_packed", True,
+            "materialized-basis step: dense (d, q_packed) basis stored "
+            "on RBDState -> sketch and apply are two XLA matmuls (0 "
+            "kernel launches -- relaxes the two-launch invariant, keeps "
+            "the one (d,) coordinate exchange and the packed-resident "
+            "TrainState)")
+        return basis, why, mplan
+
+    def _decide() -> ExecutionPlan:
+        if not rbd_enabled:
+            return ExecutionPlan(
+                "full_space", False,
+                "rbd disabled -> full-space optimizer on raw gradients")
+        if weight_decay:
+            return ExecutionPlan(
+                "full_space", False,
+                "weight_decay couples updates to full-space params -> "
+                "unfused full-space path")
+        if mode == "independent_bases" and (axis_name is not None
+                                            or k_workers > 1):
+            if not use_packed:
+                return ExecutionPlan(
+                    "full_space", False,
+                    "independent_bases per-leaf exchange -> K per-worker "
+                    "bases, full-space optimizer state (use_packed joins "
+                    "the K*d coordinate space)")
+            if normalization == "orthonormal":
+                return ExecutionPlan(
+                    "full_space", False,
+                    "independent_bases with orthonormal normalization "
+                    "materializes a QR basis per worker -> per-leaf "
+                    "full-space path (no basis= escape: materialized "
+                    "BasisSpecs do not compose with the per-worker "
+                    "joint exchange either)")
+            if model_sharded and model_axis is None:
+                return ExecutionPlan(
+                    "full_space", False,
+                    "independent_bases with model-axis param sharding but "
+                    "no declared model mesh axis (pjit-style) -> per-leaf "
+                    "full-space path (the packed-resident buffer would "
+                    "replicate the params; declare model_axis to shard "
+                    "the packed theta buffer instead)")
+            if model_sharded:
+                if normalization == "exact":
+                    return ExecutionPlan(
+                        "fused_packed", True,
+                        "model-sharded packed independent_bases with exact "
+                        "row norms: slab-partial projection on own basis, "
+                        "completed by one widened (2d,) coords+norms psum "
+                        "over the model axis -> one widened all-gather "
+                        "over data -> (K, d) joint-coordinate optimizer "
+                        "-> K-worker reconstruct-apply on the local theta "
+                        "slab; sharded packed-resident TrainState")
+                return ExecutionPlan(
+                    "fused_packed", True,
+                    "model-sharded packed independent_bases: slab-partial "
+                    "projection on own basis, completed by one (d,) psum "
+                    "over the model axis -> one all-gather over data -> "
+                    "(K, d) joint-coordinate optimizer -> K-worker "
+                    "reconstruct-apply on the local theta slab; sharded "
+                    "packed-resident TrainState")
+            if normalization == "exact":
+                return ExecutionPlan(
+                    "fused_packed", True,
+                    "packed independent_bases with exact row norms: "
+                    "project on own basis (norms in-kernel) -> one "
+                    "widened (2d,) coords+norms all-gather -> (K, d) "
+                    "joint-coordinate optimizer -> K-worker "
+                    "reconstruct-apply with per-worker exact scales; "
+                    "packed-resident TrainState")
+            return ExecutionPlan(
+                "fused_packed", True,
+                "packed independent_bases: project on own basis -> one "
+                "(d,) all-gather -> (K, d) joint-coordinate optimizer -> "
+                "K-worker reconstruct-apply; packed-resident TrainState")
+        if normalization not in PACKABLE_NORMALIZATIONS:
+            return ExecutionPlan(
+                "coord_unfused", False,
+                f"{normalization} normalization with a random basis -> "
+                "unfused (materializes a QR basis per compartment; a "
+                "materialized BasisSpec -- basis=trajectory_pca / "
+                "gradient_informed -- is orthonormal by construction "
+                "and keeps the packed-resident path); coordinate-space "
+                "state")
+        if use_packed and model_sharded and model_axis is not None:
+            if normalization == "exact":
+                return ExecutionPlan(
+                    "fused_packed", True,
+                    "model-sharded packed two-launch step with exact row "
+                    "norms: slab-partial projection completed by one "
+                    "widened (2d,) coords+norms psum over the model axis, "
+                    "composed with the one sharedseed pmean over data -> "
+                    "(d,)-replicated coordinate optimizer -> reconstruct-"
+                    "apply on the local theta slab; sharded packed-"
+                    "resident TrainState")
+            return ExecutionPlan(
+                "fused_packed", True,
+                "model-sharded packed two-launch step: slab-partial "
+                "projection completed by one (d,) psum over the model "
+                "axis, composed with the one sharedseed pmean over data "
+                "-> (d,)-replicated coordinate optimizer -> reconstruct-"
+                "apply on the local theta slab; sharded packed-resident "
+                "TrainState")
+        if use_packed and model_sharded:
+            if backend == KERNEL_BACKEND:
+                return ExecutionPlan(
+                    "fused_per_leaf", False,
+                    "model-axis param sharding without a declared model "
+                    "mesh axis (pjit-style) is incompatible with the "
+                    "packed-resident buffer -> per-leaf fused apply "
+                    "(declare model_axis to shard the packed theta "
+                    "buffer instead)")
+            return ExecutionPlan(
+                "coord_unfused", False,
+                "model-axis param sharding without a declared model "
+                "mesh axis (pjit-style) is incompatible with the "
+                "packed-resident buffer -> per-leaf XLA-fused stages "
+                "(declare model_axis to shard the packed theta buffer "
+                "instead)")
+        if use_packed:
+            if normalization == "exact":
+                return ExecutionPlan(
+                    "fused_packed", True,
+                    "packed two-launch step with exact row norms "
+                    "(in-kernel, second projection output; the sharedseed "
+                    "exchange is one widened (2d,) coords+norms pmean): "
+                    "project -> (d,)-state coordinate optimizer -> "
+                    "reconstruct-apply; packed-resident TrainState")
+            return ExecutionPlan(
+                "fused_packed", True,
+                "packed two-launch step: project -> (d,)-state coordinate "
+                "optimizer -> reconstruct-apply; packed-resident TrainState")
+        if backend == KERNEL_BACKEND:
+            return ExecutionPlan(
+                "fused_per_leaf", False,
+                "packing disabled -> per-leaf fused reconstruct-apply; "
+                "coordinate-space state")
+        return ExecutionPlan(
+            "coord_unfused", False,
+            "jnp backend unpacked -> per-leaf XLA-fused stages (no kernel "
+            "launches); coordinate-space state")
+
+    eff_basis, basis_why, mplan = _resolve_basis()
+    eplan = mplan if mplan is not None else _decide()
+    impl, why = rng.resolve_prng_impl(
+        prng_impl, strategy=eplan.strategy, backend=backend,
+        hw_available=hw_prng_available, rbd_enabled=rbd_enabled)
+    joint_sim = (mode == "independent_bases" and axis_name is None
+                 and k_workers > 1)
+    if eplan.strategy == "materialized_packed":
+        if axis_name is None:
+            ov, ov_why = "none", (
+                "axis_name=None: no data-axis collective exists; the "
+                "materialized sketch and apply matmuls run back-to-back")
+        else:
+            ov, ov_why = "sync", (
+                "materialized-basis step: the one (d,) pmean is issued "
+                "synchronously between the dense sketch and apply "
+                "matmuls (no launch-split window to overlap under)")
+    elif eplan.strategy != "fused_packed":
+        ov, ov_why = "none", (
+            f"no packed split step: the {eplan.strategy} strategy has "
+            "no single coordinate collective to overlap")
+    elif axis_name is None and joint_sim:
+        ov, ov_why = "none", (
+            "sequential K-worker simulation: the 'gather' is local "
+            "lax.map compute, there is no collective latency to hide")
+    elif axis_name is None:
+        ov, ov_why = "none", (
+            "axis_name=None: no data-axis collective exists; sketch and "
+            "finish run back-to-back"
+            + (" (the model-axis completion psum is synchronous at "
+               "sketch time)" if model_axis is not None else ""))
+    elif overlap == "off":
+        ov, ov_why = "sync", (
+            "overlap disabled: the collective is issued at finish time "
+            "(synchronous reference path, bit-identical payload)")
+    else:
+        kind = ("all-gather" if mode == "independent_bases" else "pmean")
+        ov, ov_why = "issue_early", (
+            f"one {kind} issued at sketch (right after the projection "
+            "launch), awaited at apply (just before the reconstruct-"
+            "apply launch); the window between the split halves "
+            "overlaps the collective under XLA's async scheduler -- "
+            "still exactly ONE collective site")
+    return eplan._replace(prng_impl=impl, prng_reason=why,
+                          overlap_exchange=ov, overlap_reason=ov_why,
+                          basis=eff_basis, basis_reason=basis_why)
+
+
+class _Aux(NamedTuple):
+    update_norm: torch.Tensor
+
+
+class StepTicket(NamedTuple):
+    """State of a split packed step between :meth:`SubspaceOptimizer.
+    step_sketch` and :meth:`SubspaceOptimizer.step_finish`: the local
+    projection outputs (with one device there is no exchange in flight)."""
+
+    coords: Any = None    # (d_packed,) normalized coordinates
+    sq: Any = None        # (d_packed,) squared row norms
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SubspaceOptimizer:
+    """``init`` / ``step`` over the sketch -> optimizer -> apply chain.
+
+    ``params``/``grads`` flow through :meth:`step` in the STORED
+    representation: the packed (q_packed,) float32 buffer (see
+    :meth:`prepare_params` / :meth:`materialize_params`)."""
+
+    transform: Optional[RandomBasesTransform] = None
+    optimizer: str = "sgd"
+    learning_rate: float = 0.01
+    weight_decay: float = 0.0
+    momentum_beta: float = 0.9
+    nesterov: bool = False
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-8
+    mode: str = "shared_basis"
+    use_packed: bool = False
+    axis_name: Any = None
+    k_workers: int = 1
+    model_sharded: bool = False
+    model_axis: Any = None
+    model_shards: int = 1
+    overlap: str = "auto"
+    switch_policy: str = "reset"
+    log_update_norm: bool = True
+    params_template: Any = None       # {name: tensor} of shapes/dtypes
+                                      # (meta tensors will do)
+
+    @classmethod
+    def from_config(cls, tcfg, transform=None, axis_name=None,
+                    model_sharded=False, params_template=None,
+                    k_workers: int = 1, model_axis=None,
+                    model_shards: int = 1) -> "SubspaceOptimizer":
+        if (tcfg.coord_clip_norm or tcfg.lr_schedule != "constant"
+                or tcfg.lr_warmup_steps):
+            raise NotImplementedError(
+                "coordinate clipping and LR schedules are not ported yet "
+                "(ROADMAP.md Queue A 15)")
+        return cls(
+            transform=transform,
+            optimizer=tcfg.optimizer,
+            learning_rate=tcfg.learning_rate,
+            weight_decay=tcfg.weight_decay,
+            momentum_beta=tcfg.momentum_beta,
+            nesterov=tcfg.nesterov,
+            adam_b1=tcfg.adam_b1,
+            adam_b2=tcfg.adam_b2,
+            adam_eps=tcfg.adam_eps,
+            mode=tcfg.rbd.mode,
+            use_packed=tcfg.rbd.use_packed,
+            axis_name=axis_name,
+            k_workers=k_workers,
+            model_sharded=model_sharded,
+            model_axis=model_axis,
+            model_shards=model_shards,
+            switch_policy=tcfg.rbd.switch_policy,
+            log_update_norm=tcfg.log_update_norm,
+            params_template=params_template,
+        )
+
+    # -- static planning ----------------------------------------------------
+
+    def plan_execution(self) -> ExecutionPlan:
+        t = self.transform
+        return plan_from_flags(
+            optimizer=self.optimizer,
+            weight_decay=self.weight_decay,
+            rbd_enabled=t is not None,
+            use_packed=self.use_packed,
+            normalization=(t.plan.normalization if t else "rsqrt_dim"),
+            backend=(t.backend if t else "torch"),
+            mode=self.mode,
+            axis_name=self.axis_name,
+            model_sharded=self.model_sharded,
+            model_axis=self.model_axis,
+            k_workers=self.k_workers,
+            prng_impl=(t.prng if t else "threefry"),
+            hw_prng_available=False,
+            overlap=self.overlap,
+            basis=(t.basis if t else "random"),
+        )
+
+    def check_supported(self) -> ExecutionPlan:
+        """The execution plan, or ``NotImplementedError`` naming the
+        ROADMAP item of a route this slice does not run."""
+        eplan = self.plan_execution()
+        if eplan.strategy in _NOT_PORTED:
+            raise NotImplementedError(
+                f"strategy {eplan.strategy!r} is not ported yet "
+                f"({_NOT_PORTED[eplan.strategy]}): {eplan.reason}")
+        if self.mode == "independent_bases":
+            raise NotImplementedError(
+                "independent_bases is not ported yet (ROADMAP.md Queue A "
+                "12)")
+        if self.axis_name is not None:
+            raise NotImplementedError(
+                "the data-parallel coordinate exchange is not ported yet "
+                "(ROADMAP.md Queue A 11); run with axis_name=None (one "
+                "device)")
+        if self.model_axis is not None:
+            raise NotImplementedError(
+                "model-sharded slabs are not ported yet (ROADMAP.md Queue "
+                "A 14)")
+        rng.check_threefry(eplan.prng_impl)
+        if self.optimizer in opt.SECOND_ORDER_OPTIMIZERS:
+            raise NotImplementedError(
+                f"the {self.optimizer} coordinate optimizer is not ported "
+                "yet (ROADMAP.md Queue A 15)")
+        return eplan
+
+    def _optimizer(self) -> opt.Transform:
+        return opt.get_optimizer(
+            self.optimizer, momentum_beta=self.momentum_beta,
+            nesterov=self.nesterov, adam_b1=self.adam_b1,
+            adam_b2=self.adam_b2, adam_eps=self.adam_eps,
+            learning_rate=self.learning_rate)
+
+    # -- state --------------------------------------------------------------
+
+    def init_rbd_state(self, params=None):
+        if self.transform is None:
+            return ()
+        return self.transform.init(params)
+
+    def init_opt_state(self, params=None, *, device=None):
+        """Optimizer state on the (d_packed,) coordinate buffer (SGD is
+        stateless).  ``device`` defaults to the parameters' device."""
+        self.check_supported()
+        if device is None:
+            device = _device_of(params)
+        d = self.transform.plan.packed().d_packed
+        return self._optimizer().init(
+            torch.zeros((d,), dtype=torch.float32, device=device))
+
+    # -- stored-representation boundary -------------------------------------
+
+    def prepare_params(self, params) -> torch.Tensor:
+        """Parameter map -> the packed (q_packed,) float32 buffer."""
+        self.check_supported()
+        plan = self.transform.plan
+        return projector.pack_tree(params, plan, plan.packed())
+
+    def materialize_params(self, stored: torch.Tensor) -> dict:
+        """Packed buffer -> parameter map (views autograd follows)."""
+        if self.params_template is None:
+            raise ValueError(
+                "packed-resident SubspaceOptimizer needs params_template "
+                "(a map of shapes/dtypes) to materialize parameters")
+        plan = self.transform.plan
+        return projector.unpack_tree(stored, plan, plan.packed(),
+                                     self.params_template)
+
+    # -- the update ---------------------------------------------------------
+
+    def step(self, params, grads, rbd_state, opt_state):
+        """One optimizer step on the stored (packed) representation.
+        Returns ``(new_params, new_rbd_state, new_opt_state, aux)``."""
+        ticket = self.step_sketch(params, grads, rbd_state, opt_state)
+        return self.step_finish(params, ticket, rbd_state, opt_state)
+
+    def step_sketch(self, params, grads, rbd_state, opt_state
+                    ) -> StepTicket:
+        """Launch 1: project the packed gradient."""
+        eplan = self.check_supported()
+        t = self.transform
+        plan = t.plan
+        coords, sq = projector.project_packed(
+            grads, plan, t.step_seed(rbd_state.step), backend=t.backend,
+            layout=plan.packed(), return_norms=True, prepacked=True,
+            prng=eplan.prng_impl)
+        return StepTicket(coords=coords, sq=sq)
+
+    def step_finish(self, params, ticket: StepTicket, rbd_state, opt_state):
+        """Coordinate-space optimizer, then launch 2 (reconstruct-apply).
+        Functional: returns a new parameter buffer unless
+        ``log_update_norm`` is off, in which case ``params`` is updated
+        in place (the update norm needs the old buffer)."""
+        eplan = self.check_supported()
+        t = self.transform
+        plan = t.plan
+        seed = t.step_seed(rbd_state.step)
+        opt_state = self._switch_opt_state(opt_state, rbd_state.step)
+        coords_u, new_opt = self._optimizer().update(ticket.coords,
+                                                     opt_state)
+        in_place = not (self.log_update_norm and self.learning_rate)
+        new_params = projector.reconstruct_apply_packed(
+            coords_u, plan, seed, params, self.learning_rate,
+            backend=t.backend, row_sq=ticket.sq, layout=plan.packed(),
+            prepacked=True, prng=eplan.prng_impl,
+            out=params if in_place else None)
+        return (new_params, RBDState(step=rbd_state.step + 1), new_opt,
+                self._delta_aux(params, new_params, in_place))
+
+    def _switch_opt_state(self, opt_state, step: int):
+        """FPD -> RBD state policy: ``reset`` re-zeroes the coordinate
+        optimizer state at the switch step, ``carry`` keeps it."""
+        t = self.transform
+        if (t is None or not t.steps_fpd or self.switch_policy != "reset"
+                or int(step) != t.steps_fpd):
+            return opt_state
+        return _zeros_like_state(opt_state)
+
+    def _delta_aux(self, old, new, in_place: bool) -> _Aux:
+        """The fused step never materializes the update; its norm comes
+        from the parameter delta (one read of both buffers)."""
+        if in_place:
+            return _Aux(torch.zeros((), device=new.device))
+        n = opt.global_norm(old.to(torch.float32) - new.to(torch.float32))
+        return _Aux(n / self.learning_rate)
+
+
+def _zeros_like_state(state):
+    if isinstance(state, torch.Tensor):
+        return torch.zeros_like(state)
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return type(state)(*(_zeros_like_state(s) for s in state))
+    if isinstance(state, (list, tuple)):
+        return type(state)(_zeros_like_state(s) for s in state)
+    return state
+
+
+def _device_of(params):
+    if isinstance(params, torch.Tensor):
+        return params.device
+    if isinstance(params, dict) and params:
+        return next(iter(params.values())).device
+    raise ValueError("init_opt_state needs params or device")

@@ -1,0 +1,137 @@
+"""Training step: loss, gradient, random-bases sketch, parameter update
+(port of ``repro.train.step``).
+
+The whole update chain is owned by
+:class:`repro_torch.optim.subspace.SubspaceOptimizer`; this module only
+computes the loss and gradient and threads state.  On the packed
+two-launch step ``TrainState.params`` holds the packed (q_packed,) float32
+buffer across steps: the forward pass reads views of it, so autograd
+delivers the gradient as a packed buffer (zero on the padding), and the
+update is two kernel launches.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs.base import RBDConfig, TrainConfig
+from repro_torch.core import compartments, rbd as rbd_lib
+from repro_torch.models.registry import Model, resolve_device
+from repro_torch.optim import subspace
+
+
+class TrainState(NamedTuple):
+    params: Any             # packed (q_packed,) float32 buffer
+    rbd_state: Any          # RBDState
+    opt_state: Any          # coordinate-space ((d_packed,)-shaped) state
+    step: int
+
+
+def softmax_cross_entropy(logits, labels):
+    """logits: (B, S, V) float32; labels: (B, S) integer -> mean CE."""
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, labels[..., None].to(torch.int64))[..., 0]
+    return -torch.mean(ll)
+
+
+def make_plan(model: Model, rbd_cfg: RBDConfig, params_shape=None):
+    """Compartment plan for the model's parameters (shapes only)."""
+    if params_shape is None:
+        params_shape = model.param_shapes()
+    return compartments.make_plan(
+        params_shape,
+        rbd_cfg.total_dim,
+        granularity=rbd_cfg.granularity,
+        allocation=rbd_cfg.allocation,
+        distribution=rbd_cfg.distribution,
+        normalization=rbd_cfg.normalization,
+        is_stacked=model.is_stacked,
+    )
+
+
+def make_transform(model: Model, rbd_cfg: RBDConfig, params_shape=None):
+    if not rbd_cfg.enabled:
+        return None
+    plan = make_plan(model, rbd_cfg, params_shape)
+    return rbd_lib.RandomBasesTransform(
+        plan, base_seed=rbd_cfg.base_seed, redraw=rbd_cfg.redraw,
+        backend=rbd_cfg.backend, prng=rbd_cfg.prng_impl,
+        basis=rbd_cfg.basis, steps_fpd=rbd_cfg.steps_fpd,
+    )
+
+
+def make_subspace_optimizer(
+        model: Model, tcfg: TrainConfig,
+        transform: Optional[rbd_lib.RandomBasesTransform] = None,
+        axis_name=None, *, k_workers: int = 1
+) -> subspace.SubspaceOptimizer:
+    """The one update-path object for a (model, TrainConfig) pair."""
+    if transform is None and tcfg.rbd.enabled:
+        transform = make_transform(model, tcfg.rbd)
+    return subspace.SubspaceOptimizer.from_config(
+        tcfg, transform=transform, axis_name=axis_name,
+        k_workers=k_workers, params_template=model.param_template())
+
+
+def make_loss_fn(model: Model, aux_coef: float = 0.01):
+    def loss_fn(params, batch):
+        logits, aux = model.forward(params, batch)
+        ce = softmax_cross_entropy(logits, batch["labels"])
+        return ce + aux_coef * aux, {"ce": ce, "aux": aux}
+
+    return loss_fn
+
+
+def make_train_step(model: Model, tcfg: TrainConfig,
+                    transform: Optional[rbd_lib.RandomBasesTransform] = None,
+                    axis_name: Optional[str] = None, *,
+                    k_workers: int = 1, device="cuda",
+                    return_optimizer: bool = False):
+    """Returns ``(init_state, train_step)`` -- plus the
+    :class:`SubspaceOptimizer` when ``return_optimizer`` is set.
+
+    ``init_state(seed=tcfg.seed, params=None)`` packs ``params`` (a
+    parameter map, e.g. from ``registry.params_from_reference``) or a
+    fresh random init.  ``train_step(state, batch)`` runs one optimizer
+    step and returns ``(new_state, metrics)``."""
+    device = resolve_device(device)
+    if int(tcfg.grad_accum_steps) != 1:
+        raise NotImplementedError(
+            "grad_accum_steps > 1 is not ported yet (ROADMAP.md Queue A "
+            "11)")
+    loss_fn = make_loss_fn(model, model.cfg.router_aux_coef)
+    sub_opt = make_subspace_optimizer(model, tcfg, transform, axis_name,
+                                      k_workers=k_workers)
+    sub_opt.check_supported()
+
+    def init_state(seed: Optional[int] = None, params=None) -> TrainState:
+        if params is None:
+            params = model.init(tcfg.seed if seed is None else seed,
+                                device=device)
+        params = {k: v.to(device) for k, v in params.items()}
+        return TrainState(
+            params=sub_opt.prepare_params(params),
+            rbd_state=sub_opt.init_rbd_state(params),
+            opt_state=sub_opt.init_opt_state(device=device),
+            step=0,
+        )
+
+    def train_step(state: TrainState, batch):
+        stored = state.params.detach().requires_grad_(True)
+        loss, metrics = loss_fn(sub_opt.materialize_params(stored), batch)
+        (grads,) = torch.autograd.grad(loss, stored)
+        with torch.no_grad():
+            ticket = sub_opt.step_sketch(stored.detach(), grads,
+                                         state.rbd_state, state.opt_state)
+            params, rbd_state, opt_state, aux = sub_opt.step_finish(
+                stored.detach(), ticket, state.rbd_state, state.opt_state)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics.update(loss=loss.detach(), update_norm=aux.update_norm)
+        return TrainState(params, rbd_state, opt_state,
+                          state.step + 1), metrics
+
+    if return_optimizer:
+        return init_state, train_step, sub_opt
+    return init_state, train_step

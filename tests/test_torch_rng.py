@@ -1,0 +1,120 @@
+"""Port parity: the counter PRNG of ``repro_torch.core.rng`` against
+``repro.core.rng`` on the same inputs.
+
+Threefry bits are bit-exact, and so are the uniform, rademacher, bernoulli
+and sparse samples (they use only exact float32 steps, comparisons and
+selects).  Normal samples go through log/cos/sqrt, which XLA and PyTorch
+round differently in the last place: they are held to ``atol=1e-6``
+(measured max 2.4e-7, about one ulp at magnitude 2-4).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import rng as ref
+from repro_torch.core import rng
+
+# One intra-op thread: the suite runs several test processes at once, and
+# OpenMP threads spinning for work would slow every one of them down.
+torch.set_num_threads(1)
+
+DISTS = ["normal", "uniform", "bernoulli", "rademacher", "sparse"]
+NORMAL_ATOL = 1e-6
+
+
+def _u32(rs, n):
+    return rs.integers(0, 2**32, size=n, dtype=np.uint64).astype(np.uint32)
+
+
+def test_threefry2x32_bit_exact():
+    rs = np.random.default_rng(0)
+    k0, k1 = _u32(rs, 1)[0], _u32(rs, 1)[0]
+    c0, c1 = _u32(rs, 512), _u32(rs, 512)
+    # counters near 2**32 and zero
+    c0[:6] = [0, 1, 2**31 - 1, 2**31, 2**32 - 2, 2**32 - 1]
+    c1[:6] = [2**32 - 1, 0, 2**31, 2**31 - 1, 1, 2**32 - 1]
+    a, b = ref.threefry2x32(k0, k1, c0, c1)
+    ta, tb = rng.threefry2x32(rng.as_u32(k0), rng.as_u32(k1),
+                              rng.as_u32(c0), rng.as_u32(c1))
+    np.testing.assert_array_equal(np.asarray(a), rng.to_uint32(ta))
+    np.testing.assert_array_equal(np.asarray(b), rng.to_uint32(tb))
+
+
+@pytest.mark.parametrize("parts", [(0,), (7,), (3, 12345), (2**32 - 1, 5, 9),
+                                   (0xDEADBEEF, 2**31)])
+def test_fold_seed_bit_exact(parts):
+    assert int(np.asarray(ref.fold_seed(*parts))) == int(
+        rng.to_uint32(rng.fold_seed(*parts)))
+
+
+def test_fold_seed_vectorized_matches_scalar():
+    base = rng.fold_seed(11)
+    tags = torch.arange(5, dtype=torch.int32)
+    vec = rng.to_uint32(rng.fold_seed(base, tags))
+    want = [int(np.asarray(ref.fold_seed(ref.fold_seed(11), i)))
+            for i in range(5)]
+    np.testing.assert_array_equal(vec, np.asarray(want, np.uint32))
+
+
+def test_bits_for_counters_wraparound_bit_exact():
+    """row ^ ~col and counters near 2**32 (the (col, row ^ ~col) counter
+    of every basis element)."""
+    seed = np.uint32(0x9E3779B9)
+    cols = np.array([0, 1, 2**31, 2**32 - 1, 2**32 - 512, 77],
+                    np.uint32)
+    rows = np.array([2**32 - 1, 0, 2**31 - 1, 2**32 - 1, 8, 2**31],
+                    np.uint32)
+    b0, b1 = ref._bits_for_counters(seed, cols, rows)
+    t0, t1 = rng._bits_for_counters(rng.as_u32(seed), rng.as_u32(cols),
+                                    rng.as_u32(rows))
+    np.testing.assert_array_equal(np.asarray(b0), rng.to_uint32(t0))
+    np.testing.assert_array_equal(np.asarray(b1), rng.to_uint32(t1))
+
+
+@pytest.mark.parametrize("dist", DISTS)
+def test_bits_to_sample(dist):
+    rs = np.random.default_rng(1)
+    b0, b1 = _u32(rs, 4096), _u32(rs, 4096)
+    want = np.asarray(ref.bits_to_sample(dist, jnp.asarray(b0),
+                                         jnp.asarray(b1)))
+    got = rng.bits_to_sample(dist, rng.as_u32(b0), rng.as_u32(b1)).numpy()
+    assert got.dtype == np.float32
+    if dist == "normal":
+        np.testing.assert_allclose(got, want, rtol=0, atol=NORMAL_ATOL)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dist", DISTS)
+@pytest.mark.parametrize("row0,col0", [(16, 1024), (2**32 - 4, 2**32 - 300)])
+def test_generate_block(dist, row0, col0):
+    seed = ref.fold_seed(5)
+    want = np.asarray(ref.generate_block(seed, row0, col0, (8, 512), dist))
+    got = rng.generate_block(rng.fold_seed(5), row0, col0, (8, 512),
+                             dist).numpy()
+    if dist == "normal":
+        np.testing.assert_allclose(got, want, rtol=0, atol=NORMAL_ATOL)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("requested", ["threefry", "hw", "hw_emulated"])
+@pytest.mark.parametrize("strategy", ["fused_packed", "coord_unfused",
+                                      "materialized_packed"])
+@pytest.mark.parametrize("backend,hw", [("kernels", False),
+                                        ("kernels", True), ("plain", False)])
+def test_resolve_prng_impl_same_reasons(requested, strategy, backend, hw):
+    port_backend = {"kernels": "cuda", "plain": "torch"}[backend]
+    ref_backend = {"kernels": "pallas", "plain": "jnp"}[backend]
+    assert rng.resolve_prng_impl(
+        requested, strategy=strategy, backend=port_backend,
+        hw_available=hw) == ref.resolve_prng_impl(
+            requested, strategy=strategy, backend=ref_backend,
+            hw_available=hw)
+
+
+def test_tile_keyed_impls_not_ported():
+    with pytest.raises(NotImplementedError, match="Queue B 12"):
+        rng.PrngSpec("hw_emulated").generate_tile(0, 0, 0, (8, 8))
