@@ -22,7 +22,21 @@ result line:
                ``test_lm_training_reduces_loss``: loss drops by > 0.1;
 6. timing   -- the plain versions at the main path's full shapes (timed,
                and held against the kernels there), the bound of each
-               kernel, then the ``kernels`` line and the result line.
+               kernel;
+7. workers  -- ``reconstruct_apply_packed_workers`` against its plain
+               version: one full-width layer (K = 1 and 3, four
+               distributions), one dir-block of ``embed`` (K = 2), the main
+               path's full shapes (K = 2); K = 1 bit-identical to the
+               single-worker kernel on worker seed fold_seed(s, 1);
+8. K-worker -- the independent-bases simulation at full qwen2-0.5b width
+               and depth (``SubspaceOptimizer(k_workers=4)``, 4 worker
+               batches of 8 x 128, 3 steps, rsqrt_dim and exact): K
+               projections plus ONE K-worker apply per step, then the
+               plain version at K = 4 for the timing row;
+9. exchange -- the launcher with a one-rank NCCL group in both
+               ``--rbd-mode``s: one coordinate collective and two kernel
+               launches per step;
+then the ``kernels`` line, the card line and the result line.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -58,7 +72,10 @@ THETA_RTOL = 1e-4  # |dtheta| / max|update|, plus 2 ulp of max|theta|
 INT_OPS_PER_VALUE = 73
 FP_OPS_PER_VALUE = {"normal": 41, "uniform": 6, "rademacher": 1,
                     "sparse": 5}
-FMA_PER_VALUE = {"project_packed": 2, "reconstruct_apply_packed": 1}
+FMA_PER_VALUE = {"project_packed": 2, "reconstruct_apply_packed": 1,
+                 "reconstruct_apply_packed_workers": 1}
+K_SIM = 4          # workers of the phase-8 simulation
+SIM_STEPS = 3
 ISSUE_LANES_PER_SM = 128
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
 
@@ -288,8 +305,13 @@ def phase_training():
     check(theta_sum != res.theta_init_sum, "theta did not change")
     check(launches["project_packed"] == STEPS
           and launches["reconstruct_apply_packed"] == STEPS
+          and launches["reconstruct_apply_packed_workers"] == 0
           and launches["generate_tile"] == 0,
           f"expected 2 port-kernel launches per step, got {launches}")
+    check(res.collectives["all_reduce"] == STEPS
+          and res.collectives["all_gather"] == 0,
+          f"expected one all-reduce per step, got {res.collectives}")
+    log(f"  collectives {res.collectives}")
     log(f"  peak memory {res.peak_bytes / 2**30:.2f} GiB, theta sum "
         f"{res.theta_init_sum:.6g} -> {theta_sum:.6g}")
     return res, launches
@@ -355,43 +377,272 @@ def phase_timing(full_plan, res, launches, errs, dev):
         errs["reconstruct_apply_packed"],
         _check_apply("full width", out, plain["apply"], theta))
     del plain, out
-    values = int((lay.seg_dim * lay.seg_size).sum())
-    # the TPU kernel bodies each wrapper's pl.pallas_call runs
-    # (project_packed:241 -> pallas_call:286, reconstruct_apply_packed:314
-    # -> pallas_call:361)
-    sources = {
-        "project_packed": "src/repro/kernels/rbd_step.py:100",
-        "reconstruct_apply_packed": "src/repro/kernels/rbd_step.py:144",
-    }
     rows = []
     for name in ("project_packed", "reconstruct_apply_packed"):
-        if name == "project_packed":
-            nbytes = 4 * lay.q_packed + 4 * lay.n_segments + 8 * lay.d_packed
-        else:
-            nbytes = 8 * lay.q_packed + 4 * lay.n_segments + 4 * lay.d_packed
-        ops = values * (INT_OPS_PER_VALUE + FP_OPS_PER_VALUE[dist]
-                        + FMA_PER_VALUE[name])
-        t_ops = ops / (dev["sms"] * ISSUE_LANES_PER_SM * dev["clock_hz"])
-        t_bytes = nbytes / HBM_BYTES_PER_S
         times = sorted(res.kernel_ms[name])
-        ms = times[len(times) // 2]
-        bound_ms = 1e3 * max(t_ops, t_bytes)
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/rbd_step.cu",
-            "replaces": sources[name],
-            "launches": launches[name],
-            "max_abs_err": errs[name],
-            "ms": ms, "plain_ms": plain_ms[name],
-            "bound_ms": bound_ms,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None,
-        })
-        log(f"  {name}: {values:,} basis values; ms {ms:.3f} (median of "
-            f"{len(times)} main-path launches), plain {plain_ms[name]:.1f},"
-            f" bound {bound_ms:.3f} ({rows[-1]['bound_by']}), "
-            f"{bound_ms / ms:.1%} of bound")
+        rows.append(kernel_row(name, lay, dist, dev, 1, launches[name],
+                               errs[name], times[len(times) // 2],
+                               plain_ms[name]))
     return rows
+
+
+# the TPU kernel each row replaces: the kernel body its wrapper's
+# pl.pallas_call runs (project_packed:241 -> pallas_call:286 ->
+# _project_kernel:100; reconstruct_apply_packed:314 -> pallas_call:361 ->
+# _recon_apply_kernel:144), and for the K-worker apply, whose body is
+# row 2's, its own pallas_call (reconstruct_apply_packed_workers:387)
+REPLACES = {
+    "project_packed": "src/repro/kernels/rbd_step.py:100",
+    "reconstruct_apply_packed": "src/repro/kernels/rbd_step.py:144",
+    "reconstruct_apply_packed_workers": "src/repro/kernels/rbd_step.py:443",
+}
+
+
+def bound_ms(name, lay, dist, dev, k_workers=1):
+    """(least time in ms, "operations" or "bytes") for one launch."""
+    values = k_workers * int((lay.seg_dim * lay.seg_size).sum())
+    if name == "project_packed":
+        nbytes = 4 * lay.q_packed + 4 * lay.n_segments + 8 * lay.d_packed
+    else:
+        nbytes = (8 * lay.q_packed + 4 * k_workers * lay.n_segments
+                  + 4 * k_workers * lay.d_packed)
+    ops = values * (INT_OPS_PER_VALUE + FP_OPS_PER_VALUE[dist]
+                    + FMA_PER_VALUE[name])
+    t_ops = ops / (dev["sms"] * ISSUE_LANES_PER_SM * dev["clock_hz"])
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def kernel_row(name, lay, dist, dev, k_workers, launches, err, ms,
+               plain_ms):
+    b_ms, by = bound_ms(name, lay, dist, dev, k_workers)
+    values = k_workers * int((lay.seg_dim * lay.seg_size).sum())
+    log(f"  {name} (K={k_workers}): {values:,} basis values; ms {ms:.3f} "
+        f"(median of the main-path launches), plain {plain_ms:.1f}, bound "
+        f"{b_ms:.3f} ({by}), {b_ms / ms:.1%} of bound")
+    return {
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rbd_step.cu",
+        "replaces": REPLACES[name], "launches": launches,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+    }
+
+
+def _check_workers(case, wseeds, scale, theta, lay, dist, valid):
+    """Kernel vs plain K-worker apply: reruns, in place, padding,
+    tolerance.  Returns (max|dtheta|, kernel out)."""
+    import torch
+    from repro_torch.kernels import rbd_step
+
+    out = rbd_step.reconstruct_apply_packed_workers(wseeds, scale, theta,
+                                                    lay, dist)
+    out2 = rbd_step.reconstruct_apply_packed_workers(wseeds, scale, theta,
+                                                     lay, dist)
+    inplace = theta.clone()
+    rbd_step.reconstruct_apply_packed_workers(wseeds, scale, inplace, lay,
+                                              dist, out=inplace)
+    check(torch.equal(out, out2) and torch.equal(out, inplace),
+          f"{case}: workers apply reruns / in-place differ")
+    check(bool((out[~valid] == 0).all()),
+          f"{case}: padding of theta is not exactly 0")
+    log(f"    {case}: reruns and in-place bit-identical, padding exactly 0")
+    ref = rbd_step.reconstruct_apply_packed_workers_plain(wseeds, scale,
+                                                          theta, lay, dist)
+    return _check_apply(case, out, ref, theta), out
+
+
+def phase_workers(full_plan, dev):
+    import torch
+    from repro_torch.core import projector, rng
+    from repro_torch.kernels import rbd_step
+
+    log("== phase 7: K-worker apply kernel vs plain at full qwen2-0.5b "
+        "width")
+    err = 0.0
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    step_seed = rng.fold_seed(0, 0)
+    subs = _sub_plans(full_plan)
+    subs["full plan"] = full_plan
+    for name, sub in subs.items():
+        lay = sub.packed()
+        valid = _valid_mask(lay, "cuda")
+        if name.startswith("layer"):
+            cases = [(d, k) for d in DISTS for k in (1, 3)]
+        else:
+            cases = [("normal", 2)]
+        for dist, k in cases:
+            case = f"{name}/{dist}/K={k}"
+            wseeds = projector.worker_segment_seeds(sub, step_seed, k)
+            theta = torch.where(valid, torch.randn(
+                lay.q_packed, generator=gen, device="cuda"), 0.0)
+            scale = torch.randn((k, lay.d_packed), generator=gen,
+                                device="cuda")
+            scale = scale * 1e-3 * torch.from_numpy(lay.coord_valid).cuda()
+            if name == "full plan":
+                ms = cuda_ms(lambda: rbd_step.reconstruct_apply_packed_workers(
+                    wseeds, scale, theta, lay, dist), repeat=2)
+                plain = {}
+                plain_ms = cuda_ms(lambda: plain.update(
+                    out=rbd_step.reconstruct_apply_packed_workers_plain(
+                        wseeds, scale, theta, lay, dist)))[0]
+                out = rbd_step.reconstruct_apply_packed_workers(
+                    wseeds, scale, theta, lay, dist)
+                dt = _check_apply(case, out, plain["out"], theta)
+                b_ms, by = bound_ms("reconstruct_apply_packed_workers",
+                                    lay, dist, dev, k)
+                log(f"    {case}: kernel ms {ms}, plain {plain_ms:.1f}, "
+                    f"bound {b_ms:.3f} ({by}), {b_ms / min(ms):.1%} of "
+                    "bound")
+                del plain, out
+            else:
+                dt, out = _check_workers(case, wseeds, scale, theta, lay,
+                                         dist, valid)
+            err = max(err, dt)
+            if k == 1:
+                single = rbd_step.reconstruct_apply_packed(
+                    projector.segment_seeds(sub, rng.fold_seed(step_seed, 1)),
+                    scale[0].contiguous(), theta, lay, dist)
+                check(torch.equal(out, single),
+                      f"{case}: K=1 differs from the single-worker kernel")
+                log(f"    {case}: bit-identical to reconstruct_apply_packed "
+                    "on worker seed fold_seed(s, 1)")
+    return err
+
+
+def phase_k_workers(full_plan, dev):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RBDConfig, TrainConfig
+    from repro_torch.core import projector, rng
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import rbd_step
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim import subspace
+    from repro_torch.train import step as steplib
+
+    log(f"== phase 8: K-worker simulation, K={K_SIM}, qwen2-0.5b full width "
+        "and depth")
+    cfg = get_config("qwen2-0.5b")
+    model = get_model(cfg)
+    loss_fn = steplib.make_loss_fn(model, cfg.router_aux_coef)
+    launches = dict.fromkeys(rbd_step.KERNELS, 0)
+    times = {k: [] for k in rbd_step.KERNELS}
+    for norm in ("rsqrt_dim", "exact"):
+        rbd = RBDConfig(total_dim=1024, backend="cuda",
+                        mode="independent_bases", normalization=norm)
+        tcfg = TrainConfig(model=cfg, rbd=rbd, learning_rate=0.125)
+        sub = subspace.SubspaceOptimizer.from_config(
+            tcfg, transform=steplib.make_transform(model, rbd),
+            k_workers=K_SIM, params_template=model.param_template())
+        eplan = sub.plan_execution()
+        log(f"  {norm}: update path: {eplan.strategy} -- {eplan.reason}")
+        log(f"  {norm}: exchange schedule: {eplan.overlap_exchange} -- "
+            f"{eplan.overlap_reason}")
+        check(sub.joint_subspace and eplan.strategy == "fused_packed",
+              "the K-worker simulation does not plan the joint subspace")
+        params = sub.prepare_params(model.init(0, device="cuda"))
+        st_r = sub.init_rbd_state()
+        st_o = sub.init_opt_state(device="cuda")
+        stream = synthetic.lm_batches(0, 8, 128, cfg.vocab, device="cuda")
+        lay = sub.transform.plan.packed()
+        grads = torch.empty((K_SIM, lay.q_packed), device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(SIM_STEPS):
+            t0 = time.perf_counter()
+            losses = []
+            for k in range(K_SIM):
+                stored = params.detach().requires_grad_(True)
+                loss, _ = loss_fn(sub.materialize_params(stored),
+                                  next(stream))
+                (grads[k],) = torch.autograd.grad(loss, stored)
+                losses.append(float(loss.detach()))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            rbd_step.reset_counts()
+            rbd_step.set_timing(True)
+            with torch.no_grad():
+                params, st_r, st_o, aux = sub.step(params, grads, st_r,
+                                                   st_o)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            step_ms = rbd_step.kernel_times_ms()
+            rbd_step.set_timing(False)
+            got = dict(rbd_step.LAUNCHES)
+            check(got["project_packed"] == K_SIM
+                  and got["reconstruct_apply_packed_workers"] == 1
+                  and got["reconstruct_apply_packed"] == 0,
+                  f"{norm} step {i}: expected {K_SIM} projections and one "
+                  f"K-worker apply, got {got}")
+            for k, v in got.items():
+                launches[k] += v
+            for k, v in step_ms.items():
+                times[k] += v
+            check(all(math.isfinite(x) for x in losses)
+                  and math.isfinite(float(aux.update_norm)),
+                  f"{norm} step {i}: non-finite loss or update")
+            ms = {k: [round(x, 2) for x in v] for k, v in step_ms.items()}
+            log(f"  {norm} step {i}: losses {[round(x, 4) for x in losses]}"
+                f" forward+backward x{K_SIM} {t1 - t0:.3f} s, optimizer "
+                f"step {t2 - t1:.3f} s; project ms {ms['project_packed']}, "
+                "workers apply ms "
+                f"{ms['reconstruct_apply_packed_workers']}; launches {got}")
+        log(f"  {norm}: peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        check(bool((params[~_valid_mask(lay, 'cuda')] == 0).all()),
+              f"{norm}: theta padding is not exactly 0")
+        del grads, params, st_o
+    log(f"  launches over {2 * SIM_STEPS} steps: {launches}")
+    # the plain version at the simulation's K, for the timing row
+    lay = full_plan.packed()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    wseeds = projector.worker_segment_seeds(full_plan, rng.fold_seed(0, 0),
+                                            K_SIM)
+    theta = torch.where(_valid_mask(lay, "cuda"), torch.randn(
+        lay.q_packed, generator=gen, device="cuda"), 0.0)
+    scale = torch.randn((K_SIM, lay.d_packed), generator=gen, device="cuda")
+    scale = scale * 1e-4 * torch.from_numpy(lay.coord_valid).cuda()
+    plain = {}
+    plain_ms = cuda_ms(lambda: plain.update(
+        out=rbd_step.reconstruct_apply_packed_workers_plain(
+            wseeds, scale, theta, lay, full_plan.distribution)))[0]
+    out = rbd_step.reconstruct_apply_packed_workers(
+        wseeds, scale, theta, lay, full_plan.distribution)
+    err = _check_apply(f"full plan/K={K_SIM}", out, plain["out"], theta)
+    name = "reconstruct_apply_packed_workers"
+    ts = sorted(times[name])
+    return kernel_row(name, lay, full_plan.distribution, dev, K_SIM,
+                      launches[name], err, ts[len(ts) // 2], plain_ms)
+
+
+def phase_exchange():
+    from repro_torch.kernels import rbd_step
+    from repro_torch.launch import train as launcher
+
+    log("== phase 9: the coordinate exchange on a one-rank NCCL group")
+    for mode, apply, kind in (
+            ("independent_bases", "reconstruct_apply_packed_workers",
+             "all_gather"),
+            ("shared_basis", "reconstruct_apply_packed", "all_reduce")):
+        args = ARCH_ARGS[:-1] + ["--rbd-mode", mode]
+        log("  python -m repro_torch.launch.train " + " ".join(args))
+        rbd_step.reset_counts()
+        res = launcher.main(args)
+        launches = dict(rbd_step.LAUNCHES)
+        log(f"  {mode}: launches {launches}, collectives "
+            f"{res.collectives}, losses {res.losses}")
+        want = dict.fromkeys(rbd_step.KERNELS, 0)
+        want.update({"project_packed": STEPS, apply: STEPS})
+        check(launches == want,
+              f"{mode}: expected two kernel launches per step, got "
+              f"{launches}")
+        other = "all_reduce" if kind == "all_gather" else "all_gather"
+        check(res.collectives[kind] == STEPS and res.collectives[other] == 0,
+              f"{mode}: expected one {kind} per step, got {res.collectives}")
+        check(all(math.isfinite(x) for x in res.losses),
+              f"{mode}: losses {res.losses}")
 
 
 def main() -> int:
@@ -427,6 +678,11 @@ def main() -> int:
     res, launches = phase_training()
     phase_loss()
     rows = phase_timing(full_plan, res, launches, errs, dev)
+    workers_err = phase_workers(full_plan, dev)
+    row = phase_k_workers(full_plan, dev)
+    row["max_abs_err"] = max(row["max_abs_err"], workers_err)
+    rows.append(row)
+    phase_exchange()
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(dev["smi"], flush=True)

@@ -1,0 +1,262 @@
+"""Shared-seed distributed RBD over ``torch.distributed`` (port of
+``repro.core.distributed``; paper Algorithm 1, right column).
+
+Two parallelization modes over the data-parallel process group:
+
+* ``shared_basis`` -- every worker draws the SAME basis and projects its
+  own gradient shard; the (d_packed,) coordinates are averaged by one
+  all-reduce.  Mathematically single-worker RBD on the global batch.
+* ``independent_bases`` -- worker k draws its own basis (seed folded with
+  k + 1), so the K workers jointly span a K*d-dimensional subspace.  The
+  (d_packed,) coordinates are all-gathered into the (K, d_packed) joint
+  buffer and every worker regenerates all K bases to apply the combined
+  update in one launch (``projector.reconstruct_apply_packed_workers``).
+
+Either way the per-step exchange is exactly ONE collective of a
+coordinate-sized buffer -- widened to the concatenated (2*d_packed,)
+coords+norms buffer under 'exact' normalization -- never anything
+parameter-sized.
+
+Axis names: the reference names a mesh axis; here ``"data"`` names the
+default (world) process group, and a ``ProcessGroup`` is taken as it is.
+The process group is set up by ``repro_torch.launch.mesh``.  The
+collectives are ``all_reduce`` (SUM, then a divide by the world size:
+the reference's pmean) and ``all_gather`` into the rows of one (K, n)
+buffer, both of which gloo and NCCL implement, issued with
+``async_op=True`` so that :func:`start_exchange` returns at once and
+:func:`finish_exchange` waits.
+
+Not ported yet: the model-axis completion ``complete_model_partials``
+(ROADMAP.md Queue A 14), the per-leaf ``shared_basis_coords`` /
+``shared_basis_update`` / ``independent_bases_update`` (Queue A 16) and
+the resilience sentinel's rider scalar (Queue A 13).
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core import projector, rng
+
+# collectives issued, by kind: the coordinate exchanges of start_exchange
+# (the contract is exactly one per optimizer step) and the scalar
+# all-reduces of mean_scalar (metrics, e.g. the loss)
+COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "scalar": 0}
+
+
+def reset_counts() -> None:
+    for k in COLLECTIVES:
+        COLLECTIVES[k] = 0
+
+
+def process_group(axis_name):
+    """The process group an axis name stands for."""
+    if isinstance(axis_name, str):
+        if axis_name != "data":
+            raise ValueError(
+                f"unknown axis {axis_name!r}: 'data' names the default "
+                "process group; pass a ProcessGroup for any other")
+        return dist.group.WORLD
+    if axis_name is None:
+        raise ValueError("axis_name=None has no process group")
+    return axis_name
+
+
+def axis_index(axis_name) -> int:
+    return dist.get_rank(process_group(axis_name))
+
+
+def worker_seed(transform, state, axis_name) -> torch.Tensor:
+    """Per-(step, worker) seed for independent_bases mode:
+    ``fold_seed(step_seed, k + 1)`` on worker k."""
+    base = transform.step_seed(state.step)
+    return rng.fold_seed(base, axis_index(axis_name) + 1)
+
+
+def mean_scalar(x: torch.Tensor, axis_name) -> torch.Tensor:
+    """Mean of a scalar over the group (the reference's metrics pmean of
+    the loss): one all-reduce of one element, outside the coordinate
+    exchange."""
+    buf = x.detach().to(torch.float32, copy=True).reshape(1)
+    group = process_group(axis_name)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    COLLECTIVES["scalar"] += 1
+    return buf[0] / dist.get_world_size(group)
+
+
+# ---------------------------------------------------------------------------
+# widened coords+norms exchange ('exact' normalization on the packed path)
+# ---------------------------------------------------------------------------
+
+
+def widen_coord_buffer(coords, sq) -> torch.Tensor:
+    """(..., d_packed) coords and squared row norms -> the (...,
+    2*d_packed) buffer that is the one exchange quantity under 'exact'
+    normalization (the collective count stays one, the payload
+    doubles)."""
+    return torch.cat([coords.to(torch.float32), sq.to(torch.float32)],
+                     dim=-1)
+
+
+def split_coord_buffer(buf, d_packed: int):
+    """Inverse of :func:`widen_coord_buffer`."""
+    return buf[..., :d_packed], buf[..., d_packed:]
+
+
+def complete_model_partials(u_partial, sq_partial, model_axis):
+    """Model-sharded completion psum: not ported yet."""
+    raise NotImplementedError(
+        "complete_model_partials (model-sharded slabs) is not ported yet "
+        "(ROADMAP.md Queue A 14)")
+
+
+class PendingExchange(NamedTuple):
+    """Token of an ISSUED coordinate exchange: :func:`start_exchange`
+    issues the one per-step collective as soon as the projection output
+    exists, :func:`finish_exchange` waits for it where the apply needs
+    the result.  ``kind`` is ``"pmean"`` (shared_basis), ``"all_gather"``
+    (independent_bases) or ``"local"`` (no collective: one process, or
+    the sequential K-worker simulation)."""
+
+    kind: str       # "pmean" | "all_gather" | "local"
+    buf: Any        # the collective's output buffer (or the local coords)
+    sq: Any         # local row-norm passthrough (non-widened; else None)
+    d: int          # d_packed (split point of the widened buffer)
+    widened: bool
+    work: Any = None   # torch.distributed work handle
+    world: int = 1     # group size (the pmean divisor)
+
+
+def start_exchange(coords, sq, axis_name, *, kind: str = "pmean",
+                   widened: bool = False) -> PendingExchange:
+    """Issue the single per-step coordinate collective and return its
+    token.  ``coords``/``sq`` are the LOCAL (d_packed,) projection
+    outputs; ``widened=True`` ('exact') puts the norms on the wire.
+    With ``axis_name=None`` (or ``kind="local"``) nothing is issued."""
+    d = coords.shape[-1]
+    if axis_name is None or kind == "local":
+        return PendingExchange("local", coords, sq, d, widened)
+    group = process_group(axis_name)
+    world = dist.get_world_size(group)
+    # a fresh buffer: the collective writes it in place
+    body = (widen_coord_buffer(coords, sq) if widened
+            else coords.to(torch.float32, copy=True))
+    if kind == "pmean":
+        work = dist.all_reduce(body, op=dist.ReduceOp.SUM, group=group,
+                               async_op=True)
+        buf = body
+        COLLECTIVES["all_reduce"] += 1
+    elif kind == "all_gather":
+        buf = body.new_empty((world,) + tuple(body.shape))
+        work = dist.all_gather(list(buf.unbind(0)), body, group=group,
+                               async_op=True)
+        COLLECTIVES["all_gather"] += 1
+    else:
+        raise ValueError(f"unknown exchange kind {kind!r}")
+    return PendingExchange(kind, buf, None if widened else sq, d, widened,
+                           work, world)
+
+
+def finish_exchange(pending: PendingExchange):
+    """Wait for a :class:`PendingExchange` and split the exchanged buffer
+    into ``(coords, sq)``.  ``sq`` is the exchanged norms when widened,
+    the local passthrough otherwise (``None`` on a non-widened
+    all-gather, which never carried norms)."""
+    kind, buf, d = pending.kind, pending.buf, pending.d
+    if kind == "local":
+        return buf, pending.sq
+    pending.work.wait()
+    if kind == "pmean":
+        buf = buf / pending.world
+    if not pending.widened:
+        return buf, (pending.sq if kind == "pmean" else None)
+    return split_coord_buffer(buf, d)
+
+
+def shared_basis_packed_exchange(coords, sq, axis_name, *,
+                                 widened: bool = False):
+    """The packed sharedseed exchange: ONE all-reduce mean per step, of
+    the (d_packed,) coordinates or, widened, the (2*d_packed,)
+    coords+norms buffer.  Returns ``(coords, sq)``."""
+    return finish_exchange(start_exchange(coords, sq, axis_name,
+                                          kind="pmean", widened=widened))
+
+
+def shared_basis_coords(transform, local_grads, state, axis_name):
+    """Per-leaf shared-basis exchange: not ported yet."""
+    raise NotImplementedError(
+        "the per-leaf shared_basis_coords is not ported yet (ROADMAP.md "
+        "Queue A 16); the packed path uses shared_basis_packed_exchange")
+
+
+def shared_basis_update(transform, local_grads, state, axis_name):
+    """Per-leaf shared-basis update: not ported yet."""
+    raise NotImplementedError(
+        "the per-leaf shared_basis_update is not ported yet (ROADMAP.md "
+        "Queue A 16)")
+
+
+def independent_bases_start_exchange(transform, local_grads, state,
+                                     axis_name, *, layout=None,
+                                     prepacked: bool = True,
+                                     prng="threefry",
+                                     return_norms: bool = False
+                                     ) -> PendingExchange:
+    """Project the worker's gradient onto its OWN basis and issue the one
+    all-gather of its (d_packed,) coordinates -- (2*d_packed,) with the
+    norms when ``return_norms`` ('exact') -- into the (K, ...) joint
+    buffer; returns the token."""
+    plan = transform.plan
+    layout = layout if layout is not None else plan.packed()
+    proj = projector.project_packed(
+        local_grads, plan, worker_seed(transform, state, axis_name),
+        backend=transform.backend, layout=layout, prepacked=prepacked,
+        prng=prng, return_norms=return_norms)
+    coords, sq = proj if return_norms else (proj, None)
+    return start_exchange(coords, sq, axis_name, kind="all_gather",
+                          widened=return_norms)
+
+
+def independent_bases_coords(transform, local_grads, state, axis_name, *,
+                             layout=None, prepacked: bool = True,
+                             prng="threefry", return_norms: bool = False):
+    """The packed independent-bases exchange (Algorithm 1 on the packed
+    representation): the gathered (K, d_packed) coordinates, or the pair
+    ``(coords, sq)`` of gathered buffers when ``return_norms``."""
+    coords, sq = finish_exchange(independent_bases_start_exchange(
+        transform, local_grads, state, axis_name, layout=layout,
+        prepacked=prepacked, prng=prng, return_norms=return_norms))
+    return (coords, sq) if return_norms else coords
+
+
+def independent_bases_update(transform, local_grads, state, axis_name):
+    """Per-leaf Algorithm 1 (full-space fallback): not ported yet."""
+    raise NotImplementedError(
+        "the per-leaf independent_bases_update is not ported yet "
+        "(ROADMAP.md Queue A 16); the packed path uses "
+        "independent_bases_coords and reconstruct_apply_packed_workers")
+
+
+def grad_comm_bytes(plan, n_params: int, k_workers: int, mode: str, *,
+                    packed: bool = False, widened: bool = False) -> dict:
+    """Per-step gradient communication, counted as the reference counts
+    it: a ring all-reduce of D floats (sgd) or of the d coordinates
+    (shared_basis), an all-gather of K coordinate vectors
+    (independent_bases).  ``packed`` counts the (d_packed,) buffer,
+    ``widened`` doubles it (coords+norms)."""
+    d = plan.packed().d_packed if packed else plan.total_dim
+    if widened:
+        d *= 2
+    if mode == "sgd":
+        payload = 4 * n_params * 2 * (k_workers - 1) / k_workers
+    elif mode == "shared_basis":
+        payload = 4 * d * 2 * (k_workers - 1) / k_workers
+    elif mode == "independent_bases":
+        payload = 4 * d * (k_workers - 1)
+    else:
+        raise ValueError(mode)
+    return {"mode": mode, "bytes_per_step": payload, "dim": d,
+            "D": n_params, "packed": packed}

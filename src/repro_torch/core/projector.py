@@ -10,8 +10,15 @@ optimizer step is two launches whatever the number of compartments:
 
 with normalization folded into the coordinate scale: ``rsqrt_dim``
 (phi / sqrt(Q)), ``exact`` (phi / ||phi||, norms from launch 1) or
-``none``.  The per-leaf paths (``project``/``reconstruct`` and the
-``orthonormal`` normalization) are not ported yet (ROADMAP.md Queue A 16).
+``none``.  The K-worker joint subspace of ``independent_bases`` mode
+(paper Algorithm 1) applies every worker's basis in one launch too:
+
+  joint apply:   theta' = theta - sum_k (eta c_hat_k) P_k   (launch 2)
+
+with worker k's basis keyed by ``fold_seed(step_seed, k + 1)``
+(:func:`worker_base_seeds`).  The per-leaf paths
+(``project``/``reconstruct`` and the ``orthonormal`` normalization) are
+not ported yet (ROADMAP.md Queue A 16).
 
 Backends: ``"torch"`` runs the plain PyTorch versions on the tensors'
 device; ``"cuda"`` runs the kernel wrappers of
@@ -194,6 +201,77 @@ def reconstruct_apply_packed(coords_packed, plan: Plan, seed, params, eta,
     return unpack_tree(new, plan, layout, params)
 
 
+# Normalizations whose reconstruction scale is a static per-slot factor (no
+# per-basis row norms): the K-worker apply regenerates every other
+# worker's basis from the seed schedule alone.  'exact' also needs every
+# worker's row norms, which ride the one widened coords+norms all-gather
+# (``core.distributed``) and arrive here as ``row_sq``.
+STATIC_FACTOR_NORMALIZATIONS = ("rsqrt_dim", "none")
+
+
+def worker_base_seeds(seed, k_workers: int) -> torch.Tensor:
+    """(k_workers,) per-worker base seeds ``fold_seed(step_seed, k + 1)``
+    (int32 bits) -- the Algorithm 1 shared seed schedule, bit-identical
+    to ``distributed.worker_seed`` on worker k."""
+    return rng.fold_seed(seed, torch.arange(1, k_workers + 1,
+                                            dtype=torch.int32))
+
+
+def worker_segment_seeds(plan: Plan, seed, k_workers: int) -> torch.Tensor:
+    """(k_workers * n_segments,) segment seeds, worker-major: worker k's
+    segments fold from its base seed through :func:`segment_seeds`."""
+    return torch.cat([segment_seeds(plan, s)
+                      for s in worker_base_seeds(seed, k_workers)])
+
+
+def reconstruct_apply_packed_workers(coords_gathered, plan: Plan, seed,
+                                     params, eta, *, backend: str = "torch",
+                                     row_sq=None, layout=None,
+                                     prepacked: bool = False,
+                                     prng="threefry", out=None):
+    """K-worker joint fused update (packed ``independent_bases`` mode):
+
+        theta' = theta - eta * sum_k (c_hat_k @ P_k)
+
+    in ONE kernel launch, regenerating every worker's basis from the
+    shared seed schedule.  ``coords_gathered`` is the (k_workers,
+    d_packed) all-gathered normalized coordinate buffer; ``eta`` should
+    fold the 1/K mean.  The static-factor normalizations need nothing
+    beyond the seeds; 'exact' folds each worker's ``rsqrt(max(sq,
+    1e-30))`` into its row of the scale table, from ``row_sq``, the
+    (k_workers, d_packed) norms gathered with the coordinates.
+    ``prepacked``/``out`` as in :func:`reconstruct_apply_packed`."""
+    if plan.normalization not in STATIC_FACTOR_NORMALIZATIONS \
+            and plan.normalization != "exact":
+        raise ValueError(
+            f"normalization {plan.normalization!r} is not supported by "
+            "the K-worker packed reconstruction (needs a factor-style "
+            "scale); use the per-leaf independent_bases path")
+    if plan.normalization == "exact" and row_sq is None:
+        raise ValueError(
+            "'exact' normalization needs every worker's row norms "
+            "(row_sq, the (k_workers, d_packed) buffer gathered by the "
+            "widened coords+norms collective); regenerating them here "
+            "would cost K extra generation passes")
+    rng.check_threefry(prng)
+    layout = layout if layout is not None else plan.packed()
+    k_workers = int(coords_gathered.shape[0])
+    wseeds = worker_segment_seeds(plan, seed, k_workers)
+    # (d_packed,) static factor, or (k_workers, d_packed) exact factors:
+    # either broadcasts against the gathered coordinates
+    factor = packed_norm_factor(plan, layout, row_sq,
+                                device=coords_gathered.device)
+    scale = ((coords_gathered.to(torch.float32) * factor)
+             * float(np.float32(eta)))
+    theta = (params.to(torch.float32) if prepacked
+             else pack_tree(params, plan, layout))
+    new = _get_backend(backend).reconstruct_apply_packed_workers(
+        wseeds, scale, theta, layout, plan.distribution, out=out)
+    if prepacked:
+        return new
+    return unpack_tree(new, plan, layout, params)
+
+
 # ---------------------------------------------------------------------------
 # backend dispatch (plain PyTorch vs the CUDA kernels)
 # ---------------------------------------------------------------------------
@@ -205,14 +283,17 @@ def _get_backend(name: str):
 
     if name == "torch":
         return _Backend(rbd_step.project_packed_plain,
-                        rbd_step.reconstruct_apply_packed_plain)
+                        rbd_step.reconstruct_apply_packed_plain,
+                        rbd_step.reconstruct_apply_packed_workers_plain)
     if name == "cuda":
         return _Backend(rbd_step.project_packed,
-                        rbd_step.reconstruct_apply_packed)
+                        rbd_step.reconstruct_apply_packed,
+                        rbd_step.reconstruct_apply_packed_workers)
     raise ValueError(f"unknown projector backend {name!r}")
 
 
 class _Backend:
-    def __init__(self, project, reconstruct_apply):
+    def __init__(self, project, reconstruct_apply, reconstruct_apply_workers):
         self.project_packed = project
         self.reconstruct_apply_packed = reconstruct_apply
+        self.reconstruct_apply_packed_workers = reconstruct_apply_workers

@@ -1,11 +1,16 @@
 // Packed RBD step kernels for Hopper (sm_90a): the two launches of one
-// optimizer step, plus a debug entry that writes one basis tile.
+// optimizer step, the K-worker apply of independent bases, plus a debug
+// entry that writes one basis tile.
 //
 //   rbd_project_packed        replaces repro/kernels/rbd_step.py:
 //                             project_packed -> _project_kernel
 //   rbd_reconstruct_apply_packed
 //                             replaces repro/kernels/rbd_step.py:
 //                             reconstruct_apply_packed -> _recon_apply_kernel
+//   rbd_reconstruct_apply_packed_workers
+//                             replaces repro/kernels/rbd_step.py:
+//                             reconstruct_apply_packed_workers ->
+//                             _recon_apply_kernel over the worker tables
 //   rbd_generate_tile         debug: bits and samples of one tile
 //
 // Bound on this card.  Both kernels regenerate every basis value they use:
@@ -16,7 +21,8 @@
 // gradient or of theta and one write of the output, 4 bytes per parameter
 // against (coordinates per segment) x 8 generated values per parameter, so
 // the kernels are bound by instruction issue, not by memory: at full
-// qwen2-0.5b width a launch generates about 4.5e10 values.
+// qwen2-0.5b width a launch generates about 4.5e10 values (K times that in
+// the K-worker apply, whose bytes stay those of one theta read and write).
 //
 // What the design does about it: every value is generated exactly once per
 // launch, in registers, and consumed at once (a fused multiply-add into the
@@ -171,15 +177,36 @@ project_kernel(const float* __restrict__ g, const uint32_t* __restrict__ seed,
   }
 }
 
+// theta value `th` at column c32 of a segment minus sum_db part_db, with
+// part_db = sum_{i<8} sc_{db*8+i} P_{db*8+i, c32} formed in row order and
+// subtracted dir-block by dir-block (dot first, then subtract -- the
+// reference's association).  Shared by kernels 2 and 3, so one worker's
+// arithmetic is the same instruction sequence in both.
+template <int DIST>
+__device__ __forceinline__ float apply_dir_blocks(float th, uint32_t sd,
+                                                  const float* sc, int n_db,
+                                                  uint32_t c32) {
+  for (int db = 0; db < n_db; ++db) {
+    const uint32_t row0 = static_cast<uint32_t>(db * kDirBlock);
+    float part = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kDirBlock; ++i) {
+      part = fmaf(__ldg(&sc[db * kDirBlock + i]),
+                  basis_sample<DIST>(sd, row0 + i, c32), part);
+    }
+    th = __fsub_rn(th, part);
+  }
+  return th;
+}
+
 // Kernel 2: theta' = theta - s P for every segment.  One CUDA block owns one
 // (segment, pos-block): each thread loads its theta values, loops over the
-// segment's dir-blocks in order, forms part_j = sum_{i<8} s_i P_ij in row
-// order and subtracts it (dot first, then subtract -- the reference's
-// association), and writes each value once.  Columns at or beyond the
-// segment's size are copied unchanged, so the zero padding of a resident
-// theta stays exactly zero.  `out` may alias `theta`: each block reads and
-// writes only its own pos-block, each element is read before it is written
-// by the same thread, so the in-place update is safe.
+// segment's dir-blocks in order (apply_dir_blocks) and writes each value
+// once.  Columns at or beyond the segment's size are copied unchanged, so
+// the zero padding of a resident theta stays exactly zero.  `out` may alias
+// `theta`: each block reads and writes only its own pos-block, each element
+// is read before it is written by the same thread, so the in-place update
+// is safe.
 template <int DIST>
 __global__ void __launch_bounds__(kThreads)
 reconstruct_apply_kernel(const float* scale, const float* theta, float* out,
@@ -204,16 +231,51 @@ reconstruct_apply_kernel(const float* scale, const float* theta, float* out,
        col += kThreads) {
     float th = theta[base + col];
     if (col < q) {
+      th = apply_dir_blocks<DIST>(th, sd, sc, n_db,
+                                  static_cast<uint32_t>(col));
+    }
+    out[base + col] = th;
+  }
+}
+
+// Kernel 3: theta' = theta - sum_k s_k P_k over K workers' bases (packed
+// independent_bases mode).  The grid is kernel 2's, one CUDA block per
+// (segment, pos-block); each thread reads its theta value once, loops
+// workers outer and dir-blocks inner -- worker k with its own segment seed
+// seed[k * n_seg + s] and its own scale row scale[k * d_packed + ...] --
+// and writes once.  That is the reference oracle's order (a scan over
+// workers outside the single-worker tile scan), so the (K*d)-dimensional
+// joint update never exists in memory and any K is one launch.  Padding
+// columns are copied through and `out` may alias `theta`, as in kernel 2.
+template <int DIST>
+__global__ void __launch_bounds__(kThreads)
+reconstruct_apply_workers_kernel(const float* scale, const float* theta,
+                                 float* out,
+                                 const uint32_t* __restrict__ seed,
+                                 const int64_t* __restrict__ size,
+                                 const int32_t* __restrict__ pdim,
+                                 const int64_t* __restrict__ param_off,
+                                 const int64_t* __restrict__ coord_off,
+                                 const int64_t* __restrict__ blocks,
+                                 int n_seg, int pos_block, int k_workers,
+                                 int64_t d_packed) {
+  const int64_t bid = blockIdx.x;
+  const int s = find_segment(blocks, n_seg, bid);
+  const int64_t pj = bid - blocks[s];
+  const int64_t q = size[s];
+  const int n_db = pdim[s] / kDirBlock;
+  const float* sc = scale + coord_off[s];
+  const int64_t base = param_off[s];
+
+  const int64_t c0 = pj * pos_block;
+  for (int64_t col = c0 + threadIdx.x; col < c0 + pos_block;
+       col += kThreads) {
+    float th = theta[base + col];
+    if (col < q) {
       const uint32_t c32 = static_cast<uint32_t>(col);
-      for (int db = 0; db < n_db; ++db) {
-        const uint32_t row0 = static_cast<uint32_t>(db * kDirBlock);
-        float part = 0.0f;
-#pragma unroll
-        for (int i = 0; i < kDirBlock; ++i) {
-          part = fmaf(__ldg(&sc[db * kDirBlock + i]),
-                      basis_sample<DIST>(sd, row0 + i, c32), part);
-        }
-        th = __fsub_rn(th, part);
+      for (int k = 0; k < k_workers; ++k) {
+        th = apply_dir_blocks<DIST>(th, seed[k * n_seg + s],
+                                    sc + k * d_packed, n_db, c32);
       }
     }
     out[base + col] = th;
@@ -286,6 +348,21 @@ int rbd_reconstruct_apply_packed(const float* scale, const float* theta,
   const dim3 grid(static_cast<unsigned>(n_blocks));
   RBD_DISPATCH(dist, reconstruct_apply_kernel, grid, scale, theta, out, seed,
                size, pdim, param_off, coord_off, blocks, n_seg, pos_block);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `scale` is (k_workers, d_packed) row-major, `seed` (k_workers, n_seg).
+int rbd_reconstruct_apply_packed_workers(
+    const float* scale, const float* theta, float* out, const uint32_t* seed,
+    const int64_t* size, const int32_t* pdim, const int64_t* param_off,
+    const int64_t* coord_off, const int64_t* blocks, int n_seg,
+    int64_t n_blocks, int pos_block, int k_workers, int64_t d_packed,
+    int dist, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>(n_blocks));
+  RBD_DISPATCH(dist, reconstruct_apply_workers_kernel, grid, scale, theta,
+               out, seed, size, pdim, param_off, coord_off, blocks, n_seg,
+               pos_block, k_workers, d_packed);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,4 +1,4 @@
-"""The packed RBD step's two kernels, each beside its plain PyTorch version.
+"""The packed RBD step's kernels, each beside its plain PyTorch version.
 
 * :func:`project_packed` -- one launch: raw projections ``u`` and squared
   row norms ``sq`` for every segment (replaces the reference's
@@ -6,6 +6,10 @@
 * :func:`reconstruct_apply_packed` -- one launch:
   ``theta' = theta - scale @ P`` for every segment (replaces
   ``reconstruct_apply_packed -> _recon_apply_kernel``).
+* :func:`reconstruct_apply_packed_workers` -- one launch for K workers'
+  bases: ``theta' = theta - sum_k scale_k @ P_k`` (replaces
+  ``reconstruct_apply_packed_workers``, the same ``_recon_apply_kernel``
+  over the worker-expanded tile tables).
 * :func:`generate_tile` -- debug entry: the bits and samples of one tile,
   to hold the device generator against :mod:`repro_torch.core.rng`.
 
@@ -27,7 +31,8 @@ import torch
 from repro_torch.core import rng
 from repro_torch.core.compartments import PackedLayout, segment_tables
 
-KERNELS = ("project_packed", "reconstruct_apply_packed", "generate_tile")
+KERNELS = ("project_packed", "reconstruct_apply_packed",
+           "reconstruct_apply_packed_workers", "generate_tile")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 CALLS = dict.fromkeys(KERNELS, 0)
 SOURCE = "rbd_step.cu"
@@ -38,9 +43,11 @@ _DIST_CODE = {"normal": 0, "uniform": 1, "bernoulli": 2, "rademacher": 2,
 # live basis elements per chunk of the plain versions (on the CPU a chunk
 # and its temporaries stay in the L2 cache)
 _PLAIN_BUDGET = {"cpu": 1 << 16, "cuda": 1 << 24}
-# the CPU projection's blocks kept for the apply of the same step
+# the CPU projection's blocks kept for the apply of the same step, oldest
+# dropped first
 _PLAIN_KEEP_BYTES = 256 << 20
 _KEPT: dict = {}
+_KEPT_BYTES = [0]
 _TIMING = {"on": False, "events": {k: [] for k in KERNELS}}
 
 
@@ -76,6 +83,9 @@ _SIGNATURES = {
                            _P, _P, _P, _P, _P],
     "rbd_reconstruct_apply_packed": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                      _I64, _I, _I, _P],
+    "rbd_reconstruct_apply_packed_workers": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                             _P, _I, _I64, _I, _I, _I64, _I,
+                                             _P],
     "rbd_generate_tile": [_U32, _U32, _U32, _I, _I, _I, _P, _P, _P, _P],
 }
 
@@ -138,11 +148,11 @@ def _device_tables(layout: PackedLayout, device: torch.device):
     return dev
 
 
-def _seeds_on(seg_seeds: torch.Tensor, layout: PackedLayout, device):
+def _seeds_on(seg_seeds: torch.Tensor, n: int, device):
     seeds = rng.as_u32(seg_seeds).to(device).contiguous()
-    if tuple(seeds.shape) != (layout.n_segments,):
-        raise ValueError(f"seg_seeds must have shape ({layout.n_segments},),"
-                         f" got {tuple(seeds.shape)}")
+    if tuple(seeds.shape) != (n,):
+        raise ValueError(f"segment seeds must have shape ({n},), got "
+                         f"{tuple(seeds.shape)}")
     return seeds
 
 
@@ -164,7 +174,7 @@ def project_packed(seg_seeds, g_packed: torch.Tensor, layout: PackedLayout,
     _check_layout(layout, distribution)
     dev = g_packed.device
     t = _device_tables(layout, dev)
-    seeds = _seeds_on(seg_seeds, layout, dev)
+    seeds = _seeds_on(seg_seeds, layout.n_segments, dev)
     n_blocks = t["n_proj_blocks"]
     partial = torch.empty((n_blocks * 16,), dtype=torch.float32, device=dev)
     arrived = torch.zeros((layout.d_packed // 8,), dtype=torch.int32,
@@ -186,17 +196,15 @@ def _plain_blocks(seg_seeds, layout: PackedLayout, distribution: str,
     """Yield ``(segment, first column, block)`` over every segment's
     (padded dim, columns) basis blocks, in segment and column order.
 
-    On the CPU the projection (``keep=True``) keeps its blocks, up to
-    ``_PLAIN_KEEP_BYTES``, and the apply that follows with the same seeds
+    On the CPU a projection (``keep=True``) keeps its blocks, the oldest
+    dropped past ``_PLAIN_KEEP_BYTES``, and an apply with the same seeds
     takes them instead of generating them again: a training step then
-    generates each block once.  Blocks are a pure function of their key,
-    so this changes no result."""
+    generates each block once (each worker's, in the K-worker step).
+    Blocks are a pure function of their key, so this changes no
+    result."""
     budget = _PLAIN_BUDGET["cuda" if device.type == "cuda" else "cpu"]
     seeds = rng.as_u32(seg_seeds).cpu().tolist()
     keeping = keep and device.type == "cpu"
-    if keeping:
-        _KEPT.clear()
-    kept_bytes = 0
     for s in range(layout.n_segments):
         q = int(layout.seg_size[s])
         pdim = int(layout.seg_pdim[s])
@@ -208,10 +216,21 @@ def _plain_blocks(seg_seeds, layout: PackedLayout, distribution: str,
             if blk is None:
                 blk = rng.generate_block(seeds[s], 0, c0, (pdim, nc),
                                          distribution, device=device)
-            if keeping and kept_bytes + 4 * blk.numel() <= _PLAIN_KEEP_BYTES:
-                _KEPT[key] = blk
-                kept_bytes += 4 * blk.numel()
+            else:
+                _KEPT_BYTES[0] -= 4 * blk.numel()
+            if keeping:
+                _keep(key, blk)
             yield s, c0, blk
+
+
+def _keep(key, blk: torch.Tensor) -> None:
+    if _KEPT.pop(key, None) is not None:
+        _KEPT_BYTES[0] -= 4 * blk.numel()
+    _KEPT[key] = blk
+    _KEPT_BYTES[0] += 4 * blk.numel()
+    while _KEPT_BYTES[0] > _PLAIN_KEEP_BYTES:
+        old = _KEPT.pop(next(iter(_KEPT)))
+        _KEPT_BYTES[0] -= 4 * old.numel()
 
 
 def project_packed_plain(seg_seeds, g_packed: torch.Tensor,
@@ -260,7 +279,7 @@ def reconstruct_apply_packed(seg_seeds, scale_packed: torch.Tensor,
         out = torch.empty_like(theta_packed)
     _check(out, "out", (layout.q_packed,))
     t = _device_tables(layout, dev)
-    seeds = _seeds_on(seg_seeds, layout, dev)
+    seeds = _seeds_on(seg_seeds, layout.n_segments, dev)
     _launch("reconstruct_apply_packed",
             library().lib.rbd_reconstruct_apply_packed,
             scale_packed.data_ptr(), theta_packed.data_ptr(), out.data_ptr(),
@@ -297,6 +316,71 @@ def reconstruct_apply_packed_plain(seg_seeds, scale_packed: torch.Tensor,
         th = out[poff: poff + nc]
         for b in range(pdim // db):
             th -= parts[b]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# kernel 3: K-worker fused reconstruct-apply
+# ---------------------------------------------------------------------------
+
+
+def reconstruct_apply_packed_workers(wseg_seeds, scale_gathered: torch.Tensor,
+                                     theta_packed: torch.Tensor,
+                                     layout: PackedLayout,
+                                     distribution: str = "normal", *,
+                                     out=None):
+    """``theta - sum_k scale_k @ P_k`` for ALL segments of ALL K workers'
+    bases, fused in one launch; returns ``out``.
+
+    ``wseg_seeds``: (K * n_segments,) worker-major segment seeds (int32
+    bits).  ``scale_gathered``: (K, d_packed) float32, row k worker k's
+    scale (learning rate, the 1/K mean and normalization folded in, zero
+    on padding slots).  Per parameter the workers' parts are subtracted
+    worker-major, dir-blocks innermost -- the reference oracle's order.
+    ``out`` as in :func:`reconstruct_apply_packed`."""
+    CALLS["reconstruct_apply_packed_workers"] += 1
+    if theta_packed.device.type == "cpu":
+        return reconstruct_apply_packed_workers_plain(
+            wseg_seeds, scale_gathered, theta_packed, layout, distribution,
+            out=out)
+    k_workers = int(scale_gathered.shape[0])
+    _check(theta_packed, "theta_packed", (layout.q_packed,))
+    _check(scale_gathered, "scale_gathered", (k_workers, layout.d_packed))
+    _check_layout(layout, distribution)
+    dev = theta_packed.device
+    if out is None:
+        out = torch.empty_like(theta_packed)
+    _check(out, "out", (layout.q_packed,))
+    t = _device_tables(layout, dev)
+    seeds = _seeds_on(wseg_seeds, k_workers * layout.n_segments, dev)
+    _launch("reconstruct_apply_packed_workers",
+            library().lib.rbd_reconstruct_apply_packed_workers,
+            scale_gathered.data_ptr(), theta_packed.data_ptr(),
+            out.data_ptr(), seeds.data_ptr(), t["size"].data_ptr(),
+            t["pdim"].data_ptr(), t["param_off"].data_ptr(),
+            t["coord_off"].data_ptr(), t["recon_blocks"].data_ptr(),
+            layout.n_segments, t["n_recon_blocks"], layout.pos_block,
+            k_workers, layout.d_packed, _DIST_CODE[distribution])
+    return out
+
+
+def reconstruct_apply_packed_workers_plain(wseg_seeds,
+                                           scale_gathered: torch.Tensor,
+                                           theta_packed: torch.Tensor,
+                                           layout: PackedLayout,
+                                           distribution: str = "normal", *,
+                                           out=None):
+    """Plain PyTorch version of :func:`reconstruct_apply_packed_workers`:
+    the single-worker plain apply once per worker, in worker order, on
+    one buffer -- per parameter the kernel's worker-major order."""
+    k_workers = int(scale_gathered.shape[0])
+    seeds = rng.as_u32(wseg_seeds).reshape(k_workers, layout.n_segments)
+    out = reconstruct_apply_packed_plain(seeds[0], scale_gathered[0],
+                                         theta_packed, layout, distribution,
+                                         out=out)
+    for k in range(1, k_workers):
+        reconstruct_apply_packed_plain(seeds[k], scale_gathered[k], out,
+                                       layout, distribution, out=out)
     return out
 
 

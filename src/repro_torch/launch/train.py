@@ -4,13 +4,23 @@
         --mode sharedseed --data 1 --rbd-backend cuda --rbd-dim 1024 \\
         --batch 8 --seq 128 --steps 3
 
-Flag names are the reference's for what this slice runs: one device
-(``--mode sharedseed --data 1``), the shared basis, and the packed
-two-launch step (``--rbd-backend cuda``, where the reference says
-``pallas``).  With one device there is no coordinate exchange, so the
-step runs with ``axis_name=None``.  The data-parallel exchange
-(``--data N > 1``), ``--mode pjit`` and ``--mode sgd`` raise, naming
-their ROADMAP item.  Runs on the GPU unless ``--device cpu``.
+    # K = 2 workers on the CPU (gloo), the paper's independent bases:
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --arch qwen2-0.5b --reduced --device cpu --data 2 \\
+        --rbd-mode independent_bases --rbd-backend cuda --rbd-dim 128 \\
+        --batch 4 --seq 16 --steps 3
+
+Flag names are the reference's for what the port runs: ``--mode
+sharedseed`` (the paper's Algorithm 1) over ``--data K`` ranks, each
+taking its shard of the global batch, with one coordinate collective per
+optimizer step -- an all-reduce mean (``--rbd-mode shared_basis``) or an
+all-gather into the K*d joint subspace (``--rbd-mode
+independent_bases``) -- and the packed two-launch step (``--rbd-backend
+cuda``, where the reference says ``pallas``).  ``--data`` must equal the
+world size ``torchrun`` gives; ``--data 1`` runs a one-rank group
+without ``torchrun``.  ``--mode pjit`` and ``--mode sgd`` raise, naming
+their ROADMAP item.  Runs on the GPU (NCCL) unless ``--device cpu``
+(gloo).
 """
 
 from __future__ import annotations
@@ -22,11 +32,12 @@ from typing import Any, NamedTuple
 
 class RunResult(NamedTuple):
     state: Any                 # final TrainState
-    losses: list[float]        # per-step loss
+    losses: list[float]        # per-step loss (mean over the ranks)
     theta_init_sum: float      # float64 sum of the initial packed buffer
     sub_opt: Any               # the SubspaceOptimizer
     peak_bytes: int            # torch.cuda.max_memory_allocated (0 on CPU)
     kernel_ms: dict            # per-launch ms by kernel (--kernel-times)
+    collectives: dict          # collectives issued during the steps, by kind
 
 
 def main(argv=None) -> RunResult:
@@ -34,11 +45,20 @@ def main(argv=None) -> RunResult:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--mode", default="sharedseed",
                     choices=["pjit", "sharedseed", "sgd"])
+    ap.add_argument("--rbd-mode", default="shared_basis",
+                    choices=["shared_basis", "independent_bases"])
     ap.add_argument("--data", type=int, default=1,
-                    help="data-parallel workers (only 1 is ported)")
+                    help="data-parallel ranks (the paper's K workers under "
+                         "--mode sharedseed); must equal the world size")
     ap.add_argument("--steps", type=int, default=10)
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=8,
+                    help="global batch, split over the --data ranks")
     ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--grad-accum-steps", type=int, default=1,
+                    help="microbatches per optimizer step; gradients "
+                         "accumulate on the packed (q_packed,) buffer and "
+                         "the step performs ONE coordinate exchange per "
+                         "optimizer step instead of N")
     ap.add_argument("--lr", type=float, default=0.125)
     ap.add_argument("--optimizer", default="sgd",
                     choices=["sgd", "momentum", "adam"],
@@ -70,69 +90,114 @@ def main(argv=None) -> RunResult:
     if args.reduced:
         cfg = cfg.reduced(compute_dtype="float32")
     return run_training(
-        cfg, mode=args.mode, data=args.data, steps=args.steps,
-        batch=args.batch, seq=args.seq, lr=args.lr, rbd_dim=args.rbd_dim,
-        normalization=args.normalization, rbd_backend=args.rbd_backend,
-        packed=args.packed, optimizer=args.optimizer, device=args.device,
+        cfg, mode=args.mode, rbd_mode=args.rbd_mode, data=args.data,
+        steps=args.steps, batch=args.batch, seq=args.seq,
+        grad_accum_steps=args.grad_accum_steps, lr=args.lr,
+        rbd_dim=args.rbd_dim, normalization=args.normalization,
+        rbd_backend=args.rbd_backend, packed=args.packed,
+        optimizer=args.optimizer, device=args.device,
         kernel_times=args.kernel_times)
 
 
-def run_training(cfg, *, mode="sharedseed", data=1, steps=10, batch=8,
-                 seq=128, lr=0.125, rbd_dim=1024, normalization="rsqrt_dim",
+def run_training(cfg, *, mode="sharedseed", rbd_mode="shared_basis", data=1,
+                 steps=10, batch=8, seq=128, grad_accum_steps=1, lr=0.125,
+                 rbd_dim=1024, normalization="rsqrt_dim",
                  rbd_backend="torch", packed="auto", optimizer="sgd",
                  device="cuda", kernel_times=False) -> RunResult:
-    import torch
-
-    from repro_torch.configs.base import RBDConfig, TrainConfig
-    from repro_torch.data import synthetic
-    from repro_torch.kernels import rbd_step
-    from repro_torch.models.registry import get_model, resolve_device
-    from repro_torch.train import step as steplib
+    from repro_torch.launch import mesh
+    from repro_torch.models.registry import resolve_device
 
     if mode != "sharedseed":
         raise NotImplementedError(
             f"--mode {mode} is not ported yet (ROADMAP.md Queue A "
             f"{'14' if mode == 'pjit' else '16'}); use --mode sharedseed")
-    if data != 1:
-        raise NotImplementedError(
-            "--data > 1 needs the coordinate exchange over "
-            "torch.distributed, not ported yet (ROADMAP.md Queue A 11)")
-    device = resolve_device(device)
+    device, created = mesh.init_data_group(data, resolve_device(device))
+    try:
+        return _run(cfg, rbd_mode=rbd_mode, data=data, steps=steps,
+                    batch=batch, seq=seq, grad_accum_steps=grad_accum_steps,
+                    lr=lr, rbd_dim=rbd_dim, normalization=normalization,
+                    rbd_backend=rbd_backend, packed=packed,
+                    optimizer=optimizer, device=device,
+                    kernel_times=kernel_times)
+    finally:
+        if created:
+            mesh.destroy_data_group()
+
+
+def _run(cfg, *, rbd_mode, data, steps, batch, seq, grad_accum_steps, lr,
+         rbd_dim, normalization, rbd_backend, packed, optimizer, device,
+         kernel_times) -> RunResult:
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import RBDConfig, TrainConfig
+    from repro_torch.core import distributed
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import rbd_step
+    from repro_torch.launch import mesh
+    from repro_torch.models.registry import get_model
+    from repro_torch.train import step as steplib
+
+    rank = dist.get_rank()
     model = get_model(cfg)
-    rbd_cfg = RBDConfig(total_dim=rbd_dim, normalization=normalization,
-                        backend=rbd_backend, packed=packed)
+    rbd_cfg = RBDConfig(total_dim=rbd_dim, mode=rbd_mode,
+                        normalization=normalization, backend=rbd_backend,
+                        packed=packed)
     tcfg = TrainConfig(model=cfg, rbd=rbd_cfg, learning_rate=lr,
                        steps=steps, batch_size=batch, seq_len=seq,
+                       grad_accum_steps=grad_accum_steps,
                        optimizer=optimizer)
     transform = steplib.make_transform(model, rbd_cfg)
+    # the sharedseed step always exchanges over the data axis (as the
+    # reference's shard_map does, also on one device); independent_bases
+    # needs the static worker count of its joint subspace
     init_state, train_step, sub_opt = steplib.make_train_step(
-        model, tcfg, transform, axis_name=None, device=device,
-        return_optimizer=True)
+        model, tcfg, transform, axis_name="data", k_workers=data,
+        device=device, return_optimizer=True)
     eplan = sub_opt.plan_execution()
-    print(f"update path: {eplan.strategy} -- {eplan.reason}", flush=True)
-    print(f"basis: {eplan.basis} -- {eplan.basis_reason}", flush=True)
-    print(f"prng impl: {eplan.prng_impl} -- {eplan.prng_reason}",
-          flush=True)
-    print(f"exchange schedule: {eplan.overlap_exchange} -- "
-          f"{eplan.overlap_reason}", flush=True)
+    n_accum = max(1, int(grad_accum_steps))
+
+    def say(msg):
+        if rank == 0:
+            print(msg, flush=True)
+
+    say(f"update path: {eplan.strategy} -- {eplan.reason}")
+    say(f"basis: {eplan.basis} -- {eplan.basis_reason}")
+    say(f"prng impl: {eplan.prng_impl} -- {eplan.prng_reason}")
+    say(f"exchange schedule: {eplan.overlap_exchange} -- "
+        f"{eplan.overlap_reason}")
+    if n_accum > 1:
+        say(f"grad accumulation: {n_accum} microbatches/optimizer step, 1 "
+            f"exchange per optimizer step (not {n_accum})")
 
     cuda = device.type == "cuda"
     state = init_state(tcfg.seed)
     theta_init_sum = float(state.params.double().sum())
     stream = synthetic.lm_batches(tcfg.seed, batch, seq, cfg.vocab,
                                   device=device)
+
+    def fetch():
+        if n_accum == 1:
+            return mesh.shard_batch(next(stream), rank, data)
+        return mesh.shard_batch(steplib.stack_microbatches(
+            [next(stream) for _ in range(n_accum)]), rank, data, axis=1)
+
     if cuda:
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
     if kernel_times:
         rbd_step.set_timing(True)
+    distributed.reset_counts()
     losses = []
     t0 = time.time()
     for i in range(steps):
-        state, metrics = train_step(state, next(stream))
+        state, metrics = train_step(state, fetch())
         losses.append(float(metrics["loss"]))
-        print(f"step {i} loss={losses[-1]:.4f} "
-              f"wall={time.time() - t0:.1f}s", flush=True)
+        say(f"step {i} loss={losses[-1]:.4f} "
+            f"wall={time.time() - t0:.1f}s")
+    collectives = dict(distributed.COLLECTIVES)
+    say(f"collectives: {collectives} over {steps} steps (the coordinate "
+        "exchange, plus the scalar loss mean)")
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     kernel_ms = {}
     if kernel_times:
@@ -141,11 +206,11 @@ def run_training(cfg, *, mode="sharedseed", data=1, steps=10, batch=8,
         for name, times in kernel_ms.items():
             if times:
                 med = sorted(times)[len(times) // 2]
-                print(f"kernel {name}: launches={len(times)} "
-                      f"median_ms={med:.3f}", flush=True)
-        print(f"peak device memory: {peak / 2**30:.2f} GiB", flush=True)
+                say(f"kernel {name}: launches={len(times)} "
+                    f"median_ms={med:.3f}")
+        say(f"peak device memory: {peak / 2**30:.2f} GiB")
     return RunResult(state, losses, theta_init_sum, sub_opt, peak,
-                     kernel_ms)
+                     kernel_ms, collectives)
 
 
 if __name__ == "__main__":

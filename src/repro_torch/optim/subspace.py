@@ -2,9 +2,9 @@
 
 :class:`SubspaceOptimizer` owns the whole update chain of one step
 
-    packed gradient -> project (launch 1) -> coordinate-space optimizer
-    (sgd | momentum | adam on the (d_packed,) buffer) -> reconstruct-apply
-    (launch 2)
+    packed gradient -> project (launch 1) -> [one coordinate collective]
+    -> coordinate-space optimizer (sgd | momentum | adam) -> reconstruct-
+    apply (launch 2)
 
 on the ``fused_packed`` strategy: the parameters stay packed in one
 ``(q_packed,)`` float32 buffer across steps, and the step is two kernel
@@ -12,9 +12,18 @@ launches whatever the number of compartments.  :func:`plan_from_flags`
 is the reference's decision function, strategy names and reason strings
 unchanged.
 
-This slice runs ``fused_packed`` on one device (``axis_name=None``,
-shared basis).  The data-parallel exchange (ROADMAP.md Queue A 11),
-independent bases (12), resilience hooks (13), model-sharded slabs (14),
+Distributed modes (``core.distributed``, paper Algorithm 1): with
+``axis_name`` set, ``shared_basis`` averages the (d_packed,) coordinates
+with one all-reduce, and ``independent_bases`` all-gathers them into the
+(K, d_packed) joint buffer, keeps the optimizer state on that buffer and
+applies all K workers' bases in one launch with ``eta = lr / K``.  With
+``axis_name=None`` and ``k_workers > 1``, ``independent_bases`` runs the
+sequential K-worker simulation on stacked (K, q_packed) gradients.  The
+collective is issued at sketch time (``issue_early``) or at finish time
+(``sync``, ``overlap="off"``); both send the same payload through the
+same collective, so they are bit-identical.
+
+Resilience hooks (ROADMAP.md Queue A 13), model-sharded slabs (14),
 materialized bases and second-order optimizers (15) and the per-leaf
 strategies (16) raise ``NotImplementedError`` naming their item.
 """
@@ -27,7 +36,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import BASIS_SPECS, KERNEL_BACKEND
-from repro_torch.core import projector, rng
+from repro_torch.core import distributed, projector, rng
 from repro_torch.core.compartments import PACKABLE_NORMALIZATIONS
 from repro_torch.core.rbd import RandomBasesTransform, RBDState
 from repro_torch.optim import transforms as opt
@@ -344,11 +353,16 @@ class _Aux(NamedTuple):
 
 class StepTicket(NamedTuple):
     """State of a split packed step between :meth:`SubspaceOptimizer.
-    step_sketch` and :meth:`SubspaceOptimizer.step_finish`: the local
-    projection outputs (with one device there is no exchange in flight)."""
+    step_sketch` and :meth:`SubspaceOptimizer.step_finish`.  Under the
+    ``issue_early`` schedule (and with no collective at all) ``pending``
+    holds the :class:`~repro_torch.core.distributed.PendingExchange`;
+    under the ``sync`` schedule ``pending`` is None and the local
+    projection outputs ride on ``coords``/``sq`` until finish issues the
+    collective."""
 
-    coords: Any = None    # (d_packed,) normalized coordinates
-    sq: Any = None        # (d_packed,) squared row norms
+    pending: Any = None   # PendingExchange, or None on the sync schedule
+    coords: Any = None    # local (d_packed,) coordinates (sync schedule)
+    sq: Any = None        # local squared row norms (sync schedule)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -435,6 +449,14 @@ class SubspaceOptimizer:
             basis=(t.basis if t else "random"),
         )
 
+    @property
+    def joint_subspace(self) -> bool:
+        """True when the K-worker joint subspace (independent_bases) is
+        active -- over a process group (axis_name set) or in the
+        sequential K-worker simulation (k_workers > 1, axis_name None)."""
+        return self.mode == "independent_bases" and (
+            self.axis_name is not None or self.k_workers > 1)
+
     def check_supported(self) -> ExecutionPlan:
         """The execution plan, or ``NotImplementedError`` naming the
         ROADMAP item of a route this slice does not run."""
@@ -443,15 +465,6 @@ class SubspaceOptimizer:
             raise NotImplementedError(
                 f"strategy {eplan.strategy!r} is not ported yet "
                 f"({_NOT_PORTED[eplan.strategy]}): {eplan.reason}")
-        if self.mode == "independent_bases":
-            raise NotImplementedError(
-                "independent_bases is not ported yet (ROADMAP.md Queue A "
-                "12)")
-        if self.axis_name is not None:
-            raise NotImplementedError(
-                "the data-parallel coordinate exchange is not ported yet "
-                "(ROADMAP.md Queue A 11); run with axis_name=None (one "
-                "device)")
         if self.model_axis is not None:
             raise NotImplementedError(
                 "model-sharded slabs are not ported yet (ROADMAP.md Queue "
@@ -483,9 +496,15 @@ class SubspaceOptimizer:
         self.check_supported()
         if device is None:
             device = _device_of(params)
+        return self._optimizer().init(self._coord_template(device))
+
+    def _coord_template(self, device) -> torch.Tensor:
+        """Zeros shaped like the post-exchange coordinate buffer: the
+        joint subspace is K*d-dimensional, so its state lives on the
+        gathered (K, d_packed) buffer."""
         d = self.transform.plan.packed().d_packed
-        return self._optimizer().init(
-            torch.zeros((d,), dtype=torch.float32, device=device))
+        shape = (self.k_workers, d) if self.joint_subspace else (d,)
+        return torch.zeros(shape, dtype=torch.float32, device=device)
 
     # -- stored-representation boundary -------------------------------------
 
@@ -509,40 +528,127 @@ class SubspaceOptimizer:
 
     def step(self, params, grads, rbd_state, opt_state):
         """One optimizer step on the stored (packed) representation.
-        Returns ``(new_params, new_rbd_state, new_opt_state, aux)``."""
+        Returns ``(new_params, new_rbd_state, new_opt_state, aux)``.  In
+        the K-worker simulation ``grads`` is the stacked (K, q_packed)
+        buffer of the workers' gradients."""
         ticket = self.step_sketch(params, grads, rbd_state, opt_state)
         return self.step_finish(params, ticket, rbd_state, opt_state)
 
     def step_sketch(self, params, grads, rbd_state, opt_state
                     ) -> StepTicket:
-        """Launch 1: project the packed gradient."""
+        """First half of the split step: project the gradient (launch 1;
+        one launch per worker in the K-worker simulation) and -- under
+        the ``issue_early`` schedule -- issue the one coordinate
+        collective at once.  ``step() == step_finish(step_sketch())``."""
         eplan = self.check_supported()
         t = self.transform
         plan = t.plan
+        layout = plan.packed()
+        prng = eplan.prng_impl
+        exact = plan.normalization == "exact"
+        seed = t.step_seed(rbd_state.step)
+        if self.joint_subspace:
+            if self.axis_name is None:
+                # sequential K-worker simulation: the "gather" is local
+                if grads.shape[0] != self.k_workers:
+                    raise ValueError(
+                        f"the K-worker simulation takes stacked "
+                        f"({self.k_workers}, q_packed) gradients, got "
+                        f"{tuple(grads.shape)}")
+                wseeds = projector.worker_base_seeds(seed, self.k_workers)
+                outs = [projector.project_packed(
+                    grads[k], plan, wseeds[k], backend=t.backend,
+                    layout=layout, prepacked=True, prng=prng,
+                    return_norms=True) for k in range(self.k_workers)]
+                coords = torch.stack([c for c, _ in outs])
+                sq = torch.stack([q for _, q in outs]) if exact else None
+                return StepTicket(pending=distributed.PendingExchange(
+                    "local", coords, sq, layout.d_packed, exact))
+            if eplan.overlap_exchange == "issue_early":
+                return StepTicket(
+                    pending=distributed.independent_bases_start_exchange(
+                        t, grads, rbd_state, self.axis_name, layout=layout,
+                        prng=prng, return_norms=exact))
+            proj = projector.project_packed(
+                grads, plan,
+                distributed.worker_seed(t, rbd_state, self.axis_name),
+                backend=t.backend, layout=layout, prepacked=True,
+                prng=prng, return_norms=exact)
+            coords, sq = proj if exact else (proj, None)
+            return StepTicket(coords=coords, sq=sq)
         coords, sq = projector.project_packed(
-            grads, plan, t.step_seed(rbd_state.step), backend=t.backend,
-            layout=plan.packed(), return_norms=True, prepacked=True,
-            prng=eplan.prng_impl)
-        return StepTicket(coords=coords, sq=sq)
+            grads, plan, seed, backend=t.backend, layout=layout,
+            return_norms=True, prepacked=True, prng=prng)
+        if self.axis_name is not None and eplan.overlap_exchange == "sync":
+            return StepTicket(coords=coords, sq=sq)
+        return StepTicket(pending=distributed.start_exchange(
+            coords, sq, self.axis_name, kind="pmean", widened=exact))
 
     def step_finish(self, params, ticket: StepTicket, rbd_state, opt_state):
-        """Coordinate-space optimizer, then launch 2 (reconstruct-apply).
+        """Second half: wait for the collective (on the ``sync`` schedule
+        issue it first -- same payload, same collective), then the
+        coordinate-space optimizer and launch 2 (reconstruct-apply).
         Functional: returns a new parameter buffer unless
         ``log_update_norm`` is off, in which case ``params`` is updated
         in place (the update norm needs the old buffer)."""
         eplan = self.check_supported()
+        exact = self.transform.plan.normalization == "exact"
+        joint = self.joint_subspace
+        pending = ticket.pending
+        if pending is None:
+            pending = distributed.start_exchange(
+                ticket.coords, ticket.sq, self.axis_name,
+                kind="all_gather" if joint else "pmean", widened=exact)
+        coords, sq = distributed.finish_exchange(pending)
+        if joint and coords.shape[0] != self.k_workers:
+            raise ValueError(
+                f"k_workers={self.k_workers} does not match the "
+                f"'{self.axis_name}' group size {coords.shape[0]}")
+        return self._apply_exchanged(params, coords, sq, rbd_state,
+                                     opt_state, eplan)
+
+    # -- microbatch accumulation --------------------------------------------
+
+    def accumulate_grads(self, acc, grads):
+        """Fold one microbatch gradient into the running sum, in the
+        stored (packed) representation: one (q_packed,) add.  ``acc=None``
+        starts the sum."""
+        if acc is None:
+            return grads
+        return acc + grads
+
+    def finalize_accum(self, acc, n_micro: int):
+        """Mean gradient of ``n_micro`` accumulated microbatches.  The
+        projection is linear, so ONE exchange on this mean stands for the
+        mean of the per-microbatch exchanges: one collective per
+        optimizer step, not one per microbatch."""
+        if n_micro == 1:
+            return acc
+        return acc * (1.0 / float(n_micro))
+
+    def _apply_exchanged(self, params, coords, sq, rbd_state, opt_state,
+                         eplan):
+        """Post-exchange half: coordinate-space optimizer on the (d_packed,)
+        or gathered (K, d_packed) buffer, then reconstruct-apply -- the
+        joint route applies all K bases with ``eta = lr / K``."""
         t = self.transform
         plan = t.plan
         seed = t.step_seed(rbd_state.step)
         opt_state = self._switch_opt_state(opt_state, rbd_state.step)
-        coords_u, new_opt = self._optimizer().update(ticket.coords,
-                                                     opt_state)
+        coords_u, new_opt = self._optimizer().update(coords, opt_state)
         in_place = not (self.log_update_norm and self.learning_rate)
-        new_params = projector.reconstruct_apply_packed(
-            coords_u, plan, seed, params, self.learning_rate,
-            backend=t.backend, row_sq=ticket.sq, layout=plan.packed(),
-            prepacked=True, prng=eplan.prng_impl,
-            out=params if in_place else None)
+        out = params if in_place else None
+        if self.joint_subspace:
+            new_params = projector.reconstruct_apply_packed_workers(
+                coords_u, plan, seed, params,
+                self.learning_rate / self.k_workers, backend=t.backend,
+                row_sq=sq, layout=plan.packed(), prepacked=True,
+                prng=eplan.prng_impl, out=out)
+        else:
+            new_params = projector.reconstruct_apply_packed(
+                coords_u, plan, seed, params, self.learning_rate,
+                backend=t.backend, row_sq=sq, layout=plan.packed(),
+                prepacked=True, prng=eplan.prng_impl, out=out)
         return (new_params, RBDState(step=rbd_state.step + 1), new_opt,
                 self._delta_aux(params, new_params, in_place))
 

@@ -8,6 +8,11 @@ two-launch step ``TrainState.params`` holds the packed (q_packed,) float32
 buffer across steps: the forward pass reads views of it, so autograd
 delivers the gradient as a packed buffer (zero on the padding), and the
 update is two kernel launches.
+
+With ``axis_name`` set the step runs on one rank of a data-parallel
+process group (``repro_torch.launch.mesh``) and the optimizer performs
+the paper's shared-seed coordinate exchange: one collective per
+optimizer step, whatever ``grad_accum_steps`` is.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import RBDConfig, TrainConfig
-from repro_torch.core import compartments, rbd as rbd_lib
+from repro_torch.core import compartments, distributed, rbd as rbd_lib
 from repro_torch.models.registry import Model, resolve_device
 from repro_torch.optim import subspace
 
@@ -84,6 +89,13 @@ def make_loss_fn(model: Model, aux_coef: float = 0.01):
     return loss_fn
 
 
+def stack_microbatches(batches):
+    """Stack per-microbatch dicts into the one batch ``train_step`` takes
+    when ``grad_accum_steps == len(batches)``: every tensor gains a
+    leading (N,) microbatch axis."""
+    return {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+
+
 def make_train_step(model: Model, tcfg: TrainConfig,
                     transform: Optional[rbd_lib.RandomBasesTransform] = None,
                     axis_name: Optional[str] = None, *,
@@ -95,12 +107,21 @@ def make_train_step(model: Model, tcfg: TrainConfig,
     ``init_state(seed=tcfg.seed, params=None)`` packs ``params`` (a
     parameter map, e.g. from ``registry.params_from_reference``) or a
     fresh random init.  ``train_step(state, batch)`` runs one optimizer
-    step and returns ``(new_state, metrics)``."""
+    step and returns ``(new_state, metrics)``.
+
+    ``axis_name``: the data-parallel group of this rank (``"data"``: the
+    default process group); the batch is this rank's shard, the loss is
+    averaged over the group (a scalar all-reduce on the metrics path)
+    and the coordinates are exchanged as ``tcfg.rbd.mode`` says.
+    ``k_workers``: the group size, the joint subspace's worker count in
+    ``independent_bases`` mode.  With ``tcfg.grad_accum_steps == N > 1``
+    every batch tensor carries a leading (N,) microbatch axis
+    (:func:`stack_microbatches`): the gradients accumulate in the packed
+    buffer and the step runs once -- two launches, one collective."""
     device = resolve_device(device)
-    if int(tcfg.grad_accum_steps) != 1:
-        raise NotImplementedError(
-            "grad_accum_steps > 1 is not ported yet (ROADMAP.md Queue A "
-            "11)")
+    n_accum = int(tcfg.grad_accum_steps)
+    if n_accum < 1:
+        raise ValueError(f"grad_accum_steps must be >= 1, got {n_accum}")
     loss_fn = make_loss_fn(model, model.cfg.router_aux_coef)
     sub_opt = make_subspace_optimizer(model, tcfg, transform, axis_name,
                                       k_workers=k_workers)
@@ -118,17 +139,39 @@ def make_train_step(model: Model, tcfg: TrainConfig,
             step=0,
         )
 
-    def train_step(state: TrainState, batch):
-        stored = state.params.detach().requires_grad_(True)
+    def grad_of(params, batch):
+        stored = params.detach().requires_grad_(True)
         loss, metrics = loss_fn(sub_opt.materialize_params(stored), batch)
         (grads,) = torch.autograd.grad(loss, stored)
-        with torch.no_grad():
-            ticket = sub_opt.step_sketch(stored.detach(), grads,
-                                         state.rbd_state, state.opt_state)
-            params, rbd_state, opt_state, aux = sub_opt.step_finish(
-                stored.detach(), ticket, state.rbd_state, state.opt_state)
         metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics.update(loss=loss.detach(), update_norm=aux.update_norm)
+        return loss.detach(), metrics, grads
+
+    def train_step(state: TrainState, batch):
+        if n_accum == 1:
+            loss, metrics, grads = grad_of(state.params, batch)
+        else:
+            acc, losses, parts = None, [], []
+            for i in range(n_accum):
+                mloss, mmetrics, mgrads = grad_of(
+                    state.params, {k: v[i] for k, v in batch.items()})
+                acc = sub_opt.accumulate_grads(acc, mgrads)
+                losses.append(mloss)
+                parts.append(mmetrics)
+            grads = sub_opt.finalize_accum(acc, n_accum)
+            loss = sum(losses) / n_accum
+            metrics = {k: sum(m[k] for m in parts) / n_accum
+                       for k in parts[0]}
+        with torch.no_grad():
+            params = state.params.detach()
+            ticket = sub_opt.step_sketch(params, grads, state.rbd_state,
+                                         state.opt_state)
+            if axis_name is not None:
+                # overlap window: the coordinate collective is in flight
+                # under the issue_early schedule while the loss is averaged
+                loss = distributed.mean_scalar(loss, axis_name)
+            params, rbd_state, opt_state, aux = sub_opt.step_finish(
+                params, ticket, state.rbd_state, state.opt_state)
+        metrics.update(loss=loss, update_norm=aux.update_norm)
         return TrainState(params, rbd_state, opt_state,
                           state.step + 1), metrics
 

@@ -9,7 +9,9 @@ tests do not need):
 
 Tolerances as in chip_smoke.py: bits bit-exact; samples bit-exact except
 normal (1e-6); u relative to ||g_seg|| sqrt(sq/Q) and sq relative 2e-5
-(another float32 summation order); theta 1e-4 of the update plus 2 ulp.
+(another float32 summation order); theta 1e-4 of the update plus 2 ulp
+(also for the K-worker apply, whose K workers' parts are subtracted in
+the same order by the kernel and its plain version).
 """
 
 import math
@@ -104,6 +106,76 @@ def test_reconstruct_apply_kernel_matches_plain(cuda, dist):
     tol = (1e-4 * float((ref - theta).abs().max())
            + 2 * 2.0**-23 * float(theta.abs().max()))
     assert float((out - ref).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("dist", DISTS)
+def test_workers_kernel_matches_plain(cuda, dist, k):
+    plan, lay = _layout(dist)
+    wseeds = projector.worker_segment_seeds(plan, rng.fold_seed(6), k)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    valid = _valid(lay, cuda)
+    theta = torch.where(valid, torch.randn(lay.q_packed, generator=gen,
+                                           device=cuda), 0)
+    scale = torch.randn((k, lay.d_packed), generator=gen, device=cuda)
+    scale = scale * 1e-2 * torch.from_numpy(lay.coord_valid).to(cuda)
+    before = rbd_step.LAUNCHES["reconstruct_apply_packed_workers"]
+    out = rbd_step.reconstruct_apply_packed_workers(wseeds, scale, theta,
+                                                    lay, dist)
+    assert rbd_step.LAUNCHES["reconstruct_apply_packed_workers"] == before + 1
+    again = theta.clone()
+    rbd_step.reconstruct_apply_packed_workers(wseeds, scale, again, lay,
+                                              dist, out=again)
+    assert torch.equal(out, again)
+    assert bool((out[~valid] == 0).all())
+    ref = rbd_step.reconstruct_apply_packed_workers_plain(wseeds, scale,
+                                                          theta, lay, dist)
+    tol = (1e-4 * float((ref - theta).abs().max())
+           + 2 * 2.0**-23 * float(theta.abs().max()))
+    assert float((out - ref).abs().max()) <= tol
+
+
+def test_workers_kernel_k1_is_the_single_worker_kernel(cuda):
+    plan, lay = _layout("normal")
+    step_seed = rng.fold_seed(9)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    theta = torch.where(_valid(lay, cuda), torch.randn(
+        lay.q_packed, generator=gen, device=cuda), 0)
+    scale = torch.randn((1, lay.d_packed), generator=gen, device=cuda)
+    scale = scale * 1e-2 * torch.from_numpy(lay.coord_valid).to(cuda)
+    one = rbd_step.reconstruct_apply_packed_workers(
+        projector.worker_segment_seeds(plan, step_seed, 1), scale, theta,
+        lay)
+    single = rbd_step.reconstruct_apply_packed(
+        projector.segment_seeds(plan, rng.fold_seed(step_seed, 1)),
+        scale[0].contiguous(), theta, lay)
+    assert torch.equal(one, single)
+
+
+def test_k_worker_simulation_launches(cuda):
+    from repro_torch.core.rbd import RandomBasesTransform
+    from repro_torch.optim import subspace
+
+    plan, lay = _layout("normal")
+    k = 3
+    sub = subspace.SubspaceOptimizer(
+        transform=RandomBasesTransform(plan, base_seed=1, backend="cuda"),
+        learning_rate=0.3, use_packed=True, mode="independent_bases",
+        k_workers=k)
+    valid = _valid(lay, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    theta = torch.where(valid, torch.randn(lay.q_packed, generator=gen,
+                                           device=cuda), 0)
+    st_r, st_o = sub.init_rbd_state(), sub.init_opt_state(device=cuda)
+    rbd_step.reset_counts()
+    for _ in range(2):
+        g = torch.where(valid, torch.randn((k, lay.q_packed), generator=gen,
+                                           device=cuda), 0)
+        theta, st_r, st_o, _ = sub.step(theta, g, st_r, st_o)
+    assert rbd_step.LAUNCHES["project_packed"] == 2 * k
+    assert rbd_step.LAUNCHES["reconstruct_apply_packed_workers"] == 2
+    assert bool(torch.isfinite(theta).all())
+    assert bool((theta[~valid] == 0).all())
 
 
 def test_train_step_launches_two_kernels(cuda):

@@ -137,16 +137,23 @@ def test_unported_routes_raise_naming_roadmap():
         (RBDConfig(total_dim=64, backend="torch"), {}, "Queue A 16"),
         (RBDConfig(total_dim=64, backend="cuda",
                    normalization="orthonormal"), {}, "Queue A 16"),
-        (RBDConfig(total_dim=64, backend="cuda"), {"axis_name": "data"},
-         "Queue A 11"),
         (RBDConfig(total_dim=64, backend="cuda",
-                   mode="independent_bases"), {"k_workers": 2},
-         "Queue A 12"),
+                   mode="independent_bases", packed="off"),
+         {"k_workers": 2}, "Queue A 16"),
+        (RBDConfig(total_dim=64, backend="cuda"), {"coord_clip_norm": 1.0},
+         "Queue A 15"),
     ]:
+        tcfg = TrainConfig(model=cfg, rbd=rbd,
+                           coord_clip_norm=kw.pop("coord_clip_norm", 0.0))
         with pytest.raises(NotImplementedError, match=item):
-            steplib.make_train_step(model, TrainConfig(model=cfg, rbd=rbd),
-                                    device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="Queue A 11"):
+            steplib.make_train_step(model, tcfg, device="cpu", **kw)
+    for mode, item in [("pjit", "Queue A 14"), ("sgd", "Queue A 16")]:
+        with pytest.raises(NotImplementedError, match=item):
+            launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--mode",
+                           mode, "--device", "cpu", "--rbd-backend",
+                           "cuda"])
+    # several ranks come from torchrun, which sets the world size
+    with pytest.raises(ValueError, match="world size"):
         launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--data", "2",
                        "--device", "cpu", "--rbd-backend", "cuda"])
 
@@ -165,6 +172,32 @@ def test_launcher_cpu_two_calls_per_step(capsys):
     assert rbd_step.CALLS["reconstruct_apply_packed"] == 2
     assert len(res.losses) == 2 and all(np.isfinite(res.losses))
     assert float(res.state.params.double().sum()) != res.theta_init_sum
+
+
+@pytest.mark.parametrize("rbd_mode,norm", [("shared_basis", "rsqrt_dim"),
+                                           ("independent_bases", "exact")])
+def test_launcher_prints_the_references_plan_block(capsys, rbd_mode, norm):
+    """``--mode sharedseed --data 1`` exchanges over a one-rank data group,
+    as the reference's shard_map over one device does, so the printed
+    plan block -- exchange schedule included -- is the reference's
+    (its launcher passes axis_name="data", k_workers=data)."""
+    res = launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--data", "1",
+                         "--rbd-mode", rbd_mode, "--normalization", norm,
+                         "--rbd-backend", "cuda", "--rbd-dim", "64",
+                         "--batch", "2", "--seq", "8", "--steps", "1",
+                         "--device", "cpu"])
+    out = capsys.readouterr().out
+    ref = ref_subspace.plan_from_flags(
+        use_packed=True, normalization=norm, backend="pallas",
+        mode=rbd_mode, axis_name="data", k_workers=1)
+    for line in (f"update path: {ref.strategy} -- {ref.reason}",
+                 f"basis: {ref.basis} -- {ref.basis_reason}",
+                 f"prng impl: {ref.prng_impl} -- {ref.prng_reason}",
+                 f"exchange schedule: {ref.overlap_exchange} -- "
+                 f"{ref.overlap_reason}"):
+        assert line in out.splitlines()
+    kind = "all_gather" if rbd_mode == "independent_bases" else "all_reduce"
+    assert res.collectives[kind] == 1
 
 
 def test_entry_points_do_not_fall_back_to_cpu():
