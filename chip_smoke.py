@@ -36,6 +36,18 @@ result line:
 9. exchange -- the launcher with a one-rank NCCL group in both
                ``--rbd-mode``s: one coordinate collective and two kernel
                launches per step;
+10. adapters -- ``reconstruct_apply_packed_adapters`` against its plain
+               version: one full-width layer (B = 1 and 3, four
+               distributions), one dir-block of ``embed`` (B = 2), the full
+               shapes (B = 4, timed, plain timed at B = 4); reruns
+               bit-identical, padding exactly 0, and every row
+               bit-identical to ``reconstruct_apply_packed``;
+11. serving -- ``MultiTenantEngine`` serving qwen2-0.5b at full width and
+               depth in bf16 (3 tenants' (seed, coords) adapters, 4 slots,
+               6 requests, then the same 6 again): one adapter launch per
+               admission tick with misses, none in decode or in the
+               cache-hit round, greedy tokens identical across rounds and
+               equal to ``Engine``'s on the tenant's parameters;
 then the ``kernels`` line, the card line and the result line.
 
 It imports nothing of JAX or of the reference package ``repro``.
@@ -73,8 +85,12 @@ INT_OPS_PER_VALUE = 73
 FP_OPS_PER_VALUE = {"normal": 41, "uniform": 6, "rademacher": 1,
                     "sparse": 5}
 FMA_PER_VALUE = {"project_packed": 2, "reconstruct_apply_packed": 1,
-                 "reconstruct_apply_packed_workers": 1}
+                 "reconstruct_apply_packed_workers": 1,
+                 "reconstruct_apply_packed_adapters": 1}
 K_SIM = 4          # workers of the phase-8 simulation
+B_FULL = 4         # adapters of the phase-10 full-shape launch
+# phase 11: the serving run (prompt lengths 32-128, 32 new tokens each)
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW = 4, 256, 32
 SIM_STEPS = 3
 ISSUE_LANES_PER_SM = 128
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
@@ -395,14 +411,23 @@ REPLACES = {
     "project_packed": "src/repro/kernels/rbd_step.py:100",
     "reconstruct_apply_packed": "src/repro/kernels/rbd_step.py:144",
     "reconstruct_apply_packed_workers": "src/repro/kernels/rbd_step.py:443",
+    # reconstruct_apply_packed_adapters:469 -> pallas_call:526 ->
+    # _adapter_recon_kernel:185
+    "reconstruct_apply_packed_adapters": "src/repro/kernels/rbd_step.py:185",
 }
 
 
 def bound_ms(name, lay, dist, dev, k_workers=1):
-    """(least time in ms, "operations" or "bytes") for one launch."""
+    """(least time in ms, "operations" or "bytes") for one launch;
+    ``k_workers`` counts workers, or adapters for the adapter apply."""
     values = k_workers * int((lay.seg_dim * lay.seg_size).sum())
     if name == "project_packed":
         nbytes = 4 * lay.q_packed + 4 * lay.n_segments + 8 * lay.d_packed
+    elif name == "reconstruct_apply_packed_adapters":
+        # theta read once, B rows written, B seed rows and scale rows read
+        nbytes = (4 * lay.q_packed + 4 * k_workers * lay.q_packed
+                  + 4 * k_workers * lay.n_segments
+                  + 4 * k_workers * lay.d_packed)
     else:
         nbytes = (8 * lay.q_packed + 4 * k_workers * lay.n_segments
                   + 4 * k_workers * lay.d_packed)
@@ -418,8 +443,8 @@ def kernel_row(name, lay, dist, dev, k_workers, launches, err, ms,
                plain_ms):
     b_ms, by = bound_ms(name, lay, dist, dev, k_workers)
     values = k_workers * int((lay.seg_dim * lay.seg_size).sum())
-    log(f"  {name} (K={k_workers}): {values:,} basis values; ms {ms:.3f} "
-        f"(median of the main-path launches), plain {plain_ms:.1f}, bound "
+    log(f"  {name} (K or B={k_workers}): {values:,} basis values; ms "
+        f"{ms:.3f} (median), plain {plain_ms:.1f}, bound "
         f"{b_ms:.3f} ({by}), {b_ms / ms:.1%} of bound")
     return {
         "name": name, "route": "cuda",
@@ -645,6 +670,296 @@ def phase_exchange():
               f"{mode}: losses {res.losses}")
 
 
+def _check_adapters(case, aseeds, sub, scale, theta, lay, dist, valid,
+                    plain=True):
+    """Kernel vs plain B-adapter apply: reruns, padding, every row
+    bit-identical to the single-tenant kernel, rows within tolerance of
+    the plain version.  Returns (max|dtheta|, kernel out)."""
+    import torch
+    from repro_torch.core import projector
+    from repro_torch.kernels import rbd_step
+
+    aseg = projector.adapter_segment_seeds(sub, aseeds)
+    out = rbd_step.reconstruct_apply_packed_adapters(aseg, scale, theta, lay,
+                                                     dist)
+    out2 = rbd_step.reconstruct_apply_packed_adapters(aseg, scale, theta,
+                                                      lay, dist)
+    check(torch.equal(out, out2), f"{case}: adapter apply reruns differ")
+    check(bool((out[:, ~valid] == 0).all()),
+          f"{case}: padding of a row is not exactly 0")
+    for a in range(out.shape[0]):
+        single = rbd_step.reconstruct_apply_packed(
+            projector.segment_seeds(sub, int(aseeds[a])),
+            scale[a].contiguous(), theta, lay, dist)
+        check(torch.equal(out[a], single),
+              f"{case}: row {a} differs from reconstruct_apply_packed")
+        del single
+    log(f"    {case}: reruns bit-identical, padding exactly 0, every row "
+        "bit-identical to reconstruct_apply_packed")
+    err = 0.0
+    if plain:
+        ref = rbd_step.reconstruct_apply_packed_adapters_plain(
+            aseg, scale, theta, lay, dist)
+        for a in range(out.shape[0]):
+            err = max(err, _check_apply(f"{case} row {a}", out[a], ref[a],
+                                        theta))
+    return err, out
+
+
+def phase_adapters(full_plan, dev):
+    import numpy as np
+    import torch
+    from repro_torch.core import projector
+    from repro_torch.kernels import rbd_step
+
+    log("== phase 10: adapter apply kernel vs plain at full qwen2-0.5b "
+        "width")
+    name = "reconstruct_apply_packed_adapters"
+    err = 0.0
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    subs = _sub_plans(full_plan)
+    for sname, sub in subs.items():
+        lay = sub.packed()
+        valid = _valid_mask(lay, "cuda")
+        cases = ([(d, b) for d in DISTS for b in (1, 3)]
+                 if sname.startswith("layer") else [("normal", 2)])
+        for dist, b in cases:
+            aseeds = np.arange(1000, 1000 + b, dtype=np.uint32)
+            theta = torch.where(valid, torch.randn(
+                lay.q_packed, generator=gen, device="cuda"), 0.0)
+            scale = torch.randn((b, lay.d_packed), generator=gen,
+                                device="cuda")
+            scale = scale * 1e-3 * torch.from_numpy(lay.coord_valid).cuda()
+            dt, _ = _check_adapters(f"{sname}/{dist}/B={b}", aseeds, sub,
+                                    scale, theta, lay, dist, valid)
+            err = max(err, dt)
+    # the full shapes at B = 4: timed, against the plain version timed too
+    lay = full_plan.packed()
+    dist = full_plan.distribution
+    valid = _valid_mask(lay, "cuda")
+    aseeds = np.arange(2000, 2000 + B_FULL, dtype=np.uint32)
+    aseg = projector.adapter_segment_seeds(full_plan, aseeds)
+    theta = torch.where(valid, torch.randn(lay.q_packed, generator=gen,
+                                           device="cuda"), 0.0)
+    scale = torch.randn((B_FULL, lay.d_packed), generator=gen, device="cuda")
+    scale = scale * 1e-4 * torch.from_numpy(lay.coord_valid).cuda()
+    ms = cuda_ms(lambda: rbd_step.reconstruct_apply_packed_adapters(
+        aseg, scale, theta, lay, dist), repeat=3)
+    plain = {}
+    plain_ms = cuda_ms(lambda: plain.update(
+        out=rbd_step.reconstruct_apply_packed_adapters_plain(
+            aseg, scale, theta, lay, dist)))[0]
+    out = rbd_step.reconstruct_apply_packed_adapters(aseg, scale, theta, lay,
+                                                     dist)
+    for a in range(B_FULL):
+        err = max(err, _check_apply(f"full plan/B={B_FULL} row {a}", out[a],
+                                    plain["out"][a], theta))
+    del plain, out
+    dt, out = _check_adapters(f"full plan/B={B_FULL}", aseeds, full_plan,
+                              scale, theta, lay, dist, valid, plain=False)
+    del out
+    b_ms, by = bound_ms(name, lay, dist, dev, B_FULL)
+    med = sorted(ms)[len(ms) // 2]
+    log(f"    full plan/B={B_FULL}: kernel ms {ms}, plain {plain_ms:.1f}, "
+        f"bound {b_ms:.3f} ({by}), {b_ms / med:.1%} of bound")
+    return {"err": err, "ms": med, "plain_ms": plain_ms}
+
+
+def _serve_requests(vocab):
+    """The six requests of a serving round: (prompt, adapter, temperature,
+    seed), prompts of 32-128 tokens drawn with numpy."""
+    import numpy as np
+
+    rs = np.random.default_rng(11)
+    spec = [("t0", 0.0), ("t1", 0.0), (None, 0.0), ("t2", 0.0), (None, 0.0),
+            ("t1", 0.7)]
+    return [(rs.integers(0, vocab, int(rs.integers(32, 129))), aid, temp,
+             7 + i) for i, (aid, temp) in enumerate(spec)]
+
+
+def _profile_decode_ticks(mt, requests, torch, n_ticks=5):
+    """Device busy share of ``n_ticks`` decode ticks with every slot
+    decoding: the device-side events torch.profiler records (kernels and
+    copies, on one stream, so they do not overlap) over the ticks' host
+    wall time.  Printed as not measured if it records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for p, aid, _, seed in requests[:mt.n_slots]:
+        mt.submit(p[:32], n_ticks + 2, adapter_id=aid, seed=seed)
+    mt._admit_and_prefill()
+    mt._decode_tick()                       # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_ticks):
+            mt._decode_tick()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    mt.run()
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation]
+    busy_us = sum(e.self_device_time_total for e in device)
+    tick_ms = 1e3 * wall / n_ticks
+    if busy_us <= 0:
+        log(f"  decode tick ({mt.n_slots} slots decoding): {tick_ms:.2f} ms;"
+            " device busy share not measured (the profiler recorded no "
+            "device time)")
+        return
+    share = busy_us / 1e6 / wall
+    log(f"  decode tick ({mt.n_slots} slots decoding, profiled): "
+        f"{tick_ms:.2f} ms, device busy {busy_us / 1e3 / n_ticks:.2f} ms "
+        f"({share:.1%}, idle {1 - share:.1%}), "
+        f"{sum(e.count for e in device) / n_ticks:.0f} device ops")
+    for e in sorted(device, key=lambda e: -e.self_device_time_total)[:5]:
+        ms = e.self_device_time_total / 1e3 / n_ticks
+        log(f"    {e.key[:64]:64s} {ms:7.3f} ms x{e.count / n_ticks:.0f} "
+            "per tick")
+
+
+def phase_serving(dev):
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import compartments, projector
+    from repro_torch.kernels import rbd_step
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_model
+    from repro_torch.serve.adapters import (AdapterCache, AdapterRegistry,
+                                            AdapterSpec)
+    from repro_torch.serve.engine import Engine, MultiTenantEngine
+
+    log("== phase 11: serving qwen2-0.5b at full width and depth (bf16)")
+    name = "reconstruct_apply_packed_adapters"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("qwen2-0.5b")
+    model = get_model(cfg)
+    params = model.init(0, device="cuda")
+    plan = compartments.make_plan(model.param_shapes(), 1024,
+                                  granularity="layer",
+                                  is_stacked=model.is_stacked)
+    lay = plan.packed()
+    log(f"  plan: d_packed {lay.d_packed}, q_packed {lay.q_packed:,}, "
+        f"compute {cfg.compute_dtype}")
+    rs = np.random.default_rng(3)
+    reg = AdapterRegistry()
+    for i in range(3):
+        reg.register(AdapterSpec(f"t{i}", 501 + i,
+                                 0.05 * rs.standard_normal(lay.d_packed)))
+    cache = AdapterCache(4 * 4 * lay.q_packed)
+    mt = MultiTenantEngine(model, params, plan, registry=reg,
+                           delta_cache=cache, n_slots=SERVE_SLOTS,
+                           max_len=SERVE_MAX_LEN, pin_on_miss=True)
+    personalize_ms = []
+    orig = mt._personalize_slots
+
+    def timed_personalize(admitted):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig(admitted)
+        torch.cuda.synchronize()
+        personalize_ms.append(1e3 * (time.perf_counter() - t0))
+
+    mt._personalize_slots = timed_personalize
+    requests = _serve_requests(cfg.vocab)
+    rounds, tenant_row_checked = [], False
+    rbd_step.reset_counts()
+    rbd_step.set_timing(True)
+    for rnd in range(2):
+        rids = [mt.submit(p, SERVE_NEW, adapter_id=aid, temperature=temp,
+                          seed=seed) for p, aid, temp, seed in requests]
+        admit_s, decode_s = [], []
+        t_round = time.perf_counter()
+        while not mt.scheduler.all_done():
+            before = rbd_step.LAUNCHES[name]
+            misses0, admitted0 = cache.misses, mt.scheduler.n_admitted
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mt._admit_and_prefill()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            launched = rbd_step.LAUNCHES[name] - before
+            want = 1 if cache.misses > misses0 else 0
+            check(launched == want,
+                  f"round {rnd}: admission tick made {launched} adapter "
+                  f"launches, expected {want}")
+            if mt.scheduler.n_admitted > admitted0:
+                admit_s.append(t1 - t0)
+            if not tenant_row_checked:
+                slot = next(i for i, r in enumerate(mt.scheduler.slots)
+                            if r is not None and r.adapter_id == "t0")
+                check(bool((mt._slot_thetas[slot] != mt.theta).any()),
+                      "tenant t0's slot row equals the base")
+                tenant_row_checked = True
+            before = rbd_step.LAUNCHES[name]
+            t2 = time.perf_counter()
+            mt._decode_tick()
+            torch.cuda.synchronize()
+            decode_s.append(time.perf_counter() - t2)
+            check(rbd_step.LAUNCHES[name] == before,
+                  f"round {rnd}: a decode tick launched the adapter kernel")
+        wall = time.perf_counter() - t_round
+        res = mt.scheduler.results()
+        toks = [res[rid] for rid in rids]
+        n_tok = sum(len(v) for v in toks)
+        check(all(len(v) == SERVE_NEW for v in toks),
+              f"round {rnd}: lengths {[len(v) for v in toks]}")
+        rounds.append(toks)
+        dec = sorted(decode_s)
+        log(f"  round {rnd}: {n_tok} tokens in {wall:.3f} s "
+            f"({n_tok / wall:.1f} tokens/s), admission ticks "
+            f"{[round(1e3 * x, 1) for x in admit_s]} ms (personalize + "
+            f"prefill), decode ms per tick median {1e3 * dec[len(dec) // 2]:.2f}"
+            f" (min {1e3 * dec[0]:.2f}, max {1e3 * dec[-1]:.2f}, "
+            f"{len(dec)} ticks); stats {mt.stats}; cache {cache.stats()}")
+        if rnd == 0:
+            check(mt.stats["fused_launches"] == 1,
+                  f"round 0: {mt.stats['fused_launches']} fused launches")
+            launches_round0 = rbd_step.LAUNCHES[name]
+    launches = rbd_step.LAUNCHES[name]
+    kernel_ms = rbd_step.kernel_times_ms()[name]
+    rbd_step.set_timing(False)
+    check(launches == mt.stats["fused_launches"] == launches_round0 == 1,
+          f"adapter launches {launches}, engine fused_launches "
+          f"{mt.stats['fused_launches']}, after round 0 {launches_round0}")
+    log(f"  adapter launches {launches} (== stats fused_launches), kernel ms "
+        f"{[round(x, 2) for x in kernel_ms]}; personalization ms "
+        f"{[round(x, 1) for x in personalize_ms]}")
+    _profile_decode_ticks(mt, requests, torch)
+    r0, r1 = rounds
+    for i, (_, aid, temp, _) in enumerate(requests):
+        check(np.array_equal(r0[i], r1[i]),
+              f"request {i} ({aid}, T={temp}): rounds differ")
+    log("  every request's tokens identical across the two rounds")
+    # a tenant's greedy tokens == Engine's on that tenant's parameters
+    row = mt.theta + cache.get(reg.get("t0").base_seed)
+    eng = Engine(model, projector.unpack_tree(row, plan, lay, params),
+                 max_len=SERVE_MAX_LEN)
+    ref = eng.generate(requests[0][0][None, :], SERVE_NEW).cpu().numpy()[0]
+    check(np.array_equal(ref, r0[0]),
+          "tenant t0's tokens differ from Engine on its parameters")
+    log(f"  tenant t0 tokens == Engine on its parameters: {ref[:8].tolist()}"
+        " ...")
+    # prefill of the longest prompt alone, timed
+    p_long = max((p for p, *_ in requests), key=len)
+    prompt = torch.from_numpy(p_long).cuda()[None, :]
+    ms = cuda_ms(lambda: transformer.prefill(cfg, eng._cparams, prompt,
+                                             SERVE_MAX_LEN), repeat=3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  prefill of {len(p_long)} tokens: {[round(x, 2) for x in ms]} ms; "
+        f"peak memory {peak:.2f} GiB")
+    del mt, eng, row, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "kernel_ms": kernel_ms}
+
+
 def main() -> int:
     import torch
 
@@ -678,11 +993,19 @@ def main() -> int:
     res, launches = phase_training()
     phase_loss()
     rows = phase_timing(full_plan, res, launches, errs, dev)
+    del res
     workers_err = phase_workers(full_plan, dev)
     row = phase_k_workers(full_plan, dev)
     row["max_abs_err"] = max(row["max_abs_err"], workers_err)
     rows.append(row)
     phase_exchange()
+    adapters = phase_adapters(full_plan, dev)
+    serving = phase_serving(dev)
+    name = "reconstruct_apply_packed_adapters"
+    row = kernel_row(name, lay, full_plan.distribution, dev, B_FULL,
+                     serving["launches"], adapters["err"], adapters["ms"],
+                     adapters["plain_ms"])
+    rows.append(row)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(dev["smi"], flush=True)

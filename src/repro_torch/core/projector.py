@@ -16,7 +16,12 @@ with normalization folded into the coordinate scale: ``rsqrt_dim``
   joint apply:   theta' = theta - sum_k (eta c_hat_k) P_k   (launch 2)
 
 with worker k's basis keyed by ``fold_seed(step_seed, k + 1)``
-(:func:`worker_base_seeds`).  The per-leaf paths
+(:func:`worker_base_seeds`).  Serving writes B tenants' personalized
+buffers from one shared base in one launch:
+
+  adapter apply: theta_a' = theta - c_hat_a P(base_seed_a), a = 1..B
+
+(:func:`reconstruct_apply_packed_adapters`).  The per-leaf paths
 (``project``/``reconstruct`` and the ``orthonormal`` normalization) are
 not ported yet (ROADMAP.md Queue A 16).
 
@@ -272,6 +277,70 @@ def reconstruct_apply_packed_workers(coords_gathered, plan: Plan, seed,
     return unpack_tree(new, plan, layout, params)
 
 
+def adapter_segment_seeds(plan: Plan, adapter_seeds) -> torch.Tensor:
+    """(n_adapters * n_segments,) segment seeds (int32 bits, on the CPU),
+    adapter-major.  Each adapter's segments fold from its OWN uint32
+    ``base_seed`` through :func:`segment_seeds` -- the seed half of the
+    (seed, coords) adapter identity."""
+    if not isinstance(adapter_seeds, torch.Tensor):
+        adapter_seeds = np.asarray(adapter_seeds, dtype=np.uint32)
+    seeds = rng.as_u32(adapter_seeds).cpu().reshape(-1)
+    return torch.cat([segment_seeds(plan, s) for s in seeds])
+
+
+def reconstruct_apply_packed_adapters(coords_batch, plan: Plan,
+                                      adapter_seeds, params, *, eta=1.0,
+                                      backend: str = "torch", row_sq=None,
+                                      layout=None, prepacked: bool = False,
+                                      prng="threefry"):
+    """Multi-tenant serving apply:
+
+        theta_a' = theta - eta * (c_hat_a @ P_a)   for a = 1..B
+
+    ONE kernel launch produces every adapter's personalized parameter
+    buffer from the shared base, regenerating each adapter's basis from
+    its own ``base_seed``; the B dense per-tenant deltas never exist in
+    memory.  ``coords_batch`` is (n_adapters, d_packed) normalized
+    coordinates (the stored adapter payload); ``adapter_seeds`` the
+    matching (n_adapters,) uint32 base seeds.  ``eta`` defaults to 1.0: a
+    serving adapter's coordinates already ARE the accumulated update.
+
+    Normalization follows the K-worker rules: the static-factor norms
+    need nothing beyond the seeds; 'exact' needs each adapter's stored
+    squared row norms (``row_sq``, (n_adapters, d_packed)); 'orthonormal'
+    is refused.  ``prepacked=True`` takes the packed (q_packed,) base and
+    returns (n_adapters, q_packed) float32; otherwise ``params`` is a
+    parameter map and the result is a map whose leaves carry a leading
+    adapter axis."""
+    if plan.normalization not in STATIC_FACTOR_NORMALIZATIONS \
+            and plan.normalization != "exact":
+        raise ValueError(
+            f"normalization {plan.normalization!r} is not supported by "
+            "the multi-adapter packed reconstruction (needs a "
+            "factor-style scale)")
+    if plan.normalization == "exact" and row_sq is None:
+        raise ValueError(
+            "'exact' normalization needs each adapter's stored row "
+            "norms (row_sq, (n_adapters, d_packed)); regenerating them "
+            "at serve time would cost B extra generation passes")
+    rng.check_threefry(prng)
+    layout = layout if layout is not None else plan.packed()
+    aseg_seeds = adapter_segment_seeds(plan, adapter_seeds)
+    # (d_packed,) static factor, or (n_adapters, d_packed) exact factors
+    factor = packed_norm_factor(plan, layout, row_sq,
+                                device=coords_batch.device)
+    scale = ((coords_batch.to(torch.float32) * factor)
+             * float(np.float32(eta)))
+    theta = (params.to(torch.float32) if prepacked
+             else pack_tree(params, plan, layout))
+    out = _get_backend(backend).reconstruct_apply_packed_adapters(
+        aseg_seeds, scale, theta, layout, plan.distribution)
+    if prepacked:
+        return out
+    rows = [unpack_tree(row, plan, layout, params) for row in out]
+    return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+
+
 # ---------------------------------------------------------------------------
 # backend dispatch (plain PyTorch vs the CUDA kernels)
 # ---------------------------------------------------------------------------
@@ -284,16 +353,20 @@ def _get_backend(name: str):
     if name == "torch":
         return _Backend(rbd_step.project_packed_plain,
                         rbd_step.reconstruct_apply_packed_plain,
-                        rbd_step.reconstruct_apply_packed_workers_plain)
+                        rbd_step.reconstruct_apply_packed_workers_plain,
+                        rbd_step.reconstruct_apply_packed_adapters_plain)
     if name == "cuda":
         return _Backend(rbd_step.project_packed,
                         rbd_step.reconstruct_apply_packed,
-                        rbd_step.reconstruct_apply_packed_workers)
+                        rbd_step.reconstruct_apply_packed_workers,
+                        rbd_step.reconstruct_apply_packed_adapters)
     raise ValueError(f"unknown projector backend {name!r}")
 
 
 class _Backend:
-    def __init__(self, project, reconstruct_apply, reconstruct_apply_workers):
+    def __init__(self, project, reconstruct_apply, reconstruct_apply_workers,
+                 reconstruct_apply_adapters):
         self.project_packed = project
         self.reconstruct_apply_packed = reconstruct_apply
         self.reconstruct_apply_packed_workers = reconstruct_apply_workers
+        self.reconstruct_apply_packed_adapters = reconstruct_apply_adapters

@@ -1,6 +1,7 @@
 // Packed RBD step kernels for Hopper (sm_90a): the two launches of one
-// optimizer step, the K-worker apply of independent bases, plus a debug
-// entry that writes one basis tile.
+// optimizer step, the K-worker apply of independent bases, the B-adapter
+// apply of multi-tenant serving, plus a debug entry that writes one basis
+// tile.
 //
 //   rbd_project_packed        replaces repro/kernels/rbd_step.py:
 //                             project_packed -> _project_kernel
@@ -11,6 +12,10 @@
 //                             replaces repro/kernels/rbd_step.py:
 //                             reconstruct_apply_packed_workers ->
 //                             _recon_apply_kernel over the worker tables
+//   rbd_reconstruct_apply_packed_adapters
+//                             replaces repro/kernels/rbd_step.py:
+//                             reconstruct_apply_packed_adapters ->
+//                             _adapter_recon_kernel
 //   rbd_generate_tile         debug: bits and samples of one tile
 //
 // Bound on this card.  Both kernels regenerate every basis value they use:
@@ -22,7 +27,9 @@
 // against (coordinates per segment) x 8 generated values per parameter, so
 // the kernels are bound by instruction issue, not by memory: at full
 // qwen2-0.5b width a launch generates about 4.5e10 values (K times that in
-// the K-worker apply, whose bytes stay those of one theta read and write).
+// the K-worker apply, whose bytes stay those of one theta read and write;
+// B times that in the B-adapter apply, which reads theta once and writes
+// B rows of 4 bytes per parameter -- still far below the generation work).
 //
 // What the design does about it: every value is generated exactly once per
 // launch, in registers, and consumed at once (a fused multiply-add into the
@@ -282,6 +289,53 @@ reconstruct_apply_workers_kernel(const float* scale, const float* theta,
   }
 }
 
+// Kernel 4: B personalized rows from one shared base (multi-tenant serving),
+// row a = theta - s_a P_a.  The grid is kernel 2's, one CUDA block per
+// (segment, pos-block); each thread reads its theta value once and, for
+// each adapter a in order, runs apply_dir_blocks from that value with
+// adapter a's segment seed seed[a * n_seg + s] and scale row
+// scale[a * d_packed + ...], writing out[a * q_packed + base + col].  Row a
+// is thus the single-tenant instruction sequence on the same inputs: bit for
+// bit kernel 2's output.  Padding columns copy theta into every row, so the
+// zero padding of a resident theta stays exactly zero.  `out` (B, q_packed)
+// must not alias `theta`.
+template <int DIST>
+__global__ void __launch_bounds__(kThreads)
+reconstruct_apply_adapters_kernel(const float* __restrict__ scale,
+                                  const float* __restrict__ theta,
+                                  float* __restrict__ out,
+                                  const uint32_t* __restrict__ seed,
+                                  const int64_t* __restrict__ size,
+                                  const int32_t* __restrict__ pdim,
+                                  const int64_t* __restrict__ param_off,
+                                  const int64_t* __restrict__ coord_off,
+                                  const int64_t* __restrict__ blocks,
+                                  int n_seg, int pos_block, int n_adapters,
+                                  int64_t d_packed, int64_t q_packed) {
+  const int64_t bid = blockIdx.x;
+  const int s = find_segment(blocks, n_seg, bid);
+  const int64_t pj = bid - blocks[s];
+  const int64_t q = size[s];
+  const int n_db = pdim[s] / kDirBlock;
+  const float* sc = scale + coord_off[s];
+  const int64_t base = param_off[s];
+
+  const int64_t c0 = pj * pos_block;
+  for (int64_t col = c0 + threadIdx.x; col < c0 + pos_block;
+       col += kThreads) {
+    const float th = theta[base + col];
+    const uint32_t c32 = static_cast<uint32_t>(col);
+    for (int a = 0; a < n_adapters; ++a) {
+      float v = th;
+      if (col < q) {
+        v = apply_dir_blocks<DIST>(th, seed[a * n_seg + s], sc + a * d_packed,
+                                   n_db, c32);
+      }
+      out[a * q_packed + base + col] = v;
+    }
+  }
+}
+
 template <int DIST>
 __global__ void generate_tile_kernel(uint32_t seed, uint32_t row0,
                                      uint32_t col0, int rows, int cols,
@@ -363,6 +417,22 @@ int rbd_reconstruct_apply_packed_workers(
   RBD_DISPATCH(dist, reconstruct_apply_workers_kernel, grid, scale, theta,
                out, seed, size, pdim, param_off, coord_off, blocks, n_seg,
                pos_block, k_workers, d_packed);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `scale` is (n_adapters, d_packed) row-major, `seed` (n_adapters, n_seg),
+// `out` (n_adapters, q_packed) and distinct from `theta`.
+int rbd_reconstruct_apply_packed_adapters(
+    const float* scale, const float* theta, float* out, const uint32_t* seed,
+    const int64_t* size, const int32_t* pdim, const int64_t* param_off,
+    const int64_t* coord_off, const int64_t* blocks, int n_seg,
+    int64_t n_blocks, int pos_block, int n_adapters, int64_t d_packed,
+    int64_t q_packed, int dist, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>(n_blocks));
+  RBD_DISPATCH(dist, reconstruct_apply_adapters_kernel, grid, scale, theta,
+               out, seed, size, pdim, param_off, coord_off, blocks, n_seg,
+               pos_block, n_adapters, d_packed, q_packed);
   return static_cast<int>(cudaGetLastError());
 }
 

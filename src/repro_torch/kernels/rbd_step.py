@@ -10,6 +10,10 @@
   bases: ``theta' = theta - sum_k scale_k @ P_k`` (replaces
   ``reconstruct_apply_packed_workers``, the same ``_recon_apply_kernel``
   over the worker-expanded tile tables).
+* :func:`reconstruct_apply_packed_adapters` -- one launch for B serving
+  adapters: row a of the (B, q_packed) output is
+  ``theta - scale_a @ P_a`` (replaces ``reconstruct_apply_packed_adapters
+  -> _adapter_recon_kernel``).
 * :func:`generate_tile` -- debug entry: the bits and samples of one tile,
   to hold the device generator against :mod:`repro_torch.core.rng`.
 
@@ -32,7 +36,8 @@ from repro_torch.core import rng
 from repro_torch.core.compartments import PackedLayout, segment_tables
 
 KERNELS = ("project_packed", "reconstruct_apply_packed",
-           "reconstruct_apply_packed_workers", "generate_tile")
+           "reconstruct_apply_packed_workers",
+           "reconstruct_apply_packed_adapters", "generate_tile")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 CALLS = dict.fromkeys(KERNELS, 0)
 SOURCE = "rbd_step.cu"
@@ -86,6 +91,9 @@ _SIGNATURES = {
     "rbd_reconstruct_apply_packed_workers": [_P, _P, _P, _P, _P, _P, _P, _P,
                                              _P, _I, _I64, _I, _I, _I64, _I,
                                              _P],
+    "rbd_reconstruct_apply_packed_adapters": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                              _P, _I, _I64, _I, _I, _I64,
+                                              _I64, _I, _P],
     "rbd_generate_tile": [_U32, _U32, _U32, _I, _I, _I, _P, _P, _P, _P],
 }
 
@@ -381,6 +389,72 @@ def reconstruct_apply_packed_workers_plain(wseg_seeds,
     for k in range(1, k_workers):
         reconstruct_apply_packed_plain(seeds[k], scale_gathered[k], out,
                                        layout, distribution, out=out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# kernel 4: multi-adapter fused reconstruct-apply (serving)
+# ---------------------------------------------------------------------------
+
+
+def reconstruct_apply_packed_adapters(aseg_seeds, scale_batch: torch.Tensor,
+                                      theta_packed: torch.Tensor,
+                                      layout: PackedLayout,
+                                      distribution: str = "normal"):
+    """B personalized buffers from one shared base in one launch: returns
+    the (B, q_packed) float32 ``out`` with row a ``theta - scale_a @ P_a``.
+
+    ``aseg_seeds``: (B * n_segments,) adapter-major segment seeds (int32
+    bits), adapter a's folded from its own base seed.  ``scale_batch``:
+    (B, d_packed) float32, row a adapter a's scale (normalization folded
+    in, zero on padding slots).  Row a runs the single-tenant apply's
+    instruction sequence, so it is bit-identical to
+    :func:`reconstruct_apply_packed` on adapter a's seeds and scale.
+    Padding columns copy theta.  ``out`` is always a new tensor (it
+    never aliases theta)."""
+    CALLS["reconstruct_apply_packed_adapters"] += 1
+    if theta_packed.device.type == "cpu":
+        return reconstruct_apply_packed_adapters_plain(
+            aseg_seeds, scale_batch, theta_packed, layout, distribution)
+    n_adapters = int(scale_batch.shape[0])
+    _check(theta_packed, "theta_packed", (layout.q_packed,))
+    _check(scale_batch, "scale_batch", (n_adapters, layout.d_packed))
+    _check_layout(layout, distribution)
+    if n_adapters < 1:
+        raise ValueError("reconstruct_apply_packed_adapters needs at least "
+                         "one adapter")
+    dev = theta_packed.device
+    out = torch.empty((n_adapters, layout.q_packed), dtype=torch.float32,
+                      device=dev)
+    t = _device_tables(layout, dev)
+    seeds = _seeds_on(aseg_seeds, n_adapters * layout.n_segments, dev)
+    _launch("reconstruct_apply_packed_adapters",
+            library().lib.rbd_reconstruct_apply_packed_adapters,
+            scale_batch.data_ptr(), theta_packed.data_ptr(), out.data_ptr(),
+            seeds.data_ptr(), t["size"].data_ptr(), t["pdim"].data_ptr(),
+            t["param_off"].data_ptr(), t["coord_off"].data_ptr(),
+            t["recon_blocks"].data_ptr(), layout.n_segments,
+            t["n_recon_blocks"], layout.pos_block, n_adapters,
+            layout.d_packed, layout.q_packed, _DIST_CODE[distribution])
+    return out
+
+
+def reconstruct_apply_packed_adapters_plain(aseg_seeds,
+                                            scale_batch: torch.Tensor,
+                                            theta_packed: torch.Tensor,
+                                            layout: PackedLayout,
+                                            distribution: str = "normal"):
+    """Plain PyTorch version of :func:`reconstruct_apply_packed_adapters`:
+    the single-tenant plain apply of each adapter, in adapter order, from
+    the same base theta into its own output row."""
+    n_adapters = int(scale_batch.shape[0])
+    seeds = rng.as_u32(aseg_seeds).reshape(n_adapters, layout.n_segments)
+    out = torch.empty((n_adapters, layout.q_packed), dtype=torch.float32,
+                      device=theta_packed.device)
+    for a in range(n_adapters):
+        reconstruct_apply_packed_plain(seeds[a], scale_batch[a],
+                                       theta_packed, layout, distribution,
+                                       out=out[a])
     return out
 
 

@@ -1,17 +1,19 @@
-"""Grouped-query attention with RoPE and blockwise (flash-style)
-softmax for train / prefill (port of ``repro.models.attention``).
+"""Grouped-query attention with RoPE, blockwise (flash-style) softmax
+for train / prefill and KV-cache decode (port of
+``repro.models.attention``).
 
 Shapes follow the reference: (B, S, H, hd) queries, (B, S, KV, hd) keys
 and values with H = KV * G.  The blockwise path never materializes the
 (S, S) scores: a loop over query blocks and an inner loop over KV blocks
 carry the online-softmax statistics.  The reference's models call its
 jnp ``flash_attention``, not its Pallas kernel, so this is plain PyTorch
-(matmuls in float32).  Decode (KV cache) is not ported yet (ROADMAP.md
-Queue A 18).
+(matmuls in float32).  ``decode_attention`` scores one query per row
+against a (B, S_max, KV, hd) cache, also in float32.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -28,11 +30,18 @@ def rope_frequencies(d_head: int, theta: float = 10000.0) -> np.ndarray:
     )
 
 
+@functools.lru_cache(maxsize=None)
+def _device_frequencies(d_head: int, theta: float,
+                        device: torch.device) -> torch.Tensor:
+    """The frequencies on ``device``, copied there once: a copy from host
+    memory at every call would wait for the device each time."""
+    return torch.from_numpy(np.asarray(rope_frequencies(d_head, theta),
+                                       np.float32)).to(device)
+
+
 def apply_rope(x, positions, theta: float = 10000.0):
     """x: (..., S, H, hd); positions: (..., S) integer."""
-    d_head = x.shape[-1]
-    freqs = torch.from_numpy(
-        np.asarray(rope_frequencies(d_head, theta), np.float32)).to(x.device)
+    freqs = _device_frequencies(x.shape[-1], theta, x.device)
     angles = positions[..., None].to(torch.float32) * freqs
     cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]
@@ -101,6 +110,35 @@ def flash_attention(q, k, v, *, causal: bool = True,
         outs.append(out.permute(0, 3, 1, 2, 4))        # (B, qb, KV, G, hd)
     out = torch.cat(outs, dim=1).reshape(b, sq, h, hd)
     return out.to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *,
+                     window: Optional[int] = None, window_flag=None):
+    """q: (B, 1, H, hd); caches: (B, S_max, KV, hd); ``cache_len``: int32
+    scalar tensor or int -- the number of valid cache entries before this
+    token, i.e. the new token's position (its own K/V are already in the
+    cache at that position).  ``window``/``window_flag`` as in the
+    reference: a windowed query sees positions in (len - window, len];
+    ``window_flag`` False lifts the window (a global layer)."""
+    b, _, h, hd = q.shape
+    _, s_max, kv, _ = k_cache.shape
+    g = h // kv
+    scale = 1.0 / np.sqrt(hd)
+    qg = q.reshape(b, 1, kv, g, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg.to(torch.float32),
+                     k_cache.to(torch.float32)) * scale
+    pos = torch.arange(s_max, device=q.device)
+    mask = pos <= cache_len
+    if window is not None:
+        in_win = pos > (cache_len - window)
+        if window_flag is not None:
+            in_win = in_win | torch.logical_not(torch.as_tensor(
+                window_flag, device=q.device))
+        mask = mask & in_win
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", p, v_cache.to(torch.float32))
+    return out.reshape(b, 1, h, hd).to(q.dtype)
 
 
 def attention_output(wo, ctx):

@@ -28,6 +28,8 @@ def resolve_device(device) -> torch.device:
 class Model:
     cfg: ModelConfig
     forward: Callable            # (params, batch) -> (logits, aux)
+    init_cache: Callable         # (batch, max_len, *, device) -> cache
+    decode_step: Callable        # (params, cache, token) -> (logits, cache)
     stacked_prefixes: tuple[str, ...]
 
     def is_stacked(self, leaf_name: str) -> bool:
@@ -59,6 +61,11 @@ def get_model(cfg: ModelConfig) -> Model:
         cfg=cfg,
         forward=lambda params, batch: transformer.forward(
             cfg, params, batch["tokens"]),
+        init_cache=lambda batch, max_len, *, device="cuda": (
+            transformer.init_cache(cfg, batch, max_len,
+                                   device=resolve_device(device))),
+        decode_step=lambda params, cache, token: transformer.decode_step(
+            cfg, params, cache, token),
         stacked_prefixes=transformer.STACKED_PREFIXES,
     )
 

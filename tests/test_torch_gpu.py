@@ -11,11 +11,14 @@ Tolerances as in chip_smoke.py: bits bit-exact; samples bit-exact except
 normal (1e-6); u relative to ||g_seg|| sqrt(sq/Q) and sq relative 2e-5
 (another float32 summation order); theta 1e-4 of the update plus 2 ulp
 (also for the K-worker apply, whose K workers' parts are subtracted in
-the same order by the kernel and its plain version).
+the same order by the kernel and its plain version, and for each row of
+the B-adapter apply, whose rows are also bit-identical to the
+single-tenant kernel's).
 """
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -198,3 +201,89 @@ def test_train_step_launches_two_kernels(cuda):
         assert math.isfinite(float(metrics["loss"]))
     assert rbd_step.LAUNCHES["project_packed"] == 2
     assert rbd_step.LAUNCHES["reconstruct_apply_packed"] == 2
+
+
+def _adapter_inputs(plan, lay, cuda, b, seed=5):
+    aseeds = np.arange(40, 40 + b, dtype=np.uint32)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    theta = torch.where(_valid(lay, cuda), torch.randn(
+        lay.q_packed, generator=gen, device=cuda), 0)
+    scale = torch.randn((b, lay.d_packed), generator=gen, device=cuda)
+    scale = scale * 1e-2 * torch.from_numpy(lay.coord_valid).to(cuda)
+    return aseeds, projector.adapter_segment_seeds(plan, aseeds), theta, scale
+
+
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("dist", DISTS)
+def test_adapters_kernel_matches_plain(cuda, dist, b):
+    plan, lay = _layout(dist)
+    _, aseg, theta, scale = _adapter_inputs(plan, lay, cuda, b)
+    valid = _valid(lay, cuda)
+    before = rbd_step.LAUNCHES["reconstruct_apply_packed_adapters"]
+    out = rbd_step.reconstruct_apply_packed_adapters(aseg, scale, theta, lay,
+                                                     dist)
+    assert rbd_step.LAUNCHES["reconstruct_apply_packed_adapters"] == \
+        before + 1
+    assert out.shape == (b, lay.q_packed)
+    again = rbd_step.reconstruct_apply_packed_adapters(aseg, scale, theta,
+                                                       lay, dist)
+    assert torch.equal(out, again)
+    assert bool((out[:, ~valid] == 0).all())
+    ref = rbd_step.reconstruct_apply_packed_adapters_plain(aseg, scale,
+                                                           theta, lay, dist)
+    for a in range(b):
+        tol = (1e-4 * float((ref[a] - theta).abs().max())
+               + 2 * 2.0**-23 * float(theta.abs().max()))
+        assert float((out[a] - ref[a]).abs().max()) <= tol
+
+
+def test_adapters_kernel_b1_is_the_single_tenant_kernel(cuda):
+    plan, lay = _layout("normal")
+    aseeds, aseg, theta, scale = _adapter_inputs(plan, lay, cuda, 3, seed=6)
+    out = rbd_step.reconstruct_apply_packed_adapters(aseg[:lay.n_segments],
+                                                     scale[:1], theta, lay)
+    single = rbd_step.reconstruct_apply_packed(
+        projector.segment_seeds(plan, int(aseeds[0])), scale[0].contiguous(),
+        theta, lay)
+    assert torch.equal(out[0], single)
+    # and each row of a B = 3 launch is that adapter's single-tenant apply
+    batch = rbd_step.reconstruct_apply_packed_adapters(aseg, scale, theta,
+                                                       lay)
+    for a in range(3):
+        single = rbd_step.reconstruct_apply_packed(
+            projector.segment_seeds(plan, int(aseeds[a])),
+            scale[a].contiguous(), theta, lay)
+        assert torch.equal(batch[a], single)
+
+
+def test_multi_tenant_admission_is_one_launch(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_model
+    from repro_torch.serve.adapters import (AdapterCache, AdapterRegistry,
+                                            AdapterSpec)
+    from repro_torch.serve.engine import MultiTenantEngine
+
+    cfg = get_config("tinyllama-1.1b").reduced(compute_dtype="float32")
+    model = get_model(cfg)
+    params = model.init(0, device=cuda)
+    plan = compartments.make_plan(model.param_shapes(), 64,
+                                  granularity="layer",
+                                  is_stacked=model.is_stacked)
+    reg = AdapterRegistry()
+    rs = np.random.default_rng(0)
+    for i in range(3):
+        reg.register(AdapterSpec(f"t{i}", 100 + i,
+                                 0.05 * rs.normal(size=plan.packed().d_packed)))
+    mt = MultiTenantEngine(model, params, plan, registry=reg,
+                           delta_cache=AdapterCache(1 << 30), n_slots=4,
+                           max_len=32)
+    for i in range(3):
+        mt.submit(np.arange(5) + i, 4, adapter_id=f"t{i}")
+    mt.submit(np.arange(6), 4)
+    rbd_step.reset_counts()
+    mt.step()
+    assert rbd_step.LAUNCHES["reconstruct_apply_packed_adapters"] == 1
+    assert mt.stats["fused_launches"] == 1
+    mt.run()
+    assert rbd_step.LAUNCHES["reconstruct_apply_packed_adapters"] == 1
+    assert mt.stats["decode_steps"] == 3
