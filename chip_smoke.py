@@ -48,7 +48,23 @@ result line:
                admission tick with misses, none in decode or in the
                cache-hit round, greedy tokens identical across rounds and
                equal to ``Engine``'s on the tenant's parameters;
-then the ``kernels`` line, the card line and the result line.
+12. leaf kernels -- ``project_flat``, ``reconstruct_flat`` and
+               ``reconstruct_apply_flat`` against their plain versions on
+               full-width leaves (one layer's 12 stacked leaves at n_stack
+               2, ``final_norm``, one 2-dir-block slice of ``embed``): four
+               distributions, f32 and bf16 theta, bit-identical reruns and
+               in-place apply, bf16 rounded once, and ``project_flat``
+               bit-identical to ``project_packed`` on the same seeds;
+13. per-leaf -- the launcher at full qwen2-0.5b width and depth, 3 steps
+               each, one-rank NCCL group: ``--packed off`` (fused_per_leaf:
+               14 project_flat + 14 reconstruct_apply_flat launches per
+               step), ``--weight-decay 0.01`` (full_space: 14 + 14
+               reconstruct_flat), ``--mode sgd`` (no launch); one
+               collective per step; one fused_per_leaf step against one
+               fused_packed step from the same parameters and batch; the
+               plain versions timed at the main path's full shapes;
+then the ``kernels`` line (seven rows), the card line and the result
+line.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -86,7 +102,9 @@ FP_OPS_PER_VALUE = {"normal": 41, "uniform": 6, "rademacher": 1,
                     "sparse": 5}
 FMA_PER_VALUE = {"project_packed": 2, "reconstruct_apply_packed": 1,
                  "reconstruct_apply_packed_workers": 1,
-                 "reconstruct_apply_packed_adapters": 1}
+                 "reconstruct_apply_packed_adapters": 1,
+                 "project_flat": 2, "reconstruct_flat": 1,
+                 "reconstruct_apply_flat": 1}
 K_SIM = 4          # workers of the phase-8 simulation
 B_FULL = 4         # adapters of the phase-10 full-shape launch
 # phase 11: the serving run (prompt lengths 32-128, 32 new tokens each)
@@ -146,12 +164,13 @@ def phase_device():
     log(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
-    built = rbd_step.library()
-    log(f"kernels built in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {built.seconds:.1f} s) -> {built.path.name}")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"  ptxas: {line.strip()}")
+    libs = rbd_step.libraries()   # one nvcc per source, started together
+    log(f"kernels built in {time.perf_counter() - t0:.1f} s")
+    for built in libs.values():
+        log(f"  nvcc {built.seconds:.1f} s -> {built.path.name}")
+        for line in built.log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"  ptxas: {line.strip()}")
     props = torch.cuda.get_device_properties(0)
     clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     log(f"SMs {props.multi_processor_count}, max SM clock {clock_mhz} MHz")
@@ -241,10 +260,13 @@ def _check_project(case, u, sq, up, sqp, g, lay) -> float:
 
 
 def _check_apply(case, out, ref, theta) -> float:
-    """Kernel theta' against the plain version's; returns max|dtheta|."""
+    """Kernel theta' against the plain version's, 2 ulp of theta's own
+    dtype (float32 or bfloat16); returns max|dtheta|."""
+    ulp = 2.0**-23 if theta.element_size() == 4 else 2.0**-7
+    out, ref, theta = out.float(), ref.float(), theta.float()
     dt = float((out - ref).abs().max())
     upd = float((ref - theta).abs().max())
-    tol = THETA_RTOL * upd + 2 * 2.0**-23 * float(theta.abs().max())
+    tol = THETA_RTOL * upd + 2 * ulp * float(theta.abs().max())
     log(f"    {case} apply: max|dtheta|={dt:.3g} (tol {tol:.3g}, "
         f"max|update|={upd:.3g})")
     check(dt <= tol, f"{case}: apply outside tolerance")
@@ -414,7 +436,14 @@ REPLACES = {
     # reconstruct_apply_packed_adapters:469 -> pallas_call:526 ->
     # _adapter_recon_kernel:185
     "reconstruct_apply_packed_adapters": "src/repro/kernels/rbd_step.py:185",
+    # project_flat:133 -> pallas_call:107 -> _project_kernel:41;
+    # reconstruct_flat:87 -> pallas_call:110 -> _recon_kernel:33;
+    # reconstruct_apply_flat:132 -> pallas_call:167 -> _recon_apply_kernel:57
+    "project_flat": "src/repro/kernels/rbd_project.py:41",
+    "reconstruct_flat": "src/repro/kernels/rbd_reconstruct.py:33",
+    "reconstruct_apply_flat": "src/repro/kernels/rbd_reconstruct.py:57",
 }
+FLAT_KERNELS = ("project_flat", "reconstruct_flat", "reconstruct_apply_flat")
 
 
 def bound_ms(name, lay, dist, dev, k_workers=1):
@@ -439,16 +468,45 @@ def bound_ms(name, lay, dist, dev, k_workers=1):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def flat_bound_ms(name, plan, dist, dev):
+    """(least time in ms, "operations" or "bytes") for the 14 per-leaf
+    launches of one step: live values over total issue, against each
+    leaf's rows read once and written once."""
+    values = sum(lp.n_stack * lp.dim * lp.size for lp in plan.leaves)
+    q, d = plan.total_params, plan.total_dim
+    n_seeds = sum(lp.n_stack for lp in plan.leaves)
+    if name == "project_flat":      # g read, u and sq written
+        nbytes = 4 * q + 8 * d + 4 * n_seeds
+    elif name == "reconstruct_flat":  # delta written
+        nbytes = 4 * q + 4 * d + 4 * n_seeds
+    else:                           # theta read and written
+        nbytes = 8 * q + 4 * d + 4 * n_seeds
+    ops = values * (INT_OPS_PER_VALUE + FP_OPS_PER_VALUE[dist]
+                    + FMA_PER_VALUE[name])
+    t_ops = ops / (dev["sms"] * ISSUE_LANES_PER_SM * dev["clock_hz"])
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def kernel_row(name, lay, dist, dev, k_workers, launches, err, ms,
-               plain_ms):
-    b_ms, by = bound_ms(name, lay, dist, dev, k_workers)
-    values = k_workers * int((lay.seg_dim * lay.seg_size).sum())
+               plain_ms, plan=None):
+    """One row of the kernels line; ``plan`` (per-leaf kernels) bounds the
+    one step's launches over the plan's leaves instead of one packed
+    launch."""
+    if plan is not None:
+        b_ms, by = flat_bound_ms(name, plan, dist, dev)
+        values = sum(lp.n_stack * lp.dim * lp.size for lp in plan.leaves)
+    else:
+        b_ms, by = bound_ms(name, lay, dist, dev, k_workers)
+        values = k_workers * int((lay.seg_dim * lay.seg_size).sum())
     log(f"  {name} (K or B={k_workers}): {values:,} basis values; ms "
         f"{ms:.3f} (median), plain {plain_ms:.1f}, bound "
         f"{b_ms:.3f} ({by}), {b_ms / ms:.1%} of bound")
+    source = "rbd_flat.cu" if name in FLAT_KERNELS else "rbd_step.cu"
     return {
         "name": name, "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/rbd_step.cu",
+        "source": f"src/repro_torch/kernels/csrc/{source}",
         "replaces": REPLACES[name], "launches": launches,
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": by, "library_ms": None,
@@ -960,6 +1018,304 @@ def phase_serving(dev):
     return {"launches": launches, "kernel_ms": kernel_ms}
 
 
+def _leaf_cases(full_plan):
+    """Phase 12's full-width per-leaf cases: (name, leaf plan, n_stack,
+    dim) -- each stacked leaf's first two layers, final_norm, and embed
+    cut to its first two dir-blocks (16 directions over all positions)."""
+    cases = [(lp.name, lp, 2, lp.dim) for lp in full_plan.leaves
+             if lp.stacked]
+    by_name = {lp.name: lp for lp in full_plan.leaves}
+    cases.append(("final_norm", by_name["final_norm"], 1,
+                  by_name["final_norm"].dim))
+    cases.append(("embed[2 dir-blocks]", by_name["embed"], 1, 16))
+    return cases
+
+
+def _check_delta(case, out, ref) -> float:
+    """Kernel reconstruct_flat against the plain version's delta: the
+    update's tolerance, 1e-4 of its largest value."""
+    dd = float((out - ref).abs().max())
+    tol = THETA_RTOL * float(ref.abs().max())
+    log(f"    {case} reconstruct: max|ddelta|={dd:.3g} (tol {tol:.3g})")
+    check(dd <= tol, f"{case}: reconstruct_flat outside tolerance")
+    return dd
+
+
+def phase_leaf_kernels(full_plan):
+    import torch
+    from repro_torch.core import projector, rng
+    from repro_torch.core.compartments import Plan
+    from repro_torch.kernels import rbd_project, rbd_reconstruct, rbd_step
+
+    log("== phase 12: per-leaf kernels vs plain at full qwen2-0.5b width")
+    errs = dict.fromkeys(FLAT_KERNELS, 0.0)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    step_seed = rng.fold_seed(0, 0)
+    layer = {}   # dist -> [(leaf plan, g, u, sq)] of one layer pair
+    for name, lp, n, dim in _leaf_cases(full_plan):
+        q = lp.size
+        seeds = projector._leaf_seeds(step_seed, lp)[:n]
+        for dist in (DISTS if n == 2 else ("normal",)):
+            case = f"{name}/{dist}"
+            g = torch.randn((n, q), generator=gen, device="cuda")
+            u, sq = rbd_project.project_flat(seeds, g, dim, dist)
+            u2, sq2 = rbd_project.project_flat(seeds, g, dim, dist)
+            up, sqp = rbd_project.project_flat_plain(seeds, g, dim, dist)
+            check(torch.equal(u, u2) and torch.equal(sq, sq2),
+                  f"{case}: project_flat reruns differ")
+            gnorm = g.norm(dim=1, keepdim=True) / math.sqrt(q)
+            du = (u - up).abs()
+            rel_u = float((du / (gnorm * torch.sqrt(sqp)).clamp(
+                min=1e-30)).max())
+            rel_sq = float(((sq - sqp).abs() / sqp.clamp(min=1e-30)).max())
+            log(f"    {case} project: max|du|={float(du.max()):.3g} rel="
+                f"{rel_u:.3g} (tol {U_RTOL}), max rel dsq={rel_sq:.3g} (tol "
+                f"{SQ_RTOL}); reruns bit-identical")
+            check(rel_u <= U_RTOL and rel_sq <= SQ_RTOL,
+                  f"{case}: project_flat outside tolerance")
+            errs["project_flat"] = max(errs["project_flat"],
+                                       float(du.max()))
+            if lp.stacked:
+                layer.setdefault(dist, []).append((lp, g, u, sq))
+
+            scale = torch.randn((n, dim), generator=gen, device="cuda") * 1e-3
+            d1 = rbd_reconstruct.reconstruct_flat(seeds, scale, q, dist)
+            d2 = rbd_reconstruct.reconstruct_flat(seeds, scale, q, dist)
+            check(torch.equal(d1, d2), f"{case}: reconstruct reruns differ")
+            errs["reconstruct_flat"] = max(
+                errs["reconstruct_flat"], _check_delta(
+                    case, d1, rbd_reconstruct.reconstruct_flat_plain(
+                        seeds, scale, q, dist)))
+            del d1, d2
+            theta = torch.randn((n, q), generator=gen, device="cuda")
+            for dtype in (torch.float32, torch.bfloat16):
+                th = theta.to(dtype)
+                out = rbd_reconstruct.reconstruct_apply_flat(
+                    seeds, scale, th, 0.125, dist)
+                again = rbd_reconstruct.reconstruct_apply_flat(
+                    seeds, scale, th, 0.125, dist)
+                inplace = th.clone()
+                rbd_reconstruct.reconstruct_apply_flat(
+                    seeds, scale, inplace, 0.125, dist, out=inplace)
+                check(torch.equal(out, again) and torch.equal(out, inplace),
+                      f"{case}: apply reruns / in-place differ ({dtype})")
+                if dtype == torch.bfloat16:
+                    # rounded once: the float32 kernel on the same values,
+                    # cast once
+                    wide = rbd_reconstruct.reconstruct_apply_flat(
+                        seeds, scale, th.float(), 0.125, dist)
+                    check(torch.equal(out, wide.to(torch.bfloat16)),
+                          f"{case}: bf16 apply is not rounded once")
+                    del wide
+                ref = rbd_reconstruct.reconstruct_apply_flat_plain(
+                    seeds, scale, th, 0.125, dist)
+                errs["reconstruct_apply_flat"] = max(
+                    errs["reconstruct_apply_flat"],
+                    _check_apply(f"{case} {dtype}", out, ref, th))
+                del out, again, inplace, ref
+            log(f"    {case}: apply reruns and in-place bit-identical, bf16 "
+                "rounded once")
+            del g, theta
+    # per-leaf seeds are the packed segment seeds: the per-leaf launches of
+    # one layer pair equal one project_packed launch bit for bit
+    for dist, leaves in layer.items():
+        sub = Plan(leaves=tuple(
+            dataclasses.replace(lp, shape=(2,) + lp.shape[1:], n_stack=2)
+            for lp, *_ in leaves), total_dim=0, total_params=0,
+            distribution=dist)
+        lay = sub.packed()
+        packed_g = projector.pack_tree({lp.name: g for lp, g, _, _ in leaves},
+                                       sub, lay)
+        pu, psq = rbd_step.project_packed(
+            projector.segment_seeds(sub, step_seed), packed_g, lay, dist)
+        for (lp, _, u, sq), cu, csq in zip(
+                leaves, projector.unpack_coords(pu, sub, lay),
+                projector.unpack_coords(psq, sub, lay)):
+            check(torch.equal(u, cu) and torch.equal(sq, csq),
+                  f"{lp.name}/{dist}: project_flat differs from "
+                  "project_packed")
+        log(f"  {dist}: {len(leaves)} leaves' project_flat bit-identical to "
+            "one project_packed launch on the same seeds")
+    return errs
+
+
+def _per_step(times, n_leaves):
+    """Per-step sums of a run's per-launch ms (n_leaves launches a step,
+    embed first) and embed's per-launch ms."""
+    steps = [times[i: i + n_leaves] for i in range(0, len(times), n_leaves)]
+    return [sum(t) for t in steps], [t[0] for t in steps]
+
+
+# phase 13's launcher runs: (label, extra flags, apply kernel, collective)
+PER_LEAF_RUNS = (
+    ("fused_per_leaf", ["--packed", "off"], "reconstruct_apply_flat",
+     "all_reduce"),
+    ("weight decay", ["--weight-decay", "0.01"], "reconstruct_flat",
+     "all_reduce"),
+    ("sgd baseline", ["--mode", "sgd"], None, "grad_all_reduce"),
+)
+# the run whose counts and times make each per-leaf kernel's row
+ROW_RUN = {"project_flat": "fused_per_leaf",
+           "reconstruct_flat": "weight decay",
+           "reconstruct_apply_flat": "fused_per_leaf"}
+
+
+def _per_leaf_launcher_runs(n_leaves):
+    import gc
+
+    import torch
+    from repro_torch.kernels import rbd_step
+    from repro_torch.launch import train as launcher
+
+    runs = {}
+    for label, extra, apply, kind in PER_LEAF_RUNS:
+        args = ARCH_ARGS + extra
+        log("  python -m repro_torch.launch.train " + " ".join(args))
+        rbd_step.reset_counts()
+        res = launcher.main(args)
+        launches = dict(rbd_step.LAUNCHES)
+        want = dict.fromkeys(rbd_step.KERNELS, 0)
+        if apply:
+            want.update({"project_flat": n_leaves * STEPS,
+                         apply: n_leaves * STEPS})
+        log(f"  {label}: update path {res.sub_opt.plan_execution().strategy}"
+            f", launches {launches}, collectives {res.collectives}, losses "
+            f"{res.losses}, peak memory {res.peak_bytes / 2**30:.2f} GiB")
+        check(launches == want,
+              f"{label}: expected {n_leaves} + {n_leaves} launches per step "
+              f"(none for sgd), got {launches}")
+        others = sum(v for k, v in res.collectives.items()
+                     if k not in (kind, "scalar"))
+        check(res.collectives[kind] == STEPS and others == 0,
+              f"{label}: expected one {kind} per step, got "
+              f"{res.collectives}")
+        check(all(math.isfinite(x) for x in res.losses),
+              f"{label}: losses {res.losses}")
+        check(launcher.params_sum(res.state.params) != res.theta_init_sum,
+              f"{label}: theta did not change")
+        for name in FLAT_KERNELS:
+            if res.kernel_ms.get(name):
+                sums, embed = _per_step(res.kernel_ms[name], n_leaves)
+                log(f"    {name}: per-step sums of {n_leaves} launches "
+                    f"{[round(x, 2) for x in sums]} ms; embed launch "
+                    f"{[round(x, 2) for x in embed]} ms")
+        runs[label] = (launches, res.kernel_ms)
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return runs
+
+
+def _per_leaf_vs_packed_step(model, params, cfg):
+    """One fused_per_leaf and one fused_packed step from the same
+    parameters and batch: theta within the apply tolerance (the
+    projections are bit-identical; the applies fold eta at different
+    places)."""
+    import torch
+    from repro_torch.configs.base import RBDConfig, TrainConfig
+    from repro_torch.data import synthetic
+    from repro_torch.train import step as steplib
+
+    batch = next(synthetic.lm_batches(0, 8, 128, cfg.vocab, device="cuda"))
+    thetas = {}
+    for packed in ("on", "off"):
+        tcfg = TrainConfig(model=cfg, rbd=RBDConfig(
+            total_dim=1024, backend="cuda", packed=packed),
+            learning_rate=0.125)
+        init_state, train_step, sub = steplib.make_train_step(
+            model, tcfg, device="cuda", return_optimizer=True)
+        state, _ = train_step(init_state(params=params), batch)
+        thetas[packed] = {k: v.clone() for k, v in
+                          sub.materialize_params(state.params).items()}
+        del state
+    worst = 0.0
+    for name, p0 in params.items():
+        a, b = thetas["on"][name], thetas["off"][name]
+        dt = float((a - b).abs().max())
+        tol = (THETA_RTOL * float((a - p0).abs().max())
+               + 2 * 2.0**-23 * float(p0.abs().max()))
+        check(dt <= tol, f"{name}: fused_per_leaf vs fused_packed theta "
+              f"differ by {dt:.3g} (tol {tol:.3g})")
+        worst = max(worst, dt / max(tol, 1e-30))
+    log("  one fused_per_leaf step vs one fused_packed step from the same "
+        f"parameters and batch: every leaf within tolerance (worst "
+        f"{worst:.3g} of it)")
+    torch.cuda.synchronize()
+
+
+def _plain_at_full_shapes(full_plan, params):
+    """The plain versions over one step's leaves at the main path's full
+    shapes, timed, each held against its kernel.  Returns (ms, errs)."""
+    import torch
+    from repro_torch.core import projector, rng
+    from repro_torch.kernels import rbd_project, rbd_reconstruct
+
+    dist = full_plan.distribution
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    step_seed = rng.fold_seed(0, 0)
+    errs = dict.fromkeys(FLAT_KERNELS, 0.0)
+    plain_ms = dict.fromkeys(FLAT_KERNELS, 0.0)
+    for lp in full_plan.leaves:
+        seeds = projector._leaf_seeds(step_seed, lp)
+        theta = params[lp.name].reshape(lp.n_stack, lp.size)
+        g = torch.randn(theta.shape, generator=gen, device="cuda")
+        scale = torch.randn((lp.n_stack, lp.dim), generator=gen,
+                            device="cuda") * 1e-4
+        plain = {}
+        plain_ms["project_flat"] += cuda_ms(lambda: plain.update(
+            p=rbd_project.project_flat_plain(seeds, g, lp.dim, dist)))[0]
+        u, _ = rbd_project.project_flat(seeds, g, lp.dim, dist)
+        errs["project_flat"] = max(errs["project_flat"],
+                                   float((u - plain["p"][0]).abs().max()))
+        plain_ms["reconstruct_flat"] += cuda_ms(lambda: plain.update(
+            r=rbd_reconstruct.reconstruct_flat_plain(seeds, scale, lp.size,
+                                                     dist)))[0]
+        errs["reconstruct_flat"] = max(errs["reconstruct_flat"], _check_delta(
+            f"full {lp.name}", rbd_reconstruct.reconstruct_flat(
+                seeds, scale, lp.size, dist), plain.pop("r")))
+        plain_ms["reconstruct_apply_flat"] += cuda_ms(lambda: plain.update(
+            a=rbd_reconstruct.reconstruct_apply_flat_plain(
+                seeds, scale, theta, 0.125, dist)))[0]
+        errs["reconstruct_apply_flat"] = max(
+            errs["reconstruct_apply_flat"], _check_apply(
+                f"full {lp.name}", rbd_reconstruct.reconstruct_apply_flat(
+                    seeds, scale, theta, 0.125, dist), plain.pop("a"), theta))
+        del plain, g
+    log(f"  plain versions over the {len(full_plan.leaves)} leaves: "
+        f"{ {k: round(v, 1) for k, v in plain_ms.items()} } ms")
+    return plain_ms, errs
+
+
+def phase_per_leaf(full_plan):
+    """Returns (name, launches, max_abs_err, ms, plain_ms) per per-leaf
+    kernel: launches from its main-path run, ms the median per-step sum
+    of its 14 launches there."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_model
+
+    log("== phase 13: per-leaf strategies, qwen2-0.5b full width and depth")
+    n_leaves = len(full_plan.leaves)
+    runs = _per_leaf_launcher_runs(n_leaves)
+    cfg = get_config("qwen2-0.5b")
+    model = get_model(cfg)
+    params = model.init(0, device="cuda")
+    _per_leaf_vs_packed_step(model, params, cfg)
+    plain_ms, errs = _plain_at_full_shapes(full_plan, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = []
+    for name in FLAT_KERNELS:
+        launches, kernel_ms = runs[ROW_RUN[name]]
+        sums, _ = _per_step(kernel_ms[name], n_leaves)
+        rows.append((name, launches[name], errs[name],
+                     sorted(sums)[len(sums) // 2], plain_ms[name]))
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1006,6 +1362,11 @@ def main() -> int:
                      serving["launches"], adapters["err"], adapters["ms"],
                      adapters["plain_ms"])
     rows.append(row)
+    leaf_errs = phase_leaf_kernels(full_plan)
+    for name, launches, err, ms, plain_ms in phase_per_leaf(full_plan):
+        rows.append(kernel_row(name, lay, full_plan.distribution, dev, 1,
+                               launches, max(err, leaf_errs[name]), ms,
+                               plain_ms, plan=full_plan))
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(dev["smi"], flush=True)

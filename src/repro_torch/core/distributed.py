@@ -15,7 +15,12 @@ Two parallelization modes over the data-parallel process group:
 Either way the per-step exchange is exactly ONE collective of a
 coordinate-sized buffer -- widened to the concatenated (2*d_packed,)
 coords+norms buffer under 'exact' normalization -- never anything
-parameter-sized.
+parameter-sized.  The per-leaf strategies (packing off, weight decay) keep
+that count: every leaf's ``(n_stack, dim)`` coordinates travel in one
+concatenated buffer (:func:`shared_basis_coords`,
+:func:`shared_basis_update`, :func:`independent_bases_update`).  Only the
+paper's SGD baseline (RBD off) averages the full-D gradient
+(:func:`grad_mean`), counted apart as ``grad_all_reduce``.
 
 Axis names: the reference names a mesh axis; here ``"data"`` names the
 default (world) process group, and a ``ProcessGroup`` is taken as it is.
@@ -27,9 +32,8 @@ buffer, both of which gloo and NCCL implement, issued with
 :func:`finish_exchange` waits.
 
 Not ported yet: the model-axis completion ``complete_model_partials``
-(ROADMAP.md Queue A 14), the per-leaf ``shared_basis_coords`` /
-``shared_basis_update`` / ``independent_bases_update`` (Queue A 16) and
-the resilience sentinel's rider scalar (Queue A 13).
+(ROADMAP.md Queue A 14) and the resilience sentinel's rider scalar (Queue
+A 13).
 """
 
 from __future__ import annotations
@@ -42,9 +46,11 @@ import torch.distributed as dist
 from repro_torch.core import projector, rng
 
 # collectives issued, by kind: the coordinate exchanges of start_exchange
-# (the contract is exactly one per optimizer step) and the scalar
-# all-reduces of mean_scalar (metrics, e.g. the loss)
-COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "scalar": 0}
+# (the contract is exactly one per optimizer step), the scalar all-reduces
+# of mean_scalar (metrics, e.g. the loss) and the full-D gradient mean of
+# the SGD baseline (grad_mean)
+COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "scalar": 0,
+               "grad_all_reduce": 0}
 
 
 def reset_counts() -> None:
@@ -185,18 +191,65 @@ def shared_basis_packed_exchange(coords, sq, axis_name, *,
                                           kind="pmean", widened=widened))
 
 
-def shared_basis_coords(transform, local_grads, state, axis_name):
-    """Per-leaf shared-basis exchange: not ported yet."""
-    raise NotImplementedError(
-        "the per-leaf shared_basis_coords is not ported yet (ROADMAP.md "
-        "Queue A 16); the packed path uses shared_basis_packed_exchange")
+def grad_mean(grads: dict, axis_name) -> dict:
+    """The SGD baseline's data-parallel gradient mean: ONE all-reduce of
+    every leaf's gradient, concatenated (the D-sized collective the paper
+    eliminates), counted as ``grad_all_reduce``."""
+    names = list(grads)
+    buf = torch.cat([grads[k].reshape(-1).to(torch.float32) for k in names])
+    group = process_group(axis_name)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    COLLECTIVES["grad_all_reduce"] += 1
+    buf /= dist.get_world_size(group)
+    out, off = {}, 0
+    for k in names:
+        n = grads[k].numel()
+        out[k] = buf[off: off + n].reshape(grads[k].shape).to(grads[k].dtype)
+        off += n
+    return out
 
 
-def shared_basis_update(transform, local_grads, state, axis_name):
-    """Per-leaf shared-basis update: not ported yet."""
-    raise NotImplementedError(
-        "the per-leaf shared_basis_update is not ported yet (ROADMAP.md "
-        "Queue A 16)")
+def _exchange_leaf_coords(coords: list, axis_name, kind: str) -> list:
+    """Every leaf's (n_stack, dim) coordinates through ONE collective of
+    their concatenation: the mean (``"pmean"``, element for element the
+    reference's per-leaf pmeans) or the (K, n_stack, dim) gathers
+    (``"all_gather"``)."""
+    flat = torch.cat([c.reshape(-1).to(torch.float32) for c in coords])
+    buf, _ = finish_exchange(start_exchange(flat, None, axis_name,
+                                            kind=kind))
+    out, off = [], 0
+    for c in coords:
+        n = c.numel()
+        out.append(buf[..., off: off + n].reshape(
+            tuple(buf.shape[:-1]) + tuple(c.shape)))
+        off += n
+    return out
+
+
+def shared_basis_coords(transform, local_grads: dict, state, axis_name):
+    """The per-leaf shared-basis exchange: project the local gradient map
+    on the step's basis, average the coordinates of all leaves with one
+    all-reduce.  Returns ``(coords, row_sq)`` in the ``projector.project``
+    convention (the norms are the same on every worker: one basis)."""
+    seed = transform.step_seed(state.step)
+    coords, norms = projector.project(
+        local_grads, transform.plan, seed, backend=transform.backend,
+        return_norms=True)
+    return _exchange_leaf_coords(coords, axis_name, "pmean"), norms
+
+
+def shared_basis_update(transform, local_grads: dict, state, axis_name):
+    """All workers, one basis: average the coordinates, reconstruct
+    locally.  Returns ``(update map, new RBDState)``; the full-space
+    strategy (weight decay) runs its optimizer on the update."""
+    from repro_torch.core.rbd import RBDState
+
+    coords, norms = shared_basis_coords(transform, local_grads, state,
+                                        axis_name)
+    update = projector.reconstruct(
+        coords, transform.plan, transform.step_seed(state.step),
+        local_grads, backend=transform.backend, row_sq=norms)
+    return update, RBDState(step=state.step + 1)
 
 
 def independent_bases_start_exchange(transform, local_grads, state,
@@ -232,12 +285,33 @@ def independent_bases_coords(transform, local_grads, state, axis_name, *,
     return (coords, sq) if return_norms else coords
 
 
-def independent_bases_update(transform, local_grads, state, axis_name):
-    """Per-leaf Algorithm 1 (full-space fallback): not ported yet."""
-    raise NotImplementedError(
-        "the per-leaf independent_bases_update is not ported yet "
-        "(ROADMAP.md Queue A 16); the packed path uses "
-        "independent_bases_coords and reconstruct_apply_packed_workers")
+def independent_bases_update(transform, local_grads: dict, state,
+                             axis_name):
+    """Paper Algorithm 1 on the per-leaf path: project on this worker's
+    own basis, all-gather every leaf's coordinates in one collective, then
+    regenerate each worker's basis in turn (K reconstructions, one launch
+    per leaf each; 'exact' regenerates each worker's row norms with one
+    more projection per leaf) and average the K updates.  Returns
+    ``(update map, new RBDState)``."""
+    from repro_torch.core.rbd import RBDState
+
+    plan, backend = transform.plan, transform.backend
+    coords = projector.project(local_grads, plan,
+                               worker_seed(transform, state, axis_name),
+                               backend=backend)
+    gathered = _exchange_leaf_coords(coords, axis_name, "all_gather")
+    k_workers = int(gathered[0].shape[0])
+    base_seeds = projector.worker_base_seeds(
+        transform.step_seed(state.step), k_workers)
+    total = None
+    for k in range(k_workers):
+        upd = projector.reconstruct([g[k] for g in gathered], plan,
+                                    base_seeds[k], local_grads,
+                                    backend=backend)
+        total = upd if total is None else {n: total[n] + upd[n]
+                                           for n in total}
+    update = {n: x / k_workers for n, x in total.items()}
+    return update, RBDState(step=state.step + 1)
 
 
 def grad_comm_bytes(plan, n_params: int, k_workers: int, mode: str, *,

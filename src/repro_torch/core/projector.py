@@ -1,5 +1,5 @@
-"""Packed projection into / reconstruction from on-demand random bases
-(port of the packed half of ``repro.core.projector``).
+"""Projection into / reconstruction from on-demand random bases (port of
+``repro.core.projector``).
 
 Every compartment is packed into one ``(q_packed,)`` parameter buffer
 and one ``(d_packed,)`` coordinate buffer (``core.compartments``), so one
@@ -21,14 +21,21 @@ buffers from one shared base in one launch:
 
   adapter apply: theta_a' = theta - c_hat_a P(base_seed_a), a = 1..B
 
-(:func:`reconstruct_apply_packed_adapters`).  The per-leaf paths
-(``project``/``reconstruct`` and the ``orthonormal`` normalization) are
-not ported yet (ROADMAP.md Queue A 16).
+(:func:`reconstruct_apply_packed_adapters`).
 
-Backends: ``"torch"`` runs the plain PyTorch versions on the tensors'
-device; ``"cuda"`` runs the kernel wrappers of
-``repro_torch.kernels.rbd_step`` (which take the plain versions for CPU
-tensors, as the tests do).
+The per-leaf strategies (packing off, weight decay) run a loop over the
+plan's leaves instead, ONE launch per ``LeafPlan`` whatever its number of
+stacked compartments (:func:`project`, :func:`reconstruct`,
+:func:`reconstruct_apply`, :func:`rbd_gradient`), on parameter maps
+``{leaf name: tensor}``; the ``orthonormal`` normalization materializes a
+QR-orthonormalized basis per compartment (:func:`_ortho_basis`).
+
+Backends: ``"torch"`` runs plain PyTorch on the tensors' device -- the
+packed kernels' plain versions, and for the per-leaf path the reference's
+tensor-shaped generation (:func:`_project_flat`, :func:`_reconstruct_flat`);
+``"cuda"`` runs the kernel wrappers of ``repro_torch.kernels.rbd_step``,
+``rbd_project`` and ``rbd_reconstruct`` (which take their plain versions
+for CPU tensors, as the tests do).
 """
 
 from __future__ import annotations
@@ -42,24 +49,46 @@ import torch
 from repro_torch.core import rng
 from repro_torch.core.compartments import LeafPlan, Plan, leaf_order
 
+# Rows of the virtual basis matrix generated per chunk by the tensor-shaped
+# generation (the reference's DIR_CHUNK / _BLOCK_BUDGET): the live block is
+# (chunk x Q), chunk a multiple of 8, at most 2^24 elements where Q allows.
+DIR_CHUNK = 8
+_BLOCK_BUDGET = 1 << 24
+
+
+def _chunk_rows(dim: int, q: int) -> int:
+    r = max(DIR_CHUNK, min(dim, _BLOCK_BUDGET // max(q, 1)))
+    return (r // DIR_CHUNK) * DIR_CHUNK
+
+
+def _padded_dim(d: int, chunk: int = DIR_CHUNK) -> int:
+    return ((d + chunk - 1) // chunk) * chunk
+
 
 def _leaf_seed(base_seed, lp: LeafPlan) -> torch.Tensor:
     return rng.fold_seed(base_seed, lp.seed_tag)
+
+
+def _stack_seeds(leaf_seed, n_stack: int) -> torch.Tensor:
+    """(n_stack,) independent compartment seeds of a stacked leaf
+    ``fold_seed(leaf_seed, i)`` (int32 bits, on the CPU)."""
+    return rng.fold_seed(leaf_seed, torch.arange(n_stack, dtype=torch.int32))
 
 
 def segment_seeds(plan: Plan, seed) -> torch.Tensor:
     """(n_segments,) uint32 segment seeds (int32 bits, on the CPU), in
     packed segment order: leaf seed = fold(step_seed, seed_tag), and a
     stacked leaf folds the layer index on top."""
-    parts = []
-    for lp in plan.leaves:
-        lseed = _leaf_seed(seed, lp)
-        if lp.stacked:
-            layers = torch.arange(lp.n_stack, dtype=torch.int32)
-            parts.append(rng.fold_seed(lseed, layers).reshape(-1))
-        else:
-            parts.append(lseed.reshape(1))
-    return torch.cat(parts)
+    return torch.cat([_leaf_seeds(seed, lp) for lp in plan.leaves])
+
+
+def _leaf_seeds(seed, lp: LeafPlan) -> torch.Tensor:
+    """(n_stack,) compartment seeds of one leaf: the layer-folded seeds of
+    a stacked leaf, the leaf seed itself otherwise."""
+    lseed = _leaf_seed(seed, lp)
+    if lp.stacked:
+        return _stack_seeds(lseed, lp.n_stack).reshape(-1)
+    return lseed.reshape(1)
 
 
 def _ravel_tree(tree: Mapping[str, torch.Tensor], plan: Plan):
@@ -342,31 +371,314 @@ def reconstruct_apply_packed_adapters(coords_batch, plan: Plan,
 
 
 # ---------------------------------------------------------------------------
+# per-leaf path: single-compartment generation (the "torch" backend)
+# ---------------------------------------------------------------------------
+
+
+def _project_flat(seed, g: torch.Tensor, dim: int, distribution: str):
+    """``u = P @ g`` and the squared row norms of one compartment, chunked
+    over directions.  ``g`` may have any shape: basis rows are generated
+    tensor-shaped from linear-position counters and contracted over all of
+    g's axes.  Returns ``(u, sq)`` of shape ``(dim,)`` each."""
+    tail = tuple(g.shape)
+    q = int(np.prod(tail, dtype=np.int64)) if tail else 1
+    chunk = _chunk_rows(dim, q)
+    n_chunks = _padded_dim(dim, chunk) // chunk
+    g = g.to(torch.float32)
+    red = tuple(range(1, len(tail) + 1))
+    us, sqs = [], []
+    for i in range(n_chunks):
+        block = rng.generate_rows_nd(seed, i * chunk, chunk, tail,
+                                     distribution, device=g.device)
+        us.append(torch.sum(block * g[None], dim=red) if red
+                  else block * g)
+        sqs.append(torch.sum(block * block, dim=red) if red
+                   else block * block)
+    return torch.cat(us)[:dim], torch.cat(sqs)[:dim]
+
+
+def _reconstruct_flat(seed, scale: torch.Tensor, tail, distribution: str,
+                      dtype=torch.float32) -> torch.Tensor:
+    """``delta = scale @ P`` of one compartment, chunked over directions;
+    ``scale`` (dim,) already folds in learning rate and normalization,
+    ``tail`` is the compartment's tensor shape (or an int for flat)."""
+    tail = (tail,) if isinstance(tail, int) else tuple(tail)
+    dim = int(scale.shape[0])
+    q = int(np.prod(tail, dtype=np.int64)) if tail else 1
+    chunk = _chunk_rows(dim, q)
+    d_pad = _padded_dim(dim, chunk)
+    s = torch.zeros((d_pad,), dtype=torch.float32, device=scale.device)
+    s[:dim] = scale
+    acc = None
+    for i in range(d_pad // chunk):
+        block = rng.generate_rows_nd(seed, i * chunk, chunk, tail,
+                                     distribution, device=scale.device)
+        sc = s[i * chunk: (i + 1) * chunk].reshape((chunk,) + (1,) * len(tail))
+        part = torch.sum(sc * block, dim=0)
+        acc = part if acc is None else acc + part
+    return acc.to(dtype)
+
+
+# explicit orthogonalization (paper section 5 / B.8): the (dim, Q) block is
+# materialized and QR-orthonormalized, so compartments are limited to
+_ORTHO_BUDGET = 1 << 24  # materialized d*Q elements
+
+
+def _ortho_basis(seed, dim: int, tail, distribution: str,
+                 device=None) -> torch.Tensor:
+    """Deterministically orthonormalized (dim, Q) basis rows of one
+    compartment: QR of the generated rows, signs fixed by diag(R) so the
+    basis is a pure function of the seed."""
+    q = int(np.prod(tail, dtype=np.int64)) if tail else 1
+    if dim * q > _ORTHO_BUDGET:
+        raise ValueError(
+            f"orthonormal normalization materializes d*Q = {dim * q:,} "
+            f"elements; compartmentalize below {_ORTHO_BUDGET:,} first")
+    p = rng.generate_rows_nd(seed, 0, dim, tuple(tail), distribution,
+                             device=device).reshape(dim, q)
+    qmat, r = torch.linalg.qr(p.T)
+    sign = torch.sign(torch.diagonal(r))
+    return (qmat * sign).T
+
+
+def _project_ortho(seed, g: torch.Tensor, dim: int, distribution: str):
+    b = _ortho_basis(seed, dim, tuple(g.shape), distribution, g.device)
+    u = b @ g.reshape(-1).to(torch.float32)
+    return u, torch.ones_like(u)
+
+
+def _reconstruct_ortho(seed, scale: torch.Tensor, tail, distribution: str,
+                       dtype=torch.float32) -> torch.Tensor:
+    tail = (tail,) if isinstance(tail, int) else tuple(tail)
+    b = _ortho_basis(seed, int(scale.shape[0]), tail, distribution,
+                     scale.device)
+    return (scale.to(torch.float32) @ b).reshape(tail).to(dtype)
+
+
+def _batched(project_one, reconstruct_one):
+    """Per-leaf backend functions over the ``n_stack`` compartments of a
+    leaf from single-compartment ones (the reference's vmap, written out
+    as a loop)."""
+
+    def project_flat(seeds, g, dim, distribution):
+        outs = [project_one(seeds[i], g[i], dim, distribution)
+                for i in range(g.shape[0])]
+        return (torch.stack([u for u, _ in outs]),
+                torch.stack([sq for _, sq in outs]))
+
+    def reconstruct_flat(seeds, scale, tail, distribution):
+        return torch.stack([reconstruct_one(seeds[i], scale[i], tail,
+                                            distribution)
+                            for i in range(scale.shape[0])])
+
+    return project_flat, reconstruct_flat
+
+
+def _norm_scales(plan: Plan, lp: LeafPlan, u, sq):
+    """Normalized coordinates ``u * f``: f = 1/sqrt(Q) (rsqrt_dim), the
+    inverse row norms (exact) or 1 ("none", and "orthonormal", whose rows
+    are unit already).  The reconstruction folds the same factor in again
+    (:func:`_recon_scale`)."""
+    if plan.normalization == "rsqrt_dim":
+        return u * float(np.float32(1.0 / np.sqrt(lp.size)))
+    if plan.normalization == "exact":
+        return u * torch.rsqrt(torch.clamp(sq, min=1e-30))
+    return u
+
+
+def _unravel_tree(flat2d: torch.Tensor, plan: Plan, params_like) -> dict:
+    """The (K, size) virtual leaf of a flatten plan -> a parameter map
+    shaped and typed like ``params_like``."""
+    vec = flat2d.reshape(-1)
+    if plan.pad:
+        vec = vec[: vec.shape[0] - plan.pad]
+    out, off = {}, 0
+    for name in leaf_order(params_like):
+        ref = params_like[name]
+        n = int(np.prod(ref.shape, dtype=np.int64))
+        out[name] = vec[off: off + n].reshape(ref.shape).to(ref.dtype)
+        off += n
+    return out
+
+
+def _leaf_tail(lp: LeafPlan) -> tuple[int, ...]:
+    """One compartment's tensor shape."""
+    return tuple(lp.shape[1:]) if lp.stacked else tuple(lp.shape)
+
+
+def _leaf_backend(plan: Plan, backend: str):
+    """(project_flat, reconstruct_flat) of the per-leaf path, batched over
+    a leaf's compartments."""
+    if plan.normalization == "orthonormal":
+        return _batched(_project_ortho, _reconstruct_ortho)
+    be = _get_backend(backend)
+    return be.project_flat, be.reconstruct_flat
+
+
+def project(grads, plan: Plan, seed, *, backend: str = "torch",
+            return_norms: bool = False):
+    """Project a gradient map onto the plan's random bases: a list (one
+    entry per LeafPlan) of normalized ``(n_stack, dim)`` coordinates, one
+    projection launch per leaf on the cuda backend.  ``return_norms``
+    also returns the squared row norms (same shapes), which a colocated
+    reconstruction reuses under 'exact' normalization."""
+    proj_flat, _ = _leaf_backend(plan, backend)
+    sources = ({"<flat>": _ravel_tree(grads, plan)} if plan.flatten
+               else grads)
+    coords, norms = [], []
+    for lp in plan.leaves:
+        g = sources[lp.name].reshape((lp.n_stack,) + _leaf_tail(lp))
+        u, sq = proj_flat(_leaf_seeds(seed, lp), g, lp.dim,
+                          plan.distribution)
+        coords.append(_norm_scales(plan, lp, u, sq))
+        norms.append(sq)
+    if return_norms:
+        return coords, norms
+    return coords
+
+
+def _recon_scale(plan: Plan, lp: LeafPlan, seeds, coords, proj_flat,
+                 sq=None):
+    """Per-direction reconstruction scales ``c * f`` of one leaf, ``f`` the
+    normalization factor; 'exact' without ``sq`` regenerates the row norms
+    with a projection of zeros (one more launch per leaf)."""
+    if plan.normalization == "rsqrt_dim":
+        return coords * float(np.float32(1.0 / np.sqrt(lp.size)))
+    if plan.normalization == "exact":
+        if sq is None:
+            zeros = torch.zeros((lp.n_stack,) + _leaf_tail(lp),
+                                dtype=torch.float32, device=coords.device)
+            _, sq = proj_flat(seeds, zeros, lp.dim, plan.distribution)
+        return coords * torch.rsqrt(torch.clamp(sq, min=1e-30))
+    return coords
+
+
+def reconstruct(coords: list, plan: Plan, seed, params_like, *,
+                backend: str = "torch", row_sq: list | None = None) -> dict:
+    """Map per-leaf coordinates back to a full-space update map shaped and
+    typed like ``params_like``: ``sum_i c_i phi_hat_i`` per compartment,
+    one reconstruction launch per leaf on the cuda backend.  ``row_sq``
+    (from ``project(..., return_norms=True)``) saves the 'exact'
+    normalization a regeneration pass; a worker that only received
+    coordinates passes None."""
+    proj_flat, recon_flat = _leaf_backend(plan, backend)
+
+    def one_leaf(i, lp):
+        seeds = _leaf_seeds(seed, lp)
+        sq = row_sq[i] if row_sq is not None else None
+        scale = _recon_scale(plan, lp, seeds, coords[i].to(torch.float32),
+                             proj_flat, sq)
+        delta = recon_flat(seeds, scale, _leaf_tail(lp), plan.distribution)
+        return delta.reshape(lp.shape)
+
+    if plan.flatten:
+        return _unravel_tree(one_leaf(0, plan.leaves[0]), plan, params_like)
+    deltas = {lp.name: one_leaf(i, lp).to(params_like[lp.name].dtype)
+              for i, lp in enumerate(plan.leaves)}
+    return {name: deltas[name] if name in deltas
+            else torch.zeros(ref.shape, dtype=ref.dtype,
+                             device=coords[0].device)
+            for name, ref in params_like.items()}
+
+
+def reconstruct_apply(coords: list, plan: Plan, seed, params, eta, *,
+                      backend: str = "torch", row_sq: list | None = None
+                      ) -> dict:
+    """Per-leaf fused apply ``theta' = theta - eta * (c_hat @ P)``: one
+    ``reconstruct_apply_flat`` launch per leaf on the cuda backend, the
+    delta never in memory, theta rounded once into its dtype.  The torch
+    backend, 'orthonormal' and flatten plans reconstruct, then subtract
+    (the reference's fallback)."""
+    if backend != "cuda" or plan.normalization == "orthonormal" \
+            or plan.flatten:
+        delta = reconstruct(coords, plan, seed, params, backend=backend,
+                            row_sq=row_sq)
+        return {k: (p.to(torch.float32)
+                    - eta * delta[k].to(torch.float32)).to(p.dtype)
+                for k, p in params.items()}
+    be = _get_backend(backend)
+    out = dict(params)
+    for i, lp in enumerate(plan.leaves):
+        seeds = _leaf_seeds(seed, lp)
+        sq = row_sq[i] if row_sq is not None else None
+        scale = _recon_scale(plan, lp, seeds, coords[i].to(torch.float32),
+                             be.project_flat, sq)
+        theta = params[lp.name]
+        new = be.reconstruct_apply_flat(
+            seeds, scale, theta.reshape(lp.n_stack, lp.size).contiguous(),
+            eta, plan.distribution)
+        out[lp.name] = new.reshape(theta.shape)
+    return out
+
+
+def rbd_gradient(grads, plan: Plan, seed, *, backend: str = "torch") -> dict:
+    """The RBD low-rank gradient sketch ``P_hat^T P_hat g`` (the paper's
+    g^RBD): projection, then reconstruction reusing its row norms."""
+    coords, norms = project(grads, plan, seed, backend=backend,
+                            return_norms=True)
+    return reconstruct(coords, plan, seed, grads, backend=backend,
+                       row_sq=norms)
+
+
+# ---------------------------------------------------------------------------
 # backend dispatch (plain PyTorch vs the CUDA kernels)
 # ---------------------------------------------------------------------------
 
 
 @functools.cache
 def _get_backend(name: str):
-    from repro_torch.kernels import rbd_step
+    from repro_torch.kernels import rbd_project, rbd_reconstruct, rbd_step
 
     if name == "torch":
+        project_flat, reconstruct_flat = _batched(_project_flat,
+                                                  _reconstruct_flat)
         return _Backend(rbd_step.project_packed_plain,
                         rbd_step.reconstruct_apply_packed_plain,
                         rbd_step.reconstruct_apply_packed_workers_plain,
-                        rbd_step.reconstruct_apply_packed_adapters_plain)
+                        rbd_step.reconstruct_apply_packed_adapters_plain,
+                        project_flat, reconstruct_flat,
+                        rbd_reconstruct.reconstruct_apply_flat_plain)
     if name == "cuda":
         return _Backend(rbd_step.project_packed,
                         rbd_step.reconstruct_apply_packed,
                         rbd_step.reconstruct_apply_packed_workers,
-                        rbd_step.reconstruct_apply_packed_adapters)
+                        rbd_step.reconstruct_apply_packed_adapters,
+                        _flat_project(rbd_project.project_flat),
+                        _flat_reconstruct(rbd_reconstruct.reconstruct_flat),
+                        rbd_reconstruct.reconstruct_apply_flat)
     raise ValueError(f"unknown projector backend {name!r}")
+
+
+def _flat_project(kernel):
+    """A per-leaf kernel wrapper taking (n_stack, q) rows -> the backend's
+    (seeds, g of shape (n_stack, *tail), dim, distribution) contract."""
+
+    def project_flat(seeds, g, dim, distribution):
+        rows = g.reshape(g.shape[0], -1).to(torch.float32).contiguous()
+        return kernel(seeds, rows, dim, distribution)
+
+    return project_flat
+
+
+def _flat_reconstruct(kernel):
+    def reconstruct_flat(seeds, scale, tail, distribution):
+        tail = (tail,) if isinstance(tail, int) else tuple(tail)
+        q = int(np.prod(tail, dtype=np.int64)) if tail else 1
+        out = kernel(seeds, scale.to(torch.float32), q, distribution)
+        return out.reshape((scale.shape[0],) + tail)
+
+    return reconstruct_flat
 
 
 class _Backend:
     def __init__(self, project, reconstruct_apply, reconstruct_apply_workers,
-                 reconstruct_apply_adapters):
+                 reconstruct_apply_adapters, project_flat, reconstruct_flat,
+                 reconstruct_apply_flat):
         self.project_packed = project
         self.reconstruct_apply_packed = reconstruct_apply
         self.reconstruct_apply_packed_workers = reconstruct_apply_workers
         self.reconstruct_apply_packed_adapters = reconstruct_apply_adapters
+        # per-leaf: batched over a leaf's (n_stack,) compartments
+        self.project_flat = project_flat
+        self.reconstruct_flat = reconstruct_flat
+        self.reconstruct_apply_flat = reconstruct_apply_flat

@@ -212,6 +212,35 @@ def generate_block(seed, row_offset, col_offset, shape: tuple[int, int],
     return sample_from_counter(seed, c, r, distribution)
 
 
+def linear_positions(tail_shape: tuple[int, ...], device=None
+                     ) -> torch.Tensor:
+    """Row-major linear position counters of a tensor-shaped compartment
+    (int32 tensor of uint32 bits, shaped ``tail_shape``)."""
+    shape = tuple(int(s) for s in tail_shape)
+    q = int(np.prod(shape, dtype=np.int64)) if shape else 1
+    if q >= 2**32:
+        raise ValueError(f"compartment too large for uint32 counters: "
+                         f"{shape}")
+    pos = torch.arange(q, dtype=torch.int64, device=device)
+    return _i32_tensor(pos, None).reshape(shape)
+
+
+def generate_rows_nd(seed, row_offset, n_rows: int,
+                     tail_shape: tuple[int, ...],
+                     distribution: Distribution = "normal", *,
+                     device=None) -> torch.Tensor:
+    """(n_rows, *tail_shape) float32 tile of the virtual basis, tensor
+    shaped: row i at linear position j is ``generate_block`` element
+    (i, j) of the flattened tensor."""
+    if isinstance(seed, torch.Tensor) and device is None:
+        device = seed.device
+    shape = (n_rows,) + tuple(int(s) for s in tail_shape)
+    r = (torch.arange(n_rows, dtype=torch.int32, device=device)
+         + _operand(row_offset)).reshape((n_rows,) + (1,) * (len(shape) - 1))
+    c = linear_positions(tail_shape, device)[None]
+    return sample_from_counter(seed, c, r, distribution)
+
+
 # ---------------------------------------------------------------------------
 # PRNG impls (PrngSpec) and their reason-coded resolution
 # ---------------------------------------------------------------------------

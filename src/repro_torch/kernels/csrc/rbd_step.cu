@@ -54,14 +54,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "threefry.cuh"
+#include "rbd_common.cuh"
 
 namespace rbd {
-
-constexpr int kDirBlock = 8;       // directions per coordinate block
-constexpr int kThreads = 256;      // threads per CUDA block
-constexpr int kWarps = kThreads / 32;
-constexpr int kAcc = 2 * kDirBlock;  // u and sq per direction
 
 // Index of the segment owning CUDA block `bid`: the largest s with
 // prefix[s] <= bid (prefix has n_seg + 1 entries, prefix[0] == 0).
@@ -77,32 +72,6 @@ __device__ __forceinline__ int find_segment(const int64_t* prefix, int n_seg,
     }
   }
   return lo;
-}
-
-// Fixed-order sum over the block of each of the kAcc accumulators: a
-// shuffle tree within each warp, then the warp totals in warp order.
-// Afterwards thread k (k < kAcc) holds the block total of accumulator k in
-// acc[0].
-__device__ __forceinline__ void block_sum(float (&acc)[kAcc],
-                                          float (&smem)[kAcc][kWarps]) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < kAcc; ++k) {
-    float v = acc[k];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      v += __shfl_down_sync(0xffffffffu, v, off);
-    }
-    if (lane == 0) smem[k][warp] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < kAcc) {
-    float t = 0.0f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) t += smem[threadIdx.x][w];
-    acc[0] = t;  // thread k holds the block total of accumulator k
-  }
 }
 
 // Kernel 1: u = P g and sq = sum P^2 for every segment's 8-direction
@@ -353,25 +322,6 @@ __global__ void generate_tile_kernel(uint32_t seed, uint32_t row0,
 }
 
 }  // namespace rbd
-
-#define RBD_DISPATCH(dist, KERNEL, GRID, ...)                               \
-  switch (dist) {                                                           \
-    case rbd::kNormal:                                                      \
-      rbd::KERNEL<rbd::kNormal><<<GRID, rbd::kThreads, 0, st>>>(__VA_ARGS__); \
-      break;                                                                \
-    case rbd::kUniform:                                                     \
-      rbd::KERNEL<rbd::kUniform><<<GRID, rbd::kThreads, 0, st>>>(__VA_ARGS__); \
-      break;                                                                \
-    case rbd::kRademacher:                                                  \
-      rbd::KERNEL<rbd::kRademacher><<<GRID, rbd::kThreads, 0, st>>>(        \
-          __VA_ARGS__);                                                     \
-      break;                                                                \
-    case rbd::kSparse:                                                      \
-      rbd::KERNEL<rbd::kSparse><<<GRID, rbd::kThreads, 0, st>>>(__VA_ARGS__); \
-      break;                                                                \
-    default:                                                                \
-      return static_cast<int>(cudaErrorInvalidValue);                       \
-  }
 
 extern "C" {
 

@@ -1,0 +1,101 @@
+"""Per-leaf projection kernel, beside its plain PyTorch version.
+
+* :func:`project_flat` -- one launch per ``LeafPlan``: raw projections
+  ``u_s = P_s g_s`` and squared row norms of each of the leaf's
+  ``n_stack`` compartments (replaces the reference's
+  ``repro/kernels/rbd_project.py: project_flat -> _project_kernel``, which
+  the reference vmaps over the stacked axis).
+
+Compartment s generates its basis from ``seeds[s]`` (``fold_seed(
+leaf_seed, s)`` for a stacked leaf, the leaf seed for an unstacked one)
+over its unpadded ``(q,)`` row of the ``(n_stack, q)`` gradient.  The
+wrapper takes its plain version for a tensor on the CPU, and only then;
+for a CUDA tensor it launches ``rbd_project_flat`` of ``csrc/rbd_flat.cu``
+or raises.  Launches, calls and CUDA-event times are counted in
+:mod:`repro_torch.kernels.rbd_step`'s ``LAUNCHES``/``CALLS``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import rbd_step
+
+DIR_BLOCK = 8      # rows of P per coordinate block
+POS_BLOCK = 512    # positions per tile of the reference's grid
+# pos-blocks swept by one CUDA block: the packed projection's chunk, so the
+# two kernels' sums run in the same order
+POS_CHUNK = rbd_step.PROJECT_POS_CHUNK
+
+
+def padded_dim(dim: int) -> int:
+    return -(-int(dim) // DIR_BLOCK) * DIR_BLOCK
+
+
+def check_flat(name: str, t: torch.Tensor, n_stack: int, q: int,
+               dtypes=(torch.float32,)) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype not in dtypes or tuple(t.shape) != (n_stack, q):
+        raise ValueError(f"{name} must be one of {dtypes} of shape "
+                         f"{(n_stack, q)}, got {t.dtype} {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def project_flat(seeds, g: torch.Tensor, dim: int,
+                 distribution: str = "normal"):
+    """``(u, sq)``, each ``(n_stack, dim)`` float32, for the ``(n_stack,
+    q)`` float32 gradient rows ``g``; ``seeds`` holds the ``(n_stack,)``
+    uint32 compartment seeds as int32 bits."""
+    rbd_step.CALLS["project_flat"] += 1
+    if g.device.type == "cpu":
+        return project_flat_plain(seeds, g, dim, distribution)
+    n_stack, q = (int(x) for x in g.shape)
+    check_flat("g", g, n_stack, q)
+    if distribution not in rbd_step._DIST_CODE:
+        raise ValueError(f"unknown distribution {distribution!r}")
+    dev = g.device
+    seeds = rbd_step._seeds_on(seeds, n_stack, dev)
+    n_db = padded_dim(dim) // DIR_BLOCK
+    chunk_cols = POS_CHUNK * POS_BLOCK
+    n_chunk = max(1, -(-q // chunk_cols))
+    partial = torch.empty((n_stack * n_db * n_chunk * 2 * DIR_BLOCK,),
+                          dtype=torch.float32, device=dev)
+    arrived = torch.zeros((n_stack * n_db,), dtype=torch.int32, device=dev)
+    u = torch.empty((n_stack, n_db * DIR_BLOCK), dtype=torch.float32,
+                    device=dev)
+    sq = torch.empty_like(u)
+    rbd_step._launch(
+        "project_flat",
+        rbd_step.library(rbd_step.FLAT_SOURCE).lib.rbd_project_flat,
+        g.data_ptr(), seeds.data_ptr(), n_stack, q, n_db, n_chunk,
+        chunk_cols, rbd_step._DIST_CODE[distribution], partial.data_ptr(),
+        arrived.data_ptr(), u.data_ptr(), sq.data_ptr())
+    return u[:, :dim], sq[:, :dim]
+
+
+def flat_blocks(seeds, n_stack: int, q: int, dim: int, distribution: str,
+                device, *, keep: bool):
+    """Yield ``(compartment, first column, block)`` over the (padded dim,
+    columns) basis blocks of every compartment (see
+    ``rbd_step._plain_blocks``: on the CPU a projection keeps its blocks
+    for the apply of the same step)."""
+    return rbd_step._plain_blocks(seeds, [q] * n_stack,
+                                  [padded_dim(dim)] * n_stack, distribution,
+                                  torch.device(device), keep=keep)
+
+
+def project_flat_plain(seeds, g: torch.Tensor, dim: int,
+                       distribution: str = "normal"):
+    """Plain PyTorch version of :func:`project_flat`, on ``g``'s device."""
+    n_stack, q = (int(x) for x in g.shape)
+    g = g.to(torch.float32)
+    u = torch.zeros((n_stack, padded_dim(dim)), dtype=torch.float32,
+                    device=g.device)
+    sq = torch.zeros_like(u)
+    for s, c0, blk in flat_blocks(seeds, n_stack, q, dim, distribution,
+                                  g.device, keep=True):
+        u[s] += torch.mv(blk, g[s, c0: c0 + blk.shape[1]])
+        sq[s] += (blk * blk).sum(1)
+    return u[:, :dim], sq[:, :dim]

@@ -1,0 +1,144 @@
+"""Per-leaf reconstruction kernels, each beside its plain PyTorch version.
+
+* :func:`reconstruct_flat` -- one launch per ``LeafPlan``: the float32
+  update ``delta_s = scale_s @ P_s`` of each of the leaf's ``n_stack``
+  compartments (replaces the reference's ``repro/kernels/
+  rbd_reconstruct.py: reconstruct_flat -> _recon_kernel``).
+* :func:`reconstruct_apply_flat` -- one launch per ``LeafPlan``:
+  ``theta_s' = theta_s - eta * (scale_s @ P_s)`` with a float32
+  accumulator started from ``float(theta)`` and ONE rounding back to
+  theta's dtype (float32 or bfloat16), the delta never in memory
+  (replaces ``reconstruct_apply_flat -> _recon_apply_kernel``).
+
+Per position both visit the dir-blocks in order, forming each block's
+part ``sum_{r<8} s_r P_r`` first (the reference's association).  The
+wrappers take their plain versions for CPU tensors, and only then; for a
+CUDA tensor they launch the kernels of ``csrc/rbd_flat.cu`` or raise.
+Launches, calls and CUDA-event times are counted in
+:mod:`repro_torch.kernels.rbd_step`'s ``LAUNCHES``/``CALLS``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import rbd_step
+from repro_torch.kernels.rbd_project import (DIR_BLOCK, check_flat,
+                                             flat_blocks, padded_dim)
+
+_THETA_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _padded_scale(scale: torch.Tensor, n_stack: int, dim: int):
+    """(n_stack, dim) scale -> contiguous (n_stack, padded dim) float32,
+    zero on the padding rows."""
+    if tuple(scale.shape) != (n_stack, dim):
+        raise ValueError(f"scale must have shape {(n_stack, dim)}, got "
+                         f"{tuple(scale.shape)}")
+    out = torch.zeros((n_stack, padded_dim(dim)), dtype=torch.float32,
+                      device=scale.device)
+    out[:, :dim] = scale
+    return out
+
+
+def reconstruct_flat(seeds, scale: torch.Tensor, q: int,
+                     distribution: str = "normal") -> torch.Tensor:
+    """``(n_stack, q)`` float32 ``scale @ P`` per compartment; ``scale``
+    is ``(n_stack, dim)`` and folds in normalization (and learning rate
+    where the caller wants it)."""
+    rbd_step.CALLS["reconstruct_flat"] += 1
+    if scale.device.type == "cpu":
+        return reconstruct_flat_plain(seeds, scale, q, distribution)
+    n_stack, dim = (int(x) for x in scale.shape)
+    if distribution not in rbd_step._DIST_CODE:
+        raise ValueError(f"unknown distribution {distribution!r}")
+    dev = scale.device
+    sc = _padded_scale(scale, n_stack, dim)
+    seeds = rbd_step._seeds_on(seeds, n_stack, dev)
+    out = torch.empty((n_stack, q), dtype=torch.float32, device=dev)
+    rbd_step._launch(
+        "reconstruct_flat",
+        rbd_step.library(rbd_step.FLAT_SOURCE).lib.rbd_reconstruct_flat,
+        sc.data_ptr(), seeds.data_ptr(), n_stack, q,
+        sc.shape[1] // DIR_BLOCK, rbd_step._DIST_CODE[distribution],
+        out.data_ptr())
+    return out
+
+
+def reconstruct_flat_plain(seeds, scale: torch.Tensor, q: int,
+                           distribution: str = "normal") -> torch.Tensor:
+    """Plain PyTorch version of :func:`reconstruct_flat`: per block of
+    positions each dir-block's part is added in dir-block order."""
+    n_stack, dim = (int(x) for x in scale.shape)
+    sc = _padded_scale(scale.to(torch.float32), n_stack, dim)
+    out = torch.zeros((n_stack, q), dtype=torch.float32,
+                      device=scale.device)
+    for s, c0, blk, parts in _parts(seeds, sc, n_stack, q, dim,
+                                    distribution, scale.device):
+        o = out[s, c0: c0 + blk.shape[1]]
+        for part in parts:
+            o += part
+    return out
+
+
+def reconstruct_apply_flat(seeds, scale: torch.Tensor, theta: torch.Tensor,
+                           eta, distribution: str = "normal", *, out=None):
+    """``theta - eta * (scale @ P)`` per compartment, fused; returns
+    ``out`` (theta's dtype and shape ``(n_stack, q)``).  ``out=None``
+    allocates it; ``out=theta`` updates theta in place."""
+    rbd_step.CALLS["reconstruct_apply_flat"] += 1
+    if theta.device.type == "cpu":
+        return reconstruct_apply_flat_plain(seeds, scale, theta, eta,
+                                            distribution, out=out)
+    n_stack, q = (int(x) for x in theta.shape)
+    check_flat("theta", theta, n_stack, q, _THETA_DTYPES)
+    if distribution not in rbd_step._DIST_CODE:
+        raise ValueError(f"unknown distribution {distribution!r}")
+    dev = theta.device
+    if out is None:
+        out = torch.empty_like(theta)
+    check_flat("out", out, n_stack, q, (theta.dtype,))
+    sc = _padded_scale(scale, n_stack, int(scale.shape[-1]))
+    seeds = rbd_step._seeds_on(seeds, n_stack, dev)
+    rbd_step._launch(
+        "reconstruct_apply_flat",
+        rbd_step.library(rbd_step.FLAT_SOURCE).lib.rbd_reconstruct_apply_flat,
+        sc.data_ptr(), theta.data_ptr(), out.data_ptr(),
+        float(np.float32(eta)), seeds.data_ptr(), n_stack, q,
+        sc.shape[1] // DIR_BLOCK, rbd_step._DIST_CODE[distribution],
+        int(theta.dtype == torch.bfloat16))
+    return out
+
+
+def reconstruct_apply_flat_plain(seeds, scale: torch.Tensor,
+                                 theta: torch.Tensor, eta,
+                                 distribution: str = "normal", *, out=None):
+    """Plain PyTorch version of :func:`reconstruct_apply_flat`: a float32
+    copy of theta, each dir-block's ``eta * part`` subtracted in order,
+    one cast back to theta's dtype."""
+    n_stack, q = (int(x) for x in theta.shape)
+    dim = int(scale.shape[-1])
+    sc = _padded_scale(scale.to(torch.float32), n_stack, dim)
+    eta = float(np.float32(eta))
+    acc = theta.to(torch.float32, copy=True)
+    for s, c0, blk, parts in _parts(seeds, sc, n_stack, q, dim,
+                                    distribution, theta.device):
+        o = acc[s, c0: c0 + blk.shape[1]]
+        for part in parts:
+            o -= eta * part
+    if out is None:
+        return acc.to(theta.dtype)
+    out.copy_(acc)
+    return out
+
+
+def _parts(seeds, sc, n_stack, q, dim, distribution, device):
+    """Yield ``(s, c0, block, parts)``: ``parts[b]`` is dir-block b's
+    ``sum_{r<8} sc_r P_r`` over the block's columns."""
+    for s, c0, blk in flat_blocks(seeds, n_stack, q, dim, distribution,
+                                  device, keep=False):
+        pdim, nc = blk.shape
+        parts = (sc[s].reshape(pdim, 1) * blk).reshape(
+            pdim // DIR_BLOCK, DIR_BLOCK, nc).sum(1)
+        yield s, c0, blk, parts

@@ -23,6 +23,12 @@ then.  For a CUDA tensor it launches the hand-written kernel of
 use) or raises; nothing falls back.  ``LAUNCHES[name]`` counts kernel
 launches and is incremented right after a launch succeeds and nowhere
 else; ``CALLS[name]`` counts wrapper calls on any device.
+
+This module also keeps the counts, the timing and the built libraries of
+the per-leaf kernels of :mod:`repro_torch.kernels.rbd_project` and
+:mod:`repro_torch.kernels.rbd_reconstruct` (``csrc/rbd_flat.cu``): every
+kernel of the port is counted in the one ``LAUNCHES``/``CALLS`` pair, and
+both sources are built by one ``nvcc`` each, started together.
 """
 
 from __future__ import annotations
@@ -37,10 +43,12 @@ from repro_torch.core.compartments import PackedLayout, segment_tables
 
 KERNELS = ("project_packed", "reconstruct_apply_packed",
            "reconstruct_apply_packed_workers",
-           "reconstruct_apply_packed_adapters", "generate_tile")
+           "reconstruct_apply_packed_adapters", "generate_tile",
+           "project_flat", "reconstruct_flat", "reconstruct_apply_flat")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 CALLS = dict.fromkeys(KERNELS, 0)
 SOURCE = "rbd_step.cu"
+FLAT_SOURCE = "rbd_flat.cu"
 # pos-blocks swept by one CUDA block of the projection kernel
 PROJECT_POS_CHUNK = 64
 _DIST_CODE = {"normal": 0, "uniform": 1, "bernoulli": 2, "rademacher": 2,
@@ -81,8 +89,8 @@ def kernel_times_ms() -> dict[str, list[float]]:
 # the CUDA library
 # ---------------------------------------------------------------------------
 
-_P, _I, _I64, _U32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-                      ctypes.c_uint32)
+_P, _I, _I64, _U32, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                            ctypes.c_uint32, ctypes.c_float)
 _SIGNATURES = {
     "rbd_project_packed": [_P, _P, _P, _P, _P, _P, _P, _I, _I64, _I, _I, _I,
                            _P, _P, _P, _P, _P],
@@ -95,22 +103,37 @@ _SIGNATURES = {
                                               _P, _I, _I64, _I, _I, _I64,
                                               _I64, _I, _P],
     "rbd_generate_tile": [_U32, _U32, _U32, _I, _I, _I, _P, _P, _P, _P],
+    "rbd_error_string": [_I],
+}
+_FLAT_SIGNATURES = {
+    "rbd_project_flat": [_P, _P, _I, _I64, _I, _I, _I64, _I, _P, _P, _P, _P,
+                         _P],
+    "rbd_reconstruct_flat": [_P, _P, _I, _I64, _I, _I, _P, _P],
+    "rbd_reconstruct_apply_flat": [_P, _P, _P, _F32, _P, _I, _I64, _I, _I,
+                                   _I, _P],
+    "rbd_flat_error_string": [_I],
 }
 
 
 @functools.cache
-def library():
-    """The built kernel library (built at first call)."""
+def libraries():
+    """Both kernel libraries, built at first call (one nvcc per source,
+    started together): ``{source: BuiltLibrary}``."""
     from repro_torch.kernels import build
 
-    built = build.build_all([SOURCE])[SOURCE]
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(built.lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    built.lib.rbd_error_string.argtypes = [ctypes.c_int]
-    built.lib.rbd_error_string.restype = ctypes.c_char_p
+    built = build.build_all([SOURCE, FLAT_SOURCE])
+    for src, sigs in ((SOURCE, _SIGNATURES), (FLAT_SOURCE, _FLAT_SIGNATURES)):
+        for name, argtypes in sigs.items():
+            fn = getattr(built[src].lib, name)
+            fn.argtypes = argtypes
+            fn.restype = (ctypes.c_char_p if name.endswith("error_string")
+                          else ctypes.c_int)
     return built
+
+
+def library(source: str = SOURCE):
+    """The built library of one source (both are built at first call)."""
+    return libraries()[source]
 
 
 def _launch(name: str, fn, *args) -> None:
@@ -199,10 +222,11 @@ def project_packed(seg_seeds, g_packed: torch.Tensor, layout: PackedLayout,
     return u, sq
 
 
-def _plain_blocks(seg_seeds, layout: PackedLayout, distribution: str,
+def _plain_blocks(seg_seeds, sizes, pdims, distribution: str,
                   device: torch.device, *, keep: bool):
     """Yield ``(segment, first column, block)`` over every segment's
-    (padded dim, columns) basis blocks, in segment and column order.
+    (padded dim, columns) basis blocks, in segment and column order;
+    segment s has ``sizes[s]`` positions and ``pdims[s]`` rows.
 
     On the CPU a projection (``keep=True``) keeps its blocks, the oldest
     dropped past ``_PLAIN_KEEP_BYTES``, and an apply with the same seeds
@@ -211,11 +235,11 @@ def _plain_blocks(seg_seeds, layout: PackedLayout, distribution: str,
     Blocks are a pure function of their key, so this changes no
     result."""
     budget = _PLAIN_BUDGET["cuda" if device.type == "cuda" else "cpu"]
-    seeds = rng.as_u32(seg_seeds).cpu().tolist()
+    seeds = rng.as_u32(seg_seeds).cpu().reshape(-1).tolist()
     keeping = keep and device.type == "cpu"
-    for s in range(layout.n_segments):
-        q = int(layout.seg_size[s])
-        pdim = int(layout.seg_pdim[s])
+    for s in range(len(seeds)):
+        q = int(sizes[s])
+        pdim = int(pdims[s])
         cols = min(q, max(1, budget // pdim))
         for c0 in range(0, q, cols):
             nc = min(cols, q - c0)
@@ -249,7 +273,8 @@ def project_packed_plain(seg_seeds, g_packed: torch.Tensor,
     g_packed = g_packed.to(torch.float32)
     u = torch.zeros((layout.d_packed,), dtype=torch.float32, device=dev)
     sq = torch.zeros_like(u)
-    for s, c0, blk in _plain_blocks(seg_seeds, layout, distribution, dev,
+    for s, c0, blk in _plain_blocks(seg_seeds, layout.seg_size,
+                                    layout.seg_pdim, distribution, dev,
                                     keep=True):
         poff = int(layout.seg_param_off[s]) + c0
         coff = int(layout.seg_coord_off[s])
@@ -314,7 +339,8 @@ def reconstruct_apply_packed_plain(seg_seeds, scale_packed: torch.Tensor,
     elif out is not theta_packed:
         out.copy_(theta_packed)
     scale = scale_packed.to(torch.float32)
-    for s, c0, blk in _plain_blocks(seg_seeds, layout, distribution, dev,
+    for s, c0, blk in _plain_blocks(seg_seeds, layout.seg_size,
+                                    layout.seg_pdim, distribution, dev,
                                     keep=False):
         pdim, nc = blk.shape
         coff = int(layout.seg_coord_off[s])

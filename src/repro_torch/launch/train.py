@@ -10,16 +10,26 @@
         --rbd-mode independent_bases --rbd-backend cuda --rbd-dim 128 \\
         --batch 4 --seq 16 --steps 3
 
+    # the per-leaf strategies: packing off (one launch per leaf), weight
+    # decay (full_space), the paper's SGD baseline (RBD off)
+    ... --rbd-backend cuda --packed off
+    ... --rbd-backend cuda --weight-decay 0.01
+    ... --mode sgd
+
 Flag names are the reference's for what the port runs: ``--mode
 sharedseed`` (the paper's Algorithm 1) over ``--data K`` ranks, each
 taking its shard of the global batch, with one coordinate collective per
 optimizer step -- an all-reduce mean (``--rbd-mode shared_basis``) or an
 all-gather into the K*d joint subspace (``--rbd-mode
 independent_bases``) -- and the packed two-launch step (``--rbd-backend
-cuda``, where the reference says ``pallas``).  ``--data`` must equal the
-world size ``torchrun`` gives; ``--data 1`` runs a one-rank group
-without ``torchrun``.  ``--mode pjit`` and ``--mode sgd`` raise, naming
-their ROADMAP item.  Runs on the GPU (NCCL) unless ``--device cpu``
+cuda``, where the reference says ``pallas``) or, with ``--packed off``,
+``--weight-decay`` or the default ``--rbd-backend torch``, the per-leaf
+strategies.  ``--mode sgd`` is the paper's baseline: RBD off, the full-D
+gradient averaged over the data group (one all-reduce per step, also on
+one rank: the port always runs the data group), a full-space optimizer.
+``--data`` must equal the world size ``torchrun`` gives; ``--data 1``
+runs a one-rank group without ``torchrun``.  ``--mode pjit`` raises,
+naming its ROADMAP item.  Runs on the GPU (NCCL) unless ``--device cpu``
 (gloo).
 """
 
@@ -33,7 +43,7 @@ from typing import Any, NamedTuple
 class RunResult(NamedTuple):
     state: Any                 # final TrainState
     losses: list[float]        # per-step loss (mean over the ranks)
-    theta_init_sum: float      # float64 sum of the initial packed buffer
+    theta_init_sum: float      # float64 sum of the initial parameters
     sub_opt: Any               # the SubspaceOptimizer
     peak_bytes: int            # torch.cuda.max_memory_allocated (0 on CPU)
     kernel_ms: dict            # per-launch ms by kernel (--kernel-times)
@@ -63,7 +73,11 @@ def main(argv=None) -> RunResult:
     ap.add_argument("--optimizer", default="sgd",
                     choices=["sgd", "momentum", "adam"],
                     help="coordinate-space optimizer; state lives on the "
-                         "packed (d,) buffer, still two launches per step")
+                         "packed (d,) buffer, still two launches per step "
+                         "(on the parameters under full_space)")
+    ap.add_argument("--weight-decay", type=float, default=0.0,
+                    help="couples the update to the full-space parameters: "
+                         "plans the full_space strategy")
     ap.add_argument("--rbd-dim", type=int, default=1024)
     ap.add_argument("--normalization", default="rsqrt_dim",
                     choices=["rsqrt_dim", "exact", "none", "orthonormal"])
@@ -95,38 +109,40 @@ def main(argv=None) -> RunResult:
         grad_accum_steps=args.grad_accum_steps, lr=args.lr,
         rbd_dim=args.rbd_dim, normalization=args.normalization,
         rbd_backend=args.rbd_backend, packed=args.packed,
-        optimizer=args.optimizer, device=args.device,
-        kernel_times=args.kernel_times)
+        optimizer=args.optimizer, weight_decay=args.weight_decay,
+        device=args.device, kernel_times=args.kernel_times)
 
 
 def run_training(cfg, *, mode="sharedseed", rbd_mode="shared_basis", data=1,
                  steps=10, batch=8, seq=128, grad_accum_steps=1, lr=0.125,
                  rbd_dim=1024, normalization="rsqrt_dim",
                  rbd_backend="torch", packed="auto", optimizer="sgd",
-                 device="cuda", kernel_times=False) -> RunResult:
+                 weight_decay=0.0, device="cuda",
+                 kernel_times=False) -> RunResult:
     from repro_torch.launch import mesh
     from repro_torch.models.registry import resolve_device
 
-    if mode != "sharedseed":
+    if mode == "pjit":
         raise NotImplementedError(
-            f"--mode {mode} is not ported yet (ROADMAP.md Queue A "
-            f"{'14' if mode == 'pjit' else '16'}); use --mode sharedseed")
+            "--mode pjit (model-sharded parameters) is not ported yet "
+            "(ROADMAP.md Queue A 14); use --mode sharedseed")
     device, created = mesh.init_data_group(data, resolve_device(device))
     try:
-        return _run(cfg, rbd_mode=rbd_mode, data=data, steps=steps,
-                    batch=batch, seq=seq, grad_accum_steps=grad_accum_steps,
-                    lr=lr, rbd_dim=rbd_dim, normalization=normalization,
+        return _run(cfg, mode=mode, rbd_mode=rbd_mode, data=data,
+                    steps=steps, batch=batch, seq=seq,
+                    grad_accum_steps=grad_accum_steps, lr=lr,
+                    rbd_dim=rbd_dim, normalization=normalization,
                     rbd_backend=rbd_backend, packed=packed,
-                    optimizer=optimizer, device=device,
-                    kernel_times=kernel_times)
+                    optimizer=optimizer, weight_decay=weight_decay,
+                    device=device, kernel_times=kernel_times)
     finally:
         if created:
             mesh.destroy_data_group()
 
 
-def _run(cfg, *, rbd_mode, data, steps, batch, seq, grad_accum_steps, lr,
-         rbd_dim, normalization, rbd_backend, packed, optimizer, device,
-         kernel_times) -> RunResult:
+def _run(cfg, *, mode, rbd_mode, data, steps, batch, seq, grad_accum_steps,
+         lr, rbd_dim, normalization, rbd_backend, packed, optimizer,
+         weight_decay, device, kernel_times) -> RunResult:
     import torch
     import torch.distributed as dist
 
@@ -140,17 +156,18 @@ def _run(cfg, *, rbd_mode, data, steps, batch, seq, grad_accum_steps, lr,
 
     rank = dist.get_rank()
     model = get_model(cfg)
-    rbd_cfg = RBDConfig(total_dim=rbd_dim, mode=rbd_mode,
-                        normalization=normalization, backend=rbd_backend,
-                        packed=packed)
+    rbd_cfg = RBDConfig(enabled=(mode != "sgd"), total_dim=rbd_dim,
+                        mode=rbd_mode, normalization=normalization,
+                        backend=rbd_backend, packed=packed)
     tcfg = TrainConfig(model=cfg, rbd=rbd_cfg, learning_rate=lr,
                        steps=steps, batch_size=batch, seq_len=seq,
                        grad_accum_steps=grad_accum_steps,
-                       optimizer=optimizer)
+                       optimizer=optimizer, weight_decay=weight_decay)
     transform = steplib.make_transform(model, rbd_cfg)
-    # the sharedseed step always exchanges over the data axis (as the
-    # reference's shard_map does, also on one device); independent_bases
-    # needs the static worker count of its joint subspace
+    # the step always runs over the data group (as the reference's
+    # shard_map does for sharedseed, also on one device; the SGD baseline's
+    # gradient mean is then one all-reduce even on one rank);
+    # independent_bases needs the static worker count of its joint subspace
     init_state, train_step, sub_opt = steplib.make_train_step(
         model, tcfg, transform, axis_name="data", k_workers=data,
         device=device, return_optimizer=True)
@@ -162,17 +179,18 @@ def _run(cfg, *, rbd_mode, data, steps, batch, seq, grad_accum_steps, lr,
             print(msg, flush=True)
 
     say(f"update path: {eplan.strategy} -- {eplan.reason}")
-    say(f"basis: {eplan.basis} -- {eplan.basis_reason}")
-    say(f"prng impl: {eplan.prng_impl} -- {eplan.prng_reason}")
-    say(f"exchange schedule: {eplan.overlap_exchange} -- "
-        f"{eplan.overlap_reason}")
-    if n_accum > 1:
-        say(f"grad accumulation: {n_accum} microbatches/optimizer step, 1 "
-            f"exchange per optimizer step (not {n_accum})")
+    if rbd_cfg.enabled:
+        say(f"basis: {eplan.basis} -- {eplan.basis_reason}")
+        say(f"prng impl: {eplan.prng_impl} -- {eplan.prng_reason}")
+        say(f"exchange schedule: {eplan.overlap_exchange} -- "
+            f"{eplan.overlap_reason}")
+        if n_accum > 1:
+            say(f"grad accumulation: {n_accum} microbatches/optimizer "
+                f"step, 1 exchange per optimizer step (not {n_accum})")
 
     cuda = device.type == "cuda"
     state = init_state(tcfg.seed)
-    theta_init_sum = float(state.params.double().sum())
+    theta_init_sum = params_sum(state.params)
     stream = synthetic.lm_batches(tcfg.seed, batch, seq, cfg.vocab,
                                   device=device)
 
@@ -197,7 +215,8 @@ def _run(cfg, *, rbd_mode, data, steps, batch, seq, grad_accum_steps, lr,
             f"wall={time.time() - t0:.1f}s")
     collectives = dict(distributed.COLLECTIVES)
     say(f"collectives: {collectives} over {steps} steps (the coordinate "
-        "exchange, plus the scalar loss mean)")
+        "exchange or the SGD baseline's gradient mean, plus the scalar "
+        "loss mean)")
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     kernel_ms = {}
     if kernel_times:
@@ -211,6 +230,14 @@ def _run(cfg, *, rbd_mode, data, steps, batch, seq, grad_accum_steps, lr,
         say(f"peak device memory: {peak / 2**30:.2f} GiB")
     return RunResult(state, losses, theta_init_sum, sub_opt, peak,
                      kernel_ms, collectives)
+
+
+def params_sum(params) -> float:
+    """float64 sum of the stored parameters (the packed buffer or every
+    leaf of the parameter map)."""
+    from repro_torch.optim.transforms import leaves
+
+    return float(sum(x.double().sum() for x in leaves(params)))
 
 
 if __name__ == "__main__":

@@ -12,6 +12,16 @@ launches whatever the number of compartments.  :func:`plan_from_flags`
 is the reference's decision function, strategy names and reason strings
 unchanged.
 
+The unpacked strategies keep the parameters as a map ``{leaf name:
+tensor}`` and run one launch per ``LeafPlan`` instead:
+``fused_per_leaf`` (packing off, cuda backend: project -> coordinate
+optimizer on the per-leaf ``(n_stack, dim)`` list -> fused
+reconstruct-apply), ``coord_unfused`` (the torch backend or the
+``orthonormal`` normalization: project -> optimizer -> reconstruct ->
+apply) and ``full_space`` (weight decay, the per-leaf independent bases
+or RBD off: the RBD sketch -- or the raw gradient, mean-reduced over the
+group -- then ``+ wd * p`` and the optimizer on the parameter map).
+
 Distributed modes (``core.distributed``, paper Algorithm 1): with
 ``axis_name`` set, ``shared_basis`` averages the (d_packed,) coordinates
 with one all-reduce, and ``independent_bases`` all-gathers them into the
@@ -23,9 +33,9 @@ collective is issued at sketch time (``issue_early``) or at finish time
 (``sync``, ``overlap="off"``); both send the same payload through the
 same collective, so they are bit-identical.
 
-Resilience hooks (ROADMAP.md Queue A 13), model-sharded slabs (14),
-materialized bases and second-order optimizers (15) and the per-leaf
-strategies (16) raise ``NotImplementedError`` naming their item.
+Resilience hooks (ROADMAP.md Queue A 13), model sharding (14) and
+materialized bases and second-order optimizers (15) raise
+``NotImplementedError`` naming their item.
 """
 
 from __future__ import annotations
@@ -43,9 +53,6 @@ from repro_torch.optim import transforms as opt
 
 _NOT_PORTED = {
     "materialized_packed": "ROADMAP.md Queue A 15 (basis layer)",
-    "fused_per_leaf": "ROADMAP.md Queue A 16 (per-leaf strategies)",
-    "coord_unfused": "ROADMAP.md Queue A 16 (per-leaf strategies)",
-    "full_space": "ROADMAP.md Queue A 16 (per-leaf strategies)",
 }
 
 
@@ -465,10 +472,10 @@ class SubspaceOptimizer:
             raise NotImplementedError(
                 f"strategy {eplan.strategy!r} is not ported yet "
                 f"({_NOT_PORTED[eplan.strategy]}): {eplan.reason}")
-        if self.model_axis is not None:
+        if self.model_axis is not None or self.model_sharded:
             raise NotImplementedError(
-                "model-sharded slabs are not ported yet (ROADMAP.md Queue "
-                "A 14)")
+                "model sharding (slabs or pjit-style parameter sharding) "
+                "is not ported yet (ROADMAP.md Queue A 14)")
         rng.check_threefry(eplan.prng_impl)
         if self.optimizer in opt.SECOND_ORDER_OPTIMIZERS:
             raise NotImplementedError(
@@ -491,31 +498,50 @@ class SubspaceOptimizer:
         return self.transform.init(params)
 
     def init_opt_state(self, params=None, *, device=None):
-        """Optimizer state on the (d_packed,) coordinate buffer (SGD is
-        stateless).  ``device`` defaults to the parameters' device."""
-        self.check_supported()
+        """Optimizer state (SGD is stateless): on the (d_packed,) or
+        gathered (K, d_packed) coordinate buffer on the packed path, on
+        the per-leaf (n_stack, dim) coordinate list on the per-leaf
+        coordinate-space strategies, and shaped like ``params`` (the
+        parameter map, required) on ``full_space``.  ``device`` defaults
+        to the parameters' device."""
+        eplan = self.check_supported()
+        if not eplan.coord_space:
+            if not isinstance(params, dict):
+                raise ValueError("the full_space optimizer state is shaped "
+                                 "like the parameter map: pass params")
+            return self._optimizer().init(params)
         if device is None:
             device = _device_of(params)
-        return self._optimizer().init(self._coord_template(device))
+        return self._optimizer().init(self._coord_template(device, eplan))
 
-    def _coord_template(self, device) -> torch.Tensor:
-        """Zeros shaped like the post-exchange coordinate buffer: the
-        joint subspace is K*d-dimensional, so its state lives on the
-        gathered (K, d_packed) buffer."""
-        d = self.transform.plan.packed().d_packed
+    def _coord_template(self, device, eplan):
+        """Zeros shaped like the post-exchange coordinates: the packed
+        (d_packed,) buffer -- (K, d_packed) for the K*d-dimensional joint
+        subspace -- or one (n_stack, dim) block per LeafPlan."""
+        plan = self.transform.plan
+        if eplan.strategy != "fused_packed":
+            return [torch.zeros((lp.n_stack, lp.dim), dtype=torch.float32,
+                                device=device) for lp in plan.leaves]
+        d = plan.packed().d_packed
         shape = (self.k_workers, d) if self.joint_subspace else (d,)
         return torch.zeros(shape, dtype=torch.float32, device=device)
 
     # -- stored-representation boundary -------------------------------------
 
-    def prepare_params(self, params) -> torch.Tensor:
-        """Parameter map -> the packed (q_packed,) float32 buffer."""
-        self.check_supported()
+    def prepare_params(self, params):
+        """Parameter map -> the stored representation: the packed
+        (q_packed,) float32 buffer on the packed-resident strategy, the
+        map itself otherwise."""
+        if not self.check_supported().packed_resident:
+            return params
         plan = self.transform.plan
         return projector.pack_tree(params, plan, plan.packed())
 
-    def materialize_params(self, stored: torch.Tensor) -> dict:
-        """Packed buffer -> parameter map (views autograd follows)."""
+    def materialize_params(self, stored) -> dict:
+        """Stored representation -> parameter map: views of the packed
+        buffer that autograd follows, or the map itself."""
+        if not self.plan_execution().packed_resident:
+            return stored
         if self.params_template is None:
             raise ValueError(
                 "packed-resident SubspaceOptimizer needs params_template "
@@ -527,12 +553,30 @@ class SubspaceOptimizer:
     # -- the update ---------------------------------------------------------
 
     def step(self, params, grads, rbd_state, opt_state):
-        """One optimizer step on the stored (packed) representation.
-        Returns ``(new_params, new_rbd_state, new_opt_state, aux)``.  In
-        the K-worker simulation ``grads`` is the stacked (K, q_packed)
-        buffer of the workers' gradients."""
+        """One optimizer step on the stored representation (the packed
+        buffer, or the parameter map of the unpacked strategies).  Returns
+        ``(new_params, new_rbd_state, new_opt_state, aux)``.  In the
+        K-worker simulation ``grads`` is the stacked (K, q_packed) buffer
+        of the workers' gradients."""
+        eplan = self.check_supported()
+        if eplan.strategy == "full_space":
+            return self._full_space_step(params, grads, rbd_state,
+                                         opt_state)
+        if eplan.strategy != "fused_packed":
+            return self._per_leaf_step(
+                params, grads, rbd_state, opt_state,
+                fused=eplan.strategy == "fused_per_leaf")
         ticket = self.step_sketch(params, grads, rbd_state, opt_state)
         return self.step_finish(params, ticket, rbd_state, opt_state)
+
+    def _check_split(self) -> ExecutionPlan:
+        eplan = self.check_supported()
+        if eplan.strategy != "fused_packed":
+            raise ValueError(
+                "step_sketch/step_finish split the packed two-launch "
+                f"step; this config plans {eplan.strategy!r} -- "
+                + eplan.reason)
+        return eplan
 
     def step_sketch(self, params, grads, rbd_state, opt_state
                     ) -> StepTicket:
@@ -540,7 +584,7 @@ class SubspaceOptimizer:
         one launch per worker in the K-worker simulation) and -- under
         the ``issue_early`` schedule -- issue the one coordinate
         collective at once.  ``step() == step_finish(step_sketch())``."""
-        eplan = self.check_supported()
+        eplan = self._check_split()
         t = self.transform
         plan = t.plan
         layout = plan.packed()
@@ -591,7 +635,7 @@ class SubspaceOptimizer:
         Functional: returns a new parameter buffer unless
         ``log_update_norm`` is off, in which case ``params`` is updated
         in place (the update norm needs the old buffer)."""
-        eplan = self.check_supported()
+        eplan = self._check_split()
         exact = self.transform.plan.normalization == "exact"
         joint = self.joint_subspace
         pending = ticket.pending
@@ -611,11 +655,11 @@ class SubspaceOptimizer:
 
     def accumulate_grads(self, acc, grads):
         """Fold one microbatch gradient into the running sum, in the
-        stored (packed) representation: one (q_packed,) add.  ``acc=None``
-        starts the sum."""
+        stored representation: one (q_packed,) add on the packed path.
+        ``acc=None`` starts the sum."""
         if acc is None:
             return grads
-        return acc + grads
+        return opt._map(torch.add, acc, grads)
 
     def finalize_accum(self, acc, n_micro: int):
         """Mean gradient of ``n_micro`` accumulated microbatches.  The
@@ -624,7 +668,8 @@ class SubspaceOptimizer:
         optimizer step, not one per microbatch."""
         if n_micro == 1:
             return acc
-        return acc * (1.0 / float(n_micro))
+        inv = 1.0 / float(n_micro)
+        return opt._map(lambda g: g * inv, acc)
 
     def _apply_exchanged(self, params, coords, sq, rbd_state, opt_state,
                          eplan):
@@ -652,6 +697,67 @@ class SubspaceOptimizer:
         return (new_params, RBDState(step=rbd_state.step + 1), new_opt,
                 self._delta_aux(params, new_params, in_place))
 
+    def _per_leaf_step(self, params, grads, rbd_state, opt_state, *,
+                       fused: bool):
+        """``fused_per_leaf`` / ``coord_unfused``: project every leaf (one
+        launch each), one coordinate all-reduce over the group, the
+        coordinate optimizer on the per-leaf list, then the fused per-leaf
+        apply or reconstruct-then-apply."""
+        t = self.transform
+        seed = t.step_seed(rbd_state.step)
+        if self.axis_name is not None:
+            coords, norms = distributed.shared_basis_coords(
+                t, grads, rbd_state, self.axis_name)
+        else:
+            coords, norms = projector.project(
+                grads, t.plan, seed, backend=t.backend, return_norms=True)
+        opt_state = self._switch_opt_state(opt_state, rbd_state.step)
+        coords, opt_state = self._optimizer().update(coords, opt_state)
+        new_rbd = RBDState(step=rbd_state.step + 1)
+        if fused:
+            new_params = projector.reconstruct_apply(
+                coords, t.plan, seed, params, self.learning_rate,
+                backend=t.backend, row_sq=norms)
+            return (new_params, new_rbd, opt_state,
+                    self._delta_aux(params, new_params, False))
+        updates = projector.reconstruct(coords, t.plan, seed, params,
+                                        backend=t.backend, row_sq=norms)
+        new_params = opt.apply_updates(params, updates, self.learning_rate)
+        return new_params, new_rbd, opt_state, self._norm_aux(updates)
+
+    def _full_space_step(self, params, grads, rbd_state, opt_state):
+        """``full_space``: the update is the raw gradient (RBD off; its
+        full-D mean over the group, the SGD baseline's one collective) or
+        the RBD sketch of it (the shared or per-leaf independent bases
+        exchange over the group); then ``+ wd * p`` and the full-space
+        optimizer on the parameter map."""
+        t = self.transform
+        if t is None:
+            if self.axis_name is not None:
+                grads = distributed.grad_mean(grads, self.axis_name)
+            updates, new_rbd = grads, rbd_state
+        elif self.axis_name is None:
+            seed = t.step_seed(rbd_state.step)
+            updates = projector.rbd_gradient(grads, t.plan, seed,
+                                             backend=t.backend)
+            new_rbd = RBDState(step=rbd_state.step + 1)
+        else:
+            fn = (distributed.shared_basis_update
+                  if self.mode == "shared_basis"
+                  else distributed.independent_bases_update)
+            updates, new_rbd = fn(t, grads, rbd_state, self.axis_name)
+        if self.weight_decay:
+            updates = {k: u + self.weight_decay * params[k]
+                       for k, u in updates.items()}
+        updates, opt_state = self._optimizer().update(updates, opt_state)
+        new_params = opt.apply_updates(params, updates, self.learning_rate)
+        return new_params, new_rbd, opt_state, self._norm_aux(updates)
+
+    def _norm_aux(self, updates) -> _Aux:
+        if not self.log_update_norm:
+            return _Aux(torch.zeros(()))
+        return _Aux(opt.global_norm(updates))
+
     def _switch_opt_state(self, opt_state, step: int):
         """FPD -> RBD state policy: ``reset`` re-zeroes the coordinate
         optimizer state at the switch step, ``carry`` keeps it."""
@@ -662,11 +768,13 @@ class SubspaceOptimizer:
         return _zeros_like_state(opt_state)
 
     def _delta_aux(self, old, new, in_place: bool) -> _Aux:
-        """The fused step never materializes the update; its norm comes
-        from the parameter delta (one read of both buffers)."""
-        if in_place:
-            return _Aux(torch.zeros((), device=new.device))
-        n = opt.global_norm(old.to(torch.float32) - new.to(torch.float32))
+        """The fused steps never materialize the update; its norm comes
+        from the parameter delta (one read of both buffers or maps)."""
+        if in_place or not (self.log_update_norm and self.learning_rate):
+            return _Aux(torch.zeros((), device=opt.leaves(new)[0].device))
+        n = opt.global_norm(opt._map(
+            lambda a, b: a.to(torch.float32) - b.to(torch.float32), old,
+            new))
         return _Aux(n / self.learning_rate)
 
 

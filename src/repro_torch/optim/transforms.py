@@ -2,8 +2,11 @@
 ``repro.optim.transforms``).
 
 A ``Transform`` is an ``(init, update)`` pair of pure functions over
-tensors or lists of tensors: ``update(u, state) -> (u', state')``.  The
-subspace optimizer runs them on the ``(d_packed,)`` coordinate buffer.
+tensors, lists of tensors or parameter maps ``{name: tensor}``:
+``update(u, state) -> (u', state')``.  The subspace optimizer runs them on
+the ``(d_packed,)`` coordinate buffer, on the per-leaf ``(n_stack, dim)``
+coordinate list, and -- on the ``full_space`` strategy -- on the parameter
+map itself.
 The second-order ``lbfgs``/``newton``, clipping, schedules and ``chain``
 are not ported yet (ROADMAP.md Queue A 15).
 """
@@ -23,10 +26,22 @@ class Transform(NamedTuple):
 
 
 def _map(fn, *trees):
-    """Apply ``fn`` leafwise over a tensor or a list/tuple of tensors."""
+    """Apply ``fn`` leafwise over a tensor, a list/tuple of tensors or a
+    map of them (keys in the first tree's order)."""
+    if isinstance(trees[0], dict):
+        return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
     if isinstance(trees[0], (list, tuple)):
         return type(trees[0])(_map(fn, *xs) for xs in zip(*trees))
     return fn(*trees)
+
+
+def leaves(tree) -> list:
+    """The tensors of a tensor, list/tuple or map, in order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in leaves(v)]
+    return [tree]
 
 
 def sgd() -> Transform:
@@ -58,9 +73,8 @@ class AdamState(NamedTuple):
 def adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Transform:
     def init(params):
         z = _map(torch.zeros_like, params)
-        device = z[0].device if isinstance(z, (list, tuple)) else z.device
         return AdamState(z, z, torch.zeros((), dtype=torch.int32,
-                                           device=device))
+                                           device=leaves(z)[0].device))
 
     def update(u, s):
         count = s.count + 1
@@ -106,6 +120,5 @@ def apply_updates(params, updates, lr):
 
 
 def global_norm(tree) -> torch.Tensor:
-    leaves = list(tree) if isinstance(tree, (list, tuple)) else [tree]
     return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in leaves))
+                          for x in leaves(tree)))

@@ -7,7 +7,9 @@ computes the loss and gradient and threads state.  On the packed
 two-launch step ``TrainState.params`` holds the packed (q_packed,) float32
 buffer across steps: the forward pass reads views of it, so autograd
 delivers the gradient as a packed buffer (zero on the padding), and the
-update is two kernel launches.
+update is two kernel launches.  On the unpacked strategies (packing off,
+weight decay, RBD off) it holds the parameter map, and the gradient is a
+map of the same leaves.
 
 With ``axis_name`` set the step runs on one rank of a data-parallel
 process group (``repro_torch.launch.mesh``) and the optimizer performs
@@ -28,9 +30,11 @@ from repro_torch.optim import subspace
 
 
 class TrainState(NamedTuple):
-    params: Any             # packed (q_packed,) float32 buffer
-    rbd_state: Any          # RBDState
-    opt_state: Any          # coordinate-space ((d_packed,)-shaped) state
+    params: Any             # packed (q_packed,) float32 buffer, or the
+                            # parameter map of the unpacked strategies
+    rbd_state: Any          # RBDState (() with RBD off)
+    opt_state: Any          # coordinate-space state, or shaped like params
+                            # on full_space
     step: int
 
 
@@ -104,10 +108,11 @@ def make_train_step(model: Model, tcfg: TrainConfig,
     """Returns ``(init_state, train_step)`` -- plus the
     :class:`SubspaceOptimizer` when ``return_optimizer`` is set.
 
-    ``init_state(seed=tcfg.seed, params=None)`` packs ``params`` (a
+    ``init_state(seed=tcfg.seed, params=None)`` stores ``params`` (a
     parameter map, e.g. from ``registry.params_from_reference``) or a
-    fresh random init.  ``train_step(state, batch)`` runs one optimizer
-    step and returns ``(new_state, metrics)``.
+    fresh random init -- packed on the packed-resident strategy.
+    ``train_step(state, batch)`` runs one optimizer step and returns
+    ``(new_state, metrics)``.
 
     ``axis_name``: the data-parallel group of this rank (``"data"``: the
     default process group); the batch is this rank's shard, the loss is
@@ -125,7 +130,7 @@ def make_train_step(model: Model, tcfg: TrainConfig,
     loss_fn = make_loss_fn(model, model.cfg.router_aux_coef)
     sub_opt = make_subspace_optimizer(model, tcfg, transform, axis_name,
                                       k_workers=k_workers)
-    sub_opt.check_supported()
+    split = sub_opt.check_supported().strategy == "fused_packed"
 
     def init_state(seed: Optional[int] = None, params=None) -> TrainState:
         if params is None:
@@ -135,14 +140,24 @@ def make_train_step(model: Model, tcfg: TrainConfig,
         return TrainState(
             params=sub_opt.prepare_params(params),
             rbd_state=sub_opt.init_rbd_state(params),
-            opt_state=sub_opt.init_opt_state(device=device),
+            opt_state=sub_opt.init_opt_state(params, device=device),
             step=0,
         )
 
     def grad_of(params, batch):
-        stored = params.detach().requires_grad_(True)
-        loss, metrics = loss_fn(sub_opt.materialize_params(stored), batch)
-        (grads,) = torch.autograd.grad(loss, stored)
+        if isinstance(params, dict):
+            leaves = {k: v.detach().requires_grad_(True)
+                      for k, v in params.items()}
+            loss, metrics = loss_fn(leaves, batch)
+            grads = torch.autograd.grad(loss, list(leaves.values()),
+                                        allow_unused=True)
+            grads = {k: torch.zeros_like(v) if g is None else g
+                     for (k, v), g in zip(leaves.items(), grads)}
+        else:
+            stored = params.detach().requires_grad_(True)
+            loss, metrics = loss_fn(sub_opt.materialize_params(stored),
+                                    batch)
+            (grads,) = torch.autograd.grad(loss, stored)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return loss.detach(), metrics, grads
 
@@ -162,15 +177,20 @@ def make_train_step(model: Model, tcfg: TrainConfig,
             metrics = {k: sum(m[k] for m in parts) / n_accum
                        for k in parts[0]}
         with torch.no_grad():
-            params = state.params.detach()
-            ticket = sub_opt.step_sketch(params, grads, state.rbd_state,
-                                         state.opt_state)
+            params = state.params
+            if split:
+                ticket = sub_opt.step_sketch(params, grads, state.rbd_state,
+                                             state.opt_state)
             if axis_name is not None:
                 # overlap window: the coordinate collective is in flight
                 # under the issue_early schedule while the loss is averaged
                 loss = distributed.mean_scalar(loss, axis_name)
-            params, rbd_state, opt_state, aux = sub_opt.step_finish(
-                params, ticket, state.rbd_state, state.opt_state)
+            if split:
+                params, rbd_state, opt_state, aux = sub_opt.step_finish(
+                    params, ticket, state.rbd_state, state.opt_state)
+            else:
+                params, rbd_state, opt_state, aux = sub_opt.step(
+                    params, grads, state.rbd_state, state.opt_state)
         metrics.update(loss=loss, update_norm=aux.update_norm)
         return TrainState(params, rbd_state, opt_state,
                           state.step + 1), metrics

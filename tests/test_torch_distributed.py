@@ -17,7 +17,16 @@ results; the tests read them:
   collective on the same payload, issued earlier);
 * exactly one coordinate collective per optimizer step, the ranks' theta
   bit-identical (replicated), and the same through ``train_step`` with
-  gradient accumulation.
+  gradient accumulation;
+* the per-leaf strategies (packing off, weight decay, RBD off) on
+  parameter maps: the shared basis (``fused_per_leaf``; ``full_space``
+  under weight decay) against the single worker on the mean gradient
+  (the tolerance above), the per-leaf independent bases (``full_space``,
+  Algorithm 1) against a K=2 sequential run in-process (bit-exact: the
+  same projections, gathered bits, reconstructions and sums), the SGD
+  baseline's gradient mean against the single worker on the mean
+  gradient (bit-exact: a + b then / 2 either way); one collective per
+  step, every leaf's coordinates in one buffer.
 
 This file imports neither jax nor the reference package: the spawned
 ranks import it.
@@ -37,6 +46,7 @@ from repro_torch.core import compartments, distributed, projector
 from repro_torch.core.rbd import RandomBasesTransform
 from repro_torch.kernels import rbd_step
 from repro_torch.optim import subspace
+from repro_torch.optim import transforms as opt
 
 torch.set_num_threads(1)
 
@@ -53,6 +63,22 @@ SCENARIOS = [
 ]
 LR = {"sgd": 0.3, "momentum": 0.2, "adam": 0.02}
 EPS32 = 2.0 ** -23
+NO_COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "scalar": 0,
+                  "grad_all_reduce": 0}
+# per-leaf scenarios: (name, mode, optimizer, normalization, weight
+# decay, RBD on); a plain leaf, a stacked leaf and a scalar compartment
+LEAF_SHAPES = {"w": (64, 32), "layers/k": (3, 40, 10), "s": ()}
+LEAF_SCENARIOS = [
+    ("leaf-shared-momentum-rsqrt", "shared_basis", "momentum", "rsqrt_dim",
+     0.0, True),
+    ("leaf-shared-wd-adam-exact", "shared_basis", "adam", "exact", 0.01,
+     True),
+    ("leaf-ind-sgd-exact", "independent_bases", "sgd", "exact", 0.0, True),
+    ("leaf-ind-momentum-wd-rsqrt", "independent_bases", "momentum",
+     "rsqrt_dim", 0.01, True),
+    ("leaf-sgd-baseline", "shared_basis", "momentum", "rsqrt_dim", 0.0,
+     False),
+]
 
 
 def _plan(norm):
@@ -91,6 +117,85 @@ def _drive(sub, theta, grads):
         theta, st_r, st_o, _ = sub.step(theta, g, st_r, st_o)
         counts.append(dict(distributed.COLLECTIVES))
     return theta, counts
+
+
+def _leaf_sub(mode, optimizer, norm, wd, enabled, **kw):
+    plan = compartments.make_plan(
+        LEAF_SHAPES, 48, is_stacked=lambda n: n.startswith("layers"),
+        normalization=norm)
+    transform = (RandomBasesTransform(plan, base_seed=5, backend="cuda")
+                 if enabled else None)
+    return subspace.SubspaceOptimizer(
+        transform=transform, optimizer=optimizer,
+        learning_rate=LR[optimizer], weight_decay=wd, mode=mode, **kw)
+
+
+def _leaf_inputs():
+    """theta0 and every worker's gradient map of every step."""
+    rs = np.random.default_rng(1)
+    theta0 = {k: torch.from_numpy(rs.standard_normal(s).astype(np.float32))
+              for k, s in LEAF_SHAPES.items()}
+    grads = [[{k: torch.from_numpy(rs.standard_normal(s).astype(np.float32))
+               for k, s in LEAF_SHAPES.items()} for _ in range(WORLD)]
+             for _ in range(STEPS)]
+    return theta0, grads
+
+
+def _drive_leaf(sub, theta, grads):
+    st_r, st_o = sub.init_rbd_state(), sub.init_opt_state(theta)
+    counts = []
+    for g in grads:
+        distributed.reset_counts()
+        theta, st_r, st_o, _ = sub.step(theta, g, st_r, st_o)
+        counts.append(dict(distributed.COLLECTIVES))
+    return theta, counts
+
+
+def _independent_sequential(sub, theta, grads):
+    """Per-leaf Algorithm 1 for K=WORLD workers in one process: worker k
+    projects its gradient on its own basis, every worker's update is
+    reconstructed in turn and averaged, then weight decay, the optimizer
+    and the apply -- what each rank of the group computes."""
+    t = sub.transform
+    st_o = sub.init_opt_state(theta)
+    for step, workers in enumerate(grads):
+        seeds = projector.worker_base_seeds(t.step_seed(step), WORLD)
+        coords = [projector.project(workers[k], t.plan, seeds[k],
+                                    backend=t.backend)
+                  for k in range(WORLD)]
+        total = None
+        for k in range(WORLD):
+            upd = projector.reconstruct(coords[k], t.plan, seeds[k],
+                                        workers[k], backend=t.backend)
+            total = upd if total is None else {n: total[n] + upd[n]
+                                               for n in total}
+        upd = {n: x / WORLD for n, x in total.items()}
+        if sub.weight_decay:
+            upd = {n: u + sub.weight_decay * theta[n] for n, u in upd.items()}
+        upd, st_o = sub._optimizer().update(upd, st_o)
+        theta = opt.apply_updates(theta, upd, sub.learning_rate)
+    return theta
+
+
+def _per_leaf_scenarios(rank):
+    theta0, grads = _leaf_inputs()
+    out = {"theta0": theta0}
+    for name, mode, optimizer, norm, wd, enabled in LEAF_SCENARIOS:
+        sub = _leaf_sub(mode, optimizer, norm, wd, enabled,
+                        axis_name="data", k_workers=WORLD)
+        res = {"strategy": sub.plan_execution().strategy}
+        res["theta"], res["counts"] = _drive_leaf(
+            sub, theta0, [g[rank] for g in grads])
+        if rank == 0 and mode == "independent_bases":
+            res["reference"] = _independent_sequential(
+                _leaf_sub(mode, optimizer, norm, wd, enabled), theta0, grads)
+        elif rank == 0:
+            mean = [{k: torch.stack([w[k] for w in g]).mean(0)
+                     for k in LEAF_SHAPES} for g in grads]
+            res["reference"], _ = _drive_leaf(
+                _leaf_sub(mode, optimizer, norm, wd, enabled), theta0, mean)
+        out[name] = res
+    return out
 
 
 def _train_step_scenario(rank):
@@ -182,6 +287,7 @@ def _rank_main(rank, store_path, out_dir):
             projector.worker_base_seeds(t.step_seed(0), WORLD)[rank])
         out["primitives"] = _primitives(rank)
         out["train_step"] = _train_step_scenario(rank)
+        out["per_leaf"] = _per_leaf_scenarios(rank)
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -233,7 +339,7 @@ def test_issue_early_bit_identical_to_overlap_off(ranks, name):
 @pytest.mark.parametrize("name,mode", [(s[0], s[1]) for s in SCENARIOS])
 def test_one_collective_per_step(ranks, name, mode):
     kind = "all_gather" if mode == "independent_bases" else "all_reduce"
-    one = {"all_reduce": 0, "all_gather": 0, "scalar": 0, kind: 1}
+    one = {**NO_COLLECTIVES, kind: 1}
     for r in range(WORLD):
         for overlap in ("auto", "off"):
             assert ranks[r][name][f"counts_{overlap}"] == [one] * STEPS
@@ -274,9 +380,58 @@ def test_train_step_two_ranks_accumulated(ranks):
     assert torch.equal(a["theta"], b["theta"])
     assert a["losses"] == b["losses"] and all(np.isfinite(a["losses"]))
     for res in (a, b):
-        assert res["counts"] == [{"all_reduce": 0, "all_gather": 1,
+        assert res["counts"] == [{**NO_COLLECTIVES, "all_gather": 1,
                                   "scalar": 1}] * STEPS
         for calls in res["calls"]:
             assert calls["project_packed"] == 1
             assert calls["reconstruct_apply_packed_workers"] == 1
             assert calls["reconstruct_apply_packed"] == 0
+
+
+@pytest.mark.parametrize("name", [s[0] for s in LEAF_SCENARIOS
+                                  if s[1] == "shared_basis"])
+def test_per_leaf_shared_two_ranks_match_single_worker_on_mean_gradient(
+        ranks, name):
+    res = ranks[0]["per_leaf"][name]
+    theta0 = ranks[0]["per_leaf"]["theta0"]
+    for k, want in res["reference"].items():
+        want, t0 = want.numpy(), theta0[k].numpy()
+        tol = (1e-5 * np.abs(want - t0).max()
+               + 4 * EPS32 * np.abs(want).max())
+        np.testing.assert_allclose(res["theta"][k].numpy(), want, rtol=0,
+                                   atol=tol, err_msg=k)
+        assert torch.equal(ranks[1]["per_leaf"][name]["theta"][k],
+                           res["theta"][k])
+    if name == "leaf-sgd-baseline":
+        # a + b, then / 2, on the ranks and in the mean alike
+        for k, want in res["reference"].items():
+            assert torch.equal(res["theta"][k], want), k
+
+
+@pytest.mark.parametrize("name", [s[0] for s in LEAF_SCENARIOS
+                                  if s[1] == "independent_bases"])
+def test_per_leaf_independent_two_ranks_equal_k2_sequential(ranks, name):
+    want = ranks[0]["per_leaf"][name]["reference"]
+    for r in range(WORLD):
+        got = ranks[r]["per_leaf"][name]["theta"]
+        for k in want:
+            assert torch.equal(got[k], want[k]), (r, k)
+
+
+@pytest.mark.parametrize("name,mode,wd,enabled",
+                         [(s[0], s[1], s[4], s[5]) for s in LEAF_SCENARIOS])
+def test_per_leaf_one_collective_per_step(ranks, name, mode, wd, enabled):
+    """Every leaf's coordinates travel in ONE buffer: one all-reduce
+    (shared basis) or all-gather (independent bases) per step; the SGD
+    baseline's one full-D gradient mean instead."""
+    if not enabled:
+        kind, strategy = "grad_all_reduce", "full_space"
+    elif mode == "independent_bases":
+        kind, strategy = "all_gather", "full_space"
+    else:
+        kind = "all_reduce"
+        strategy = "full_space" if wd else "fused_per_leaf"
+    for r in range(WORLD):
+        res = ranks[r]["per_leaf"][name]
+        assert res["strategy"] == strategy
+        assert res["counts"] == [{**NO_COLLECTIVES, kind: 1}] * STEPS

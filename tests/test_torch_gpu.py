@@ -13,7 +13,11 @@ normal (1e-6); u relative to ||g_seg|| sqrt(sq/Q) and sq relative 2e-5
 (also for the K-worker apply, whose K workers' parts are subtracted in
 the same order by the kernel and its plain version, and for each row of
 the B-adapter apply, whose rows are also bit-identical to the
-single-tenant kernel's).
+single-tenant kernel's).  The per-leaf kernels: ``project_flat`` to the
+same u/sq tolerances and bit-identical to ``project_packed`` on the same
+seeds (the same grid and sum order); ``reconstruct_flat`` within 2e-5 of
+its largest value; ``reconstruct_apply_flat`` 1e-4 of the update plus 2
+ulp of theta's dtype, bf16 rounded once.
 """
 
 import math
@@ -23,7 +27,7 @@ import pytest
 import torch
 
 from repro_torch.core import compartments, projector, rng
-from repro_torch.kernels import rbd_step
+from repro_torch.kernels import rbd_project, rbd_reconstruct, rbd_step
 
 pytestmark = pytest.mark.gpu
 DISTS = ["normal", "uniform", "rademacher", "sparse"]
@@ -287,3 +291,133 @@ def test_multi_tenant_admission_is_one_launch(cuda):
     mt.run()
     assert rbd_step.LAUNCHES["reconstruct_apply_packed_adapters"] == 1
     assert mt.stats["decode_steps"] == 3
+
+
+# (n_stack, q, dim): a stacked leaf with a ragged last pos-block and a
+# padded dir-block; an unstacked leaf of several projection chunks
+FLAT_CASES = [(3, 700, 13), (1, 70_000, 20)]
+
+
+def _flat_inputs(cuda, n, q, dim, seed=7):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    seeds = rng.fold_seed(rng.fold_seed(11, seed),
+                          torch.arange(n, dtype=torch.int32))
+    g = torch.randn((n, q), generator=gen, device=cuda)
+    scale = torch.randn((n, dim), generator=gen, device=cuda) * 1e-2
+    theta = torch.randn((n, q), generator=gen, device=cuda)
+    return seeds, g, scale, theta
+
+
+@pytest.mark.parametrize("n,q,dim", FLAT_CASES)
+@pytest.mark.parametrize("dist", DISTS)
+def test_project_flat_kernel_matches_plain(cuda, dist, n, q, dim):
+    seeds, g, _, _ = _flat_inputs(cuda, n, q, dim)
+    before = rbd_step.LAUNCHES["project_flat"]
+    u, sq = rbd_project.project_flat(seeds, g, dim, dist)
+    u2, sq2 = rbd_project.project_flat(seeds, g, dim, dist)
+    assert rbd_step.LAUNCHES["project_flat"] == before + 2
+    assert u.shape == sq.shape == (n, dim)
+    assert torch.equal(u, u2) and torch.equal(sq, sq2)
+    up, sqp = rbd_project.project_flat_plain(seeds, g, dim, dist)
+    scale = g.norm(dim=1, keepdim=True) * torch.sqrt(sqp / q)
+    assert bool(((u - up).abs() <= 2e-5 * scale).all())
+    assert bool(((sq - sqp).abs() <= 2e-5 * sqp).all())
+
+
+def test_project_flat_is_project_packed_bit_for_bit(cuda):
+    """One leaf's per-leaf launch and the packed launch of the same
+    compartments run the same grid and sum order: identical bits."""
+    shapes = {"layers/k": (3, 700, 10)}
+    plan = compartments.make_plan(
+        shapes, 39, is_stacked=lambda n: n.startswith("layers"))
+    lay = plan.packed()
+    lp = plan.leaves[0]
+    seeds = projector.segment_seeds(plan, rng.fold_seed(5))
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    g = torch.randn((lp.n_stack, lp.size), generator=gen, device=cuda)
+    u, sq = rbd_project.project_flat(seeds, g, lp.dim)
+    pu, psq = rbd_step.project_packed(
+        seeds, projector.pack_tree({"layers/k": g}, plan, lay), lay)
+    cu = projector.unpack_coords(pu, plan, lay)[0]
+    csq = projector.unpack_coords(psq, plan, lay)[0]
+    assert torch.equal(u, cu) and torch.equal(sq, csq)
+
+
+@pytest.mark.parametrize("n,q,dim", FLAT_CASES)
+@pytest.mark.parametrize("dist", DISTS)
+def test_reconstruct_flat_kernel_matches_plain(cuda, dist, n, q, dim):
+    seeds, _, scale, _ = _flat_inputs(cuda, n, q, dim)
+    before = rbd_step.LAUNCHES["reconstruct_flat"]
+    out = rbd_reconstruct.reconstruct_flat(seeds, scale, q, dist)
+    again = rbd_reconstruct.reconstruct_flat(seeds, scale, q, dist)
+    assert rbd_step.LAUNCHES["reconstruct_flat"] == before + 2
+    assert torch.equal(out, again) and out.dtype == torch.float32
+    ref = rbd_reconstruct.reconstruct_flat_plain(seeds, scale, q, dist)
+    assert float((out - ref).abs().max()) <= 2e-5 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,q,dim", FLAT_CASES)
+@pytest.mark.parametrize("dist", DISTS)
+def test_reconstruct_apply_flat_kernel_matches_plain(cuda, dist, n, q, dim,
+                                                     dtype):
+    seeds, _, scale, theta = _flat_inputs(cuda, n, q, dim)
+    theta = theta.to(dtype)
+    before = rbd_step.LAUNCHES["reconstruct_apply_flat"]
+    out = rbd_reconstruct.reconstruct_apply_flat(seeds, scale, theta, 0.5,
+                                                 dist)
+    assert rbd_step.LAUNCHES["reconstruct_apply_flat"] == before + 1
+    assert out.dtype == dtype
+    inplace = theta.clone()
+    rbd_reconstruct.reconstruct_apply_flat(seeds, scale, inplace, 0.5, dist,
+                                           out=inplace)
+    assert torch.equal(out, inplace)
+    ref = rbd_reconstruct.reconstruct_apply_flat_plain(seeds, scale, theta,
+                                                       0.5, dist)
+    ulp = 2.0**-23 if dtype == torch.float32 else 2.0**-7
+    tol = (1e-4 * float((ref.float() - theta.float()).abs().max())
+           + 2 * ulp * float(theta.float().abs().max()))
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+
+
+def test_reconstruct_apply_flat_bf16_rounds_once(cuda):
+    """bf16 theta: float32 accumulation from float(theta), one rounding
+    on the store -- the kernel's bf16 output is its float32 output on the
+    same values rounded once."""
+    seeds, _, scale, theta = _flat_inputs(cuda, 2, 5000, 24, seed=9)
+    theta16 = theta.to(torch.bfloat16)
+    out16 = rbd_reconstruct.reconstruct_apply_flat(seeds, scale, theta16,
+                                                   0.1)
+    out32 = rbd_reconstruct.reconstruct_apply_flat(seeds, scale,
+                                                   theta16.float(), 0.1)
+    assert torch.equal(out16, out32.to(torch.bfloat16))
+
+
+def test_per_leaf_train_steps_launch_per_leaf(cuda):
+    """fused_per_leaf: one project_flat and one reconstruct_apply_flat
+    launch per LeafPlan per step; weight decay (full_space): one
+    project_flat and one reconstruct_flat per leaf."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RBDConfig, TrainConfig
+    from repro_torch.data import synthetic
+    from repro_torch.models.registry import get_model
+    from repro_torch.train import step as steplib
+
+    cfg = get_config("qwen2-0.5b").reduced(compute_dtype="float32")
+    for rbd, wd, apply in ((RBDConfig(total_dim=128, backend="cuda",
+                                      packed="off"), 0.0,
+                            "reconstruct_apply_flat"),
+                           (RBDConfig(total_dim=128, backend="cuda"), 0.01,
+                            "reconstruct_flat")):
+        tcfg = TrainConfig(model=cfg, rbd=rbd, weight_decay=wd)
+        init_state, train_step, sub = steplib.make_train_step(
+            get_model(cfg), tcfg, device=cuda, return_optimizer=True)
+        n = len(sub.transform.plan.leaves)
+        state = init_state(0)
+        data = synthetic.lm_batches(0, 2, 16, cfg.vocab, device=cuda)
+        rbd_step.reset_counts()
+        for _ in range(2):
+            state, metrics = train_step(state, next(data))
+            assert math.isfinite(float(metrics["loss"]))
+        launched = {k: v for k, v in rbd_step.LAUNCHES.items() if v}
+        assert launched == {"project_flat": 2 * n, apply: 2 * n}
