@@ -1041,6 +1041,21 @@ def _check_delta(case, out, ref) -> float:
     return dd
 
 
+def _check_flat_project(case, u, sq, up, sqp, g) -> float:
+    """Kernel project_flat's (u, sq) against the plain version's, row by
+    row: |du| within U_RTOL of ||g_s|| sqrt(sq / Q), sq within SQ_RTOL.
+    Returns max|du|."""
+    gnorm = g.norm(dim=1, keepdim=True) / math.sqrt(g.shape[1])
+    du = (u - up).abs()
+    rel_u = float((du / (gnorm * sqp.sqrt()).clamp(min=1e-30)).max())
+    rel_sq = float(((sq - sqp).abs() / sqp.clamp(min=1e-30)).max())
+    log(f"    {case} project: max|du|={float(du.max()):.3g} rel={rel_u:.3g} "
+        f"(tol {U_RTOL}), max rel dsq={rel_sq:.3g} (tol {SQ_RTOL})")
+    check(rel_u <= U_RTOL and rel_sq <= SQ_RTOL,
+          f"{case}: project_flat outside tolerance")
+    return float(du.max())
+
+
 def phase_leaf_kernels(full_plan):
     import torch
     from repro_torch.core import projector, rng
@@ -1063,18 +1078,9 @@ def phase_leaf_kernels(full_plan):
             up, sqp = rbd_project.project_flat_plain(seeds, g, dim, dist)
             check(torch.equal(u, u2) and torch.equal(sq, sq2),
                   f"{case}: project_flat reruns differ")
-            gnorm = g.norm(dim=1, keepdim=True) / math.sqrt(q)
-            du = (u - up).abs()
-            rel_u = float((du / (gnorm * torch.sqrt(sqp)).clamp(
-                min=1e-30)).max())
-            rel_sq = float(((sq - sqp).abs() / sqp.clamp(min=1e-30)).max())
-            log(f"    {case} project: max|du|={float(du.max()):.3g} rel="
-                f"{rel_u:.3g} (tol {U_RTOL}), max rel dsq={rel_sq:.3g} (tol "
-                f"{SQ_RTOL}); reruns bit-identical")
-            check(rel_u <= U_RTOL and rel_sq <= SQ_RTOL,
-                  f"{case}: project_flat outside tolerance")
             errs["project_flat"] = max(errs["project_flat"],
-                                       float(du.max()))
+                                       _check_flat_project(case, u, sq, up,
+                                                           sqp, g))
             if lp.stacked:
                 layer.setdefault(dist, []).append((lp, g, u, sq))
 
@@ -1167,6 +1173,10 @@ def _per_leaf_launcher_runs(n_leaves):
     from repro_torch.kernels import rbd_step
     from repro_torch.launch import train as launcher
 
+    # earlier phases' tensors go before the first run, so that each run's
+    # peak memory is its own
+    gc.collect()
+    torch.cuda.empty_cache()
     runs = {}
     for label, extra, apply, kind in PER_LEAF_RUNS:
         args = ARCH_ARGS + extra
@@ -1264,9 +1274,10 @@ def _plain_at_full_shapes(full_plan, params):
         plain = {}
         plain_ms["project_flat"] += cuda_ms(lambda: plain.update(
             p=rbd_project.project_flat_plain(seeds, g, lp.dim, dist)))[0]
-        u, _ = rbd_project.project_flat(seeds, g, lp.dim, dist)
-        errs["project_flat"] = max(errs["project_flat"],
-                                   float((u - plain["p"][0]).abs().max()))
+        u, sq = rbd_project.project_flat(seeds, g, lp.dim, dist)
+        errs["project_flat"] = max(errs["project_flat"], _check_flat_project(
+            f"full {lp.name}", u, sq, *plain.pop("p"), g))
+        del u, sq
         plain_ms["reconstruct_flat"] += cuda_ms(lambda: plain.update(
             r=rbd_reconstruct.reconstruct_flat_plain(seeds, scale, lp.size,
                                                      dist)))[0]

@@ -1,6 +1,7 @@
-// Launch geometry, the fixed-order block reduction and the distribution
-// dispatch shared by the packed kernels (rbd_step.cu) and the per-leaf
-// kernels (rbd_flat.cu).
+// Launch geometry, the fixed-order block reduction, the body of one
+// projection block, the dir-block dot of the reconstructions and the
+// distribution dispatch shared by the packed kernels (rbd_step.cu) and the
+// per-leaf kernels (rbd_flat.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -39,6 +40,82 @@ __device__ __forceinline__ void block_sum(float (&acc)[kAcc],
     for (int w = 0; w < kWarps; ++w) t += smem[threadIdx.x][w];
     acc[0] = t;  // thread k holds the block total of accumulator k
   }
+}
+
+// One CUDA block of a projection: the sums of p * g and p * p over columns
+// [c0, c1) of the compartment's gradient `gs` for the 8 basis rows row0 ..
+// row0 + 7 of seed `sd`, reduced in a fixed order (block_sum) and stored as
+// block `bid`'s 16 partials.  The last of the `nch` chunk blocks of
+// coordinate block `cblk` to arrive -- found with a __threadfence and the
+// integer counter arrived[cblk] -- adds the partials of blocks bid - chunk
+// .. bid - chunk + nch - 1 in chunk order and writes u and sq at cblk * 8.
+// The packed (rbd_step.cu) and per-leaf (rbd_flat.cu) projections differ
+// only in how they find these arguments, so equal arguments give equal
+// bits.
+template <int DIST>
+__device__ __forceinline__ void project_block(
+    const float* __restrict__ gs, uint32_t sd, uint32_t row0, int64_t c0,
+    int64_t c1, int64_t bid, int chunk, int nch, int64_t cblk,
+    float* __restrict__ partial, int32_t* __restrict__ arrived,
+    float* __restrict__ u, float* __restrict__ sq) {
+  __shared__ float smem[kAcc][kWarps];
+  __shared__ bool is_last;
+
+  float acc[kAcc];
+#pragma unroll
+  for (int k = 0; k < kAcc; ++k) acc[k] = 0.0f;
+
+  for (int64_t col = c0 + threadIdx.x; col < c1; col += kThreads) {
+    const float gv = gs[col];
+    const uint32_t c32 = static_cast<uint32_t>(col);
+#pragma unroll
+    for (int i = 0; i < kDirBlock; ++i) {
+      const float p = basis_sample<DIST>(sd, row0 + i, c32);
+      acc[i] = fmaf(p, gv, acc[i]);
+      acc[kDirBlock + i] = fmaf(p, p, acc[kDirBlock + i]);
+    }
+  }
+
+  block_sum(acc, smem);
+  if (threadIdx.x < kAcc) {
+    partial[bid * kAcc + threadIdx.x] = acc[0];
+    __threadfence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    is_last = (atomicAdd(&arrived[cblk], 1) == nch - 1);
+  }
+  __syncthreads();
+  if (is_last && threadIdx.x < kAcc) {
+    __threadfence();
+    const int64_t first = bid - chunk;  // block of chunk 0
+    float t = 0.0f;
+    for (int c = 0; c < nch; ++c) {
+      t += __ldcg(&partial[(first + c) * kAcc + threadIdx.x]);
+    }
+    const int k = threadIdx.x;
+    if (k < kDirBlock) {
+      u[cblk * kDirBlock + k] = t;
+    } else {
+      sq[cblk * kDirBlock + (k - kDirBlock)] = t;
+    }
+  }
+}
+
+// part_db = sum_{i<8} sc_{db*8+i} P_{db*8+i, c32}, formed in row order with
+// FMAs: dir-block db's contribution at one position, shared by every
+// reconstruction and apply kernel.
+template <int DIST>
+__device__ __forceinline__ float dir_block_part(uint32_t sd, const float* sc,
+                                                int db, uint32_t c32) {
+  const uint32_t row0 = static_cast<uint32_t>(db * kDirBlock);
+  float part = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kDirBlock; ++i) {
+    part = fmaf(__ldg(&sc[db * kDirBlock + i]),
+                basis_sample<DIST>(sd, row0 + i, c32), part);
+  }
+  return part;
 }
 
 }  // namespace rbd

@@ -28,8 +28,9 @@
 // projection's geometry -- one CUDA block per (compartment, dir-block,
 // chunk of 64 pos-blocks), a fixed-order block sum, chunk partials summed
 // in order by the last block to arrive -- so its (u, sq) are bit-identical
-// to rbd_project_packed on the same seeds and gradient, and no float
-// atomics make reruns differ.  The two reconstructions run one CUDA block
+// to rbd_project_packed on the same seeds and gradient (both kernels are
+// shells around rbd_common.cuh's project_block), and no float atomics make
+// reruns differ.  The two reconstructions run one CUDA block
 // per (pos-block, compartment); each thread owns a position and visits the
 // dir-blocks in order, as the reference's grid (direction innermost) does.
 //
@@ -49,7 +50,8 @@ constexpr int kPosBlock = 512;     // positions per CUDA block (apply, recon)
 // Kernel 8: raw projections u_s = P_s g_s and squared row norms for every
 // compartment s of one leaf.  Grid (n_db * n_chunk, n_stack): block x of
 // row s owns dir-block x / n_chunk and the chunk x % n_chunk of
-// `chunk_cols` positions.  Outputs are (n_stack, d_pad).
+// `chunk_cols` positions; project_block does the rest, as in the packed
+// projection.  Outputs are (n_stack, d_pad).
 template <int DIST>
 __global__ void __launch_bounds__(kThreads)
 project_flat_kernel(const float* __restrict__ g,
@@ -57,75 +59,17 @@ project_flat_kernel(const float* __restrict__ g,
                     int n_chunk, int64_t chunk_cols,
                     float* __restrict__ partial, int32_t* __restrict__ arrived,
                     float* __restrict__ u, float* __restrict__ sq) {
-  __shared__ float smem[kAcc][kWarps];
-  __shared__ bool is_last;
-
   const int s = blockIdx.y;
   const int di = blockIdx.x / n_chunk;
   const int chunk = blockIdx.x % n_chunk;
   const int n_db = gridDim.x / n_chunk;
-  const uint32_t sd = seed[s];
-  const uint32_t row0 = static_cast<uint32_t>(di * kDirBlock);
-  const float* gs = g + static_cast<int64_t>(s) * q;
-
-  float acc[kAcc];
-#pragma unroll
-  for (int k = 0; k < kAcc; ++k) acc[k] = 0.0f;
-
   const int64_t c0 = static_cast<int64_t>(chunk) * chunk_cols;
   const int64_t c1 = (c0 + chunk_cols < q) ? c0 + chunk_cols : q;
-  for (int64_t col = c0 + threadIdx.x; col < c1; col += kThreads) {
-    const float gv = gs[col];
-    const uint32_t c32 = static_cast<uint32_t>(col);
-#pragma unroll
-    for (int i = 0; i < kDirBlock; ++i) {
-      const float p = basis_sample<DIST>(sd, row0 + i, c32);
-      acc[i] = fmaf(p, gv, acc[i]);
-      acc[kDirBlock + i] = fmaf(p, p, acc[kDirBlock + i]);
-    }
-  }
-
-  block_sum(acc, smem);
-  const int64_t bid = static_cast<int64_t>(s) * gridDim.x + blockIdx.x;
-  if (threadIdx.x < kAcc) {
-    partial[bid * kAcc + threadIdx.x] = acc[0];
-    __threadfence();
-  }
-  __syncthreads();
-  const int64_t cblk = static_cast<int64_t>(s) * n_db + di;
-  if (threadIdx.x == 0) {
-    is_last = (atomicAdd(&arrived[cblk], 1) == n_chunk - 1);
-  }
-  __syncthreads();
-  if (is_last && threadIdx.x < kAcc) {
-    __threadfence();
-    const int64_t first = bid - chunk;  // block of chunk 0
-    float t = 0.0f;
-    for (int c = 0; c < n_chunk; ++c) {
-      t += __ldcg(&partial[(first + c) * kAcc + threadIdx.x]);
-    }
-    const int k = threadIdx.x;
-    if (k < kDirBlock) {
-      u[cblk * kDirBlock + k] = t;
-    } else {
-      sq[cblk * kDirBlock + (k - kDirBlock)] = t;
-    }
-  }
-}
-
-// part_db = sum_{i<8} sc_{db*8+i} P_{db*8+i, c32}, formed in row order with
-// FMAs: the dir-block's contribution at one position.
-template <int DIST>
-__device__ __forceinline__ float dir_block_part(uint32_t sd, const float* sc,
-                                                int db, uint32_t c32) {
-  const uint32_t row0 = static_cast<uint32_t>(db * kDirBlock);
-  float part = 0.0f;
-#pragma unroll
-  for (int i = 0; i < kDirBlock; ++i) {
-    part = fmaf(__ldg(&sc[db * kDirBlock + i]),
-                basis_sample<DIST>(sd, row0 + i, c32), part);
-  }
-  return part;
+  project_block<DIST>(g + static_cast<int64_t>(s) * q, seed[s],
+                      static_cast<uint32_t>(di * kDirBlock), c0, c1,
+                      static_cast<int64_t>(s) * gridDim.x + blockIdx.x, chunk,
+                      n_chunk, static_cast<int64_t>(s) * n_db + di, partial,
+                      arrived, u, sq);
 }
 
 // Kernel 9: delta_s = scale_s P_s in float32, (n_stack, q).  Grid
@@ -262,10 +206,6 @@ int rbd_reconstruct_apply_flat(const float* scale, const void* theta,
                  seed, q, n_db);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-const char* rbd_flat_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

@@ -76,11 +76,10 @@ __device__ __forceinline__ int find_segment(const int64_t* prefix, int n_seg,
 
 // Kernel 1: u = P g and sq = sum P^2 for every segment's 8-direction
 // coordinate blocks.  One CUDA block owns one (segment, dir-block, chunk)
-// triple: it sweeps `pos_chunk` consecutive pos-blocks of the segment,
-// reduces its 16 sums in a fixed order and stores them as partials.  The
-// last block of a (segment, dir-block) to finish -- found with a
-// __threadfence and an integer counter -- adds the partials in chunk
-// order and writes the 8 coordinates and 8 squared norms.
+// triple: it finds its segment, then project_block sweeps `pos_chunk`
+// consecutive pos-blocks of the segment and the last block of the
+// (segment, dir-block) to finish writes the 8 coordinates and 8 squared
+// norms.
 template <int DIST>
 __global__ void __launch_bounds__(kThreads)
 project_kernel(const float* __restrict__ g, const uint32_t* __restrict__ seed,
@@ -92,85 +91,35 @@ project_kernel(const float* __restrict__ g, const uint32_t* __restrict__ seed,
                int pos_chunk, float* __restrict__ partial,
                int32_t* __restrict__ arrived, float* __restrict__ u,
                float* __restrict__ sq) {
-  __shared__ float smem[kAcc][kWarps];
-  __shared__ bool is_last;
-
   const int64_t bid = blockIdx.x;
   const int s = find_segment(blocks, n_seg, bid);
   const int64_t local = bid - blocks[s];
   const int nch = n_chunk[s];
   const int di = static_cast<int>(local / nch);
   const int chunk = static_cast<int>(local % nch);
-  const uint32_t sd = seed[s];
   const int64_t q = size[s];
-  const uint32_t row0 = static_cast<uint32_t>(di * kDirBlock);
-  const float* gs = g + param_off[s];
-
-  float acc[kAcc];
-#pragma unroll
-  for (int k = 0; k < kAcc; ++k) acc[k] = 0.0f;
-
   // columns at or beyond the segment's size are masked: not generated,
   // contributing zero to both u and sq
   const int64_t c0 = static_cast<int64_t>(chunk) * pos_chunk * pos_block;
   const int64_t c_end = c0 + static_cast<int64_t>(pos_chunk) * pos_block;
   const int64_t c1 = c_end < q ? c_end : q;
-  for (int64_t col = c0 + threadIdx.x; col < c1; col += kThreads) {
-    const float gv = gs[col];
-    const uint32_t c32 = static_cast<uint32_t>(col);
-#pragma unroll
-    for (int i = 0; i < kDirBlock; ++i) {
-      const float p = basis_sample<DIST>(sd, row0 + i, c32);
-      acc[i] = fmaf(p, gv, acc[i]);
-      acc[kDirBlock + i] = fmaf(p, p, acc[kDirBlock + i]);
-    }
-  }
-
-  block_sum(acc, smem);
-  if (threadIdx.x < kAcc) {
-    partial[bid * kAcc + threadIdx.x] = acc[0];
-    __threadfence();
-  }
-  __syncthreads();
-  const int64_t cblk = coord_off[s] / kDirBlock + di;
-  if (threadIdx.x == 0) {
-    is_last = (atomicAdd(&arrived[cblk], 1) == nch - 1);
-  }
-  __syncthreads();
-  if (is_last && threadIdx.x < kAcc) {
-    __threadfence();
-    const int64_t first = bid - chunk;  // block of chunk 0
-    float t = 0.0f;
-    for (int c = 0; c < nch; ++c) {
-      t += __ldcg(&partial[(first + c) * kAcc + threadIdx.x]);
-    }
-    const int k = threadIdx.x;
-    if (k < kDirBlock) {
-      u[cblk * kDirBlock + k] = t;
-    } else {
-      sq[cblk * kDirBlock + (k - kDirBlock)] = t;
-    }
-  }
+  project_block<DIST>(g + param_off[s], seed[s],
+                      static_cast<uint32_t>(di * kDirBlock), c0, c1, bid,
+                      chunk, nch, coord_off[s] / kDirBlock + di, partial,
+                      arrived, u, sq);
 }
 
-// theta value `th` at column c32 of a segment minus sum_db part_db, with
-// part_db = sum_{i<8} sc_{db*8+i} P_{db*8+i, c32} formed in row order and
-// subtracted dir-block by dir-block (dot first, then subtract -- the
-// reference's association).  Shared by kernels 2 and 3, so one worker's
-// arithmetic is the same instruction sequence in both.
+// theta value `th` at column c32 of a segment minus sum_db part_db
+// (rbd_common.cuh's dir_block_part), subtracted dir-block by dir-block
+// (dot first, then subtract -- the reference's association).  Shared by
+// kernels 2, 3 and 4, so one worker's arithmetic is the same instruction
+// sequence in each.
 template <int DIST>
 __device__ __forceinline__ float apply_dir_blocks(float th, uint32_t sd,
                                                   const float* sc, int n_db,
                                                   uint32_t c32) {
   for (int db = 0; db < n_db; ++db) {
-    const uint32_t row0 = static_cast<uint32_t>(db * kDirBlock);
-    float part = 0.0f;
-#pragma unroll
-    for (int i = 0; i < kDirBlock; ++i) {
-      part = fmaf(__ldg(&sc[db * kDirBlock + i]),
-                  basis_sample<DIST>(sd, row0 + i, c32), part);
-    }
-    th = __fsub_rn(th, part);
+    th = __fsub_rn(th, dir_block_part<DIST>(sd, sc, db, c32));
   }
   return th;
 }

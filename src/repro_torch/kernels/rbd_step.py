@@ -111,7 +111,6 @@ _FLAT_SIGNATURES = {
     "rbd_reconstruct_flat": [_P, _P, _I, _I64, _I, _I, _P, _P],
     "rbd_reconstruct_apply_flat": [_P, _P, _P, _F32, _P, _I, _I64, _I, _I,
                                    _I, _P],
-    "rbd_flat_error_string": [_I],
 }
 
 

@@ -23,13 +23,16 @@ results; the tests read them:
   under weight decay) against the single worker on the mean gradient
   (the tolerance above), the per-leaf independent bases (``full_space``,
   Algorithm 1) against a K=2 sequential run in-process (bit-exact: the
-  same projections, gathered bits, reconstructions and sums), the SGD
+  same projections, gathered bits, reconstructions and sums) and against
+  the reference's own per-leaf step (``independent_bases_update``, weight
+  decay and the full-space optimizer) under ``jax.vmap`` over the K=2
+  workers (theta within 1e-4 of the cumulative update + 2 ulp), the SGD
   baseline's gradient mean against the single worker on the mean
   gradient (bit-exact: a + b then / 2 either way); one collective per
   step, every leaf's coordinates in one buffer.
 
-This file imports neither jax nor the reference package: the spawned
-ranks import it.
+The spawned ranks import this file, so it imports jax and the reference
+package only inside the one test that runs the reference.
 """
 
 import datetime
@@ -416,6 +419,70 @@ def test_per_leaf_independent_two_ranks_equal_k2_sequential(ranks, name):
         got = ranks[r]["per_leaf"][name]["theta"]
         for k in want:
             assert torch.equal(got[k], want[k]), (r, k)
+
+
+def _reference_independent_vmap(optimizer, norm, wd, theta0, grads):
+    """The reference's per-leaf Algorithm 1 step (full_space:
+    independent_bases_update, + wd * p, the full-space optimizer) for
+    STEPS steps under ``jax.vmap`` over the WORLD workers' gradients, the
+    vmapped axis named 'data' (its all_gather and axis_index are the
+    mesh's).  Returns worker 0's parameters by leaf name."""
+    # imported here: the spawned ranks import this module and need no jax
+    import jax
+    import jax.numpy as jnp
+
+    from repro.core import compartments as ref_comp
+    from repro.core.rbd import RandomBasesTransform as RefTransform
+    from repro.optim import subspace as ref_subspace
+
+    def nest(named):
+        return {"w": jnp.asarray(named["w"].numpy()),
+                "layers": {"k": jnp.asarray(named["layers/k"].numpy())},
+                "s": jnp.asarray(named["s"].numpy())}
+
+    plan = ref_comp.make_plan(
+        jax.tree_util.tree_map(
+            lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype), nest(theta0)),
+        48, is_stacked=lambda n: n.startswith("layers"), normalization=norm)
+    rsub = ref_subspace.SubspaceOptimizer(
+        transform=RefTransform(plan, base_seed=5, backend="jnp"),
+        optimizer=optimizer, learning_rate=LR[optimizer], weight_decay=wd,
+        mode="independent_bases", axis_name="data", k_workers=WORLD)
+    assert rsub.plan_execution().strategy == "full_space"
+    params = nest(theta0)
+    r_rbd, r_opt = rsub.init_rbd_state(params), rsub.init_opt_state(params)
+    step = jax.jit(jax.vmap(rsub.step, in_axes=(None, 0, None, None),
+                            axis_name="data"))
+    for workers in grads:
+        stacked = jax.tree_util.tree_map(
+            lambda *x: jnp.stack(x), *[nest(w) for w in workers])
+        out = step(params, stacked, r_rbd, r_opt)
+        for leaf in jax.tree_util.tree_leaves(out[0]):
+            np.testing.assert_array_equal(leaf[0], leaf[1])
+        params, r_rbd, r_opt = jax.tree_util.tree_map(
+            lambda x: x[0], out[:3])
+    return {"w": np.asarray(params["w"]),
+            "layers/k": np.asarray(params["layers"]["k"]),
+            "s": np.asarray(params["s"])}
+
+
+@pytest.mark.parametrize("name,optimizer,norm,wd", [
+    (s[0], s[2], s[3], s[4]) for s in LEAF_SCENARIOS
+    if s[1] == "independent_bases"])
+def test_per_leaf_independent_two_ranks_match_reference(ranks, name,
+                                                        optimizer, norm, wd):
+    """The port's per-leaf Algorithm 1 on 2 gloo ranks against the
+    reference's composition (mean of the K reconstructions, weight decay,
+    the full-space optimizer) on the same per-worker gradients."""
+    theta0, grads = _leaf_inputs()
+    want = _reference_independent_vmap(optimizer, norm, wd, theta0, grads)
+    for k, w in want.items():
+        t0 = theta0[k].numpy()
+        tol = 1e-4 * np.abs(w - t0).max() + 2 * EPS32 * np.abs(w).max()
+        for r in range(WORLD):
+            np.testing.assert_allclose(
+                ranks[r]["per_leaf"][name]["theta"][k].numpy(), w, rtol=0,
+                atol=tol, err_msg=f"rank {r} {k}")
 
 
 @pytest.mark.parametrize("name,mode,wd,enabled",
