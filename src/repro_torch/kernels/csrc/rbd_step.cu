@@ -76,10 +76,10 @@ __device__ __forceinline__ int find_segment(const int64_t* prefix, int n_seg,
 
 // Kernel 1: u = P g and sq = sum P^2 for every segment's 8-direction
 // coordinate blocks.  One CUDA block owns one (segment, dir-block, chunk)
-// triple: it finds its segment, then project_block sweeps `pos_chunk`
-// consecutive pos-blocks of the segment and the last block of the
-// (segment, dir-block) to finish writes the 8 coordinates and 8 squared
-// norms.
+// triple: it finds its segment, project_sums sweeps `pos_chunk`
+// consecutive pos-blocks of the segment, and in project_store the last
+// block of the (segment, dir-block) to finish writes the 8 coordinates
+// and 8 squared norms.
 template <int DIST>
 __global__ void __launch_bounds__(kThreads)
 project_kernel(const float* __restrict__ g, const uint32_t* __restrict__ seed,
@@ -103,10 +103,11 @@ project_kernel(const float* __restrict__ g, const uint32_t* __restrict__ seed,
   const int64_t c0 = static_cast<int64_t>(chunk) * pos_chunk * pos_block;
   const int64_t c_end = c0 + static_cast<int64_t>(pos_chunk) * pos_block;
   const int64_t c1 = c_end < q ? c_end : q;
-  project_block<DIST>(g + param_off[s], seed[s],
-                      static_cast<uint32_t>(di * kDirBlock), c0, c1, bid,
-                      chunk, nch, coord_off[s] / kDirBlock + di, partial,
-                      arrived, u, sq);
+  float acc[kAcc];
+  project_sums<DIST>(g + param_off[s], seed[s],
+                     static_cast<uint32_t>(di * kDirBlock), c0, c1, acc);
+  project_store(acc, bid, chunk, nch, coord_off[s] / kDirBlock + di,
+                partial, arrived, u, sq);
 }
 
 // theta value `th` at column c32 of a segment minus sum_db part_db
