@@ -59,11 +59,31 @@ result line:
                each, one-rank NCCL group: ``--packed off`` (fused_per_leaf:
                14 project_flat + 14 reconstruct_apply_flat launches per
                step), ``--weight-decay 0.01`` (full_space: 14 + 14
-               reconstruct_flat), ``--mode sgd`` (no launch); one
-               collective per step; one fused_per_leaf step against one
+               reconstruct_flat), ``--mode sgd`` (no launch and, on
+               one rank, no collective); one collective per step on the
+               other two; one fused_per_leaf step against one
                fused_packed step from the same parameters and batch; the
                plain versions timed at the main path's full shapes;
-then the ``kernels`` line (seven rows), the card line and the result
+14. sharded kernels -- ``project_packed_sharded``,
+               ``reconstruct_apply_packed_sharded`` and
+               ``reconstruct_apply_packed_workers_sharded`` at full
+               qwen2-0.5b width for model groups of m = 2 and 4, every
+               shard in turn on the one card: each slab's apply (and K = 2
+               worker apply) bit-identical to the slice of the unsharded
+               kernel's output, the shard-ordered sum of the partial
+               projections within tolerance of ``project_packed``,
+               padding exactly 0, each kernel against its plain version
+               on shards 1 and 3 of m = 4, per-shard times beside the
+               unsharded kernels' in the same call;
+15. sharded step -- the model-sharded packed step at full qwen2-0.5b
+               width and depth, m = 2 shards in turn
+               (``SubspaceOptimizer.step_shards_in_turn``), bf16 compute,
+               batch 8 x 128, 3 steps each of sgd/rsqrt_dim,
+               momentum/exact and independent bases, over a one-rank
+               NCCL data group: 2 launches per shard per step, theta
+               within tolerance of a ``fused_packed`` step from the same
+               state;
+then the ``kernels`` line (ten rows), the card line and the result
 line.
 
 It imports nothing of JAX or of the reference package ``repro``.
@@ -104,12 +124,30 @@ FMA_PER_VALUE = {"project_packed": 2, "reconstruct_apply_packed": 1,
                  "reconstruct_apply_packed_workers": 1,
                  "reconstruct_apply_packed_adapters": 1,
                  "project_flat": 2, "reconstruct_flat": 1,
-                 "reconstruct_apply_flat": 1}
+                 "reconstruct_apply_flat": 1, "project_packed_sharded": 2,
+                 "reconstruct_apply_packed_sharded": 1,
+                 "reconstruct_apply_packed_workers_sharded": 1}
 K_SIM = 4          # workers of the phase-8 simulation
 B_FULL = 4         # adapters of the phase-10 full-shape launch
 # phase 11: the serving run (prompt lengths 32-128, 32 new tokens each)
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW = 4, 256, 32
 SIM_STEPS = 3
+# phases 14-15: model groups, the workers of the sharded K-worker apply,
+# the shards of m = 4 held against the plain versions (shard 1 straddles
+# the end of embed, shard 3 holds the padding tail), the row's shard
+M_SHARDS = (2, 4)
+K_SHARDED = 2
+PLAIN_SHARDS = (1, 3)
+ROW_SHARD = (4, 1)
+SHARDED_KERNELS = ("project_packed_sharded",
+                   "reconstruct_apply_packed_sharded",
+                   "reconstruct_apply_packed_workers_sharded")
+# phase 15's runs: (label, rbd mode, optimizer, normalization)
+SHARD_RUNS = (("sgd/rsqrt_dim", "shared_basis", "sgd", "rsqrt_dim"),
+              ("momentum/exact", "shared_basis", "momentum", "exact"),
+              ("independent/rsqrt_dim", "independent_bases", "sgd",
+               "rsqrt_dim"))
+SHARD_M = 2
 ISSUE_LANES_PER_SM = 128
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
 
@@ -442,6 +480,14 @@ REPLACES = {
     "project_flat": "src/repro/kernels/rbd_project.py:41",
     "reconstruct_flat": "src/repro/kernels/rbd_reconstruct.py:33",
     "reconstruct_apply_flat": "src/repro/kernels/rbd_reconstruct.py:57",
+    # the sharded wrappers' own pallas_calls (project_packed_sharded:575,
+    # reconstruct_apply_packed_sharded:645,
+    # reconstruct_apply_packed_workers_sharded:715), over the bodies of
+    # rows 1 and 2 on one shard's tables
+    "project_packed_sharded": "src/repro/kernels/rbd_step.py:617",
+    "reconstruct_apply_packed_sharded": "src/repro/kernels/rbd_step.py:689",
+    "reconstruct_apply_packed_workers_sharded":
+        "src/repro/kernels/rbd_step.py:762",
 }
 FLAT_KERNELS = ("project_flat", "reconstruct_flat", "reconstruct_apply_flat")
 
@@ -1152,13 +1198,15 @@ def _per_step(times, n_leaves):
     return [sum(t) for t in steps], [t[0] for t in steps]
 
 
-# phase 13's launcher runs: (label, extra flags, apply kernel, collective)
+# phase 13's launcher runs: (label, extra flags, apply kernel, collective
+# per step -- none for the SGD baseline on one rank, which runs with
+# axis_name=None as the reference's launcher does)
 PER_LEAF_RUNS = (
     ("fused_per_leaf", ["--packed", "off"], "reconstruct_apply_flat",
      "all_reduce"),
     ("weight decay", ["--weight-decay", "0.01"], "reconstruct_flat",
      "all_reduce"),
-    ("sgd baseline", ["--mode", "sgd"], None, "grad_all_reduce"),
+    ("sgd baseline", ["--mode", "sgd"], None, None),
 )
 # the run whose counts and times make each per-leaf kernel's row
 ROW_RUN = {"project_flat": "fused_per_leaf",
@@ -1194,11 +1242,15 @@ def _per_leaf_launcher_runs(n_leaves):
         check(launches == want,
               f"{label}: expected {n_leaves} + {n_leaves} launches per step "
               f"(none for sgd), got {launches}")
-        others = sum(v for k, v in res.collectives.items()
-                     if k not in (kind, "scalar"))
-        check(res.collectives[kind] == STEPS and others == 0,
-              f"{label}: expected one {kind} per step, got "
-              f"{res.collectives}")
+        if kind is None:
+            check(not any(res.collectives.values()),
+                  f"{label}: expected no collective, got {res.collectives}")
+        else:
+            others = sum(v for k, v in res.collectives.items()
+                         if k not in (kind, "scalar"))
+            check(res.collectives[kind] == STEPS and others == 0,
+                  f"{label}: expected one {kind} per step, got "
+                  f"{res.collectives}")
         check(all(math.isfinite(x) for x in res.losses),
               f"{label}: losses {res.losses}")
         check(launcher.params_sum(res.state.params) != res.theta_init_sum,
@@ -1327,6 +1379,315 @@ def phase_per_leaf(full_plan):
     return rows
 
 
+def shard_bound_ms(name, sl, shard, dist, dev, k_workers=1):
+    """(least time in ms, "operations" or "bytes") for one launch on one
+    slab: the shard's live basis values over total issue, against the
+    slab read once and written once (the apply) or read once (the
+    projection, which writes the (d_packed,) partials)."""
+    lay = sl.base
+    values = k_workers * sl.live_values(shard)
+    if name == "project_packed_sharded":
+        nbytes = 4 * sl.q_slab + 4 * lay.n_segments + 8 * lay.d_packed
+    else:
+        nbytes = (8 * sl.q_slab + 4 * k_workers * lay.n_segments
+                  + 4 * k_workers * lay.d_packed)
+    ops = values * (INT_OPS_PER_VALUE + FP_OPS_PER_VALUE[dist]
+                    + FMA_PER_VALUE[name])
+    t_ops = ops / (dev["sms"] * ISSUE_LANES_PER_SM * dev["clock_hz"])
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def phase_sharded_kernels(full_plan, dev):
+    """Returns ({kernel: max_abs_err against the plain version}, {kernel:
+    (ms, plain_ms, bound_ms, bound_by)} on shard ROW_SHARD[1] of m =
+    ROW_SHARD[0])."""
+    import torch
+    from repro_torch.core import compartments, projector, rng
+    from repro_torch.kernels import rbd_step
+
+    log("== phase 14: model-sharded slab kernels at full qwen2-0.5b width, "
+        f"m in {M_SHARDS}, every shard in turn")
+    lay = full_plan.packed()
+    q = lay.q_packed
+    dist = full_plan.distribution
+    step_seed = rng.fold_seed(0, 0)
+    seeds = projector.segment_seeds(full_plan, step_seed)
+    wseeds = projector.worker_segment_seeds(full_plan, step_seed, K_SHARDED)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    valid = _valid_mask(lay, "cuda")
+    g = torch.where(valid, torch.randn(q, generator=gen, device="cuda"), 0.0)
+    theta = torch.where(valid, torch.randn(q, generator=gen, device="cuda"),
+                        0.0)
+    wscale = torch.randn((K_SHARDED, lay.d_packed), generator=gen,
+                         device="cuda")
+    wscale = wscale * 1e-4 * torch.from_numpy(lay.coord_valid).cuda()
+    scale = wscale[0].contiguous()
+    full = {}
+    unsharded = {
+        "project_packed": cuda_ms(lambda: full.update(
+            p=rbd_step.project_packed(seeds, g, lay, dist)), repeat=3),
+        "reconstruct_apply_packed": cuda_ms(lambda: full.update(
+            a=rbd_step.reconstruct_apply_packed(seeds, scale, theta, lay,
+                                                dist)), repeat=3),
+        "reconstruct_apply_packed_workers": cuda_ms(lambda: full.update(
+            w=rbd_step.reconstruct_apply_packed_workers(
+                wseeds, wscale, theta, lay, dist)), repeat=3),
+    }
+    log("  unsharded kernels on the same inputs (K=2 for the workers "
+        "apply), ms: " + ", ".join(
+            f"{k} {[round(x, 2) for x in v]}" for k, v in unsharded.items()))
+    sharded_of = dict(zip(unsharded, SHARDED_KERNELS))
+    errs = dict.fromkeys(SHARDED_KERNELS, 0.0)
+    row = {}
+    for m in M_SHARDS:
+        sl = compartments.sharded_packed_layout(lay, m)
+        zeros = g.new_zeros((sl.q_padded - q,))
+        gp, tp = torch.cat([g, zeros]), torch.cat([theta, zeros])
+        gen_total = sum(sl.generated_values(s) for s in range(m))
+        log(f"  m={m}: q_slab {sl.q_slab:,}, q_padded {sl.q_padded:,} "
+            f"({sl.q_padded - q:,} padding), {sl.blocks_per_shard:,} "
+            "pos-blocks a slab")
+        sums = dict.fromkeys(SHARDED_KERNELS, 0.0)
+        u_sum = sq_sum = None
+        slabs, wslabs = [], []
+        for shard in range(m):
+            a, b = sl.slab_range(shard)
+            res = {}
+            ms = {
+                "project_packed_sharded": cuda_ms(lambda: res.update(
+                    p=rbd_step.project_packed_sharded(
+                        seeds, gp[a:b], sl, shard, dist)), repeat=3),
+                "reconstruct_apply_packed_sharded": cuda_ms(
+                    lambda: res.update(
+                        a=rbd_step.reconstruct_apply_packed_sharded(
+                            seeds, scale, tp[a:b], sl, shard, dist)),
+                    repeat=3),
+                "reconstruct_apply_packed_workers_sharded": cuda_ms(
+                    lambda: res.update(
+                        w=rbd_step.reconstruct_apply_packed_workers_sharded(
+                            wseeds, wscale, tp[a:b], sl, shard, dist)),
+                    repeat=3),
+            }
+            for k, v in ms.items():
+                sums[k] += _median(v)
+            u, sq = res["p"]
+            u_sum = u if u_sum is None else u_sum + u
+            sq_sum = sq if sq_sum is None else sq_sum + sq
+            slabs.append(res["a"])
+            wslabs.append(res["w"])
+            log(f"    shard {shard}: {sl.live_values(shard):,} live basis "
+                f"values ({sl.generated_values(shard) / gen_total:.1%} of "
+                "the pass generated); ms " + ", ".join(
+                    f"{k.replace('reconstruct_apply_packed', 'apply')} "
+                    f"{[round(x, 2) for x in v]}" for k, v in ms.items()))
+            if m == 4 and shard in PLAIN_SHARDS:
+                plain_ms = _sharded_vs_plain(
+                    f"m={m}/shard {shard}", res, seeds, wseeds, scale,
+                    wscale, gp[a:b], tp[a:b], sl, shard, g, lay, dist, errs)
+                if (m, shard) == ROW_SHARD:
+                    row = _sharded_rows(sl, shard, dist, dev, ms, plain_ms)
+        for name, out, want in (("apply", slabs, full["a"]),
+                                ("K=2 workers apply", wslabs, full["w"])):
+            cat = torch.cat(out)
+            check(torch.equal(cat[:q], want),
+                  f"m={m}: the {name} slabs differ from the unsharded "
+                  "kernel's output")
+            check(bool((cat[q:] == 0).all()),
+                  f"m={m}: {name} padding is not exactly 0")
+        log(f"  m={m}: every {m} slabs of the apply and of the K=2 workers "
+            "apply bit-identical to the unsharded kernels' output, padding "
+            "exactly 0")
+        _check_project(f"m={m} completed", u_sum, sq_sum, *full["p"], g, lay)
+        log(f"  m={m}: summed over the shards, ms " + ", ".join(
+            f"{k} {sums[sk]:.2f} ({sums[sk] / _median(v):.3f} x unsharded)"
+            for k, v in unsharded.items() for sk in [sharded_of[k]]))
+    return errs, row
+
+
+def _sharded_vs_plain(case, res, seeds, wseeds, scale, wscale, gs, ts, sl,
+                      shard, g, lay, dist, errs):
+    """One slab's three kernels (outputs in ``res``) against their plain
+    versions, timed; folds the errors into ``errs``, returns the plain
+    versions' ms."""
+    from repro_torch.kernels import rbd_step
+
+    plain = {}
+    plain_ms = {
+        "project_packed_sharded": cuda_ms(lambda: plain.update(
+            p=rbd_step.project_packed_sharded_plain(seeds, gs, sl, shard,
+                                                    dist)))[0],
+        "reconstruct_apply_packed_sharded": cuda_ms(lambda: plain.update(
+            a=rbd_step.reconstruct_apply_packed_sharded_plain(
+                seeds, scale, ts, sl, shard, dist)))[0],
+        "reconstruct_apply_packed_workers_sharded": cuda_ms(
+            lambda: plain.update(
+                w=rbd_step.reconstruct_apply_packed_workers_sharded_plain(
+                    wseeds, wscale, ts, sl, shard, dist)))[0],
+    }
+    found = {
+        "project_packed_sharded": _check_project(
+            case, *res["p"], *plain["p"], g, lay),
+        "reconstruct_apply_packed_sharded": _check_apply(
+            case, res["a"], plain["a"], ts),
+        "reconstruct_apply_packed_workers_sharded": _check_apply(
+            f"{case} K=2", res["w"], plain["w"], ts),
+    }
+    log(f"    {case}: plain ms " + ", ".join(
+        f"{k} {v:.1f}" for k, v in plain_ms.items()))
+    for k, v in found.items():
+        errs[k] = max(errs[k], v)
+    return plain_ms
+
+
+def _sharded_rows(sl, shard, dist, dev, ms, plain_ms):
+    """(ms, plain_ms, bound_ms, bound_by) of each sharded kernel on one
+    slab."""
+    row = {}
+    for k in SHARDED_KERNELS:
+        kw = K_SHARDED if "workers" in k else 1
+        b_ms, by = shard_bound_ms(k, sl, shard, dist, dev, kw)
+        row[k] = (_median(ms[k]), plain_ms[k], b_ms, by)
+        log(f"    {k} on shard {shard} of m={sl.n_shards}: "
+            f"{kw * sl.live_values(shard):,} basis values; ms "
+            f"{_median(ms[k]):.3f}, plain {plain_ms[k]:.1f}, bound "
+            f"{b_ms:.3f} ({by}), {b_ms / _median(ms[k]):.1%} of bound")
+    return row
+
+
+def phase_sharded_training(full_plan):
+    """Returns the launches by kernel over the main-path steps."""
+    import copy
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RBDConfig, TrainConfig
+    from repro_torch.core import distributed
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import rbd_step
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models.registry import get_model
+    from repro_torch.train import step as steplib
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"== phase 15: model-sharded packed step, m={SHARD_M} shards in "
+        "turn, qwen2-0.5b full width and depth")
+    cfg = get_config("qwen2-0.5b")
+    model = get_model(cfg)
+    loss_fn = steplib.make_loss_fn(model, cfg.router_aux_coef)
+    q = full_plan.packed().q_packed
+    launches = dict.fromkeys(rbd_step.KERNELS, 0)
+    mesh = meshlib.init_mesh(1, 1, "cuda")   # the one-rank data group
+    try:
+        for label, mode, optimizer, norm in SHARD_RUNS:
+            rbd = RBDConfig(total_dim=1024, backend="cuda", mode=mode,
+                            normalization=norm)
+            tcfg = TrainConfig(model=cfg, rbd=rbd, learning_rate=0.125,
+                               optimizer=optimizer)
+            transform = steplib.make_transform(model, rbd)
+            sub = steplib.make_subspace_optimizer(
+                model, tcfg, transform, "data", model_sharded=True,
+                model_axis="model", model_shards=SHARD_M)
+            ref = steplib.make_subspace_optimizer(model, tcfg, transform,
+                                                  "data")
+            eplan = sub.plan_execution()
+            log(f"  {label}: update path: {eplan.strategy} -- "
+                f"{eplan.reason}")
+            check(eplan.strategy == "fused_packed" and eplan.packed_resident,
+                  f"{label}: the sharded plan is not fused_packed")
+            apply = ("reconstruct_apply_packed_workers_sharded"
+                     if sub.joint_subspace
+                     else "reconstruct_apply_packed_sharded")
+            kind = "all_gather" if sub.joint_subspace else "all_reduce"
+            padded = sub.padded_params(model.init(0, device="cuda"))
+            slabs = [sub.slab_of(padded, s).clone() for s in range(SHARD_M)]
+            del padded
+            st_r = sub.init_rbd_state()
+            st_o = sub.init_opt_state(device="cuda")
+            stream = synthetic.lm_batches(0, 8, 128, cfg.vocab,
+                                          device="cuda")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            worst = 0.0
+            for i in range(STEPS):
+                t0 = time.perf_counter()
+                # the forward's all-gather of the slabs, in turn
+                full = torch.cat(slabs).requires_grad_(True)
+                loss, _ = loss_fn(sub.materialize_params(full),
+                                  next(stream))
+                (grad,) = torch.autograd.grad(loss, full)
+                full = full.detach()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                opt_before = copy.deepcopy(st_o)
+                rbd_step.reset_counts()
+                distributed.reset_counts()
+                rbd_step.set_timing(True)
+                with torch.no_grad():
+                    slabs, new_r, st_o, aux = sub.step_shards_in_turn(
+                        slabs, [sub.slab_of(grad, s)
+                                for s in range(SHARD_M)], st_r, st_o)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                got = dict(rbd_step.LAUNCHES)
+                coll = dict(distributed.COLLECTIVES)
+                step_ms = rbd_step.kernel_times_ms()
+                rbd_step.set_timing(False)
+                want = dict.fromkeys(rbd_step.KERNELS, 0)
+                want.update({"project_packed_sharded": SHARD_M,
+                             apply: SHARD_M})
+                check(got == want, f"{label} step {i}: expected 2 launches "
+                      f"per shard, got {got}")
+                check(coll[kind] == 1 and sum(coll.values()) == 1,
+                      f"{label} step {i}: expected one {kind}, got {coll}")
+                for k, v in got.items():
+                    launches[k] += v
+                # a fused_packed step from the same state and gradient
+                with torch.no_grad():
+                    want_theta = ref.step(full[:q].clone(), grad[:q], st_r,
+                                          opt_before)[0]
+                new = torch.cat(slabs)
+                dt = float((new[:q] - want_theta).abs().max())
+                upd = float((want_theta - full[:q]).abs().max())
+                tol = (THETA_RTOL * upd
+                       + 2 * 2.0**-23 * float(full.abs().max()))
+                check(dt <= tol, f"{label} step {i}: theta off the "
+                      f"fused_packed step by {dt:.3g} (tol {tol:.3g})")
+                check(bool((new[q:] == 0).all()),
+                      f"{label} step {i}: padding is not exactly 0")
+                check(math.isfinite(float(loss.detach()))
+                      and math.isfinite(float(aux.update_norm)),
+                      f"{label} step {i}: non-finite loss or update")
+                worst = max(worst, dt / max(tol, 1e-30))
+                st_r = new_r
+                ms = {k: [round(x, 2) for x in v]
+                      for k, v in step_ms.items() if v}
+                log(f"  {label} step {i}: loss {float(loss.detach()):.4f}, "
+                    f"forward+backward {t1 - t0:.3f} s, optimizer step "
+                    f"{t2 - t1:.3f} s; launches "
+                    f"{ {k: v for k, v in got.items() if v} }; ms {ms}; "
+                    f"theta vs fused_packed {dt:.3g} (tol {tol:.3g})")
+                del full, grad, want_theta, new
+            log(f"  {label}: peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+                f"worst theta {worst:.3g} of the tolerance")
+            del slabs, st_o
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        meshlib.destroy_mesh(mesh)
+    log(f"  launches over {len(SHARD_RUNS)} x {STEPS} steps: "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1378,6 +1739,17 @@ def main() -> int:
         rows.append(kernel_row(name, lay, full_plan.distribution, dev, 1,
                                launches, max(err, leaf_errs[name]), ms,
                                plain_ms, plan=full_plan))
+    errs, sharded = phase_sharded_kernels(full_plan, dev)
+    launches = phase_sharded_training(full_plan)
+    for name in SHARDED_KERNELS:
+        ms, plain_ms, b_ms, by = sharded[name]
+        check(launches[name] > 0, f"{name} did not launch in phase 15")
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rbd_step.cu",
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None})
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(dev["smi"], flush=True)

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Callable, Mapping
+from typing import Any, Callable, Mapping, NamedTuple
 
 import numpy as np
 
@@ -335,3 +335,290 @@ def packed_layout(plan: Plan, pos_block: int = 512,
         coord_valid=coord_valid,
         coord_inv_sqrt_q=coord_inv_sqrt_q,
     )
+
+
+# ---------------------------------------------------------------------------
+# model-axis sharded packed layout (slab-resident theta)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShardedPackedLayout:
+    """The packed layout split into ``n_shards`` theta slabs over a model
+    axis (see the reference's ``ShardedPackedLayout``).
+
+    Each rank of the model group owns one contiguous ``q_slab``-float slab
+    of the packed parameter buffer, zero-padded from ``base.q_packed`` to
+    ``q_padded = n_shards * q_slab``; slab boundaries snap to
+    ``pos_block``, so shard ``i`` owns the pos-blocks ``[i *
+    blocks_per_shard, (i + 1) * blocks_per_shard)``.  Coordinates,
+    optimizer state and the exchange stay (d_packed,)-replicated; only
+    theta is sharded.
+
+    The kernels read the base layout's per-segment tables and the slab's
+    window (:func:`sharded_segment_tables`).  The reference's stacked
+    per-shard tile tables (``pt_*``/``rt_*``, (n_shards, n_tiles)) are
+    built with numpy on request only, for the parity tests."""
+
+    base: PackedLayout
+    n_shards: int
+    q_slab: int               # per-rank slab length (pos_block-aligned)
+    q_padded: int             # n_shards * q_slab >= base.q_packed
+    blocks_per_shard: int
+
+    pos_block = property(lambda self: self.base.pos_block)
+    dir_block = property(lambda self: self.base.dir_block)
+    n_segments = property(lambda self: self.base.n_segments)
+    d_packed = property(lambda self: self.base.d_packed)
+    coord_valid = property(lambda self: self.base.coord_valid)
+    coord_inv_sqrt_q = property(lambda self: self.base.coord_inv_sqrt_q)
+
+    def slab_range(self, shard: int) -> tuple[int, int]:
+        """``[start, stop)`` of shard ``shard``'s slab in the padded
+        buffer."""
+        return shard * self.q_slab, (shard + 1) * self.q_slab
+
+    def seg_windows(self, shard: int) -> tuple[np.ndarray, np.ndarray]:
+        """Per segment, the ``[lo, hi)`` columns (segment-local, live
+        positions only) that lie in shard ``shard``'s slab; ``lo == hi``
+        where the segment has none there."""
+        b = self.base
+        start, stop = self.slab_range(shard)
+        lo = np.clip(start - b.seg_param_off, 0, b.seg_size)
+        hi = np.clip(stop - b.seg_param_off, 0, b.seg_size)
+        return lo, np.maximum(hi, lo)
+
+    def live_values(self, shard: int) -> int:
+        """Live basis values one pass generates for shard ``shard``."""
+        lo, hi = self.seg_windows(shard)
+        return int((self.base.seg_dim * (hi - lo)).sum())
+
+    def generated_values(self, shard: int) -> int:
+        """Basis values one pass generates for shard ``shard`` (8-row
+        dir-blocks, padded rows included)."""
+        lo, hi = self.seg_windows(shard)
+        return int((self.base.seg_pdim * (hi - lo)).sum())
+
+    @functools.cached_property
+    def param_valid(self) -> np.ndarray:
+        """(n_shards, q_slab) validity rows: the base's plus a zero
+        tail."""
+        return np.concatenate([
+            self.base.param_valid,
+            np.zeros(self.q_padded - self.base.q_packed, np.float32),
+        ]).reshape(self.n_shards, self.q_slab)
+
+    # -- the reference's stacked per-shard tile tables, built on request --
+
+    @functools.cached_property
+    def _stacked(self) -> dict[str, np.ndarray]:
+        return _sharded_tile_tables(self)
+
+    pt_seg = property(lambda self: self._stacked["pt_seg"])
+    pt_row0 = property(lambda self: self._stacked["pt_row0"])
+    pt_col0 = property(lambda self: self._stacked["pt_col0"])
+    pt_gblk = property(lambda self: self._stacked["pt_gblk"])
+    pt_ublk = property(lambda self: self._stacked["pt_ublk"])
+    pt_init = property(lambda self: self._stacked["pt_init"])
+    pt_q = property(lambda self: self._stacked["pt_q"])
+    rt_seg = property(lambda self: self._stacked["rt_seg"])
+    rt_row0 = property(lambda self: self._stacked["rt_row0"])
+    rt_col0 = property(lambda self: self._stacked["rt_col0"])
+    rt_gblk = property(lambda self: self._stacked["rt_gblk"])
+    rt_sblk = property(lambda self: self._stacked["rt_sblk"])
+    rt_init = property(lambda self: self._stacked["rt_init"])
+    rt_q = property(lambda self: self._stacked["rt_q"])
+
+    @property
+    def n_proj_tiles(self) -> int:
+        return int(self.pt_seg.shape[1])
+
+    @property
+    def n_recon_tiles(self) -> int:
+        return int(self.rt_seg.shape[1])
+
+    def worker_tables(self, k_workers: int) -> "ShardedWorkerReconTables":
+        return sharded_worker_recon_tables(self, k_workers)
+
+
+@functools.lru_cache(maxsize=32)
+def sharded_packed_layout(layout: PackedLayout,
+                          n_shards: int) -> ShardedPackedLayout:
+    """Split a packed layout into ``n_shards`` pos_block-aligned slabs."""
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    bps = -(-(layout.q_packed // layout.pos_block) // n_shards)
+    q_slab = bps * layout.pos_block
+    return ShardedPackedLayout(base=layout, n_shards=n_shards,
+                               q_slab=q_slab, q_padded=n_shards * q_slab,
+                               blocks_per_shard=bps)
+
+
+@functools.lru_cache(maxsize=64)
+def sharded_segment_tables(slayout: ShardedPackedLayout, shard: int,
+                           pos_chunk: int) -> dict[str, np.ndarray]:
+    """Shard ``shard``'s window over the base segment tables, for the
+    sharded projection kernel.
+
+    The projection grid is the unsharded one (one CUDA block per
+    (segment, dir-block, chunk of ``pos_chunk`` pos-blocks)) restricted
+    to the chunks that meet the slab: segment s contributes
+    ``n_chunk[s]`` chunks from ``chunk_lo[s]`` on, each clipped to the
+    live columns ``[col_lo[s], col_hi[s])``.  A segment with no column
+    in the slab keeps one empty chunk per dir-block, so every coordinate
+    of the partial is written (zero) and one sum over the model group
+    completes it.  ``proj_blocks`` is the prefix sum of the blocks."""
+    if not 0 <= shard < slayout.n_shards:
+        raise ValueError(f"shard {shard} outside [0, {slayout.n_shards})")
+    b = slayout.base
+    pb = b.pos_block
+    lo, hi = slayout.seg_windows(shard)
+    live = hi > lo
+    # pos-blocks of the window, segment-local: [lo // pb, ceil(hi / pb))
+    first = lo // pb
+    last = -(-hi // pb)
+    chunk_lo = np.where(live, first // pos_chunk, 0)
+    n_chunk = np.where(live, -(-last // pos_chunk) - chunk_lo, 1)
+    n_di = b.seg_pdim // b.dir_block
+    return {
+        "col_lo": np.where(live, lo, 0).astype(np.int64),
+        "col_hi": np.where(live, hi, 0).astype(np.int64),
+        "chunk_lo": chunk_lo.astype(np.int32),
+        "n_chunk": n_chunk.astype(np.int32),
+        "proj_blocks": np.concatenate(
+            [[0], np.cumsum(n_di * n_chunk)]).astype(np.int64),
+    }
+
+
+def _sharded_tile_tables(slayout: ShardedPackedLayout
+                         ) -> dict[str, np.ndarray]:
+    """The reference's stacked per-shard tile tables (its
+    ``sharded_packed_layout`` body, vectorized per shard): projection
+    tiles of the slab with a first-LOCAL-visit init plus zero-init no-ops
+    for absent coordinate blocks; apply tiles of the slab's whole
+    (segment, pos-block) groups plus q=0 passthrough tiles for its
+    padding blocks; each shard length-padded with q=0/init=0 copies of
+    its last tile."""
+    b = slayout.base
+    bps = slayout.blocks_per_shard
+    d_blocks = b.d_packed // b.dir_block
+    names = ("seg", "row0", "col0", "gblk", "blk", "init", "q")
+    proj, recon = [], []
+    for s in range(slayout.n_shards):
+        lo, hi = s * bps, (s + 1) * bps
+        idx = np.flatnonzero((b.pt_gblk >= lo) & (b.pt_gblk < hi))
+        ublk = b.pt_ublk[idx].astype(np.int64)
+        init = np.zeros(idx.shape[0], np.int64)
+        if idx.size:
+            init[np.unique(ublk, return_index=True)[1]] = 1
+        missing = np.setdiff1d(np.arange(d_blocks, dtype=np.int64), ublk)
+        z = np.zeros(missing.shape[0], np.int64)
+        proj.append([
+            np.concatenate([b.pt_seg[idx], z]),
+            np.concatenate([b.pt_row0[idx], z]),
+            np.concatenate([b.pt_col0[idx], z]),
+            np.concatenate([b.pt_gblk[idx].astype(np.int64) - lo, z]),
+            np.concatenate([ublk, missing]),
+            np.concatenate([init, np.ones_like(z)]),
+            np.concatenate([b.pt_q[idx], z]),
+        ])
+        idx = np.flatnonzero((b.rt_gblk >= lo) & (b.rt_gblk < hi))
+        gblk = b.rt_gblk[idx].astype(np.int64) - lo
+        missing = np.setdiff1d(np.arange(bps, dtype=np.int64), gblk)
+        z = np.zeros(missing.shape[0], np.int64)
+        recon.append([
+            np.concatenate([b.rt_seg[idx], z]),
+            np.concatenate([b.rt_row0[idx], z]),
+            np.concatenate([b.rt_col0[idx], z]),
+            np.concatenate([gblk, missing]),
+            np.concatenate([b.rt_sblk[idx], z]),
+            np.concatenate([b.rt_init[idx], np.ones_like(z)]),
+            np.concatenate([b.rt_q[idx], z]),
+        ])
+    dtypes = (np.int32, np.uint32, np.uint32, np.int32, np.int32, np.int32,
+              np.int32)
+    out = {}
+    for prefix, blk, shards in (("pt", "ublk", proj), ("rt", "sblk", recon)):
+        n = max(c[0].shape[0] for c in shards)
+        shards = [_pad_tile_rows(c, n) for c in shards]
+        for i, (name, dtype) in enumerate(zip(names, dtypes)):
+            key = f"{prefix}_{blk if name == 'blk' else name}"
+            out[key] = np.stack([c[i] for c in shards]).astype(dtype)
+    return out
+
+
+def _pad_tile_rows(cols: list[np.ndarray], n_tiles: int) -> list[np.ndarray]:
+    """Length-pad a shard's 7 tile columns (init at 5, q at 6) to
+    ``n_tiles`` rows with q=0/init=0 copies of its last tile."""
+    cur = int(cols[0].shape[0])
+    out = [np.concatenate([c.astype(np.int64),
+                           np.repeat(c[-1:].astype(np.int64), n_tiles - cur)])
+           for c in cols]
+    out[5][cur:] = 0
+    out[6][cur:] = 0
+    return out
+
+
+class ShardedWorkerReconTables(NamedTuple):
+    """Per-shard K-worker apply tiles, stacked to (n_shards, n_tiles):
+    each shard's apply tiles with every (segment, pos-block) group
+    repeated K times, worker in the middle, directions innermost, the
+    init flag on worker 0 only (the reference's
+    ``_expand_worker_groups``).  ``seed_idx`` indexes the worker-major
+    (K * n_segments,) seed table, ``sblk`` the (K * d_packed / 8)
+    coordinate blocks."""
+
+    seed_idx: np.ndarray
+    row0: np.ndarray
+    col0: np.ndarray
+    q: np.ndarray
+    init: np.ndarray
+    gblk: np.ndarray
+    sblk: np.ndarray
+
+    @property
+    def n_tiles(self) -> int:
+        return int(self.seed_idx.shape[1])
+
+
+def _expand_worker_groups(cols: dict[str, np.ndarray], n_segments: int,
+                          d_blocks: int, k_workers: int
+                          ) -> list[np.ndarray]:
+    """Repeat every (segment, pos-block) group of apply tiles -- a run
+    starting at an init flag -- K times, worker in the middle."""
+    init = cols["init"]
+    starts = np.flatnonzero(init == 1)
+    lengths = np.diff(np.append(starts, init.shape[0]))
+    span = np.repeat(lengths, lengths * k_workers)   # group length per tile
+    offset = (np.arange(init.shape[0] * k_workers)
+              - np.repeat(starts * k_workers, lengths * k_workers))
+    worker = offset // span
+    tile = np.repeat(starts, lengths * k_workers) + offset % span
+    return [
+        worker * n_segments + cols["seg"][tile],
+        cols["row0"][tile],
+        cols["col0"][tile],
+        cols["q"][tile],
+        np.where(worker == 0, init[tile], 0),
+        cols["gblk"][tile],
+        worker * d_blocks + cols["sblk"][tile],
+    ]
+
+
+@functools.lru_cache(maxsize=32)
+def sharded_worker_recon_tables(slayout: ShardedPackedLayout,
+                                k_workers: int) -> ShardedWorkerReconTables:
+    """Worker-expand every shard's apply tiles (host-side, on request)."""
+    if k_workers < 1:
+        raise ValueError(f"k_workers must be >= 1, got {k_workers}")
+    d_blocks = slayout.d_packed // slayout.dir_block
+    per = [_expand_worker_groups(
+        {k: getattr(slayout, f"rt_{k}")[s].astype(np.int64)
+         for k in ("seg", "row0", "col0", "q", "init", "gblk", "sblk")},
+        slayout.n_segments, d_blocks, k_workers)
+        for s in range(slayout.n_shards)]
+    dtypes = (np.int32, np.uint32, np.uint32, np.int32, np.int32, np.int32,
+              np.int32)
+    return ShardedWorkerReconTables(*(
+        np.stack([p[i] for p in per]).astype(dt)
+        for i, dt in enumerate(dtypes)))

@@ -22,17 +22,23 @@ concatenated buffer (:func:`shared_basis_coords`,
 paper's SGD baseline (RBD off) averages the full-D gradient
 (:func:`grad_mean`), counted apart as ``grad_all_reduce``.
 
+Model-sharded slabs (``--model m``): each rank of a model group of m
+holds one slab of the packed buffer; its projection is a partial sum
+that ONE all-reduce SUM over the model group completes
+(:func:`complete_model_partials`, counted as ``model_all_reduce``),
+before the unchanged data-axis exchange.
+
 Axis names: the reference names a mesh axis; here ``"data"`` names the
-default (world) process group, and a ``ProcessGroup`` is taken as it is.
-The process group is set up by ``repro_torch.launch.mesh``.  The
+default (world) process group, and a ``ProcessGroup`` is taken as it is
+-- the data and model groups of a ``(data, model)`` mesh, which
+``repro_torch.launch.mesh`` builds.  The
 collectives are ``all_reduce`` (SUM, then a divide by the world size:
 the reference's pmean) and ``all_gather`` into the rows of one (K, n)
 buffer, both of which gloo and NCCL implement, issued with
 ``async_op=True`` so that :func:`start_exchange` returns at once and
 :func:`finish_exchange` waits.
 
-Not ported yet: the model-axis completion ``complete_model_partials``
-(ROADMAP.md Queue A 14) and the resilience sentinel's rider scalar (Queue
+Not ported yet: the resilience sentinel's rider scalar (ROADMAP.md Queue
 A 13).
 """
 
@@ -47,10 +53,14 @@ from repro_torch.core import projector, rng
 
 # collectives issued, by kind: the coordinate exchanges of start_exchange
 # (the contract is exactly one per optimizer step), the scalar all-reduces
-# of mean_scalar (metrics, e.g. the loss) and the full-D gradient mean of
-# the SGD baseline (grad_mean)
+# of mean_scalar (metrics, e.g. the loss), the full-D gradient mean of
+# the SGD baseline (grad_mean), the model-axis completion of the sharded
+# projection (complete_model_partials, one per optimizer step) and the
+# forward's all-gather of the slabs (all_gather_slabs, the one D-sized
+# collective of the sharded path, outside the optimizer step)
 COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "scalar": 0,
-               "grad_all_reduce": 0}
+               "grad_all_reduce": 0, "model_all_reduce": 0,
+               "model_all_gather": 0}
 
 
 def reset_counts() -> None:
@@ -113,10 +123,41 @@ def split_coord_buffer(buf, d_packed: int):
 
 
 def complete_model_partials(u_partial, sq_partial, model_axis):
-    """Model-sharded completion psum: not ported yet."""
-    raise NotImplementedError(
-        "complete_model_partials (model-sharded slabs) is not ported yet "
-        "(ROADMAP.md Queue A 14)")
+    """Complete the model-sharded projection with ONE all-reduce SUM over
+    the model group.
+
+    ``u_partial`` (and ``sq_partial``) are a slab's raw partial sums
+    (``projector.project_packed_sharded``).  ``sq_partial=None``
+    (static-factor normalizations): the sum of the (d_packed,) u buffer
+    alone -- the norms are not needed for the update and stay
+    slab-local.  ``sq_partial`` given ('exact'): the sum widens to the
+    (2*d_packed,) u+sq buffer, one collective still.  Callers normalize
+    the completed sums and hand them to the unchanged data-axis exchange:
+    one coordinate-sized collective per axis, nothing D-sized.  With
+    ``model_axis=None`` the partials are returned untouched."""
+    if model_axis is None:
+        return u_partial, sq_partial
+    group = process_group(model_axis)
+    widened = sq_partial is not None
+    buf = (widen_coord_buffer(u_partial, sq_partial) if widened
+           else u_partial.to(torch.float32, copy=True))
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    COLLECTIVES["model_all_reduce"] += 1
+    if not widened:
+        return buf, None
+    return split_coord_buffer(buf, u_partial.shape[-1])
+
+
+def all_gather_slabs(out: torch.Tensor, slab: torch.Tensor,
+                     model_axis) -> torch.Tensor:
+    """Every rank's (q_slab,) slab, in rank order, into the (m * q_slab,)
+    buffer ``out``: the forward's all-gather of the model-sharded
+    parameters."""
+    group = process_group(model_axis)
+    rows = out.view(dist.get_world_size(group), -1)
+    dist.all_gather(list(rows.unbind(0)), slab.contiguous(), group=group)
+    COLLECTIVES["model_all_gather"] += 1
+    return out
 
 
 class PendingExchange(NamedTuple):

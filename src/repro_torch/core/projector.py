@@ -21,7 +21,13 @@ buffers from one shared base in one launch:
 
   adapter apply: theta_a' = theta - c_hat_a P(base_seed_a), a = 1..B
 
-(:func:`reconstruct_apply_packed_adapters`).
+(:func:`reconstruct_apply_packed_adapters`).  On a model group of m ranks
+each rank holds one (q_slab,) slab of the zero-padded buffer
+(``core.compartments.ShardedPackedLayout``): launch 1 on the slab gives
+RAW partial sums, completed by one sum over the group and normalized
+outside (:func:`project_packed_sharded`), and launch 2 touches only the
+slab (:func:`reconstruct_apply_packed_sharded`,
+:func:`reconstruct_apply_packed_workers_sharded`).
 
 The per-leaf strategies (packing off, weight decay) run a loop over the
 plan's leaves instead, ONE launch per ``LeafPlan`` whatever its number of
@@ -371,6 +377,86 @@ def reconstruct_apply_packed_adapters(coords_batch, plan: Plan,
 
 
 # ---------------------------------------------------------------------------
+# model-sharded slabs
+# ---------------------------------------------------------------------------
+
+
+def project_packed_sharded(g_slab, plan: Plan, seed, shard_idx, *,
+                           slayout, backend: str = "torch",
+                           prng="threefry"):
+    """Model-sharded packed projection: the RAW per-slab partial ``(u,
+    sq)``, each (d_packed,), of the local (q_slab,) slice of the padded
+    packed gradient.  Sum both over the model group
+    (``core.distributed.complete_model_partials``), then ``coords = u *
+    packed_norm_factor(plan, slayout.base, sq)``: normalization must see
+    the completed sums ('exact' needs the full row norms)."""
+    rng.check_threefry(prng)
+    seeds = segment_seeds(plan, seed)
+    return _get_backend(backend).project_packed_sharded(
+        seeds, g_slab.to(torch.float32), slayout, int(shard_idx),
+        plan.distribution)
+
+
+def reconstruct_apply_packed_sharded(coords_packed, plan: Plan, seed,
+                                     theta_slab, eta, shard_idx, *,
+                                     slayout, backend: str = "torch",
+                                     row_sq=None, prng="threefry",
+                                     out=None):
+    """Model-sharded fused update ``slab' = slab - eta * (c_hat @ P)`` on
+    the local theta slab against the replicated post-exchange (d_packed,)
+    coordinates; returns the (q_slab,) slab.  ``row_sq`` must be the
+    COMPLETED squared row norms under 'exact' (a local regeneration would
+    only give this slab's partial sums).  ``out=theta_slab`` updates the
+    slab in place."""
+    if plan.normalization == "exact" and row_sq is None:
+        raise ValueError(
+            "'exact' normalization on the sharded packed path needs the "
+            "completed row norms (row_sq); a local regeneration pass "
+            "would only produce this slab's partial sums")
+    rng.check_threefry(prng)
+    seeds = segment_seeds(plan, seed)
+    factor = packed_norm_factor(plan, slayout.base, row_sq,
+                                device=coords_packed.device)
+    scale = (coords_packed * factor) * float(np.float32(eta))
+    return _get_backend(backend).reconstruct_apply_packed_sharded(
+        seeds, scale, theta_slab.to(torch.float32), slayout, int(shard_idx),
+        plan.distribution, out=out)
+
+
+def reconstruct_apply_packed_workers_sharded(coords_gathered, plan: Plan,
+                                             seed, theta_slab, eta,
+                                             shard_idx, *, slayout,
+                                             backend: str = "torch",
+                                             row_sq=None, prng="threefry",
+                                             out=None):
+    """Model-sharded K-worker joint fused update on the local theta slab:
+    :func:`reconstruct_apply_packed_workers`'s contract with
+    ``coords_gathered`` the replicated (k_workers, d_packed) gathered
+    buffer and ``row_sq`` (exact) the gathered COMPLETED norms.  Returns
+    the (q_slab,) slab."""
+    if plan.normalization not in STATIC_FACTOR_NORMALIZATIONS \
+            and plan.normalization != "exact":
+        raise ValueError(
+            f"normalization {plan.normalization!r} is not supported by "
+            "the K-worker packed reconstruction (needs a factor-style "
+            "scale); use the per-leaf independent_bases path")
+    if plan.normalization == "exact" and row_sq is None:
+        raise ValueError(
+            "'exact' normalization needs every worker's completed row "
+            "norms (row_sq, (k_workers, d_packed))")
+    rng.check_threefry(prng)
+    k_workers = int(coords_gathered.shape[0])
+    wseeds = worker_segment_seeds(plan, seed, k_workers)
+    factor = packed_norm_factor(plan, slayout.base, row_sq,
+                                device=coords_gathered.device)
+    scale = ((coords_gathered.to(torch.float32) * factor)
+             * float(np.float32(eta)))
+    return _get_backend(backend).reconstruct_apply_packed_workers_sharded(
+        wseeds, scale, theta_slab.to(torch.float32), slayout,
+        int(shard_idx), plan.distribution, out=out)
+
+
+# ---------------------------------------------------------------------------
 # per-leaf path: single-compartment generation (the "torch" backend)
 # ---------------------------------------------------------------------------
 
@@ -632,12 +718,16 @@ def _get_backend(name: str):
     if name == "torch":
         project_flat, reconstruct_flat = _batched(_project_flat,
                                                   _reconstruct_flat)
-        return _Backend(rbd_step.project_packed_plain,
-                        rbd_step.reconstruct_apply_packed_plain,
-                        rbd_step.reconstruct_apply_packed_workers_plain,
-                        rbd_step.reconstruct_apply_packed_adapters_plain,
-                        project_flat, reconstruct_flat,
-                        rbd_reconstruct.reconstruct_apply_flat_plain)
+        return _Backend(
+            rbd_step.project_packed_plain,
+            rbd_step.reconstruct_apply_packed_plain,
+            rbd_step.reconstruct_apply_packed_workers_plain,
+            rbd_step.reconstruct_apply_packed_adapters_plain,
+            project_flat, reconstruct_flat,
+            rbd_reconstruct.reconstruct_apply_flat_plain,
+            rbd_step.project_packed_sharded_plain,
+            rbd_step.reconstruct_apply_packed_sharded_plain,
+            rbd_step.reconstruct_apply_packed_workers_sharded_plain)
     if name == "cuda":
         return _Backend(rbd_step.project_packed,
                         rbd_step.reconstruct_apply_packed,
@@ -645,7 +735,10 @@ def _get_backend(name: str):
                         rbd_step.reconstruct_apply_packed_adapters,
                         _flat_project(rbd_project.project_flat),
                         _flat_reconstruct(rbd_reconstruct.reconstruct_flat),
-                        rbd_reconstruct.reconstruct_apply_flat)
+                        rbd_reconstruct.reconstruct_apply_flat,
+                        rbd_step.project_packed_sharded,
+                        rbd_step.reconstruct_apply_packed_sharded,
+                        rbd_step.reconstruct_apply_packed_workers_sharded)
     raise ValueError(f"unknown projector backend {name!r}")
 
 
@@ -673,7 +766,8 @@ def _flat_reconstruct(kernel):
 class _Backend:
     def __init__(self, project, reconstruct_apply, reconstruct_apply_workers,
                  reconstruct_apply_adapters, project_flat, reconstruct_flat,
-                 reconstruct_apply_flat):
+                 reconstruct_apply_flat, project_sharded,
+                 reconstruct_apply_sharded, reconstruct_apply_workers_sharded):
         self.project_packed = project
         self.reconstruct_apply_packed = reconstruct_apply
         self.reconstruct_apply_packed_workers = reconstruct_apply_workers
@@ -682,3 +776,8 @@ class _Backend:
         self.project_flat = project_flat
         self.reconstruct_flat = reconstruct_flat
         self.reconstruct_apply_flat = reconstruct_apply_flat
+        # model-sharded: one (q_slab,) slab of the padded packed buffer
+        self.project_packed_sharded = project_sharded
+        self.reconstruct_apply_packed_sharded = reconstruct_apply_sharded
+        self.reconstruct_apply_packed_workers_sharded = \
+            reconstruct_apply_workers_sharded

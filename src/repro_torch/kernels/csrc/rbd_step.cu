@@ -16,6 +16,19 @@
 //                             replaces repro/kernels/rbd_step.py:
 //                             reconstruct_apply_packed_adapters ->
 //                             _adapter_recon_kernel
+//   rbd_project_packed_sharded
+//                             replaces repro/kernels/rbd_step.py:
+//                             project_packed_sharded -> _project_kernel
+//                             over one shard's tile tables
+//   rbd_reconstruct_apply_packed_sharded
+//                             replaces repro/kernels/rbd_step.py:
+//                             reconstruct_apply_packed_sharded ->
+//                             _recon_apply_kernel over one shard's tables
+//   rbd_reconstruct_apply_packed_workers_sharded
+//                             replaces repro/kernels/rbd_step.py:
+//                             reconstruct_apply_packed_workers_sharded ->
+//                             _recon_apply_kernel over one shard's worker
+//                             tables
 //   rbd_generate_tile         debug: bits and samples of one tile
 //
 // Bound on this card.  Both kernels regenerate every basis value they use:
@@ -44,6 +57,17 @@
 // size, padded dim, parameter and coordinate offsets, seeds) and a prefix
 // sum of CUDA blocks per segment; each block finds its segment by binary
 // search.  No per-tile table exists on the device.
+//
+// Model-sharded slabs: a rank of a model group of m holds the slab of
+// pos-blocks [blk_lo, blk_lo + bps) of the zero-padded packed buffer.  The
+// sharded kernels are new shells over the same helpers, so the unsharded
+// kernels above keep their instruction sequences: the projection sweeps the
+// unsharded chunk grid restricted to the chunks that meet the slab, each
+// chunk clipped to it, and writes a PARTIAL (u, sq) that one sum over the
+// model group completes; the applies run one CUDA block per slab pos-block
+// with the unsharded kernels' per-block body, so each slab is bit-identical
+// to the matching slice of the unsharded output.  Each shard generates
+// only its own positions' values: the m slabs together generate one pass.
 //
 // Determinism: no float atomics.  Every sum runs in a fixed order, so two
 // launches on the same inputs give bit-identical outputs.
@@ -255,6 +279,133 @@ reconstruct_apply_adapters_kernel(const float* __restrict__ scale,
   }
 }
 
+// Kernel 5: the PARTIAL u and sq of one slab of the model-sharded buffer.
+// The grid is kernel 1's (segment, dir-block, chunk) grid restricted to the
+// n_chunk[s] chunks from chunk_lo[s] on that meet the slab; each chunk's
+// columns are clipped to the slab's live columns [col_lo[s], col_hi[s]).
+// A segment with no column in the slab has one empty chunk per dir-block,
+// which writes zeros: every coordinate of the partial is written.  `g` is
+// the (q_slab,) slab, whose first element is packed position slab_off.
+template <int DIST>
+__global__ void __launch_bounds__(kThreads)
+project_sharded_kernel(const float* __restrict__ g,
+                       const uint32_t* __restrict__ seed,
+                       const int64_t* __restrict__ param_off,
+                       const int64_t* __restrict__ coord_off,
+                       const int64_t* __restrict__ col_lo,
+                       const int64_t* __restrict__ col_hi,
+                       const int32_t* __restrict__ chunk_lo,
+                       const int32_t* __restrict__ n_chunk,
+                       const int64_t* __restrict__ blocks, int n_seg,
+                       int64_t slab_off, int pos_block, int pos_chunk,
+                       float* __restrict__ partial,
+                       int32_t* __restrict__ arrived, float* __restrict__ u,
+                       float* __restrict__ sq) {
+  const int64_t bid = blockIdx.x;
+  const int s = find_segment(blocks, n_seg, bid);
+  const int64_t local = bid - blocks[s];
+  const int nch = n_chunk[s];
+  const int di = static_cast<int>(local / nch);
+  const int chunk = static_cast<int>(local % nch);
+  const int64_t span = static_cast<int64_t>(pos_chunk) * pos_block;
+  const int64_t start = (chunk_lo[s] + chunk) * span;
+  const int64_t lo = col_lo[s];
+  const int64_t hi = col_hi[s];
+  const int64_t c0 = start > lo ? start : lo;
+  const int64_t c1 = start + span < hi ? start + span : hi;
+  float acc[kAcc];
+  project_sums<DIST>(g + (param_off[s] - slab_off), seed[s],
+                     static_cast<uint32_t>(di * kDirBlock), c0, c1, acc);
+  project_store(acc, bid, chunk, nch, coord_off[s] / kDirBlock + di,
+                partial, arrived, u, sq);
+}
+
+// Kernel 6: slab' = slab - s P on one slab.  One CUDA block per slab
+// pos-block b, global pos-block blk_lo + b; its segment is found in the
+// unsharded apply prefix `blocks`, and the body is kernel 2's.  Blocks
+// past the live buffer (the last slab's zero padding) copy theta through.
+// `out` may alias `theta`, as in kernel 2.
+template <int DIST>
+__global__ void __launch_bounds__(kThreads)
+reconstruct_apply_sharded_kernel(const float* scale, const float* theta,
+                                 float* out,
+                                 const uint32_t* __restrict__ seed,
+                                 const int64_t* __restrict__ size,
+                                 const int32_t* __restrict__ pdim,
+                                 const int64_t* __restrict__ param_off,
+                                 const int64_t* __restrict__ coord_off,
+                                 const int64_t* __restrict__ blocks,
+                                 int n_seg, int64_t blk_lo, int pos_block) {
+  const int64_t gb = blk_lo + blockIdx.x;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * pos_block;
+  if (gb >= blocks[n_seg]) {
+    for (int64_t i = c0 + threadIdx.x; i < c0 + pos_block; i += kThreads) {
+      out[i] = theta[i];
+    }
+    return;
+  }
+  const int s = find_segment(blocks, n_seg, gb);
+  const int64_t pj = gb - blocks[s];
+  const uint32_t sd = seed[s];
+  const int64_t q = size[s];
+  const int n_db = pdim[s] / kDirBlock;
+  const float* sc = scale + coord_off[s];
+  const int64_t base = param_off[s] - blk_lo * pos_block;
+
+  const int64_t col0 = pj * pos_block;
+  for (int64_t col = col0 + threadIdx.x; col < col0 + pos_block;
+       col += kThreads) {
+    float th = theta[base + col];
+    if (col < q) {
+      th = apply_dir_blocks<DIST>(th, sd, sc, n_db,
+                                  static_cast<uint32_t>(col));
+    }
+    out[base + col] = th;
+  }
+}
+
+// Kernel 7: slab' = slab - sum_k s_k P_k on one slab: kernel 6's window over
+// kernel 3's per-thread loop (workers outer, dir-blocks inner), one launch
+// for any K; each slab is bit-identical to the matching slice of kernel 3.
+template <int DIST>
+__global__ void __launch_bounds__(kThreads)
+reconstruct_apply_workers_sharded_kernel(
+    const float* scale, const float* theta, float* out,
+    const uint32_t* __restrict__ seed, const int64_t* __restrict__ size,
+    const int32_t* __restrict__ pdim, const int64_t* __restrict__ param_off,
+    const int64_t* __restrict__ coord_off,
+    const int64_t* __restrict__ blocks, int n_seg, int64_t blk_lo,
+    int pos_block, int k_workers, int64_t d_packed) {
+  const int64_t gb = blk_lo + blockIdx.x;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * pos_block;
+  if (gb >= blocks[n_seg]) {
+    for (int64_t i = c0 + threadIdx.x; i < c0 + pos_block; i += kThreads) {
+      out[i] = theta[i];
+    }
+    return;
+  }
+  const int s = find_segment(blocks, n_seg, gb);
+  const int64_t pj = gb - blocks[s];
+  const int64_t q = size[s];
+  const int n_db = pdim[s] / kDirBlock;
+  const float* sc = scale + coord_off[s];
+  const int64_t base = param_off[s] - blk_lo * pos_block;
+
+  const int64_t col0 = pj * pos_block;
+  for (int64_t col = col0 + threadIdx.x; col < col0 + pos_block;
+       col += kThreads) {
+    float th = theta[base + col];
+    if (col < q) {
+      const uint32_t c32 = static_cast<uint32_t>(col);
+      for (int k = 0; k < k_workers; ++k) {
+        th = apply_dir_blocks<DIST>(th, seed[k * n_seg + s],
+                                    sc + k * d_packed, n_db, c32);
+      }
+    }
+    out[base + col] = th;
+  }
+}
+
 template <int DIST>
 __global__ void generate_tile_kernel(uint32_t seed, uint32_t row0,
                                      uint32_t col0, int rows, int cols,
@@ -333,6 +484,53 @@ int rbd_reconstruct_apply_packed_adapters(
   RBD_DISPATCH(dist, reconstruct_apply_adapters_kernel, grid, scale, theta,
                out, seed, size, pdim, param_off, coord_off, blocks, n_seg,
                pos_block, n_adapters, d_packed, q_packed);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `g` is the (q_slab,) slab starting at packed position slab_off; `arrived`
+// must hold d_packed / 8 zeros; `partial` n_blocks * 16 floats.
+int rbd_project_packed_sharded(
+    const float* g, const uint32_t* seed, const int64_t* param_off,
+    const int64_t* coord_off, const int64_t* col_lo, const int64_t* col_hi,
+    const int32_t* chunk_lo, const int32_t* n_chunk, const int64_t* blocks,
+    int n_seg, int64_t n_blocks, int64_t slab_off, int pos_block,
+    int pos_chunk, int dist, float* partial, int32_t* arrived, float* u,
+    float* sq, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>(n_blocks));
+  RBD_DISPATCH(dist, project_sharded_kernel, grid, g, seed, param_off,
+               coord_off, col_lo, col_hi, chunk_lo, n_chunk, blocks, n_seg,
+               slab_off, pos_block, pos_chunk, partial, arrived, u, sq);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `theta`/`out` are the (bps * pos_block,) slab of pos-blocks
+// [blk_lo, blk_lo + bps); `blocks` is the unsharded apply prefix.
+int rbd_reconstruct_apply_packed_sharded(
+    const float* scale, const float* theta, float* out, const uint32_t* seed,
+    const int64_t* size, const int32_t* pdim, const int64_t* param_off,
+    const int64_t* coord_off, const int64_t* blocks, int n_seg, int64_t bps,
+    int64_t blk_lo, int pos_block, int dist, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>(bps));
+  RBD_DISPATCH(dist, reconstruct_apply_sharded_kernel, grid, scale, theta,
+               out, seed, size, pdim, param_off, coord_off, blocks, n_seg,
+               blk_lo, pos_block);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `scale` is (k_workers, d_packed) row-major, `seed` (k_workers, n_seg).
+int rbd_reconstruct_apply_packed_workers_sharded(
+    const float* scale, const float* theta, float* out, const uint32_t* seed,
+    const int64_t* size, const int32_t* pdim, const int64_t* param_off,
+    const int64_t* coord_off, const int64_t* blocks, int n_seg, int64_t bps,
+    int64_t blk_lo, int pos_block, int k_workers, int64_t d_packed, int dist,
+    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>(bps));
+  RBD_DISPATCH(dist, reconstruct_apply_workers_sharded_kernel, grid, scale,
+               theta, out, seed, size, pdim, param_off, coord_off, blocks,
+               n_seg, blk_lo, pos_block, k_workers, d_packed);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -14,6 +14,15 @@
   adapters: row a of the (B, q_packed) output is
   ``theta - scale_a @ P_a`` (replaces ``reconstruct_apply_packed_adapters
   -> _adapter_recon_kernel``).
+* :func:`project_packed_sharded`, :func:`reconstruct_apply_packed_sharded`
+  and :func:`reconstruct_apply_packed_workers_sharded` -- one launch each
+  on one rank's (q_slab,) slab of the model-sharded buffer
+  (``core.compartments.ShardedPackedLayout``): the partial ``(u, sq)``
+  that one sum over the model group completes, and the two applies on
+  the slab, each slab bit-identical to the matching slice of the
+  unsharded apply (replace ``project_packed_sharded``,
+  ``reconstruct_apply_packed_sharded`` and
+  ``reconstruct_apply_packed_workers_sharded``).
 * :func:`generate_tile` -- debug entry: the bits and samples of one tile,
   to hold the device generator against :mod:`repro_torch.core.rng`.
 
@@ -39,12 +48,16 @@ import functools
 import torch
 
 from repro_torch.core import rng
-from repro_torch.core.compartments import PackedLayout, segment_tables
+from repro_torch.core.compartments import (PackedLayout, ShardedPackedLayout,
+                                           segment_tables,
+                                           sharded_segment_tables)
 
 KERNELS = ("project_packed", "reconstruct_apply_packed",
            "reconstruct_apply_packed_workers",
            "reconstruct_apply_packed_adapters", "generate_tile",
-           "project_flat", "reconstruct_flat", "reconstruct_apply_flat")
+           "project_flat", "reconstruct_flat", "reconstruct_apply_flat",
+           "project_packed_sharded", "reconstruct_apply_packed_sharded",
+           "reconstruct_apply_packed_workers_sharded")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 CALLS = dict.fromkeys(KERNELS, 0)
 SOURCE = "rbd_step.cu"
@@ -102,6 +115,15 @@ _SIGNATURES = {
     "rbd_reconstruct_apply_packed_adapters": [_P, _P, _P, _P, _P, _P, _P, _P,
                                               _P, _I, _I64, _I, _I, _I64,
                                               _I64, _I, _P],
+    "rbd_project_packed_sharded": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                   _I64, _I64, _I, _I, _I, _P, _P, _P, _P,
+                                   _P],
+    "rbd_reconstruct_apply_packed_sharded": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                             _P, _I, _I64, _I64, _I, _I,
+                                             _P],
+    "rbd_reconstruct_apply_packed_workers_sharded": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I64, _I64, _I, _I, _I64,
+        _I, _P],
     "rbd_generate_tile": [_U32, _U32, _U32, _I, _I, _I, _P, _P, _P, _P],
     "rbd_error_string": [_I],
 }
@@ -222,10 +244,16 @@ def project_packed(seg_seeds, g_packed: torch.Tensor, layout: PackedLayout,
 
 
 def _plain_blocks(seg_seeds, sizes, pdims, distribution: str,
-                  device: torch.device, *, keep: bool):
+                  device: torch.device, *, keep: bool, windows=None):
     """Yield ``(segment, first column, block)`` over every segment's
     (padded dim, columns) basis blocks, in segment and column order;
     segment s has ``sizes[s]`` positions and ``pdims[s]`` rows.
+    ``windows`` (a pair of per-segment arrays ``lo``, ``hi``) yields
+    only the blocks that meet the columns ``[lo[s], hi[s])`` of each
+    segment -- one slab's -- still whole, exactly as without a window:
+    the caller cuts them after its own arithmetic, so that a column's
+    result does not depend on where the window falls (torch's vectorized
+    and scalar paths of a transcendental or a sum may differ by an ulp).
 
     On the CPU a projection (``keep=True``) keeps its blocks, the oldest
     dropped past ``_PLAIN_KEEP_BYTES``, and an apply with the same seeds
@@ -239,8 +267,10 @@ def _plain_blocks(seg_seeds, sizes, pdims, distribution: str,
     for s in range(len(seeds)):
         q = int(sizes[s])
         pdim = int(pdims[s])
+        lo, hi = (0, q) if windows is None else (int(windows[0][s]),
+                                                 int(windows[1][s]))
         cols = min(q, max(1, budget // pdim))
-        for c0 in range(0, q, cols):
+        for c0 in range((lo // cols) * cols, hi, cols):
             nc = min(cols, q - c0)
             key = (seeds[s], c0, nc, pdim, distribution, device.type)
             blk = None if keep else _KEPT.pop(key, None)
@@ -480,6 +510,227 @@ def reconstruct_apply_packed_adapters_plain(aseg_seeds,
         reconstruct_apply_packed_plain(seeds[a], scale_batch[a],
                                        theta_packed, layout, distribution,
                                        out=out[a])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# kernels 5-7: one slab of the model-sharded buffer
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=64)
+def _sharded_device_tables(slayout: ShardedPackedLayout, shard: int,
+                           device: torch.device):
+    host = sharded_segment_tables(slayout, shard, PROJECT_POS_CHUNK)
+    dev = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+    dev["n_proj_blocks"] = int(host["proj_blocks"][-1])
+    return dev
+
+
+def _check_shard(slayout: ShardedPackedLayout, shard: int) -> None:
+    if not 0 <= int(shard) < slayout.n_shards:
+        raise ValueError(f"shard {shard} outside [0, {slayout.n_shards})")
+
+
+def project_packed_sharded(seg_seeds, g_slab: torch.Tensor,
+                           slayout: ShardedPackedLayout, shard: int,
+                           distribution: str = "normal"):
+    """The PARTIAL raw projections and squared row norms of one slab:
+    ``(u, sq)``, each ``(d_packed,)`` float32, holding only the
+    contributions of shard ``shard``'s positions (zero for a coordinate
+    with none there).  Their sum over the model group is
+    :func:`project_packed`'s output.  ``g_slab`` is the (q_slab,) slice
+    of the zero-padded packed gradient."""
+    CALLS["project_packed_sharded"] += 1
+    _check_shard(slayout, shard)
+    if g_slab.device.type == "cpu":
+        return project_packed_sharded_plain(seg_seeds, g_slab, slayout,
+                                            shard, distribution)
+    base = slayout.base
+    _check(g_slab, "g_slab", (slayout.q_slab,))
+    _check_layout(base, distribution)
+    dev = g_slab.device
+    t = _device_tables(base, dev)
+    w = _sharded_device_tables(slayout, int(shard), dev)
+    seeds = _seeds_on(seg_seeds, base.n_segments, dev)
+    n_blocks = w["n_proj_blocks"]
+    partial = torch.empty((n_blocks * 16,), dtype=torch.float32, device=dev)
+    arrived = torch.zeros((base.d_packed // 8,), dtype=torch.int32,
+                          device=dev)
+    u = torch.empty((base.d_packed,), dtype=torch.float32, device=dev)
+    sq = torch.empty_like(u)
+    _launch("project_packed_sharded",
+            library().lib.rbd_project_packed_sharded,
+            g_slab.data_ptr(), seeds.data_ptr(), t["param_off"].data_ptr(),
+            t["coord_off"].data_ptr(), w["col_lo"].data_ptr(),
+            w["col_hi"].data_ptr(), w["chunk_lo"].data_ptr(),
+            w["n_chunk"].data_ptr(), w["proj_blocks"].data_ptr(),
+            base.n_segments, n_blocks, slayout.slab_range(int(shard))[0],
+            base.pos_block, PROJECT_POS_CHUNK, _DIST_CODE[distribution],
+            partial.data_ptr(), arrived.data_ptr(), u.data_ptr(),
+            sq.data_ptr())
+    return u, sq
+
+
+def project_packed_sharded_plain(seg_seeds, g_slab: torch.Tensor,
+                                 slayout: ShardedPackedLayout, shard: int,
+                                 distribution: str = "normal"):
+    """Plain PyTorch version of :func:`project_packed_sharded`: the plain
+    projection over the slab's columns only."""
+    base = slayout.base
+    dev = g_slab.device
+    g_slab = g_slab.to(torch.float32)
+    start = slayout.slab_range(int(shard))[0]
+    lo, hi = slayout.seg_windows(int(shard))
+    u = torch.zeros((base.d_packed,), dtype=torch.float32, device=dev)
+    sq = torch.zeros_like(u)
+    for s, c0, blk in _plain_blocks(seg_seeds, base.seg_size, base.seg_pdim,
+                                    distribution, dev, keep=True,
+                                    windows=(lo, hi)):
+        a, b = max(int(lo[s]), c0), min(int(hi[s]), c0 + blk.shape[1])
+        blk = blk[:, a - c0: b - c0]
+        poff = int(base.seg_param_off[s]) + a - start
+        coff = int(base.seg_coord_off[s])
+        rows = slice(coff, coff + blk.shape[0])
+        u[rows] += torch.mv(blk, g_slab[poff: poff + b - a])
+        sq[rows] += (blk * blk).sum(1)
+    return u, sq
+
+
+def reconstruct_apply_packed_sharded(seg_seeds, scale_packed: torch.Tensor,
+                                     theta_slab: torch.Tensor,
+                                     slayout: ShardedPackedLayout,
+                                     shard: int,
+                                     distribution: str = "normal", *,
+                                     out=None):
+    """``slab - scale @ P_slab`` on shard ``shard``'s (q_slab,) slab, in
+    one launch; returns ``out``.  ``scale_packed`` is the replicated
+    (d_packed,) scale of :func:`reconstruct_apply_packed`.  The slab is
+    bit-identical to the matching slice of that function's output;
+    padding positions keep their value.  ``out=theta_slab`` updates the
+    slab in place."""
+    CALLS["reconstruct_apply_packed_sharded"] += 1
+    _check_shard(slayout, shard)
+    if theta_slab.device.type == "cpu":
+        return reconstruct_apply_packed_sharded_plain(
+            seg_seeds, scale_packed, theta_slab, slayout, shard,
+            distribution, out=out)
+    base = slayout.base
+    _check(theta_slab, "theta_slab", (slayout.q_slab,))
+    _check(scale_packed, "scale_packed", (base.d_packed,))
+    _check_layout(base, distribution)
+    dev = theta_slab.device
+    if out is None:
+        out = torch.empty_like(theta_slab)
+    _check(out, "out", (slayout.q_slab,))
+    t = _device_tables(base, dev)
+    seeds = _seeds_on(seg_seeds, base.n_segments, dev)
+    _launch("reconstruct_apply_packed_sharded",
+            library().lib.rbd_reconstruct_apply_packed_sharded,
+            scale_packed.data_ptr(), theta_slab.data_ptr(), out.data_ptr(),
+            seeds.data_ptr(), t["size"].data_ptr(), t["pdim"].data_ptr(),
+            t["param_off"].data_ptr(), t["coord_off"].data_ptr(),
+            t["recon_blocks"].data_ptr(), base.n_segments,
+            slayout.blocks_per_shard,
+            int(shard) * slayout.blocks_per_shard, base.pos_block,
+            _DIST_CODE[distribution])
+    return out
+
+
+def reconstruct_apply_packed_sharded_plain(seg_seeds,
+                                           scale_packed: torch.Tensor,
+                                           theta_slab: torch.Tensor,
+                                           slayout: ShardedPackedLayout,
+                                           shard: int,
+                                           distribution: str = "normal", *,
+                                           out=None):
+    """Plain PyTorch version of :func:`reconstruct_apply_packed_sharded`:
+    the plain apply over the slab's columns, the same blocks and the same
+    association, so the slab is bit-identical to the matching slice of
+    :func:`reconstruct_apply_packed_plain`."""
+    base = slayout.base
+    dev = theta_slab.device
+    db = base.dir_block
+    if out is None:
+        out = theta_slab.to(torch.float32).clone()
+    elif out is not theta_slab:
+        out.copy_(theta_slab)
+    scale = scale_packed.to(torch.float32)
+    start = slayout.slab_range(int(shard))[0]
+    lo, hi = slayout.seg_windows(int(shard))
+    for s, c0, blk in _plain_blocks(seg_seeds, base.seg_size, base.seg_pdim,
+                                    distribution, dev, keep=False,
+                                    windows=(lo, hi)):
+        pdim, nc = blk.shape
+        coff = int(base.seg_coord_off[s])
+        sc = scale[coff: coff + pdim].reshape(pdim, 1)
+        # the parts of the whole block, then the slab's columns of them
+        parts = (sc * blk).reshape(pdim // db, db, nc).sum(1)
+        a, b = max(int(lo[s]), c0), min(int(hi[s]), c0 + nc)
+        parts = parts[:, a - c0: b - c0]
+        poff = int(base.seg_param_off[s]) + a - start
+        th = out[poff: poff + b - a]
+        for i in range(pdim // db):
+            th -= parts[i]
+    return out
+
+
+def reconstruct_apply_packed_workers_sharded(wseg_seeds,
+                                             scale_gathered: torch.Tensor,
+                                             theta_slab: torch.Tensor,
+                                             slayout: ShardedPackedLayout,
+                                             shard: int,
+                                             distribution: str = "normal",
+                                             *, out=None):
+    """``slab - sum_k scale_k @ P_k`` on shard ``shard``'s slab, in one
+    launch for any K: :func:`reconstruct_apply_packed_workers`'s contract
+    on a (q_slab,) slab, bit-identical to the matching slice of its
+    output."""
+    CALLS["reconstruct_apply_packed_workers_sharded"] += 1
+    _check_shard(slayout, shard)
+    if theta_slab.device.type == "cpu":
+        return reconstruct_apply_packed_workers_sharded_plain(
+            wseg_seeds, scale_gathered, theta_slab, slayout, shard,
+            distribution, out=out)
+    base = slayout.base
+    k_workers = int(scale_gathered.shape[0])
+    _check(theta_slab, "theta_slab", (slayout.q_slab,))
+    _check(scale_gathered, "scale_gathered", (k_workers, base.d_packed))
+    _check_layout(base, distribution)
+    dev = theta_slab.device
+    if out is None:
+        out = torch.empty_like(theta_slab)
+    _check(out, "out", (slayout.q_slab,))
+    t = _device_tables(base, dev)
+    seeds = _seeds_on(wseg_seeds, k_workers * base.n_segments, dev)
+    _launch("reconstruct_apply_packed_workers_sharded",
+            library().lib.rbd_reconstruct_apply_packed_workers_sharded,
+            scale_gathered.data_ptr(), theta_slab.data_ptr(),
+            out.data_ptr(), seeds.data_ptr(), t["size"].data_ptr(),
+            t["pdim"].data_ptr(), t["param_off"].data_ptr(),
+            t["coord_off"].data_ptr(), t["recon_blocks"].data_ptr(),
+            base.n_segments, slayout.blocks_per_shard,
+            int(shard) * slayout.blocks_per_shard, base.pos_block,
+            k_workers, base.d_packed, _DIST_CODE[distribution])
+    return out
+
+
+def reconstruct_apply_packed_workers_sharded_plain(
+        wseg_seeds, scale_gathered: torch.Tensor, theta_slab: torch.Tensor,
+        slayout: ShardedPackedLayout, shard: int,
+        distribution: str = "normal", *, out=None):
+    """Plain PyTorch version of
+    :func:`reconstruct_apply_packed_workers_sharded`: the plain slab apply
+    once per worker, in worker order, on one buffer."""
+    k_workers = int(scale_gathered.shape[0])
+    seeds = rng.as_u32(wseg_seeds).reshape(k_workers, slayout.n_segments)
+    out = reconstruct_apply_packed_sharded_plain(
+        seeds[0], scale_gathered[0], theta_slab, slayout, shard,
+        distribution, out=out)
+    for k in range(1, k_workers):
+        reconstruct_apply_packed_sharded_plain(
+            seeds[k], scale_gathered[k], out, slayout, shard, distribution,
+            out=out)
     return out
 
 

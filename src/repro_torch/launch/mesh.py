@@ -1,61 +1,85 @@
-"""Data-parallel process group for the launcher (port of
+"""The ``(data, model)`` process groups for the launcher (port of
 ``repro.launch.mesh``).
 
-The reference builds a ``("data", "model")`` device mesh; the port's
-``"data"`` axis is the default ``torch.distributed`` process group, one
-rank per worker, set up here from what ``torchrun`` puts in the
-environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
-``MASTER_PORT``).  Without ``torchrun`` a one-rank group is made on an
-in-process store, so ``--data 1`` needs no address at all.  NCCL on
-``cuda``, gloo on ``cpu``.  Nothing happens at import.
+The reference builds a ``("data", "model")`` device mesh; the port runs
+one rank per mesh position, set up here from what ``torchrun`` puts in
+the environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``MASTER_ADDR``, ``MASTER_PORT``).  Rank ``r = data_index * model +
+model_index`` -- the reference mesh's row-major order -- so a model group
+is ``model`` consecutive ranks and a data group every ``model``-th rank.
+With ``model == 1`` the data group is the default (world) group, named
+``"data"``.  Without ``torchrun`` a one-rank
+group is made on an in-process store, so ``--data 1`` needs no address
+at all.  NCCL on ``cuda``, gloo on ``cpu``.  Nothing happens at import.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Any, NamedTuple
 
 import torch
 import torch.distributed as dist
 
 
-def init_data_group(data: int, device) -> tuple[torch.device, bool]:
-    """Join (or create) the ``data`` process group of ``data`` ranks.
+class Mesh(NamedTuple):
+    device: torch.device   # this rank's device (cuda:LOCAL_RANK on a GPU)
+    created: bool          # this call made the default group
+    data_index: int        # position on the data axis
+    model_index: int       # position on the model axis (the slab index)
+    data_group: Any        # this rank's data group ("data": the world)
+    model_group: Any       # this rank's model group (None when model == 1)
 
-    Returns this rank's device (``cuda:LOCAL_RANK`` on the GPU) and
-    whether this call created the group (the caller then destroys it
-    with :func:`destroy_data_group`).  Raises when ``data`` is not the
-    world size ``torchrun`` gives."""
+
+def init_mesh(data: int, model: int, device) -> Mesh:
+    """Join (or create) the default group of ``data * model`` ranks and
+    build the model and data groups.  Raises when ``data * model`` is not
+    the world size (the initialized group's, or the one ``torchrun``
+    gives).  The caller destroys what this made with
+    :func:`destroy_mesh`."""
     device = torch.device(device)
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if world != data:
+    if data < 1 or model < 1:
+        raise ValueError(f"--data {data} --model {model}: both must be >= 1")
+    n = data * model
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    if world != n:
         raise ValueError(
-            f"--data {data} must equal the world size {world}: launch "
-            f"with torchrun --nproc-per-node {data}")
+            f"--data {data} x --model {model} must equal the world size "
+            f"{world}: launch with torchrun --nproc-per-node {n}")
     if device.type == "cuda":
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
         torch.cuda.set_device(device)
-    if dist.is_initialized():
-        if dist.get_world_size() != data:
-            raise ValueError(
-                f"--data {data} does not match the initialized process "
-                f"group of {dist.get_world_size()} ranks")
-        return device, False
-    backend = "nccl" if device.type == "cuda" else "gloo"
-    rank = int(os.environ.get("RANK", "0"))
-    if "MASTER_ADDR" in os.environ:
-        dist.init_process_group(backend, init_method="env://", rank=rank,
-                                world_size=world)
-    elif world == 1:
-        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
-                                world_size=1)
-    else:
-        raise ValueError("a group of several ranks needs torchrun (or "
-                         "MASTER_ADDR/MASTER_PORT) to find its peers")
-    return device, True
+    created = False
+    if not dist.is_initialized():
+        backend = "nccl" if device.type == "cuda" else "gloo"
+        rank = int(os.environ.get("RANK", "0"))
+        if "MASTER_ADDR" in os.environ:
+            dist.init_process_group(backend, init_method="env://", rank=rank,
+                                    world_size=world)
+        elif world == 1:
+            dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                    world_size=1)
+        else:
+            raise ValueError("a group of several ranks needs torchrun (or "
+                             "MASTER_ADDR/MASTER_PORT) to find its peers")
+        created = True
+    d_idx, m_idx = divmod(dist.get_rank(), model)
+    if model == 1:
+        return Mesh(device, created, d_idx, m_idx, "data", None)
+    # every rank creates every group, in the same order
+    model_groups = [dist.new_group(list(range(d * model, (d + 1) * model)))
+                    for d in range(data)]
+    data_groups = [dist.new_group(list(range(m, n, model)))
+                   for m in range(model)]
+    return Mesh(device, created, d_idx, m_idx, data_groups[m_idx],
+                model_groups[d_idx])
 
 
-def destroy_data_group() -> None:
-    if dist.is_initialized():
+def destroy_mesh(mesh: Mesh) -> None:
+    """Destroy the default group (and with it the mesh's groups) if
+    ``mesh`` made it."""
+    if mesh.created and dist.is_initialized():
         dist.destroy_process_group()
 
 

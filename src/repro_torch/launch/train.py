@@ -10,6 +10,12 @@
         --rbd-mode independent_bases --rbd-backend cuda --rbd-dim 128 \\
         --batch 4 --seq 16 --steps 3
 
+    # model-sharded slabs on the CPU: 2 ranks of one model group (the
+    # packed kernels' plain versions: on the CPU the default backend is
+    # the unpacked torch one)
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch qwen2-0.5b --reduced --device cpu --model 2 --rbd-backend cuda
+
     # the per-leaf strategies: packing off (one launch per leaf), weight
     # decay (full_space), the paper's SGD baseline (RBD off)
     ... --rbd-backend cuda --packed off
@@ -60,6 +66,13 @@ def main(argv=None) -> RunResult:
     ap.add_argument("--data", type=int, default=1,
                     help="data-parallel ranks (the paper's K workers under "
                          "--mode sharedseed); must equal the world size")
+    ap.add_argument("--model", type=int, default=1,
+                    help="model mesh axis size; under --mode sharedseed "
+                         "with the packed step this shards the packed "
+                         "theta buffer into per-device slabs (the step "
+                         "stays two launches, coordinates gain one "
+                         "d-sized psum over 'model'); under --mode pjit "
+                         "it is the classic tensor-parallel axis")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--batch", type=int, default=8,
                     help="global batch, split over the --data ranks")
@@ -81,10 +94,11 @@ def main(argv=None) -> RunResult:
     ap.add_argument("--rbd-dim", type=int, default=1024)
     ap.add_argument("--normalization", default="rsqrt_dim",
                     choices=["rsqrt_dim", "exact", "none", "orthonormal"])
-    ap.add_argument("--rbd-backend", default="torch",
-                    choices=["torch", "cuda"],
+    ap.add_argument("--rbd-backend", default="auto",
+                    choices=["auto", "torch", "cuda"],
                     help="cuda: the hand-written Hopper kernels; torch: "
-                         "their plain PyTorch versions")
+                         "their plain PyTorch versions; auto: cuda on a "
+                         "card, torch on the CPU")
     ap.add_argument("--packed", default="auto",
                     choices=["auto", "on", "off"],
                     help="packed two-launch step (auto: on for cuda)")
@@ -105,44 +119,55 @@ def main(argv=None) -> RunResult:
         cfg = cfg.reduced(compute_dtype="float32")
     return run_training(
         cfg, mode=args.mode, rbd_mode=args.rbd_mode, data=args.data,
-        steps=args.steps, batch=args.batch, seq=args.seq,
-        grad_accum_steps=args.grad_accum_steps, lr=args.lr,
+        model=args.model, steps=args.steps, batch=args.batch,
+        seq=args.seq, grad_accum_steps=args.grad_accum_steps, lr=args.lr,
         rbd_dim=args.rbd_dim, normalization=args.normalization,
         rbd_backend=args.rbd_backend, packed=args.packed,
         optimizer=args.optimizer, weight_decay=args.weight_decay,
         device=args.device, kernel_times=args.kernel_times)
 
 
+def resolve_backend(rbd_backend: str, device) -> str:
+    """``auto`` -> ``cuda`` on a card, ``torch`` on the CPU; an explicit
+    backend as it is."""
+    import torch
+
+    if rbd_backend != "auto":
+        return rbd_backend
+    return "cuda" if torch.device(device).type == "cuda" else "torch"
+
+
 def run_training(cfg, *, mode="sharedseed", rbd_mode="shared_basis", data=1,
-                 steps=10, batch=8, seq=128, grad_accum_steps=1, lr=0.125,
-                 rbd_dim=1024, normalization="rsqrt_dim",
-                 rbd_backend="torch", packed="auto", optimizer="sgd",
+                 model=1, steps=10, batch=8, seq=128, grad_accum_steps=1,
+                 lr=0.125, rbd_dim=1024, normalization="rsqrt_dim",
+                 rbd_backend="auto", packed="auto", optimizer="sgd",
                  weight_decay=0.0, device="cuda",
                  kernel_times=False) -> RunResult:
-    from repro_torch.launch import mesh
+    from repro_torch.launch import mesh as meshlib
     from repro_torch.models.registry import resolve_device
 
     if mode == "pjit":
         raise NotImplementedError(
-            "--mode pjit (model-sharded parameters) is not ported yet "
-            "(ROADMAP.md Queue A 14); use --mode sharedseed")
-    device, created = mesh.init_data_group(data, resolve_device(device))
+            "--mode pjit (pjit-style parameter sharding) is not ported yet "
+            "(ROADMAP.md Queue A 20); use --mode sharedseed --model M for "
+            "the model-sharded packed slabs")
+    mesh = meshlib.init_mesh(data, model, resolve_device(device))
     try:
         return _run(cfg, mode=mode, rbd_mode=rbd_mode, data=data,
-                    steps=steps, batch=batch, seq=seq,
-                    grad_accum_steps=grad_accum_steps, lr=lr,
+                    model=model, mesh=mesh, steps=steps, batch=batch,
+                    seq=seq, grad_accum_steps=grad_accum_steps, lr=lr,
                     rbd_dim=rbd_dim, normalization=normalization,
-                    rbd_backend=rbd_backend, packed=packed,
-                    optimizer=optimizer, weight_decay=weight_decay,
-                    device=device, kernel_times=kernel_times)
+                    rbd_backend=resolve_backend(rbd_backend, mesh.device),
+                    packed=packed, optimizer=optimizer,
+                    weight_decay=weight_decay, device=mesh.device,
+                    kernel_times=kernel_times)
     finally:
-        if created:
-            mesh.destroy_data_group()
+        meshlib.destroy_mesh(mesh)
 
 
-def _run(cfg, *, mode, rbd_mode, data, steps, batch, seq, grad_accum_steps,
-         lr, rbd_dim, normalization, rbd_backend, packed, optimizer,
-         weight_decay, device, kernel_times) -> RunResult:
+def _run(cfg, *, mode, rbd_mode, data, model, mesh, steps, batch, seq,
+         grad_accum_steps, lr, rbd_dim, normalization, rbd_backend, packed,
+         optimizer, weight_decay, device, kernel_times) -> RunResult:
     import torch
     import torch.distributed as dist
 
@@ -150,12 +175,12 @@ def _run(cfg, *, mode, rbd_mode, data, steps, batch, seq, grad_accum_steps,
     from repro_torch.core import distributed
     from repro_torch.data import synthetic
     from repro_torch.kernels import rbd_step
-    from repro_torch.launch import mesh
+    from repro_torch.launch import mesh as meshlib
     from repro_torch.models.registry import get_model
     from repro_torch.train import step as steplib
 
     rank = dist.get_rank()
-    model = get_model(cfg)
+    net = get_model(cfg)
     rbd_cfg = RBDConfig(enabled=(mode != "sgd"), total_dim=rbd_dim,
                         mode=rbd_mode, normalization=normalization,
                         backend=rbd_backend, packed=packed)
@@ -163,13 +188,31 @@ def _run(cfg, *, mode, rbd_mode, data, steps, batch, seq, grad_accum_steps,
                        steps=steps, batch_size=batch, seq_len=seq,
                        grad_accum_steps=grad_accum_steps,
                        optimizer=optimizer, weight_decay=weight_decay)
-    transform = steplib.make_transform(model, rbd_cfg)
-    # the step always runs over the data group (as the reference's
-    # shard_map does for sharedseed, also on one device; the SGD baseline's
-    # gradient mean is then one all-reduce even on one rank);
+    transform = steplib.make_transform(net, rbd_cfg)
+    # sharedseed runs over the data group (as the reference's shard_map
+    # does, also on one device); the SGD baseline only with several data
+    # ranks, its one collective the full-D gradient mean.
     # independent_bases needs the static worker count of its joint subspace
+    axis_name = ("data" if mode == "sharedseed" or (mode == "sgd"
+                                                     and data > 1)
+                 else None)
+    k_workers = data if axis_name is not None else 1
+    # sharedseed + --model M > 1: probe whether the plan stays
+    # packed-resident with a declared model axis (slab-sharded packed
+    # theta); if it cannot, the parameters would need pjit-style
+    # sharding, which the optimizer refuses
+    model_axis = None
+    if model > 1 and mode == "sharedseed":
+        probe = steplib.make_subspace_optimizer(
+            net, tcfg, transform, axis_name, k_workers=k_workers,
+            model_sharded=True, model_axis="model", model_shards=model)
+        if probe.plan_execution().packed_resident:
+            model_axis = mesh.model_group
+            if axis_name is not None:
+                axis_name = mesh.data_group
     init_state, train_step, sub_opt = steplib.make_train_step(
-        model, tcfg, transform, axis_name="data", k_workers=data,
+        net, tcfg, transform, axis_name=axis_name, k_workers=k_workers,
+        model_sharded=model > 1, model_axis=model_axis, model_shards=model,
         device=device, return_optimizer=True)
     eplan = sub_opt.plan_execution()
     n_accum = max(1, int(grad_accum_steps))
@@ -187,6 +230,12 @@ def _run(cfg, *, mode, rbd_mode, data, steps, batch, seq, grad_accum_steps,
         if n_accum > 1:
             say(f"grad accumulation: {n_accum} microbatches/optimizer "
                 f"step, 1 exchange per optimizer step (not {n_accum})")
+    if model_axis is not None:
+        slayout = sub_opt.sharded_layout()
+        say(f"model-sharded slabs: {model} per model group, q_slab "
+            f"{slayout.q_slab:,} (q_padded {slayout.q_padded:,}, q_packed "
+            f"{slayout.base.q_packed:,}); this rank's slab "
+            f"{mesh.model_index}")
 
     cuda = device.type == "cuda"
     state = init_state(tcfg.seed)
@@ -195,10 +244,12 @@ def _run(cfg, *, mode, rbd_mode, data, steps, batch, seq, grad_accum_steps,
                                   device=device)
 
     def fetch():
+        # sharded over data, the same on every rank of a model group
         if n_accum == 1:
-            return mesh.shard_batch(next(stream), rank, data)
-        return mesh.shard_batch(steplib.stack_microbatches(
-            [next(stream) for _ in range(n_accum)]), rank, data, axis=1)
+            return meshlib.shard_batch(next(stream), mesh.data_index, data)
+        return meshlib.shard_batch(steplib.stack_microbatches(
+            [next(stream) for _ in range(n_accum)]), mesh.data_index, data,
+            axis=1)
 
     if cuda:
         torch.cuda.synchronize(device)

@@ -89,3 +89,17 @@ def pack_reference(tree: Mapping[str, np.ndarray], plan, *,
 
     return projector.pack_tree(params_from_reference(tree, device=device),
                                plan, plan.packed())
+
+
+def slabs_from_reference(padded, slayout, *,
+                         device="cuda") -> list[torch.Tensor]:
+    """The reference's zero-padded (q_padded,) packed buffer (its
+    ``prepare_params`` under a declared model axis) cut into the port's
+    m (q_slab,) slabs, slab i for rank i of a model group."""
+    device = resolve_device(device)
+    buf = torch.from_numpy(np.array(padded, dtype=np.float32)).to(device)
+    if tuple(buf.shape) != (slayout.q_padded,):
+        raise ValueError(f"expected the ({slayout.q_padded},) padded "
+                         f"buffer, got {tuple(buf.shape)}")
+    return [buf[a:b].clone() for a, b in
+            map(slayout.slab_range, range(slayout.n_shards))]

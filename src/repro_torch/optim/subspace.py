@@ -33,9 +33,23 @@ collective is issued at sketch time (``issue_early``) or at finish time
 (``sync``, ``overlap="off"``); both send the same payload through the
 same collective, so they are bit-identical.
 
-Resilience hooks (ROADMAP.md Queue A 13), model sharding (14) and
-materialized bases and second-order optimizers (15) raise
-``NotImplementedError`` naming their item.
+Model-sharded slabs (``model_axis`` declared, ``model_shards = m``): each
+rank of the model group keeps one (q_slab,) slab of the zero-padded
+packed buffer (``core.compartments.ShardedPackedLayout``).  The sketch
+projects the slab's gradient into partial sums (launch 1 on the slab),
+completes them with ONE all-reduce over the model group (widened under
+'exact'), normalizes and hands the coordinates to the unchanged data-axis
+exchange; the finish applies the replicated coordinates to the slab
+(launch 2 on the slab).  The forward pass reads the slabs all-gathered
+over the model group (:meth:`SubspaceOptimizer.gather_params`), the one
+D-sized collective, outside the optimizer step.
+:meth:`SubspaceOptimizer.step_shards_in_turn` runs the m shards of a
+model group one after the other in one process (one device), with the
+completion a sum in shard order.
+
+Resilience hooks (ROADMAP.md Queue A 13), pjit-style parameter sharding
+(Queue A 20) and materialized bases and second-order optimizers (15)
+raise ``NotImplementedError`` naming their item.
 """
 
 from __future__ import annotations
@@ -46,7 +60,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import BASIS_SPECS, KERNEL_BACKEND
-from repro_torch.core import distributed, projector, rng
+from repro_torch.core import compartments, distributed, projector, rng
 from repro_torch.core.compartments import PACKABLE_NORMALIZATIONS
 from repro_torch.core.rbd import RandomBasesTransform, RBDState
 from repro_torch.optim import transforms as opt
@@ -472,10 +486,20 @@ class SubspaceOptimizer:
             raise NotImplementedError(
                 f"strategy {eplan.strategy!r} is not ported yet "
                 f"({_NOT_PORTED[eplan.strategy]}): {eplan.reason}")
-        if self.model_axis is not None or self.model_sharded:
+        if self.model_axis is None and self.model_sharded \
+                or self.model_axis is not None \
+                and eplan.strategy != "fused_packed":
             raise NotImplementedError(
-                "model sharding (slabs or pjit-style parameter sharding) "
-                "is not ported yet (ROADMAP.md Queue A 14)")
+                "pjit-style parameter sharding (model-sharded parameters "
+                "outside the packed slabs) is not ported yet (ROADMAP.md "
+                "Queue A 20); the slabs need the packed step (the cuda "
+                f"backend, or packed='on'): {eplan.reason}")
+        if self.model_axis is not None and self.joint_subspace \
+                and self.axis_name is None:
+            raise ValueError(
+                "the sequential K-worker simulation does not compose with "
+                "model_axis (the slab projection needs real groups); run "
+                "over a data group")
         rng.check_threefry(eplan.prng_impl)
         if self.optimizer in opt.SECOND_ORDER_OPTIMIZERS:
             raise NotImplementedError(
@@ -528,18 +552,64 @@ class SubspaceOptimizer:
 
     # -- stored-representation boundary -------------------------------------
 
+    def sharded_layout(self):
+        """The slab layout, or None when ``model_axis`` is unset."""
+        if self.model_axis is None:
+            return None
+        return compartments.sharded_packed_layout(
+            self.transform.plan.packed(), self.model_shards)
+
+    def model_index(self) -> int:
+        """This rank's slab: its index in the model group."""
+        return distributed.axis_index(self.model_axis)
+
+    def padded_params(self, params) -> torch.Tensor:
+        """Parameter map -> the (q_padded,) packed buffer of every slab
+        (zero padding past q_packed); the (q_packed,) buffer when
+        unsharded."""
+        plan = self.transform.plan
+        packed = projector.pack_tree(params, plan, plan.packed())
+        slayout = self.sharded_layout()
+        if slayout is None or slayout.q_padded == packed.shape[0]:
+            return packed
+        return torch.cat([packed, packed.new_zeros(
+            (slayout.q_padded - packed.shape[0],))])
+
+    def slab_of(self, buf: torch.Tensor, shard: Optional[int] = None
+                ) -> torch.Tensor:
+        """Slab ``shard`` (default: this rank's) of a (q_padded,) buffer."""
+        slayout = self.sharded_layout()
+        a, b = slayout.slab_range(self.model_index() if shard is None
+                                  else shard)
+        return buf[a:b]
+
     def prepare_params(self, params):
         """Parameter map -> the stored representation: the packed
-        (q_packed,) float32 buffer on the packed-resident strategy, the
-        map itself otherwise."""
+        (q_packed,) float32 buffer on the packed-resident strategy --
+        this rank's (q_slab,) slab of the zero-padded buffer under a
+        declared ``model_axis`` -- the map itself otherwise."""
         if not self.check_supported().packed_resident:
             return params
-        plan = self.transform.plan
-        return projector.pack_tree(params, plan, plan.packed())
+        if self.model_axis is None:
+            return self.padded_params(params)
+        return self.slab_of(self.padded_params(params)).clone()
+
+    def gather_params(self, stored) -> torch.Tensor:
+        """A rank's (q_slab,) slab -> the (q_padded,) buffer, all-gathered
+        over the model group (the forward's one D-sized collective,
+        counted as ``model_all_gather``); anything else as it is."""
+        slayout = self.sharded_layout()
+        if (slayout is None or stored.shape[-1] != slayout.q_slab
+                or slayout.q_slab == slayout.q_padded):
+            return stored
+        full = stored.new_empty((slayout.q_padded,))
+        distributed.all_gather_slabs(full, stored, self.model_axis)
+        return full
 
     def materialize_params(self, stored) -> dict:
         """Stored representation -> parameter map: views of the packed
-        buffer that autograd follows, or the map itself."""
+        buffer that autograd follows (a slab is first all-gathered, then
+        the padding tail is cut), or the map itself."""
         if not self.plan_execution().packed_resident:
             return stored
         if self.params_template is None:
@@ -547,8 +617,10 @@ class SubspaceOptimizer:
                 "packed-resident SubspaceOptimizer needs params_template "
                 "(a map of shapes/dtypes) to materialize parameters")
         plan = self.transform.plan
-        return projector.unpack_tree(stored, plan, plan.packed(),
-                                     self.params_template)
+        layout = plan.packed()
+        return projector.unpack_tree(
+            self.gather_params(stored)[: layout.q_packed], plan, layout,
+            self.params_template)
 
     # -- the update ---------------------------------------------------------
 
@@ -585,6 +657,8 @@ class SubspaceOptimizer:
         the ``issue_early`` schedule -- issue the one coordinate
         collective at once.  ``step() == step_finish(step_sketch())``."""
         eplan = self._check_split()
+        if self.model_axis is not None:
+            return self._sharded_sketch(grads, rbd_state, eplan)
         t = self.transform
         plan = t.plan
         layout = plan.packed()
@@ -631,11 +705,21 @@ class SubspaceOptimizer:
     def step_finish(self, params, ticket: StepTicket, rbd_state, opt_state):
         """Second half: wait for the collective (on the ``sync`` schedule
         issue it first -- same payload, same collective), then the
-        coordinate-space optimizer and launch 2 (reconstruct-apply).
-        Functional: returns a new parameter buffer unless
-        ``log_update_norm`` is off, in which case ``params`` is updated
-        in place (the update norm needs the old buffer)."""
+        coordinate-space optimizer and launch 2 (reconstruct-apply; on
+        this rank's slab under a declared ``model_axis``).  Functional:
+        returns a new parameter buffer unless ``log_update_norm`` is off,
+        in which case ``params`` is updated in place (the update norm
+        needs the old buffer)."""
         eplan = self._check_split()
+        coords, sq = self._finish_exchange(ticket)
+        shard = self.model_index() if self.model_axis is not None else None
+        coords_u, new_opt = self._update_coords(coords, rbd_state, opt_state)
+        new_params, in_place = self._apply(params, coords_u, sq, rbd_state,
+                                           eplan, shard)
+        return (new_params, RBDState(step=rbd_state.step + 1), new_opt,
+                self._delta_aux(params, new_params, in_place))
+
+    def _finish_exchange(self, ticket: StepTicket):
         exact = self.transform.plan.normalization == "exact"
         joint = self.joint_subspace
         pending = ticket.pending
@@ -648,8 +732,88 @@ class SubspaceOptimizer:
             raise ValueError(
                 f"k_workers={self.k_workers} does not match the "
                 f"'{self.axis_name}' group size {coords.shape[0]}")
-        return self._apply_exchanged(params, coords, sq, rbd_state,
-                                     opt_state, eplan)
+        return coords, sq
+
+    # -- model-sharded slabs --------------------------------------------------
+
+    def slab_partials(self, grads, rbd_state, shard: int):
+        """Launch 1 on one slab: the raw partial ``(u, sq)`` of slab
+        ``shard``'s (q_slab,) gradient -- on this worker's own basis in
+        the joint subspace."""
+        eplan = self._check_split()
+        t = self.transform
+        seed = (distributed.worker_seed(t, rbd_state, self.axis_name)
+                if self.joint_subspace else t.step_seed(rbd_state.step))
+        return projector.project_packed_sharded(
+            grads, t.plan, seed, shard, slayout=self.sharded_layout(),
+            backend=t.backend, prng=eplan.prng_impl)
+
+    def sketch_from_sums(self, u, psq, csq) -> StepTicket:
+        """The completed sums -> normalized coordinates -> the unchanged
+        data-axis exchange (issued at once under ``issue_early``).
+        ``csq``: the completed norms ('exact'), else None; ``psq``: the
+        slab's own partial norms, passed through (unused by the
+        update)."""
+        eplan = self._check_split()
+        plan = self.transform.plan
+        exact = plan.normalization == "exact"
+        coords = u * projector.packed_norm_factor(
+            plan, plan.packed(), csq, device=u.device)
+        if self.joint_subspace:
+            if eplan.overlap_exchange == "issue_early":
+                return StepTicket(pending=distributed.start_exchange(
+                    coords, csq, self.axis_name, kind="all_gather",
+                    widened=exact))
+            return StepTicket(coords=coords, sq=csq)
+        sq = csq if exact else psq
+        if self.axis_name is not None and eplan.overlap_exchange == "sync":
+            return StepTicket(coords=coords, sq=sq)
+        return StepTicket(pending=distributed.start_exchange(
+            coords, sq, self.axis_name, kind="pmean", widened=exact))
+
+    def _sharded_sketch(self, grads, rbd_state, eplan) -> StepTicket:
+        """Sketch half on this rank's slab: the slab's partial sums, ONE
+        all-reduce over the model group (widened to u+sq under 'exact'),
+        then :meth:`sketch_from_sums`.  One coordinate-sized collective
+        per group and step, nothing D-sized."""
+        exact = self.transform.plan.normalization == "exact"
+        u, psq = self.slab_partials(grads, rbd_state, self.model_index())
+        u, csq = distributed.complete_model_partials(
+            u, psq if exact else None, self.model_axis)
+        return self.sketch_from_sums(u, psq, csq)
+
+    def step_shards_in_turn(self, slabs, grads, rbd_state, opt_state):
+        """One optimizer step of a whole model group run in one process,
+        the shards one after the other (one device standing in for m
+        ranks): the m slab projections, the completion -- the partials
+        summed in shard order -- the data-axis exchange and the
+        coordinate optimizer once (the ranks' replicated copies would
+        agree), then the m slab applies.  ``slabs``/``grads``: the m
+        (q_slab,) slabs and their gradients.  Returns ``(new slabs,
+        new_rbd_state, new_opt_state, aux)``; ``aux.update_norm`` over
+        all slabs."""
+        eplan = self._check_split()
+        exact = self.transform.plan.normalization == "exact"
+        if len(slabs) != self.model_shards or len(grads) != len(slabs):
+            raise ValueError(f"expected {self.model_shards} slabs and "
+                             f"gradients, got {len(slabs)} and {len(grads)}")
+        u = psq = csq = None
+        for shard, g in enumerate(grads):
+            pu, ps = self.slab_partials(g, rbd_state, shard)
+            u = pu if u is None else u + pu
+            psq = ps if psq is None else psq + ps
+        if exact:
+            csq = psq
+        coords, sq = self._finish_exchange(self.sketch_from_sums(u, psq, csq))
+        coords_u, new_opt = self._update_coords(coords, rbd_state, opt_state)
+        new, in_place = [], False
+        for shard, slab in enumerate(slabs):
+            out, in_place = self._apply(slab, coords_u, sq, rbd_state, eplan,
+                                        shard)
+            new.append(out)
+        aux = self._delta_aux(torch.cat(list(slabs)), torch.cat(new),
+                              in_place)
+        return new, RBDState(step=rbd_state.step + 1), new_opt, aux
 
     # -- microbatch accumulation --------------------------------------------
 
@@ -671,31 +835,36 @@ class SubspaceOptimizer:
         inv = 1.0 / float(n_micro)
         return opt._map(lambda g: g * inv, acc)
 
-    def _apply_exchanged(self, params, coords, sq, rbd_state, opt_state,
-                         eplan):
-        """Post-exchange half: coordinate-space optimizer on the (d_packed,)
-        or gathered (K, d_packed) buffer, then reconstruct-apply -- the
-        joint route applies all K bases with ``eta = lr / K``."""
+    def _update_coords(self, coords, rbd_state, opt_state):
+        """The coordinate-space optimizer on the exchanged (d_packed,) or
+        gathered (K, d_packed) buffer."""
+        opt_state = self._switch_opt_state(opt_state, rbd_state.step)
+        return self._optimizer().update(coords, opt_state)
+
+    def _apply(self, params, coords_u, sq, rbd_state, eplan, shard):
+        """Launch 2: the reconstruct-apply of the updated coordinates on
+        the packed buffer, or on slab ``shard`` (not None) -- the joint
+        route applies all K bases with ``eta = lr / K``.  Returns
+        ``(new params, whether params was updated in place)``."""
         t = self.transform
         plan = t.plan
         seed = t.step_seed(rbd_state.step)
-        opt_state = self._switch_opt_state(opt_state, rbd_state.step)
-        coords_u, new_opt = self._optimizer().update(coords, opt_state)
         in_place = not (self.log_update_norm and self.learning_rate)
         out = params if in_place else None
+        eta = self.learning_rate
+        kw = dict(backend=t.backend, row_sq=sq, prng=eplan.prng_impl, out=out)
         if self.joint_subspace:
-            new_params = projector.reconstruct_apply_packed_workers(
-                coords_u, plan, seed, params,
-                self.learning_rate / self.k_workers, backend=t.backend,
-                row_sq=sq, layout=plan.packed(), prepacked=True,
-                prng=eplan.prng_impl, out=out)
-        else:
-            new_params = projector.reconstruct_apply_packed(
-                coords_u, plan, seed, params, self.learning_rate,
-                backend=t.backend, row_sq=sq, layout=plan.packed(),
-                prepacked=True, prng=eplan.prng_impl, out=out)
-        return (new_params, RBDState(step=rbd_state.step + 1), new_opt,
-                self._delta_aux(params, new_params, in_place))
+            eta = self.learning_rate / self.k_workers
+        if shard is not None:
+            fn = (projector.reconstruct_apply_packed_workers_sharded
+                  if self.joint_subspace
+                  else projector.reconstruct_apply_packed_sharded)
+            return fn(coords_u, plan, seed, params, eta, shard,
+                      slayout=self.sharded_layout(), **kw), in_place
+        fn = (projector.reconstruct_apply_packed_workers
+              if self.joint_subspace else projector.reconstruct_apply_packed)
+        return fn(coords_u, plan, seed, params, eta, layout=plan.packed(),
+                  prepacked=True, **kw), in_place
 
     def _per_leaf_step(self, params, grads, rbd_state, opt_state, *,
                        fused: bool):

@@ -14,7 +14,10 @@ map of the same leaves.
 With ``axis_name`` set the step runs on one rank of a data-parallel
 process group (``repro_torch.launch.mesh``) and the optimizer performs
 the paper's shared-seed coordinate exchange: one collective per
-optimizer step, whatever ``grad_accum_steps`` is.
+optimizer step, whatever ``grad_accum_steps`` is.  With ``model_axis``
+declared as well, ``TrainState.params`` is this rank's slab of the
+model-sharded packed buffer: the step all-gathers the slabs for the
+forward pass and keeps its own slab of the gradient.
 """
 
 from __future__ import annotations
@@ -74,14 +77,17 @@ def make_transform(model: Model, rbd_cfg: RBDConfig, params_shape=None):
 def make_subspace_optimizer(
         model: Model, tcfg: TrainConfig,
         transform: Optional[rbd_lib.RandomBasesTransform] = None,
-        axis_name=None, *, k_workers: int = 1
+        axis_name=None, *, k_workers: int = 1, model_sharded: bool = False,
+        model_axis=None, model_shards: int = 1
 ) -> subspace.SubspaceOptimizer:
     """The one update-path object for a (model, TrainConfig) pair."""
     if transform is None and tcfg.rbd.enabled:
         transform = make_transform(model, tcfg.rbd)
     return subspace.SubspaceOptimizer.from_config(
         tcfg, transform=transform, axis_name=axis_name,
-        k_workers=k_workers, params_template=model.param_template())
+        k_workers=k_workers, model_sharded=model_sharded,
+        model_axis=model_axis, model_shards=model_shards,
+        params_template=model.param_template())
 
 
 def make_loss_fn(model: Model, aux_coef: float = 0.01):
@@ -103,7 +109,8 @@ def stack_microbatches(batches):
 def make_train_step(model: Model, tcfg: TrainConfig,
                     transform: Optional[rbd_lib.RandomBasesTransform] = None,
                     axis_name: Optional[str] = None, *,
-                    k_workers: int = 1, device="cuda",
+                    k_workers: int = 1, model_sharded: bool = False,
+                    model_axis=None, model_shards: int = 1, device="cuda",
                     return_optimizer: bool = False):
     """Returns ``(init_state, train_step)`` -- plus the
     :class:`SubspaceOptimizer` when ``return_optimizer`` is set.
@@ -119,8 +126,14 @@ def make_train_step(model: Model, tcfg: TrainConfig,
     averaged over the group (a scalar all-reduce on the metrics path)
     and the coordinates are exchanged as ``tcfg.rbd.mode`` says.
     ``k_workers``: the group size, the joint subspace's worker count in
-    ``independent_bases`` mode.  With ``tcfg.grad_accum_steps == N > 1``
-    every batch tensor carries a leading (N,) microbatch axis
+    ``independent_bases`` mode.  ``model_sharded`` declares the
+    parameters sharded over a model group; with ``model_axis`` (that
+    group, as ``launch.mesh`` builds it) and ``model_shards`` the state
+    holds this rank's slab of the packed buffer, and the batch (sharded
+    over data) is the same on every rank of the model group; without
+    ``model_axis`` the sharding is pjit-style, which the port refuses.
+    With ``tcfg.grad_accum_steps == N > 1`` every batch tensor carries a
+    leading (N,) microbatch axis
     (:func:`stack_microbatches`): the gradients accumulate in the packed
     buffer and the step runs once -- two launches, one collective."""
     device = resolve_device(device)
@@ -128,9 +141,13 @@ def make_train_step(model: Model, tcfg: TrainConfig,
     if n_accum < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got {n_accum}")
     loss_fn = make_loss_fn(model, model.cfg.router_aux_coef)
-    sub_opt = make_subspace_optimizer(model, tcfg, transform, axis_name,
-                                      k_workers=k_workers)
+    sub_opt = make_subspace_optimizer(
+        model, tcfg, transform, axis_name, k_workers=k_workers,
+        model_sharded=model_sharded or model_axis is not None,
+        model_axis=model_axis,
+        model_shards=model_shards if model_axis is not None else 1)
     split = sub_opt.check_supported().strategy == "fused_packed"
+    sharded = model_axis is not None
 
     def init_state(seed: Optional[int] = None, params=None) -> TrainState:
         if params is None:
@@ -153,6 +170,19 @@ def make_train_step(model: Model, tcfg: TrainConfig,
                                         allow_unused=True)
             grads = {k: torch.zeros_like(v) if g is None else g
                      for (k, v), g in zip(leaves.items(), grads)}
+        elif sharded:
+            # one forward and backward on the gathered slabs, then this
+            # rank's slab of the packed gradient.  The reference
+            # differentiates through the all-gather, whose transpose sums
+            # the m identical cotangents of the model group's replicated
+            # batch, and rescales by 1/m; for m a power of two (m * g) / m
+            # is g bit for bit, so the two agree exactly there, and to
+            # rounding otherwise.
+            full = sub_opt.gather_params(params).detach().requires_grad_(
+                True)
+            loss, metrics = loss_fn(sub_opt.materialize_params(full), batch)
+            (grads,) = torch.autograd.grad(loss, full)
+            grads = sub_opt.slab_of(grads)
         else:
             stored = params.detach().requires_grad_(True)
             loss, metrics = loss_fn(sub_opt.materialize_params(stored),

@@ -421,3 +421,129 @@ def test_per_leaf_train_steps_launch_per_leaf(cuda):
             assert math.isfinite(float(metrics["loss"]))
         launched = {k: v for k, v in rbd_step.LAUNCHES.items() if v}
         assert launched == {"project_flat": 2 * n, apply: 2 * n}
+
+
+# -- the model-sharded slab kernels -----------------------------------------
+
+
+def _padded(lay, sl, gen, cuda):
+    valid = torch.cat([_valid(lay, cuda), torch.zeros(
+        sl.q_padded - lay.q_packed, dtype=torch.bool, device=cuda)])
+    return valid, torch.where(valid, torch.randn(
+        sl.q_padded, generator=gen, device=cuda), 0)
+
+
+@pytest.mark.parametrize("m", [2, 3, 7])
+@pytest.mark.parametrize("dist", DISTS)
+def test_sharded_projection_matches_plain_and_completes(cuda, dist, m):
+    """Each slab's partial (u, sq) against its plain version, and the
+    shard-ordered sum against the unsharded kernel, to the u/sq
+    tolerances; reruns bit-identical."""
+    plan, lay = _layout(dist)
+    sl = compartments.sharded_packed_layout(lay, m)
+    seeds = projector.segment_seeds(plan, rng.fold_seed(3))
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    _, g = _padded(lay, sl, gen, cuda)
+    uf, sqf = rbd_step.project_packed(seeds, g[:lay.q_packed].contiguous(),
+                                      lay, dist)
+    us = torch.zeros_like(uf)
+    sqs = torch.zeros_like(sqf)
+    for shard in range(m):
+        slab = sl.slab_range(shard)
+        gs = g[slab[0]:slab[1]]
+        u, sq = rbd_step.project_packed_sharded(seeds, gs, sl, shard, dist)
+        u2, sq2 = rbd_step.project_packed_sharded(seeds, gs, sl, shard, dist)
+        assert torch.equal(u, u2) and torch.equal(sq, sq2)
+        up, sqp = rbd_step.project_packed_sharded_plain(seeds, gs, sl, shard,
+                                                        dist)
+        _assert_partial_close(u, sq, up, sqp, uf, sqf, g, lay)
+        us += u
+        sqs += sq
+    _assert_partial_close(us, sqs, uf, sqf, uf, sqf, g, lay)
+
+
+def _assert_partial_close(u, sq, uw, sqw, uf, sqf, g, lay):
+    """u within 2e-5 of ||g_seg|| sqrt(sq/Q) and sq within 2e-5 of the
+    unsharded sq (``uf``, ``sqf``): a partial's sums to the scale of the
+    whole coordinate's."""
+    for s in range(lay.n_segments):
+        o, q = int(lay.seg_param_off[s]), int(lay.seg_size[s])
+        c, n = int(lay.seg_coord_off[s]), int(lay.seg_pdim[s])
+        scale = g[o: o + q].norm() * torch.sqrt(sqf[c: c + n] / q)
+        assert bool(((u - uw)[c: c + n].abs() <= 2e-5 * scale).all())
+    assert bool(((sq - sqw).abs() <= 2e-5 * sqf).all())
+
+
+@pytest.mark.parametrize("k", [None, 2])
+@pytest.mark.parametrize("m", [2, 3, 7])
+@pytest.mark.parametrize("dist", DISTS)
+def test_sharded_applies_are_slices_of_the_unsharded_kernel(cuda, dist, m,
+                                                            k):
+    """Each slab bit-identical to the matching slice of the unsharded
+    apply (k=None) or K-worker apply; in place equal; padding exactly 0;
+    within the theta tolerance of the plain version."""
+    plan, lay = _layout(dist)
+    sl = compartments.sharded_packed_layout(lay, m)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    valid, theta = _padded(lay, sl, gen, cuda)
+    rows = 1 if k is None else k
+    scale = torch.randn((rows, lay.d_packed), generator=gen, device=cuda)
+    scale = scale * 1e-2 * torch.from_numpy(lay.coord_valid).to(cuda)
+    if k is None:
+        seeds = projector.segment_seeds(plan, rng.fold_seed(4))
+        sc = scale[0].contiguous()
+        full = rbd_step.reconstruct_apply_packed(
+            seeds, sc, theta[:lay.q_packed].contiguous(), lay, dist)
+        kernel = rbd_step.reconstruct_apply_packed_sharded
+        plain = rbd_step.reconstruct_apply_packed_sharded_plain
+    else:
+        seeds = projector.worker_segment_seeds(plan, rng.fold_seed(4), k)
+        sc = scale
+        full = rbd_step.reconstruct_apply_packed_workers(
+            seeds, sc, theta[:lay.q_packed].contiguous(), lay, dist)
+        kernel = rbd_step.reconstruct_apply_packed_workers_sharded
+        plain = rbd_step.reconstruct_apply_packed_workers_sharded_plain
+    slabs = []
+    for shard in range(m):
+        a, b = sl.slab_range(shard)
+        ts = theta[a:b]
+        out = kernel(seeds, sc, ts, sl, shard, dist)
+        again = ts.clone()
+        kernel(seeds, sc, again, sl, shard, dist, out=again)
+        assert torch.equal(out, again)
+        ref = plain(seeds, sc, ts, sl, shard, dist)
+        tol = (1e-4 * float((ref - ts).abs().max())
+               + 2 * 2.0**-23 * float(ts.abs().max()))
+        assert float((out - ref).abs().max()) <= tol
+        slabs.append(out)
+    got = torch.cat(slabs)
+    assert torch.equal(got[:lay.q_packed], full)
+    assert bool((got[~valid] == 0).all())
+
+
+def test_shards_in_turn_launch_two_kernels_per_shard(cuda):
+    from repro_torch.core.rbd import RandomBasesTransform
+    from repro_torch.optim import subspace
+
+    plan, lay = _layout("normal")
+    m = 3
+    sub = subspace.SubspaceOptimizer(
+        transform=RandomBasesTransform(plan, base_seed=1, backend="cuda"),
+        learning_rate=0.3, use_packed=True, model_sharded=True,
+        model_axis="model", model_shards=m)
+    sl = sub.sharded_layout()
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    valid, theta = _padded(lay, sl, gen, cuda)
+    slabs = [sub.slab_of(theta, s).clone() for s in range(m)]
+    st_r, st_o = sub.init_rbd_state(), sub.init_opt_state(device=cuda)
+    rbd_step.reset_counts()
+    for _ in range(2):
+        g = torch.where(valid, torch.randn(sl.q_padded, generator=gen,
+                                           device=cuda), 0)
+        slabs, st_r, st_o, _ = sub.step_shards_in_turn(
+            slabs, [sub.slab_of(g, s) for s in range(m)], st_r, st_o)
+    assert rbd_step.LAUNCHES["project_packed_sharded"] == 2 * m
+    assert rbd_step.LAUNCHES["reconstruct_apply_packed_sharded"] == 2 * m
+    assert rbd_step.LAUNCHES["project_packed"] == 0
+    got = torch.cat(slabs)
+    assert bool(torch.isfinite(got).all()) and bool((got[~valid] == 0).all())

@@ -243,7 +243,9 @@ def test_launcher_unpacked_routes_print_reference_plan(capsys, extra, flags):
     """The default invocation trains on ``coord_unfused``; ``--packed
     off``, ``--weight-decay`` and ``--mode sgd`` run too, each printing
     the reference's plan block, with one collective per step (the
-    coordinate all-reduce, or the SGD baseline's gradient mean)."""
+    coordinate all-reduce) -- none for the SGD baseline on one rank,
+    which runs with ``axis_name=None`` as the reference's launcher does
+    for ``--mode sgd --data 1``."""
     rbd_step.reset_counts()
     res = launcher.main(LAUNCH + extra)
     lines = capsys.readouterr().out.splitlines()
@@ -257,8 +259,9 @@ def test_launcher_unpacked_routes_print_reference_plan(capsys, extra, flags):
         assert res.collectives["grad_all_reduce"] == 0
     else:
         assert not any(x.startswith("basis:") for x in lines)
-        assert res.collectives["grad_all_reduce"] == 2
+        assert res.collectives["grad_all_reduce"] == 0
         assert res.collectives["all_reduce"] == 0
+        assert res.collectives["scalar"] == 0
     assert res.collectives["all_gather"] == 0
     assert len(res.losses) == 2 and all(np.isfinite(res.losses))
     assert isinstance(res.state.params, dict)

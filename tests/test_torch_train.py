@@ -149,12 +149,13 @@ def test_unported_routes_raise_naming_roadmap():
         with pytest.raises(NotImplementedError, match=item):
             steplib.make_train_step(model, tcfg, device="cpu", **kw)
     # pjit-style parameter sharding plans fused_per_leaf, which the port
-    # runs unsharded only: refused, naming the model-sharding item
+    # runs unsharded only: refused, naming the pjit-style sharding item
+    # (the packed slabs of a declared model axis are ported)
     sub = steplib.make_subspace_optimizer(model, TrainConfig(
         model=cfg, rbd=RBDConfig(total_dim=64, backend="cuda")))
-    with pytest.raises(NotImplementedError, match="Queue A 14"):
+    with pytest.raises(NotImplementedError, match="Queue A 20"):
         dataclasses.replace(sub, model_sharded=True).check_supported()
-    with pytest.raises(NotImplementedError, match="Queue A 14"):
+    with pytest.raises(NotImplementedError, match="Queue A 20"):
         launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--mode",
                        "pjit", "--device", "cpu", "--rbd-backend", "cuda"])
     # several ranks come from torchrun, which sets the world size
@@ -278,3 +279,32 @@ def test_apply_updates_rounds_once_like_reference():
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
     np.testing.assert_allclose(float(opt.global_norm(got)),
                                float(ref_opt.global_norm(want)), rtol=1e-6)
+
+
+def test_default_backend_runs_the_kernels_on_a_card():
+    """``--rbd-backend auto`` (the default) is ``cuda`` for a card device
+    and ``torch`` for the CPU; an explicit backend is kept."""
+    assert launcher.resolve_backend("auto", "cuda") == "cuda"
+    assert launcher.resolve_backend("auto", torch.device("cuda", 1)) == "cuda"
+    assert launcher.resolve_backend("auto", "cpu") == "torch"
+    assert launcher.resolve_backend("torch", "cuda") == "torch"
+    assert launcher.resolve_backend("cuda", "cpu") == "cuda"
+    sig = launcher.run_training.__kwdefaults__
+    assert sig["rbd_backend"] == "auto" and sig["device"] == "cuda"
+
+
+def test_sgd_baseline_on_one_rank_issues_no_collective():
+    """``--mode sgd --data 1`` runs with axis_name=None, as the
+    reference's launcher does: no gradient all-reduce, no loss mean."""
+    res = launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--mode", "sgd",
+                         "--data", "1", "--batch", "2", "--seq", "8",
+                         "--steps", "2", "--device", "cpu"])
+    assert res.sub_opt.axis_name is None
+    assert res.collectives == dict.fromkeys(res.collectives, 0)
+    assert len(res.losses) == 2 and all(np.isfinite(res.losses))
+
+
+def test_model_flag_needs_the_world_size():
+    with pytest.raises(ValueError, match="world size"):
+        launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--model", "2",
+                       "--device", "cpu", "--rbd-backend", "cuda"])
