@@ -47,7 +47,9 @@ result line:
                6 requests, then the same 6 again): one adapter launch per
                admission tick with misses, none in decode or in the
                cache-hit round, greedy tokens identical across rounds and
-               equal to ``Engine``'s on the tenant's parameters;
+               equal to ``Engine``'s on the tenant's parameters; every
+               prefilled prompt launches the flash kernel once per layer
+               (24 times), a decode tick never;
 12. leaf kernels -- ``project_flat``, ``reconstruct_flat`` and
                ``reconstruct_apply_flat`` against their plain versions on
                full-width leaves (one layer's 12 stacked leaves at n_stack
@@ -83,7 +85,24 @@ result line:
                NCCL data group: 2 launches per shard per step, theta
                within tolerance of a ``fused_packed`` step from the same
                state;
-then the ``kernels`` line (ten rows), the card line and the result
+16. prefill -- the ``flash_attention`` kernel against its plain version
+               (f32 and bf16; qwen2-0.5b's and tinyllama's heads, Sq = Sk
+               in 1, 127, 200 and 4,096, window None, 100 and 1,024, one
+               non-causal Sq != Sk case; reruns bit-identical), then
+               ``Engine.generate`` on one 8,192-token prompt at full
+               qwen2-0.5b width and depth in bf16 with 32 new tokens:
+               exactly 24 flash launches in the prefill and none in
+               decode, the last-position logits against
+               ``transformer.forward`` (the blockwise function) beside the
+               same layers through the plain version, the same prefill
+               with f32 compute against forward at a tight limit, the
+               greedy first token, the prefill timed beside the same
+               layers through the blockwise function, peak memory; the
+               kernel alone at 4,096, 8,192 and 32,768 tokens held
+               against its plain version (reruns bit-identical) and timed
+               beside the plain version (8,192) and the library's
+               ``scaled_dot_product_attention``, and its bound;
+then the ``kernels`` line (eleven rows), the card line and the result
 line.
 
 It imports nothing of JAX or of the reference package ``repro``.
@@ -148,8 +167,36 @@ SHARD_RUNS = (("sgd/rsqrt_dim", "shared_basis", "sgd", "rsqrt_dim"),
               ("independent/rsqrt_dim", "independent_bases", "sgd",
                "rsqrt_dim"))
 SHARD_M = 2
+# phase 16: the flash kernel against its plain version -- head layouts
+# (H, KV, hd) of qwen2-0.5b and tinyllama-1.1b, lengths Sq = Sk, windows;
+# the long-prompt prefill at full qwen2-0.5b width and depth; the lengths
+# the kernel alone is timed at (32,768 is the reference's prefill_32k
+# shape, batch cut to 1); the kernels line's row at 8,192 bf16
+FLASH_HEADS = {"qwen2-0.5b": (14, 2, 64), "tinyllama-1.1b": (32, 4, 64)}
+FLASH_LENGTHS = (1, 127, 200, 4096)
+FLASH_WINDOWS = (None, 100, 1024)
+FLASH_TIMED = (4096, 8192, 32768)
+PREFILL_LEN, PREFILL_NEW = 8192, 32
+# Tolerances of phase 16 (readings in PERF.md): the kernel against its
+# plain version within 1e-5 of max|v| (the output is a convex combination
+# of v's rows, summed in f32 over another tiling), plus for bf16 one bf16
+# ulp of the larger value (both round once from f32).  The bf16 prefill's
+# last-position logits against forward's (the blockwise function) within
+# 4% of max|logits|: twice the 2.02% that the same layers through the
+# plain version, a second sound route, read against forward on the H100
+# (each layer's attention output rounds to bf16 from f32 values that agree
+# to ~1e-6, an element may land one bf16 ulp apart, and 24 layers of
+# residual carry it).  With f32 compute the two routes differ by f32
+# rounding only: within 2e-5 of max|logits|, seven times the 2.84e-6 read
+# there; a wrong mask or a bf16 round on the way is far above it.
+FLASH_ATOL_OF_V = 1e-5
+PREFILL_LOGIT_RTOL = 0.04
+PREFILL_F32_RTOL = 2e-5
 ISSUE_LANES_PER_SM = 128
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
+# peaks of the H100 SXM at 700 W (NVIDIA's data sheet, dense): bf16 on the
+# tensor cores, f32 on the CUDA cores
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 
 def log(msg: str = "") -> None:
@@ -488,6 +535,8 @@ REPLACES = {
     "reconstruct_apply_packed_sharded": "src/repro/kernels/rbd_step.py:689",
     "reconstruct_apply_packed_workers_sharded":
         "src/repro/kernels/rbd_step.py:762",
+    # flash_attention:87 -> pallas_call:108 -> _flash_kernel:34
+    "flash_attention": "src/repro/kernels/flash_attention.py:34",
 }
 FLAT_KERNELS = ("project_flat", "reconstruct_flat", "reconstruct_apply_flat")
 
@@ -972,7 +1021,7 @@ def phase_serving(dev):
 
     mt._personalize_slots = timed_personalize
     requests = _serve_requests(cfg.vocab)
-    rounds, tenant_row_checked = [], False
+    rounds, tenant_row_checked, flash_prefilled = [], False, 0
     rbd_step.reset_counts()
     rbd_step.set_timing(True)
     for rnd in range(2):
@@ -982,7 +1031,9 @@ def phase_serving(dev):
         t_round = time.perf_counter()
         while not mt.scheduler.all_done():
             before = rbd_step.LAUNCHES[name]
+            flash0 = rbd_step.LAUNCHES["flash_attention"]
             misses0, admitted0 = cache.misses, mt.scheduler.n_admitted
+            prefills0 = mt.stats["prefills"]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             mt._admit_and_prefill()
@@ -993,6 +1044,12 @@ def phase_serving(dev):
             check(launched == want,
                   f"round {rnd}: admission tick made {launched} adapter "
                   f"launches, expected {want}")
+            flash = rbd_step.LAUNCHES["flash_attention"] - flash0
+            prefills = mt.stats["prefills"] - prefills0
+            check(flash == cfg.n_layers * prefills,
+                  f"round {rnd}: {prefills} prefills made {flash} flash "
+                  f"launches, expected {cfg.n_layers} each")
+            flash_prefilled += prefills
             if mt.scheduler.n_admitted > admitted0:
                 admit_s.append(t1 - t0)
             if not tenant_row_checked:
@@ -1002,12 +1059,15 @@ def phase_serving(dev):
                       "tenant t0's slot row equals the base")
                 tenant_row_checked = True
             before = rbd_step.LAUNCHES[name]
+            flash0 = rbd_step.LAUNCHES["flash_attention"]
             t2 = time.perf_counter()
             mt._decode_tick()
             torch.cuda.synchronize()
             decode_s.append(time.perf_counter() - t2)
             check(rbd_step.LAUNCHES[name] == before,
                   f"round {rnd}: a decode tick launched the adapter kernel")
+            check(rbd_step.LAUNCHES["flash_attention"] == flash0,
+                  f"round {rnd}: a decode tick launched the flash kernel")
         wall = time.perf_counter() - t_round
         res = mt.scheduler.results()
         toks = [res[rid] for rid in rids]
@@ -1034,7 +1094,9 @@ def phase_serving(dev):
           f"{mt.stats['fused_launches']}, after round 0 {launches_round0}")
     log(f"  adapter launches {launches} (== stats fused_launches), kernel ms "
         f"{[round(x, 2) for x in kernel_ms]}; personalization ms "
-        f"{[round(x, 1) for x in personalize_ms]}")
+        f"{[round(x, 1) for x in personalize_ms]}; flash launches "
+        f"{rbd_step.LAUNCHES['flash_attention']} = {cfg.n_layers} x "
+        f"{flash_prefilled} prefills, none in decode")
     _profile_decode_ticks(mt, requests, torch)
     r0, r1 = rounds
     for i, (_, aid, temp, _) in enumerate(requests):
@@ -1688,6 +1750,273 @@ def phase_sharded_training(full_plan):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: long-prompt prefill through the flash kernel
+# ---------------------------------------------------------------------------
+
+
+def flash_bound_ms(b, sq, sk, h, kv, hd, dtype, causal=True, window=None):
+    """(least time in ms, "operations" or "bytes") of one flash launch: 4
+    hd flops per live (q, k) pair (the pairs the causal / window band
+    leaves) at the dtype's peak, against q, k, v read once and o written
+    once at the memory rate."""
+    pairs = 0
+    for qp in range(sq):
+        hi = min(sk, qp + 1) if causal else sk
+        lo = max(0, qp - window + 1) if window is not None else 0
+        pairs += max(0, hi - lo)
+    ops = 4 * b * h * hd * pairs
+    size = 2 if dtype == "bfloat16" else 4
+    nbytes = size * (2 * b * sq * h * hd + 2 * b * sk * kv * hd)
+    t_ops = ops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _flash_inputs(torch, b, sq, sk, h, kv, hd, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, sq, h, hd), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((b, sk, kv, hd), generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
+    return q, k, v
+
+
+def _flash_err(torch, out, ref, v) -> float:
+    """max|kernel - plain| after checking it against the tolerance."""
+    a, b = out.float(), ref.float()
+    diff = (a - b).abs()
+    tol = FLASH_ATOL_OF_V * float(v.float().abs().max())
+    if out.dtype == torch.bfloat16:
+        big = torch.maximum(a.abs(), b.abs()).clamp(min=2.0 ** -126)
+        tol = tol + torch.exp2(torch.floor(torch.log2(big)) - 7)
+    check(bool((diff <= tol).all()), "flash kernel off its plain version "
+          f"by {float(diff.max()):.3g}")
+    return float(diff.max())
+
+
+def _flash_vs_plain():
+    """The kernel against its plain version on every case; returns the
+    largest |difference|."""
+    import torch
+    from repro_torch.kernels import flash_attention as flash
+
+    cases = [(1, s, s, *heads, True, w)
+             for heads in FLASH_HEADS.values() for s in FLASH_LENGTHS
+             for w in FLASH_WINDOWS]
+    cases.append((2, 200, 456, 14, 2, 64, False, None))   # non-causal
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (b, sq, sk, h, kv, hd, causal, window) in enumerate(cases):
+            q, k, v = _flash_inputs(torch, b, sq, sk, h, kv, hd, dtype, i)
+            out = flash.flash_attention(q, k, v, causal=causal,
+                                        window=window)
+            again = flash.flash_attention(q, k, v, causal=causal,
+                                          window=window)
+            ref = flash.flash_attention_plain(q, k, v, causal=causal,
+                                              window=window)
+            torch.cuda.synchronize()
+            check(torch.equal(out, again),
+                  f"flash rerun differs (case {i}, {dtype})")
+            err = _flash_err(torch, out, ref, v)
+            key = str(dtype).split(".")[-1]
+            worst[key] = max(worst.get(key, 0.0), err)
+    log(f"  kernel vs plain: {2 * len(cases)} cases (heads "
+        f"{list(FLASH_HEADS.values())}, Sq = Sk in {FLASH_LENGTHS}, window "
+        f"in {FLASH_WINDOWS}, one non-causal 200 x 456; f32 and bf16), "
+        f"reruns bit-identical, max|d| {worst}")
+    return max(worst.values())
+
+
+def _prefill_run(cfg, model, torch):
+    """Engine.generate on one 8,192-token prompt at full qwen2-0.5b width
+    and depth: flash launches, logits against forward, greedy token, the
+    prefill timed beside the blockwise function's; returns the launches of
+    the main-path prefill."""
+    import numpy as np
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import rbd_step
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import Engine
+
+    params = model.init(0, device="cuda")
+    eng = Engine(model, params, max_len=PREFILL_LEN + PREFILL_NEW)
+    cp = eng._cparams
+    tokens = np.random.default_rng(16).integers(0, cfg.vocab,
+                                                (1, PREFILL_LEN))
+    prompt = torch.from_numpy(tokens).cuda()
+    name = "flash_attention"
+    with torch.no_grad():
+        # the main path: the prefill alone, then generate (its prefill and
+        # the decode of 32 new tokens)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rbd_step.reset_counts()
+        logits, _ = transformer.prefill(cfg, cp, prompt, eng.max_len)
+        torch.cuda.synchronize()
+        prefill_launches = rbd_step.LAUNCHES[name]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        rbd_step.reset_counts()
+        out = eng.generate(prompt, PREFILL_NEW).cpu().numpy()[0]
+        torch.cuda.synchronize()
+        gen_launches = rbd_step.LAUNCHES[name]
+        check(prefill_launches == cfg.n_layers,
+              f"the prefill made {prefill_launches} flash launches, "
+              f"expected {cfg.n_layers}")
+        check(gen_launches == prefill_launches,
+              f"generate made {gen_launches} flash launches: "
+              f"{gen_launches - prefill_launches} in decode, expected 0")
+        check(len(out) == PREFILL_NEW, f"{len(out)} new tokens")
+        # the last position against forward (the blockwise function), and
+        # the same layers through the plain version against forward: two
+        # sound routes, whose distance is the bf16 noise the tolerance
+        # rests on
+        full, _ = transformer.forward(cfg, params, prompt)
+        want = full[0, -1].float()
+        del full
+        got = logits[0, 0].float()
+        xp, _ = transformer._run_prompt(cfg, cp, prompt,
+                                        flash.flash_attention_plain)
+        sound = transformer._logits(cfg, cp, xp[:, -1:])[0, 0].float()
+        del xp
+        scale = float(want.abs().max())
+        d = float((got - want).abs().max())
+        d_sound = float((sound - want).abs().max())
+        d_plain = float((got - sound).abs().max())
+        top2 = torch.topk(want, 2).values
+        margin = float(top2[0] - top2[1])
+        tol = PREFILL_LOGIT_RTOL * scale
+        log(f"  prefill of {PREFILL_LEN} tokens (bf16, {cfg.n_layers} "
+            f"layers): {prefill_launches} flash launches, generate "
+            f"{gen_launches} (decode 0); last-position logits vs forward "
+            f"max|d| {d:.4g} of max|logits| {scale:.4g} "
+            f"({d / scale:.3%}; tolerance {PREFILL_LOGIT_RTOL:.1%}); the "
+            f"layers through the plain version vs forward {d_sound:.4g} "
+            f"({d_sound / scale:.3%}), vs the kernel's prefill "
+            f"{d_plain:.4g} ({d_plain / scale:.3%}); top-1/top-2 margin "
+            f"{margin:.4g}; peak {peak:.2f} GiB")
+        check(d <= tol, f"prefill logits off forward's by {d:.4g} > "
+              f"{tol:.4g}")
+        # the routing at a tight limit: the same prefill and forward with
+        # f32 compute, where the two routes differ by f32 rounding only
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        l32, cache32 = transformer.prefill(cfg32, params, prompt,
+                                           eng.max_len)
+        del cache32
+        full, _ = transformer.forward(cfg32, params, prompt)
+        want32 = full[0, -1]
+        del full
+        scale32 = float(want32.abs().max())
+        d32 = float((l32[0, 0] - want32).abs().max())
+        log(f"  f32 compute: prefill's last-position logits vs forward "
+            f"max|d| {d32:.4g} of max|logits| {scale32:.4g} "
+            f"({d32 / scale32:.3g} of it; tolerance {PREFILL_F32_RTOL:g})")
+        check(d32 <= PREFILL_F32_RTOL * scale32,
+              f"f32 prefill logits off forward's by {d32:.4g}")
+        # the greedy first token is forward's wherever the top-1/top-2
+        # margin exceeds the tolerance
+        first = int(torch.argmax(want))
+        if margin > tol:
+            check(int(out[0]) == first,
+                  f"first token {int(out[0])} != forward's argmax {first}")
+        log(f"  first greedy token {int(out[0])}, forward's argmax {first}"
+            f"{'' if margin > tol else ' (margin within tolerance)'}; "
+            f"tokens {out[:8].tolist()} ...")
+        # the prefill timed beside the same layers through the blockwise
+        # function
+        t_prefill = cuda_ms(lambda: transformer.prefill(
+            cfg, cp, prompt, eng.max_len), repeat=3)
+        t_flash = cuda_ms(lambda: transformer._run_prompt(
+            cfg, cp, prompt, flash.flash_attention), repeat=3)
+        t_block = cuda_ms(lambda: transformer._run_prompt(
+            cfg, cp, prompt, attn.flash_attention), repeat=3)
+        log(f"  prefill ms {[round(x, 1) for x in t_prefill]}; the layers "
+            f"through the flash kernel {[round(x, 1) for x in t_flash]}, "
+            f"through the blockwise function "
+            f"{[round(x, 1) for x in t_block]}")
+    return prefill_launches
+
+
+def _flash_timing():
+    """The kernel alone at qwen2-0.5b's heads, B = 1: median of 3 launches
+    at each timed length, held against the plain version there, the plain
+    version's time and the library yardstick beside it; returns the row's
+    numbers at 8,192 bf16 and the largest |kernel - plain|."""
+    import torch
+    from repro_torch.kernels import flash_attention as flash
+
+    h, kv, hd = FLASH_HEADS["qwen2-0.5b"]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row, worst = {}, 0.0
+    timed = [(s, torch.bfloat16) for s in FLASH_TIMED]
+    timed.append((PREFILL_LEN, torch.float32))
+    with torch.no_grad():
+        for s, dtype in timed:
+            q, k, v = _flash_inputs(torch, 1, s, s, h, kv, hd, dtype, s)
+            flash.flash_attention(q, k, v)          # warm
+            ms = sorted(cuda_ms(lambda: flash.flash_attention(q, k, v),
+                                repeat=3))[1]
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)   # warm
+            lib_ms = sorted(cuda_ms(lambda: sdpa(
+                qt, kt, vt, is_causal=True, enable_gqa=True), repeat=3))[1]
+            key = str(dtype).split(".")[-1]
+            b_ms, by = flash_bound_ms(1, s, s, h, kv, hd, key)
+            # the kernel against its plain version at every timed length
+            # (the prefill's 8,192 included), reruns bit-identical
+            out = flash.flash_attention(q, k, v)
+            again = flash.flash_attention(q, k, v)
+            ref = flash.flash_attention_plain(q, k, v)
+            torch.cuda.synchronize()
+            check(torch.equal(out, again),
+                  f"flash rerun differs (S={s}, {key})")
+            err = _flash_err(torch, out, ref, v)
+            worst = max(worst, err)
+            plain = ""
+            if s == PREFILL_LEN:
+                plain_ms = cuda_ms(lambda: flash.flash_attention_plain(
+                    q, k, v))[0]
+                lib_err = float((sdpa(qt, kt, vt, is_causal=True,
+                                      enable_gqa=True).transpose(1, 2)
+                                 .float() - ref.float()).abs().max())
+                plain = (f", plain {plain_ms:.1f} ms, library max|d| vs "
+                         f"plain {lib_err:.3g}")
+                if dtype == torch.bfloat16:
+                    row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                           "bound_by": by, "library_ms": lib_ms}
+            log(f"  flash {key} S={s}: {ms:.3f} ms (median of 3), library "
+                f"sdpa {lib_ms:.3f} ms, bound {b_ms:.4f} ({by}), "
+                f"{b_ms / ms:.2%} of bound; kernel vs plain max|d| "
+                f"{err:.3g}, rerun bit-identical{plain}")
+            del q, k, v, qt, kt, vt, out, again, ref
+    return row, worst
+
+
+def phase_prefill():
+    """Returns the kernels line's row of the flash kernel."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("== phase 16: long-prompt prefill through the flash kernel "
+        "(qwen2-0.5b, full width and depth, bf16)")
+    err = _flash_vs_plain()
+    cfg = get_config("qwen2-0.5b")
+    launches = _prefill_run(cfg, get_model(cfg), torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    row, timed_err = _flash_timing()
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": REPLACES["flash_attention"], "launches": launches,
+            "max_abs_err": max(err, timed_err), **row}
+
+
 def main() -> int:
     import torch
 
@@ -1750,6 +2079,7 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": by, "library_ms": None})
+    rows.append(phase_prefill())
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(dev["smi"], flush=True)

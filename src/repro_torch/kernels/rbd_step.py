@@ -35,9 +35,11 @@ else; ``CALLS[name]`` counts wrapper calls on any device.
 
 This module also keeps the counts, the timing and the built libraries of
 the per-leaf kernels of :mod:`repro_torch.kernels.rbd_project` and
-:mod:`repro_torch.kernels.rbd_reconstruct` (``csrc/rbd_flat.cu``): every
-kernel of the port is counted in the one ``LAUNCHES``/``CALLS`` pair, and
-both sources are built by one ``nvcc`` each, started together.
+:mod:`repro_torch.kernels.rbd_reconstruct` (``csrc/rbd_flat.cu``) and of
+the prefill's :mod:`repro_torch.kernels.flash_attention`
+(``csrc/flash_attention.cu``): every kernel of the port is counted in the
+one ``LAUNCHES``/``CALLS`` pair, and the three sources are built by one
+``nvcc`` each, started together.
 """
 
 from __future__ import annotations
@@ -57,11 +59,12 @@ KERNELS = ("project_packed", "reconstruct_apply_packed",
            "reconstruct_apply_packed_adapters", "generate_tile",
            "project_flat", "reconstruct_flat", "reconstruct_apply_flat",
            "project_packed_sharded", "reconstruct_apply_packed_sharded",
-           "reconstruct_apply_packed_workers_sharded")
+           "reconstruct_apply_packed_workers_sharded", "flash_attention")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 CALLS = dict.fromkeys(KERNELS, 0)
 SOURCE = "rbd_step.cu"
 FLAT_SOURCE = "rbd_flat.cu"
+FLASH_SOURCE = "flash_attention.cu"
 # pos-blocks swept by one CUDA block of the projection kernel
 PROJECT_POS_CHUNK = 64
 _DIST_CODE = {"normal": 0, "uniform": 1, "bernoulli": 2, "rademacher": 2,
@@ -134,16 +137,21 @@ _FLAT_SIGNATURES = {
     "rbd_reconstruct_apply_flat": [_P, _P, _P, _F32, _P, _I, _I64, _I, _I,
                                    _I, _P],
 }
+_FLASH_SIGNATURES = {
+    "flash_attention_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _F32, _P],
+}
 
 
 @functools.cache
 def libraries():
-    """Both kernel libraries, built at first call (one nvcc per source,
+    """Every kernel library, built at first call (one nvcc per source,
     started together): ``{source: BuiltLibrary}``."""
     from repro_torch.kernels import build
 
-    built = build.build_all([SOURCE, FLAT_SOURCE])
-    for src, sigs in ((SOURCE, _SIGNATURES), (FLAT_SOURCE, _FLAT_SIGNATURES)):
+    built = build.build_all([SOURCE, FLAT_SOURCE, FLASH_SOURCE])
+    for src, sigs in ((SOURCE, _SIGNATURES), (FLAT_SOURCE, _FLAT_SIGNATURES),
+                      (FLASH_SOURCE, _FLASH_SIGNATURES)):
         for name, argtypes in sigs.items():
             fn = getattr(built[src].lib, name)
             fn.argtypes = argtypes
@@ -153,7 +161,7 @@ def libraries():
 
 
 def library(source: str = SOURCE):
-    """The built library of one source (both are built at first call)."""
+    """The built library of one source (all are built at first call)."""
     return libraries()[source]
 
 

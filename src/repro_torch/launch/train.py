@@ -91,6 +91,16 @@ def main(argv=None) -> RunResult:
     ap.add_argument("--weight-decay", type=float, default=0.0,
                     help="couples the update to the full-space parameters: "
                          "plans the full_space strategy")
+    ap.add_argument("--momentum-beta", type=float, default=0.9,
+                    help="--optimizer momentum: decay of the velocity")
+    ap.add_argument("--nesterov", action="store_true",
+                    help="--optimizer momentum: Nesterov's look-ahead")
+    ap.add_argument("--adam-b1", type=float, default=0.9,
+                    help="--optimizer adam: first-moment decay")
+    ap.add_argument("--adam-b2", type=float, default=0.999,
+                    help="--optimizer adam: second-moment decay")
+    ap.add_argument("--adam-eps", type=float, default=1e-8,
+                    help="--optimizer adam: denominator epsilon")
     ap.add_argument("--rbd-dim", type=int, default=1024)
     ap.add_argument("--normalization", default="rsqrt_dim",
                     choices=["rsqrt_dim", "exact", "none", "orthonormal"])
@@ -124,6 +134,8 @@ def main(argv=None) -> RunResult:
         rbd_dim=args.rbd_dim, normalization=args.normalization,
         rbd_backend=args.rbd_backend, packed=args.packed,
         optimizer=args.optimizer, weight_decay=args.weight_decay,
+        momentum_beta=args.momentum_beta, nesterov=args.nesterov,
+        adam_b1=args.adam_b1, adam_b2=args.adam_b2, adam_eps=args.adam_eps,
         device=args.device, kernel_times=args.kernel_times)
 
 
@@ -141,7 +153,8 @@ def run_training(cfg, *, mode="sharedseed", rbd_mode="shared_basis", data=1,
                  model=1, steps=10, batch=8, seq=128, grad_accum_steps=1,
                  lr=0.125, rbd_dim=1024, normalization="rsqrt_dim",
                  rbd_backend="auto", packed="auto", optimizer="sgd",
-                 weight_decay=0.0, device="cuda",
+                 weight_decay=0.0, momentum_beta=0.9, nesterov=False,
+                 adam_b1=0.9, adam_b2=0.999, adam_eps=1e-8, device="cuda",
                  kernel_times=False) -> RunResult:
     from repro_torch.launch import mesh as meshlib
     from repro_torch.models.registry import resolve_device
@@ -159,7 +172,9 @@ def run_training(cfg, *, mode="sharedseed", rbd_mode="shared_basis", data=1,
                     rbd_dim=rbd_dim, normalization=normalization,
                     rbd_backend=resolve_backend(rbd_backend, mesh.device),
                     packed=packed, optimizer=optimizer,
-                    weight_decay=weight_decay, device=mesh.device,
+                    weight_decay=weight_decay, momentum_beta=momentum_beta,
+                    nesterov=nesterov, adam_b1=adam_b1, adam_b2=adam_b2,
+                    adam_eps=adam_eps, device=mesh.device,
                     kernel_times=kernel_times)
     finally:
         meshlib.destroy_mesh(mesh)
@@ -167,7 +182,8 @@ def run_training(cfg, *, mode="sharedseed", rbd_mode="shared_basis", data=1,
 
 def _run(cfg, *, mode, rbd_mode, data, model, mesh, steps, batch, seq,
          grad_accum_steps, lr, rbd_dim, normalization, rbd_backend, packed,
-         optimizer, weight_decay, device, kernel_times) -> RunResult:
+         optimizer, weight_decay, momentum_beta, nesterov, adam_b1, adam_b2,
+         adam_eps, device, kernel_times) -> RunResult:
     import torch
     import torch.distributed as dist
 
@@ -187,7 +203,9 @@ def _run(cfg, *, mode, rbd_mode, data, model, mesh, steps, batch, seq,
     tcfg = TrainConfig(model=cfg, rbd=rbd_cfg, learning_rate=lr,
                        steps=steps, batch_size=batch, seq_len=seq,
                        grad_accum_steps=grad_accum_steps,
-                       optimizer=optimizer, weight_decay=weight_decay)
+                       optimizer=optimizer, weight_decay=weight_decay,
+                       momentum_beta=momentum_beta, nesterov=nesterov,
+                       adam_b1=adam_b1, adam_b2=adam_b2, adam_eps=adam_eps)
     transform = steplib.make_transform(net, rbd_cfg)
     # sharedseed runs over the data group (as the reference's shard_map
     # does, also on one device); the SGD baseline only with several data

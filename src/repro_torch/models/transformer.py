@@ -15,6 +15,15 @@ Unlike the reference, ``decode_step`` writes the new K/V into the cache
 IN PLACE and returns the same dict (no per-token copy of the cache).
 MoE, RWKV, Mamba and hybrid blocks (forward and caches) are not ported
 yet (ROADMAP.md Queue A 18).
+
+Attention over the prompt runs through one of two functions of the same
+value.  ``prefill`` calls the flash kernel
+(``kernels/flash_attention.py``, the port of the reference's Pallas
+kernel; its plain version for tensors on the CPU).  ``forward``, the
+training path, keeps the blockwise function of ``models/attention.py``,
+the counterpart of the reference's jnp ``flash_attention`` that its models
+run: the reference's kernel is forward only, so it has no gradient to
+give (ROADMAP.md Queue C 2).
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import flash_attention as flash
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 
@@ -97,15 +107,16 @@ def _mlp_residual(cfg: ModelConfig, lp: dict, x):
                      lp["mlp/w_down"], h, cfg.act)
 
 
-def _layer_forward(cfg: ModelConfig, lp: dict, x, positions):
-    """One layer over the full sequence; returns (x, k, v), k and v
-    post-RoPE (the prefill's cache entries)."""
+def _layer_forward(cfg: ModelConfig, lp: dict, x, positions, attention):
+    """One layer over the full sequence, its attention through
+    ``attention``; returns (x, k, v), k and v post-RoPE (the prefill's
+    cache entries)."""
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = attn.qkv_project(lp, "attn/", h, cfg.n_heads, cfg.n_kv_heads,
                                cfg.d_head)
     q = attn.apply_rope(q, positions, cfg.rope_theta)
     k = attn.apply_rope(k, positions, cfg.rope_theta)
-    ctx = attn.flash_attention(q, k, v, causal=True, window=cfg.window)
+    ctx = attention(q, k, v, causal=True, window=cfg.window)
     x = x + attn.attention_output(lp["attn/wo"], ctx)
     return _mlp_residual(cfg, lp, x), k, v
 
@@ -129,16 +140,18 @@ def _logits(cfg: ModelConfig, params: dict, x):
     return L.unembed(head, x, tied=cfg.tie_embeddings).to(torch.float32)
 
 
-def _run_prompt(cfg: ModelConfig, params: dict, tokens):
-    """Embed and run every layer over the prompt; returns the final
-    normed hidden state and each layer's (k, v)."""
+def _run_prompt(cfg: ModelConfig, params: dict, tokens, attention):
+    """Embed and run every layer over the prompt, attention through
+    ``attention``; returns the final normed hidden state and each layer's
+    (k, v)."""
     x = _embed(cfg, params, tokens)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
     kvs = []
     for i in range(cfg.n_layers):
-        x, k, v = _layer_forward(cfg, _layer(params, i), x, positions)
+        x, k, v = _layer_forward(cfg, _layer(params, i), x, positions,
+                                 attention)
         kvs.append((k, v))
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), kvs
 
@@ -147,7 +160,7 @@ def forward(cfg: ModelConfig, params: dict, tokens):
     """tokens: (B, S) integer -> (logits (B, S, V) float32, aux loss)."""
     _check_supported(cfg)
     params = L.cast_for_compute(params, L.dtype_of(cfg.compute_dtype))
-    x, _ = _run_prompt(cfg, params, tokens)
+    x, _ = _run_prompt(cfg, params, tokens, attn.flash_attention)
     return (_logits(cfg, params, x),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
@@ -186,7 +199,7 @@ def prefill(cfg: ModelConfig, params: dict, tokens, max_len: int):
         raise ValueError(f"prompt length {s} exceeds the cache's max_len "
                          f"{max_len}")
     params = L.cast_for_compute(params, L.dtype_of(cfg.compute_dtype))
-    x, kvs = _run_prompt(cfg, params, tokens)
+    x, kvs = _run_prompt(cfg, params, tokens, flash.flash_attention)
     cache = init_cache(cfg, b, max_len, device=x.device)
     cache["k"][:, :, :s] = torch.stack([k for k, _ in kvs])
     cache["v"][:, :, :s] = torch.stack([v for _, v in kvs])

@@ -124,6 +124,30 @@ def test_prefill_and_teacher_forced_decode_match(arch):
             _close(cache[k].numpy(), ref_cache[k], f"decoded cache {k}")
 
 
+@pytest.mark.parametrize("length", [200, 129])
+def test_long_prefill_matches_reference(arch, length):
+    """A prompt longer than one 128-row block of the flash kernel, of a
+    ragged length: the port's prefill (the flash wrapper, its plain
+    version on the CPU, once per layer) against the reference's."""
+    _, cfg, _, params, port, tp = arch
+    max_len = length + 8
+    prompt = np.random.default_rng(length).integers(
+        0, cfg.vocab, (2, length)).astype(np.int32)
+    ref_logits, ref_cache = ref_tf.prefill(cfg, params, jnp.asarray(prompt),
+                                           max_len)
+    rbd_step.reset_counts()
+    with torch.no_grad():
+        logits, cache = transformer.prefill(port.cfg, tp,
+                                            torch.from_numpy(prompt),
+                                            max_len)
+    assert rbd_step.CALLS["flash_attention"] == cfg.n_layers
+    _close(logits.numpy(), ref_logits, f"prefill logits, {length} tokens")
+    assert int(cache["len"]) == int(ref_cache["len"]) == length
+    for k in ("k", "v"):
+        _close(cache[k].numpy(), ref_cache[k],
+               f"prefill cache {k}, {length} tokens")
+
+
 def _greedy_margin(cfg, params, prompts, tokens):
     """Smallest top-1/top-2 logit gap along the reference's greedy path
     (teacher-forced with its own tokens)."""

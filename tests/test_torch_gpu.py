@@ -17,7 +17,10 @@ single-tenant kernel's).  The per-leaf kernels: ``project_flat`` to the
 same u/sq tolerances and bit-identical to ``project_packed`` on the same
 seeds (the same grid and sum order); ``reconstruct_flat`` within 2e-5 of
 its largest value; ``reconstruct_apply_flat`` 1e-4 of the update plus 2
-ulp of theta's dtype, bf16 rounded once.
+ulp of theta's dtype, bf16 rounded once.  The prefill's flash-attention
+kernel: within 1e-5 of max|v| of its plain version (f32 sums over another
+tiling), plus one bf16 ulp of the larger value for bf16 outputs; reruns
+bit-identical.
 """
 
 import math
@@ -547,3 +550,92 @@ def test_shards_in_turn_launch_two_kernels_per_shard(cuda):
     assert rbd_step.LAUNCHES["project_packed"] == 0
     got = torch.cat(slabs)
     assert bool(torch.isfinite(got).all()) and bool((got[~valid] == 0).all())
+
+
+# -- the prefill's flash-attention kernel ------------------------------------
+
+# (B, Sq, Sk, H, KV, hd, causal, window): tests/test_flash_kernel.py's
+# cases, qwen2-0.5b's heads at a ragged length, rows with no live key, and
+# the ragged lengths 1, 127 and 129
+FLASH_CASES = [
+    (2, 256, 256, 4, 4, 16, True, None),
+    (2, 256, 256, 8, 2, 16, True, None),
+    (2, 200, 200, 4, 1, 16, True, None),
+    (2, 256, 256, 4, 2, 16, True, 64),
+    (2, 384, 384, 2, 2, 16, True, 100),
+    (1, 128, 256, 4, 4, 32, False, None),
+    (1, 200, 200, 14, 2, 64, True, None),
+    (1, 300, 100, 2, 1, 16, False, 50),
+    (1, 300, 100, 2, 1, 128, True, 50),
+    (1, 1, 1, 14, 2, 64, True, None),
+    (1, 127, 127, 32, 4, 64, True, 100),
+    (1, 129, 129, 14, 2, 64, True, None),
+]
+
+
+def _flash_close(out, ref, v):
+    """Within 1e-5 of max|v| (the output is a convex combination of v's
+    rows; f32 sums over another tiling), plus for bf16 one bf16 ulp of the
+    larger value (both round once from f32)."""
+    a, b = out.float(), ref.float()
+    tol = 1e-5 * float(v.float().abs().max())
+    if out.dtype == torch.bfloat16:
+        big = torch.maximum(a.abs(), b.abs()).clamp(min=2.0 ** -126)
+        tol = tol + torch.exp2(torch.floor(torch.log2(big)) - 7)
+    return bool(((a - b).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=[str(i) for i in range(len(FLASH_CASES))])
+def test_flash_attention_matches_plain(cuda, case, dtype):
+    from repro_torch.kernels import flash_attention as flash
+
+    b, sq, sk, h, kv, hd, causal, window = case
+    gen = torch.Generator(device=cuda).manual_seed(sq + h)
+    q = torch.randn((b, sq, h, hd), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, sk, kv, hd), generator=gen, device=cuda)
+            .to(dtype) for _ in range(2))
+    before = rbd_step.LAUNCHES["flash_attention"]
+    out = flash.flash_attention(q, k, v, causal=causal, window=window)
+    again = flash.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert rbd_step.LAUNCHES["flash_attention"] == before + 2
+    assert out.dtype == dtype and tuple(out.shape) == (b, sq, h, hd)
+    assert torch.equal(out, again)
+    ref = flash.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert _flash_close(out, ref, v)
+
+
+def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels import flash_attention as flash
+
+    q = torch.randn((1, 64, 4, 64), device=cuda)
+    k = torch.randn((1, 64, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                              k, k)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash.flash_attention(q, k.cpu(), k)
+    with pytest.raises(RuntimeError, match="forward only"):
+        flash.flash_attention(q.requires_grad_(), k, k)
+
+
+def test_prefill_launches_flash_once_per_layer(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_model
+
+    cfg = get_config("qwen2-0.5b").reduced(compute_dtype="float32")
+    model = get_model(cfg)
+    params = model.init(0, device=cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 200), device=cuda)
+    rbd_step.reset_counts()
+    with torch.no_grad():
+        logits, cache = transformer.prefill(cfg, params, tokens, 208)
+        assert rbd_step.LAUNCHES["flash_attention"] == cfg.n_layers
+        full, _ = transformer.forward(cfg, params, tokens)
+        model.decode_step(params, cache, tokens[:, :1])
+    assert rbd_step.LAUNCHES["flash_attention"] == cfg.n_layers
+    scale = float(full[:, -1].abs().max())
+    assert float((logits[:, 0] - full[:, -1]).abs().max()) <= 1e-5 * scale

@@ -308,3 +308,40 @@ def test_model_flag_needs_the_world_size():
     with pytest.raises(ValueError, match="world size"):
         launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--model", "2",
                        "--device", "cpu", "--rbd-backend", "cuda"])
+
+
+def _direct_theta(**opt):
+    """Two steps from a TrainConfig built directly (no launcher), on the
+    launcher's seed, batches and plan."""
+    cfg = get_config("qwen2-0.5b").reduced(compute_dtype="float32")
+    tcfg = TrainConfig(model=cfg, rbd=RBDConfig(total_dim=64,
+                                                backend="cuda"),
+                       learning_rate=0.02, batch_size=2, seq_len=8, **opt)
+    init_state, train_step = steplib.make_train_step(get_model(cfg), tcfg,
+                                                     device="cpu")
+    state = init_state(tcfg.seed)
+    data = synthetic.lm_batches(tcfg.seed, 2, 8, cfg.vocab, device="cpu")
+    for _ in range(2):
+        state, _ = train_step(state, next(data))
+    return state.params
+
+
+@pytest.mark.parametrize("flags,opt", [
+    (["--optimizer", "momentum", "--nesterov", "--momentum-beta", "0.8"],
+     dict(optimizer="momentum", nesterov=True, momentum_beta=0.8)),
+    (["--optimizer", "adam", "--adam-b1", "0.8", "--adam-b2", "0.99",
+      "--adam-eps", "1e-6"],
+     dict(optimizer="adam", adam_b1=0.8, adam_b2=0.99, adam_eps=1e-6)),
+], ids=["momentum", "adam"])
+def test_launcher_optimizer_flags_reach_train_config(flags, opt):
+    """The reference's --momentum-beta/--nesterov/--adam-b1/--adam-b2/
+    --adam-eps reach TrainConfig: two launcher steps give the theta of a
+    TrainConfig built with those values, and another theta without
+    them."""
+    base = ["--arch", "qwen2-0.5b", "--reduced", "--rbd-backend", "cuda",
+            "--rbd-dim", "64", "--batch", "2", "--seq", "8", "--steps", "2",
+            "--lr", "0.02", "--device", "cpu"]
+    res = launcher.main(base + flags)
+    assert torch.equal(res.state.params, _direct_theta(**opt))
+    plain = launcher.main(base + flags[:2])
+    assert not torch.equal(res.state.params, plain.state.params)
