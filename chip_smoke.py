@@ -8,9 +8,13 @@ result line:
 
 1. device   -- card name and power limit, TF32 off, kernels built from
                ``src/repro_torch/kernels/csrc`` (build time, ptxas report);
-2. generator -- the ``generate_tile`` kernel against the plain generator:
-               bits bit-exact for every distribution, samples bit-exact
-               except normal (held to a stated tolerance);
+               Philox4x32-10's instructions a value counted in the SASS
+               of a probe loop (PHILOX_PROBE), for the hw bound;
+2. generator -- the ``generate_tile`` kernel against the plain generator
+               under each PRNG impl (threefry, hw_emulated, hw) at three
+               tile corners, the 2**32 wrap included: bits bit-exact for
+               every distribution, samples bit-exact except normal (held
+               to a stated tolerance);
 3. kernels  -- ``project_packed`` and ``reconstruct_apply_packed`` against
                their plain versions on full-width qwen2-0.5b slices (one
                layer's 12 segments plus ``final_norm``; one dir-block of
@@ -102,8 +106,26 @@ result line:
                against its plain version (reruns bit-identical) and timed
                beside the plain version (8,192) and the library's
                ``scaled_dot_product_attention``, and its bound;
-then the ``kernels`` line (eleven rows), the card line and the result
-line.
+17. prng     -- the tile-keyed PRNG path: the launcher's packed step at
+               full width and depth, 3 steps each under ``--prng-impl hw``
+               (the port's tile-keyed Philox4x32-10, double buffer on by
+               the reference's auto rule) and ``hw_emulated``: the
+               expected ``prng impl:`` line, 2 launches a step, finite
+               losses; the unbuffered ``hw`` kernels driven through the
+               kernel API for 3 steps; rows 1-10 under both impls against
+               their plain versions (phase 3's full-width layer, four
+               distributions on rows 1-2, embed's first dir-block under
+               hw, buffered and unbuffered on rows 1-2; K = 2, B = 2 with
+               row 0 equal to the single apply, m = 2 slabs equal to the
+               slices; one stacked leaf for rows 8-10); double_buffer on and off bit-identical on rows 1-3
+               and 5-7 under all three impls; ``project_packed`` and
+               ``reconstruct_apply_packed`` timed at full width under
+               threefry, hw_emulated, hw and hw + buffer in turns, each
+               tile-keyed plain version once at the full shapes and held
+               against each timed variant of its kernel;
+then the ``kernels`` line (eleven rows, then the six tile-keyed rows
+``[hw_emulated]``, ``[hw,db]`` and ``[hw]`` of rows 1-2), the card line
+and the result line.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -137,6 +159,11 @@ THETA_RTOL = 1e-4  # |dtheta| / max|update|, plus 2 ulp of max|theta|
 # may also issue on the FP32 pipe (as IMAD), so the bound is total issue:
 # 4 schedulers x 32 lanes per SM per clock, at the card's max SM clock.
 INT_OPS_PER_VALUE = 73
+# hw: Philox4x32-10's instructions a value are read from the SASS of
+# PHILOX_PROBE in phase 1 (philox_sass_ops), each instruction one issue
+# slot -- an IMAD.WIDE (both halves of a product) counts one, and the
+# integer pipes' rates are not modelled (total issue, as above)
+HW_INT_OPS = {}
 FP_OPS_PER_VALUE = {"normal": 41, "uniform": 6, "rademacher": 1,
                     "sparse": 5}
 FMA_PER_VALUE = {"project_packed": 2, "reconstruct_apply_packed": 1,
@@ -215,6 +242,101 @@ def nvidia_smi(query: str) -> str:
     ).stdout.strip().splitlines()[0]
 
 
+# The Philox loop whose SASS phase 1 counts: CALLS calls a trip on the
+# counter (column, j, 0, 0), j = 0 .. CALLS - 1, as rbd_common.cuh's
+# tile_column makes them (4 a column), under round keys set up once a trip
+# from a key that changes every trip, as the kernels' tile keys do.  The
+# loop bodies of CALLS = 8 and 4 differ by 4 calls and by the 2 LOP3 a
+# call that fold its 4 words into the accumulator.
+PHILOX_PROBE = r"""
+#include <stdint.h>
+#include "philox.cuh"
+template <int CALLS>
+__device__ __forceinline__ void probe(const uint32_t* in, uint32_t* out,
+                                      uint32_t n) {
+  uint32_t acc = 0;
+#pragma unroll 1
+  for (uint32_t c = threadIdx.x; c < n; c += blockDim.x) {
+    const rbd::PhiloxKey pk = rbd::philox_key(in[0] ^ c, in[1]);
+#pragma unroll
+    for (uint32_t j = 0; j < CALLS; ++j) {
+      uint32_t w[4];
+      rbd::philox4x32_10(pk, c, j, 0u, 0u, w);
+      acc ^= w[0] ^ w[1] ^ w[2] ^ w[3];
+    }
+  }
+  out[threadIdx.x] = acc;
+}
+extern "C" __global__ void philox_probe4(const uint32_t* in, uint32_t* out,
+                                         uint32_t n) { probe<4>(in, out, n); }
+extern "C" __global__ void philox_probe8(const uint32_t* in, uint32_t* out,
+                                         uint32_t n) { probe<8>(in, out, n); }
+"""
+
+
+def _sass_loop(sass: str, function: str) -> list[str]:
+    """Opcodes of the longest loop (a branch back to an earlier
+    instruction, by label or by address) of one function in ``cuobjdump
+    -sass`` output."""
+    import re
+
+    body = sass.split(f"Function : {function}\n", 1)[1]
+    body = body.split("Function : ", 1)[0]
+    ops, at, best = [], {}, []
+    for line in body.splitlines():
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            at[m.group(1)] = len(ops)
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if not m:
+            continue
+        at[int(m.group(1), 16)] = len(ops)
+        words = m.group(2).split()
+        if words[0].startswith("@"):
+            words = words[1:]
+        ops.append(words[0])
+        t = re.search(r"BRA\s+(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))",
+                      m.group(2))
+        if t:
+            target = t.group(1) or int(t.group(2), 16)
+            if target in at and len(ops) - at[target] > len(best):
+                best = ops[at[target]:]
+    check(bool(best), f"no loop found in the SASS of {function}")
+    return best
+
+
+def philox_sass_ops() -> dict:
+    """Build PHILOX_PROBE with the kernels' nvcc flags, read its SASS with
+    cuobjdump and count Philox4x32-10's instructions a basis value (two
+    values a call): (body of 8 calls - body of 4 calls - 4 x 2 LOP3) / 8.
+    Returns the count and the opcodes of the 8-call body."""
+    import collections
+
+    from repro_torch.kernels import build
+
+    src = build.BUILD_DIR / "philox_probe.cu"
+    cubin = src.with_suffix(".cubin")
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src.write_text(PHILOX_PROBE)
+    flags = [f for f in build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler",
+                                                       "-fPIC")]
+    subprocess.run([build.nvcc_path(), *flags, "-cubin", "-I",
+                    str(build.CSRC), "-o", str(cubin), str(src)],
+                   check=True, capture_output=True, text=True, timeout=300)
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(cubin)], check=True,
+                          capture_output=True, text=True, timeout=120).stdout
+    src.with_suffix(".sass").write_text(sass)
+    body4 = _sass_loop(sass, "philox_probe4")
+    body8 = _sass_loop(sass, "philox_probe8")
+    per_value = (len(body8) - len(body4) - 4 * 2) / 8
+    check(per_value > 0, f"Philox SASS count {per_value}")
+    return {"per_value": per_value, "body4": len(body4),
+            "body8": len(body8),
+            "opcodes8": dict(collections.Counter(body8).most_common())}
+
+
 def cuda_ms(fn, repeat: int = 1) -> list[float]:
     import torch
 
@@ -256,6 +378,11 @@ def phase_device():
         for line in built.log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"  ptxas: {line.strip()}")
+    HW_INT_OPS.update(philox_sass_ops())
+    log(f"Philox4x32-10 SASS (cuobjdump of the probe): loop bodies "
+        f"{HW_INT_OPS['body4']} / {HW_INT_OPS['body8']} instructions for "
+        f"4 / 8 calls -> {HW_INT_OPS['per_value']} a value; 8-call body "
+        f"{HW_INT_OPS['opcodes8']}")
     props = torch.cuda.get_device_properties(0)
     clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     log(f"SMs {props.multi_processor_count}, max SM clock {clock_mhz} MHz")
@@ -291,6 +418,32 @@ def phase_generator():
                 log(f"  {dist:10s} tile ({row0},{col0}) vs plain on {where}:"
                     f" bits exact, samples max|d|={float(diff.max()):.3g}"
                     f" ({n_diff} of 4096 differ)")
+    # the tile-keyed impls: the whole (8, 512) shape is one tile keyed by
+    # (seed, row0, col0); b0/b1 are its two streams
+    for impl in TILE_KEYED:
+        for dist in ("normal", "uniform", "bernoulli", "rademacher",
+                     "sparse"):
+            for row0, col0 in ((16, 1024), (2**32 - 4, 2**32 - 300),
+                               (0, 0)):
+                kb0, kb1, ks = rbd_step.generate_tile(
+                    seed, row0, col0, (8, 512), dist, device="cuda",
+                    prng=impl)
+                for where in ("cuda", "cpu"):
+                    r, c = rng.tile_counters(0, 0, (8, 512), where)
+                    key = rng.hw_tile_key(seed, row0, col0).to(where)
+                    pb0, pb1 = rng.tile_keyed_bits(impl, key, r, c, 512)
+                    ps = rng.bits_to_sample(dist, pb0, pb1)
+                    check(torch.equal(kb0.cpu(), pb0.cpu())
+                          and torch.equal(kb1.cpu(), pb1.cpu()),
+                          f"{impl}/{dist} bits differ from plain ({where})")
+                    diff = (ks.cpu() - ps.cpu()).abs()
+                    tol = NORMAL_SAMPLE_ATOL if dist == "normal" else 0.0
+                    check(float(diff.max()) <= tol,
+                          f"{impl}/{dist} samples off by {float(diff.max())}"
+                          f" ({where})")
+                log(f"  {impl:11s} {dist:10s} tile ({row0},{col0}): bits "
+                    f"exact on cuda and cpu, samples max|d|="
+                    f"{float(diff.max()):.3g}")
 
 
 def _sub_plans(full_plan):
@@ -541,7 +694,21 @@ REPLACES = {
 FLAT_KERNELS = ("project_flat", "reconstruct_flat", "reconstruct_apply_flat")
 
 
-def bound_ms(name, lay, dist, dev, k_workers=1):
+def int_ops_per_value(prng, dist):
+    """Integer instructions of one basis value's bits, as a floor:
+    Threefry-2x32-20 (73, counted from the source) for threefry; one
+    Threefry per bit stream plus the within-tile index for hw_emulated;
+    for hw half a Philox4x32-10 call, counted in this run's SASS (phase
+    1).  The per-tile key and round keys are left out."""
+    if prng == "hw":
+        return HW_INT_OPS["per_value"]
+    if prng == "hw_emulated":
+        return (INT_OPS_PER_VALUE + 1) * (2 if dist in ("normal", "sparse")
+                                          else 1)
+    return INT_OPS_PER_VALUE
+
+
+def bound_ms(name, lay, dist, dev, k_workers=1, prng="threefry"):
     """(least time in ms, "operations" or "bytes") for one launch;
     ``k_workers`` counts workers, or adapters for the adapter apply."""
     values = k_workers * int((lay.seg_dim * lay.seg_size).sum())
@@ -555,7 +722,7 @@ def bound_ms(name, lay, dist, dev, k_workers=1):
     else:
         nbytes = (8 * lay.q_packed + 4 * k_workers * lay.n_segments
                   + 4 * k_workers * lay.d_packed)
-    ops = values * (INT_OPS_PER_VALUE + FP_OPS_PER_VALUE[dist]
+    ops = values * (int_ops_per_value(prng, dist) + FP_OPS_PER_VALUE[dist]
                     + FMA_PER_VALUE[name])
     t_ops = ops / (dev["sms"] * ISSUE_LANES_PER_SM * dev["clock_hz"])
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -2017,6 +2184,420 @@ def phase_prefill():
             "max_abs_err": max(err, timed_err), **row}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the tile-keyed PRNG path (--prng-impl hw | hw_emulated) and the
+# two-slot schedule
+# ---------------------------------------------------------------------------
+
+TILE_KEYED = ("hw_emulated", "hw")
+# the kernels that take double_buffer (rows 1-3 and 5-7)
+BUFFERED = ("project_packed", "reconstruct_apply_packed",
+            "reconstruct_apply_packed_workers", "project_packed_sharded",
+            "reconstruct_apply_packed_sharded",
+            "reconstruct_apply_packed_workers_sharded")
+# timed at full width: (label, prng, double_buffer)
+PRNG_TIMED = (("threefry", "threefry", False),
+              ("hw_emulated", "hw_emulated", False),
+              ("hw", "hw", False), ("hw,db", "hw", True),
+              ("hw_emulated,db", "hw_emulated", True))
+PRNG_TIMED_REPS = 2     # launches of each config per pass, two passes
+# the TPU kernel parts each tile-keyed row replaces
+PRNG_REPLACES = {
+    "hw": "src/repro/core/rng.py:348",
+    "hw,db": "src/repro/core/rng.py:348 (_hw_tile) + "
+             "src/repro/kernels/rbd_step.py:68 (_buffered_tile)",
+    "hw_emulated": "src/repro/core/rng.py:340",
+}
+
+
+def _run_launcher_with_prng(impl):
+    """The launcher's sharedseed packed step at full width and depth under
+    ``--prng-impl impl``: its prng line, 2 launches a step (the variant
+    the auto double-buffer rule picks), finite losses.  Returns (the
+    run's per-launch kernel ms, its variant launch counts)."""
+    import contextlib
+    import io
+
+    from repro_torch.core import rng
+    from repro_torch.kernels import rbd_step
+    from repro_torch.launch import train as launcher
+
+    args = ARCH_ARGS + ["--prng-impl", impl]
+    log("  python -m repro_torch.launch.train " + " ".join(args))
+    buf = io.StringIO()
+    rbd_step.reset_counts()
+    with contextlib.redirect_stdout(buf):
+        res = launcher.main(args)
+    launches = dict(rbd_step.VARIANT_LAUNCHES)
+    for line in buf.getvalue().splitlines():
+        log("    " + line)
+    _, why = rng.resolve_prng_impl(impl, strategy="fused_packed",
+                                   backend="cuda", hw_available=True)
+    check(f"prng impl: {impl} -- {why}" in buf.getvalue().splitlines(),
+          f"--prng-impl {impl}: no 'prng impl: {impl}' line")
+    db = rbd_step.resolve_double_buffer(None, impl)
+    want = {rbd_step.variant_name("project_packed", impl, db): STEPS,
+            rbd_step.variant_name("reconstruct_apply_packed", impl, db):
+                STEPS}
+    check(launches == want, f"--prng-impl {impl}: launches {launches}, "
+          f"expected {want}")
+    check(all(math.isfinite(x) for x in res.losses),
+          f"--prng-impl {impl}: losses {res.losses}")
+    log(f"  --prng-impl {impl}: launches {launches}, losses "
+        f"{[round(x, 4) for x in res.losses]}")
+    return res.kernel_ms, launches
+
+
+def _prng_kernels_vs_plain(full_plan):
+    """Rows 1-10 under each tile-keyed impl against their plain versions
+    on phase 3's full-width layer (and rows 1-2 on embed's first
+    dir-block under hw), rows 1-2 under hw both buffered (the auto rule)
+    and unbuffered; the double buffer bit-identical on rows 1-3 and 5-7
+    under all three impls.  Returns {(kernel, label): max|err|}, the
+    label that of a PRNG_TIMED config ("hw,db" for hw's auto rule)."""
+    import torch
+    from repro_torch.core import compartments, projector, rng
+    from repro_torch.kernels import rbd_project, rbd_reconstruct, rbd_step
+
+    errs = {}
+
+    def note(name, impl, err, label=None):
+        auto = impl == "hw" and name in BUFFERED   # the auto rule's buffer
+        key = (name, label or ("hw,db" if auto else impl))
+        errs[key] = max(errs.get(key, 0.0), err)
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    subs = _sub_plans(full_plan)
+    for case, sub in subs.items():
+        lay = sub.packed()
+        valid = _valid_mask(lay, "cuda")
+        cvalid = torch.from_numpy(lay.coord_valid).cuda()
+        seeds = projector.segment_seeds(sub, rng.fold_seed(0, 17))
+        wseeds = projector.worker_segment_seeds(sub, rng.fold_seed(0, 17), 2)
+        layer = case.startswith("layer")
+        for impl in (TILE_KEYED if layer else ("hw",)):
+            for dist in (DISTS if layer else ("normal",)):
+                tag = f"{case}/{impl}/{dist}"
+                g = torch.where(valid, torch.randn(
+                    lay.q_packed, generator=gen, device="cuda"), 0.0)
+                theta = torch.where(valid, torch.randn(
+                    lay.q_packed, generator=gen, device="cuda"), 0.0)
+                scale = torch.randn((2, lay.d_packed), generator=gen,
+                                    device="cuda") * 1e-3 * cvalid
+                u, sq = rbd_step.project_packed(seeds, g, lay, dist,
+                                                prng=impl)
+                up, sqp = rbd_step.project_packed_plain(seeds, g, lay, dist,
+                                                        prng=impl)
+                note("project_packed", impl,
+                     _check_project(tag, u, sq, up, sqp, g, lay))
+                out = rbd_step.reconstruct_apply_packed(
+                    seeds, scale[0], theta, lay, dist, prng=impl)
+                ref = rbd_step.reconstruct_apply_packed_plain(
+                    seeds, scale[0], theta, lay, dist, prng=impl)
+                check(bool((out[~valid] == 0).all()),
+                      f"{tag}: padding of theta is not exactly 0")
+                note("reconstruct_apply_packed", impl,
+                     _check_apply(tag, out, ref, theta))
+                if impl == "hw":
+                    # the unbuffered kernels against the same plain
+                    u1, sq1 = rbd_step.project_packed(
+                        seeds, g, lay, dist, prng=impl, double_buffer=False)
+                    note("project_packed", impl, _check_project(
+                        f"{tag} unbuffered", u1, sq1, up, sqp, g, lay), "hw")
+                    note("reconstruct_apply_packed", impl, _check_apply(
+                        f"{tag} unbuffered",
+                        rbd_step.reconstruct_apply_packed(
+                            seeds, scale[0], theta, lay, dist, prng=impl,
+                            double_buffer=False), ref, theta), "hw")
+                    del u1, sq1
+                if not layer or dist != "normal":
+                    continue
+                w = rbd_step.reconstruct_apply_packed_workers(
+                    wseeds, scale, theta, lay, dist, prng=impl)
+                wp = rbd_step.reconstruct_apply_packed_workers_plain(
+                    wseeds, scale, theta, lay, dist, prng=impl)
+                note("reconstruct_apply_packed_workers", impl,
+                     _check_apply(f"{tag} K=2", w, wp, theta))
+                a = rbd_step.reconstruct_apply_packed_adapters(
+                    wseeds, scale, theta, lay, dist, prng=impl)
+                check(torch.equal(a[0], rbd_step.reconstruct_apply_packed(
+                    wseeds[:lay.n_segments], scale[0], theta, lay, dist,
+                    prng=impl, double_buffer=False)),
+                      f"{tag}: adapter row 0 differs from the single apply")
+                ap = rbd_step.reconstruct_apply_packed_adapters_plain(
+                    wseeds, scale, theta, lay, dist, prng=impl)
+                note("reconstruct_apply_packed_adapters", impl, max(
+                    _check_apply(f"{tag} B=2 row {i}", a[i], ap[i], theta)
+                    for i in range(2)))
+                del a, ap
+                sl = compartments.sharded_packed_layout(lay, 2)
+                pad = sl.q_padded - lay.q_packed
+                gp = torch.cat([g, g.new_zeros(pad)])
+                tp = torch.cat([theta, theta.new_zeros(pad)])
+                outp = torch.cat([out, out.new_zeros(pad)])
+                wp = torch.cat([w, w.new_zeros(pad)])
+                us = 0
+                for shard in range(2):
+                    lo, hi = sl.slab_range(shard)
+                    su, ssq = rbd_step.project_packed_sharded(
+                        seeds, gp[lo:hi].contiguous(), sl, shard, dist,
+                        prng=impl)
+                    spu, spsq = rbd_step.project_packed_sharded_plain(
+                        seeds, gp[lo:hi].contiguous(), sl, shard, dist,
+                        prng=impl)
+                    du = float((su - spu).abs().max())
+                    check(du <= U_RTOL * float(up.abs().max()) + 1e-6,
+                          f"{tag}: shard {shard} partial off by {du}")
+                    note("project_packed_sharded", impl, du)
+                    us = us + su
+                    so = rbd_step.reconstruct_apply_packed_sharded(
+                        seeds, scale[0], tp[lo:hi].contiguous(), sl, shard,
+                        dist, prng=impl)
+                    check(torch.equal(so, outp[lo:hi]),
+                          f"{tag}: slab {shard} apply is not the slice")
+                    sw = rbd_step.reconstruct_apply_packed_workers_sharded(
+                        wseeds, scale, tp[lo:hi].contiguous(), sl, shard,
+                        dist, prng=impl)
+                    check(torch.equal(sw, wp[lo:hi]),
+                          f"{tag}: slab {shard} K=2 apply is not the slice")
+                    note("reconstruct_apply_packed_sharded", impl, 0.0)
+                    note("reconstruct_apply_packed_workers_sharded", impl,
+                         0.0)
+                _check_project(f"{tag} m=2 sum", us, sq, up, sqp, g, lay)
+                log(f"    {tag}: K=2 apply, B=2 adapters (row 0 = the "
+                    "single apply), m=2 slabs (applies = slices) vs plain")
+                del w, gp, tp, outp, wp
+    # rows 8-10: the per-leaf kernels under the tile-keyed impls (the
+    # kernel flag; no route resolves them), one stacked leaf
+    lp = next(lp for lp in full_plan.leaves if lp.stacked)
+    fseeds = projector._leaf_seeds(rng.fold_seed(0, 17), lp)[:2]
+    for impl in TILE_KEYED:
+        tag = f"{lp.name}[2 layers]/{impl}"
+        fg = torch.randn((2, lp.size), generator=gen, device="cuda")
+        fu, fsq = rbd_project.project_flat(fseeds, fg, lp.dim, "normal",
+                                           prng=impl)
+        fup, fsqp = rbd_project.project_flat_plain(fseeds, fg, lp.dim,
+                                                   "normal", prng=impl)
+        note("project_flat", impl,
+             _check_flat_project(tag, fu, fsq, fup, fsqp, fg))
+        fsc = torch.randn((2, lp.dim), generator=gen, device="cuda") * 1e-3
+        note("reconstruct_flat", impl, _check_delta(
+            tag, rbd_reconstruct.reconstruct_flat(fseeds, fsc, lp.size,
+                                                  "normal", prng=impl),
+            rbd_reconstruct.reconstruct_flat_plain(fseeds, fsc, lp.size,
+                                                   "normal", prng=impl)))
+        fth = torch.randn((2, lp.size), generator=gen, device="cuda")
+        note("reconstruct_apply_flat", impl, _check_apply(
+            tag, rbd_reconstruct.reconstruct_apply_flat(
+                fseeds, fsc, fth, 0.125, "normal", prng=impl),
+            rbd_reconstruct.reconstruct_apply_flat_plain(
+                fseeds, fsc, fth, 0.125, "normal", prng=impl), fth))
+    # the double buffer: on and off give the same bits, every impl
+    sub = subs["layer0+final_norm"]
+    lay = sub.packed()
+    sl = compartments.sharded_packed_layout(lay, 2)
+    valid = _valid_mask(lay, "cuda")
+    seeds = projector.segment_seeds(sub, rng.fold_seed(1, 17))
+    wseeds = projector.worker_segment_seeds(sub, rng.fold_seed(1, 17), 2)
+    g = torch.where(valid, torch.randn(lay.q_packed, generator=gen,
+                                       device="cuda"), 0.0)
+    theta = torch.where(valid, torch.randn(lay.q_packed, generator=gen,
+                                           device="cuda"), 0.0)
+    scale = torch.randn((2, lay.d_packed), generator=gen, device="cuda") \
+        * 1e-3 * torch.from_numpy(lay.coord_valid).cuda()
+    gs = torch.cat([g, g.new_zeros(sl.q_padded - lay.q_packed)])
+    ts = torch.cat([theta, theta.new_zeros(sl.q_padded - lay.q_packed)])
+    calls = {
+        "project_packed": lambda p, d: rbd_step.project_packed(
+            seeds, g, lay, "normal", prng=p, double_buffer=d),
+        "reconstruct_apply_packed": lambda p, d:
+            rbd_step.reconstruct_apply_packed(
+                seeds, scale[0], theta, lay, "normal", prng=p,
+                double_buffer=d),
+        "reconstruct_apply_packed_workers": lambda p, d:
+            rbd_step.reconstruct_apply_packed_workers(
+                wseeds, scale, theta, lay, "normal", prng=p,
+                double_buffer=d),
+    }
+    for shard in range(2):
+        lo, hi = sl.slab_range(shard)
+        calls[f"project_packed_sharded/{shard}"] = (
+            lambda p, d, lo=lo, hi=hi, shard=shard:
+            rbd_step.project_packed_sharded(
+                seeds, gs[lo:hi].contiguous(), sl, shard, "normal", prng=p,
+                double_buffer=d))
+        calls[f"reconstruct_apply_packed_sharded/{shard}"] = (
+            lambda p, d, lo=lo, hi=hi, shard=shard:
+            rbd_step.reconstruct_apply_packed_sharded(
+                seeds, scale[0], ts[lo:hi].contiguous(), sl, shard,
+                "normal", prng=p, double_buffer=d))
+        calls[f"reconstruct_apply_packed_workers_sharded/{shard}"] = (
+            lambda p, d, lo=lo, hi=hi, shard=shard:
+            rbd_step.reconstruct_apply_packed_workers_sharded(
+                wseeds, scale, ts[lo:hi].contiguous(), sl, shard, "normal",
+                prng=p, double_buffer=d))
+    for impl in ("threefry",) + TILE_KEYED:
+        for name, fn in calls.items():
+            off, on = fn(impl, False), fn(impl, True)
+            off = off if isinstance(off, tuple) else (off,)
+            on = on if isinstance(on, tuple) else (on,)
+            check(all(torch.equal(a, b) for a, b in zip(off, on)),
+                  f"{name}/{impl}: double_buffer on and off differ")
+        log(f"  {impl}: double_buffer on and off bit-identical on "
+            f"{', '.join(calls)}")
+    return errs
+
+
+def _prng_timing(full_plan):
+    """project_packed and reconstruct_apply_packed at full width under
+    each PRNG_TIMED config, in turns (configs in order, then reversed);
+    then each tile-keyed plain version once at the full shapes, held
+    against its kernel (under hw both the buffered and the unbuffered
+    kernel against the one plain output).  Returns ({(kernel, label):
+    [ms]}, {(kernel, impl): plain ms}, {(kernel, label): max|err|})."""
+    import torch
+    from repro_torch.core import projector, rng
+    from repro_torch.kernels import rbd_step
+
+    lay = full_plan.packed()
+    seeds = projector.segment_seeds(full_plan, rng.fold_seed(0, 17))
+    gen = torch.Generator(device="cuda").manual_seed(170)
+    valid = _valid_mask(lay, "cuda")
+    g = torch.where(valid, torch.randn(lay.q_packed, generator=gen,
+                                       device="cuda"), 0.0)
+    theta = torch.where(valid, torch.randn(lay.q_packed, generator=gen,
+                                           device="cuda"), 0.0)
+    scale = torch.randn(lay.d_packed, generator=gen, device="cuda") * 1e-4
+    scale = scale * torch.from_numpy(lay.coord_valid).cuda()
+    dist = full_plan.distribution
+    fns = {
+        "project_packed": lambda p, d: rbd_step.project_packed(
+            seeds, g, lay, dist, prng=p, double_buffer=d),
+        "reconstruct_apply_packed": lambda p, d:
+            rbd_step.reconstruct_apply_packed(
+                seeds, scale, theta, lay, dist, prng=p, double_buffer=d),
+    }
+    times = {}
+    for order in (PRNG_TIMED, PRNG_TIMED[::-1]):
+        for label, impl, db in order:
+            for name, fn in fns.items():
+                times.setdefault((name, label), []).extend(
+                    cuda_ms(lambda: fn(impl, db), PRNG_TIMED_REPS))
+    for (name, label), ms in times.items():
+        log(f"  {name}[{label}]: ms {[round(x, 3) for x in ms]}")
+    plain_ms, errs = {}, {}
+    for impl in TILE_KEYED:
+        # the configs of PRNG_TIMED's rows: (label, double_buffer)
+        dbs = ((("hw", False), ("hw,db", True)) if impl == "hw"
+               else ((impl, False),))
+        plain = {}
+        plain_ms[("project_packed", impl)] = cuda_ms(lambda: plain.update(
+            proj=rbd_step.project_packed_plain(seeds, g, lay, dist,
+                                               prng=impl)))[0]
+        for label, db in dbs:
+            u, sq = fns["project_packed"](impl, db)
+            errs[("project_packed", label)] = _check_project(
+                f"full width/{label}", u, sq, *plain["proj"], g, lay)
+            del u, sq
+        del plain["proj"]
+        plain_ms[("reconstruct_apply_packed", impl)] = cuda_ms(
+            lambda: plain.update(
+                apply=rbd_step.reconstruct_apply_packed_plain(
+                    seeds, scale, theta, lay, dist, prng=impl)))[0]
+        for label, db in dbs:
+            errs[("reconstruct_apply_packed", label)] = _check_apply(
+                f"full width/{label}",
+                fns["reconstruct_apply_packed"](impl, db), plain["apply"],
+                theta)
+        del plain["apply"]
+        log(f"  plain at full shapes, {impl}: project "
+            f"{plain_ms[('project_packed', impl)]:.1f} ms, apply "
+            f"{plain_ms[('reconstruct_apply_packed', impl)]:.1f} ms")
+    return times, plain_ms, errs
+
+
+def _drive_unbuffered_hw(full_plan):
+    """The packed step's two launches through the kernel wrappers with
+    ``prng="hw", double_buffer=False`` (the reference's kernel API: its
+    auto rule turns the buffer on for hw), STEPS times at full width:
+    the [hw] rows' path.  Returns ({kernel: ms list}, variant launch
+    counts)."""
+    import torch
+    from repro_torch.core import projector, rng
+    from repro_torch.kernels import rbd_step
+
+    lay = full_plan.packed()
+    gen = torch.Generator(device="cuda").manual_seed(171)
+    valid = _valid_mask(lay, "cuda")
+    theta = torch.where(valid, torch.randn(lay.q_packed, generator=gen,
+                                           device="cuda"), 0.0)
+    cvalid = torch.from_numpy(lay.coord_valid).cuda()
+    dist = full_plan.distribution
+    ms = {"project_packed": [], "reconstruct_apply_packed": []}
+    rbd_step.reset_counts()
+    for step in range(STEPS):
+        seeds = projector.segment_seeds(full_plan, rng.fold_seed(0, step))
+        g = torch.where(valid, torch.randn(lay.q_packed, generator=gen,
+                                           device="cuda"), 0.0)
+        res = {}
+        ms["project_packed"] += cuda_ms(lambda: res.update(
+            u=rbd_step.project_packed(seeds, g, lay, dist, prng="hw",
+                                      double_buffer=False)))
+        u, sq = res["u"]
+        scale = u * cvalid * 1e-6
+        ms["reconstruct_apply_packed"] += cuda_ms(
+            lambda: rbd_step.reconstruct_apply_packed(
+                seeds, scale, theta, lay, dist, out=theta, prng="hw",
+                double_buffer=False))
+        check(bool(torch.isfinite(theta).all()), "unbuffered hw step: theta "
+              "is not finite")
+    launches = dict(rbd_step.VARIANT_LAUNCHES)
+    check(launches == {"project_packed[hw]": STEPS,
+                       "reconstruct_apply_packed[hw]": STEPS},
+          f"unbuffered hw drive: launches {launches}")
+    return ms, launches
+
+
+def phase_prng(full_plan, dev):
+    log("== phase 17: the tile-keyed PRNG path (--prng-impl hw | "
+        "hw_emulated) and the double buffer, qwen2-0.5b full width and "
+        "depth")
+    runs = {impl: _run_launcher_with_prng(impl) for impl in TILE_KEYED}
+    hw_ms, hw_launches = _drive_unbuffered_hw(full_plan)
+    errs = _prng_kernels_vs_plain(full_plan)
+    times, plain_ms, full_errs = _prng_timing(full_plan)
+    lay = full_plan.packed()
+    dist = full_plan.distribution
+    rows = []
+    for label, impl in (("hw_emulated", "hw_emulated"), ("hw,db", "hw"),
+                        ("hw", "hw")):
+        for name in ("project_packed", "reconstruct_apply_packed"):
+            variant = f"{name}[{label}]"
+            if label == "hw":
+                launches, ms_list = hw_launches[variant], hw_ms[name]
+            else:
+                kernel_ms, launch = runs[impl]
+                launches, ms_list = launch[variant], kernel_ms[name]
+            ms = sorted(ms_list)[len(ms_list) // 2]
+            b_ms, by = bound_ms(name, lay, dist, dev, prng=impl)
+            # the error of the variant the row times, on the sub-plans
+            # and at full width
+            err = max(errs[(name, label)], full_errs[(name, label)])
+            log(f"  {variant}: launches {launches}, ms {ms:.3f} (median), "
+                f"plain {plain_ms[(name, impl)]:.1f}, bound {b_ms:.3f} "
+                f"({by}), {b_ms / ms:.1%} of bound")
+            rows.append({
+                "name": variant, "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/rbd_step.cu",
+                "replaces": PRNG_REPLACES[label], "launches": launches,
+                "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms[(name, impl)], "bound_ms": b_ms,
+                "bound_by": by, "library_ms": None})
+    for (name, label), err in sorted(errs.items()):
+        log(f"  {name}[{label}] vs plain: max|err| {err:.3g}")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -2080,6 +2661,7 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": by, "library_ms": None})
     rows.append(phase_prefill())
+    rows.extend(phase_prng(full_plan, dev))
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(dev["smi"], flush=True)

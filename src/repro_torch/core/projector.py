@@ -194,13 +194,12 @@ def project_packed(grads, plan: Plan, seed, *, backend: str = "torch",
     """Normalized coordinates for ALL compartments in one (d_packed,)
     buffer -- one kernel launch on the cuda backend.  ``prepacked=True``
     takes ``grads`` as the packed (q_packed,) buffer."""
-    rng.check_threefry(prng)
     layout = layout if layout is not None else plan.packed()
     seeds = segment_seeds(plan, seed)
     g_packed = (grads.to(torch.float32) if prepacked
                 else pack_tree(grads, plan, layout))
     u, sq = _get_backend(backend).project_packed(
-        seeds, g_packed, layout, plan.distribution)
+        seeds, g_packed, layout, plan.distribution, prng=prng)
     coords = u * packed_norm_factor(plan, layout, sq)
     if return_norms:
         return coords, sq
@@ -218,7 +217,6 @@ def reconstruct_apply_packed(coords_packed, plan: Plan, seed, params, eta,
     only by 'exact' normalization; when None it is regenerated with a
     zero-gradient projection.  ``prepacked=True`` takes and returns the
     packed (q_packed,) buffer; ``out=params`` then updates it in place."""
-    rng.check_threefry(prng)
     layout = layout if layout is not None else plan.packed()
     seeds = segment_seeds(plan, seed)
     be = _get_backend(backend)
@@ -226,7 +224,7 @@ def reconstruct_apply_packed(coords_packed, plan: Plan, seed, params, eta,
         _, row_sq = be.project_packed(
             seeds, torch.zeros((layout.q_packed,), dtype=torch.float32,
                                device=coords_packed.device),
-            layout, plan.distribution)
+            layout, plan.distribution, prng=prng)
     # the factor is zero on padding slots, so phantom padded basis rows
     # never contribute to the applied update
     factor = packed_norm_factor(plan, layout, row_sq,
@@ -235,7 +233,7 @@ def reconstruct_apply_packed(coords_packed, plan: Plan, seed, params, eta,
     theta = (params.to(torch.float32) if prepacked
              else pack_tree(params, plan, layout))
     new = be.reconstruct_apply_packed(seeds, scale, theta, layout,
-                                      plan.distribution, out=out)
+                                      plan.distribution, out=out, prng=prng)
     if prepacked:
         return new
     return unpack_tree(new, plan, layout, params)
@@ -293,7 +291,6 @@ def reconstruct_apply_packed_workers(coords_gathered, plan: Plan, seed,
             "(row_sq, the (k_workers, d_packed) buffer gathered by the "
             "widened coords+norms collective); regenerating them here "
             "would cost K extra generation passes")
-    rng.check_threefry(prng)
     layout = layout if layout is not None else plan.packed()
     k_workers = int(coords_gathered.shape[0])
     wseeds = worker_segment_seeds(plan, seed, k_workers)
@@ -306,7 +303,7 @@ def reconstruct_apply_packed_workers(coords_gathered, plan: Plan, seed,
     theta = (params.to(torch.float32) if prepacked
              else pack_tree(params, plan, layout))
     new = _get_backend(backend).reconstruct_apply_packed_workers(
-        wseeds, scale, theta, layout, plan.distribution, out=out)
+        wseeds, scale, theta, layout, plan.distribution, out=out, prng=prng)
     if prepacked:
         return new
     return unpack_tree(new, plan, layout, params)
@@ -358,7 +355,6 @@ def reconstruct_apply_packed_adapters(coords_batch, plan: Plan,
             "'exact' normalization needs each adapter's stored row "
             "norms (row_sq, (n_adapters, d_packed)); regenerating them "
             "at serve time would cost B extra generation passes")
-    rng.check_threefry(prng)
     layout = layout if layout is not None else plan.packed()
     aseg_seeds = adapter_segment_seeds(plan, adapter_seeds)
     # (d_packed,) static factor, or (n_adapters, d_packed) exact factors
@@ -369,7 +365,7 @@ def reconstruct_apply_packed_adapters(coords_batch, plan: Plan,
     theta = (params.to(torch.float32) if prepacked
              else pack_tree(params, plan, layout))
     out = _get_backend(backend).reconstruct_apply_packed_adapters(
-        aseg_seeds, scale, theta, layout, plan.distribution)
+        aseg_seeds, scale, theta, layout, plan.distribution, prng=prng)
     if prepacked:
         return out
     rows = [unpack_tree(row, plan, layout, params) for row in out]
@@ -390,11 +386,10 @@ def project_packed_sharded(g_slab, plan: Plan, seed, shard_idx, *,
     (``core.distributed.complete_model_partials``), then ``coords = u *
     packed_norm_factor(plan, slayout.base, sq)``: normalization must see
     the completed sums ('exact' needs the full row norms)."""
-    rng.check_threefry(prng)
     seeds = segment_seeds(plan, seed)
     return _get_backend(backend).project_packed_sharded(
         seeds, g_slab.to(torch.float32), slayout, int(shard_idx),
-        plan.distribution)
+        plan.distribution, prng=prng)
 
 
 def reconstruct_apply_packed_sharded(coords_packed, plan: Plan, seed,
@@ -413,14 +408,13 @@ def reconstruct_apply_packed_sharded(coords_packed, plan: Plan, seed,
             "'exact' normalization on the sharded packed path needs the "
             "completed row norms (row_sq); a local regeneration pass "
             "would only produce this slab's partial sums")
-    rng.check_threefry(prng)
     seeds = segment_seeds(plan, seed)
     factor = packed_norm_factor(plan, slayout.base, row_sq,
                                 device=coords_packed.device)
     scale = (coords_packed * factor) * float(np.float32(eta))
     return _get_backend(backend).reconstruct_apply_packed_sharded(
         seeds, scale, theta_slab.to(torch.float32), slayout, int(shard_idx),
-        plan.distribution, out=out)
+        plan.distribution, out=out, prng=prng)
 
 
 def reconstruct_apply_packed_workers_sharded(coords_gathered, plan: Plan,
@@ -444,7 +438,6 @@ def reconstruct_apply_packed_workers_sharded(coords_gathered, plan: Plan,
         raise ValueError(
             "'exact' normalization needs every worker's completed row "
             "norms (row_sq, (k_workers, d_packed))")
-    rng.check_threefry(prng)
     k_workers = int(coords_gathered.shape[0])
     wseeds = worker_segment_seeds(plan, seed, k_workers)
     factor = packed_norm_factor(plan, slayout.base, row_sq,
@@ -453,7 +446,7 @@ def reconstruct_apply_packed_workers_sharded(coords_gathered, plan: Plan,
              * float(np.float32(eta)))
     return _get_backend(backend).reconstruct_apply_packed_workers_sharded(
         wseeds, scale, theta_slab.to(torch.float32), slayout,
-        int(shard_idx), plan.distribution, out=out)
+        int(shard_idx), plan.distribution, out=out, prng=prng)
 
 
 # ---------------------------------------------------------------------------

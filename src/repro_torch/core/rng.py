@@ -4,10 +4,13 @@
 Every element of the virtual basis matrix is a pure function of
 ``(seed, row, col)``: Threefry-2x32 (20 rounds) keyed by
 ``(seed, seed ^ 0x85EBCA6B)`` on the counter ``(col, row ^ ~col)``, then
-mapped to a sample by :func:`bits_to_sample`.  The same generator runs in
-the CUDA kernels (``kernels/csrc/threefry.cuh``); this module is its
-plain PyTorch version, used by the CPU tests and held against the kernels
-on the card.
+mapped to a sample by :func:`bits_to_sample`.  The reference's
+tile-keyed impls (``--prng-impl hw | hw_emulated``) are here too: the
+``hw_emulated`` stub bit for bit, and ``hw`` as a tile-keyed
+Philox4x32-10 (:func:`philox4x32`; Hopper has no hardware PRNG).  The
+same generators run in the CUDA kernels (``kernels/csrc/threefry.cuh``,
+``philox.cuh``); this module is their plain PyTorch version, used by the
+CPU tests and held against the kernels on the card.
 
 uint32 words are carried as ``torch.int32`` tensors holding the same bit
 patterns.  PyTorch has no uint32 ``+``/``<<``/``>>`` on the CPU, and
@@ -242,17 +245,181 @@ def generate_rows_nd(seed, row_offset, n_rows: int,
 
 
 # ---------------------------------------------------------------------------
-# PRNG impls (PrngSpec) and their reason-coded resolution
+# tile-keyed generators (hw_emulated, hw) and PRNG impls (PrngSpec)
 # ---------------------------------------------------------------------------
+#
+# The reference's ``hw`` impl re-seeds the TPU's hardware PRNG per
+# (DB, PB) basis tile with (seed, row0, col0) and draws
+# ``N_BIT_STREAMS[dist]`` whole-tile bit blocks; ``hw_emulated`` is its
+# Threefry stub with the same tile-seeding discipline.  Both key every
+# value by its TILE's identity, so the same tile regenerates the same bits
+# in the projection and in the apply, but values depend on the tiling.
+#
+# ``hw_emulated`` is ported bit for bit.  Hopper has no hardware PRNG, so
+# the port's ``hw`` is a tile-keyed Philox4x32-10 (Salmon et al. 2011):
+# key (k, k ^ 0x85EBCA6B) with k = hw_tile_key(seed, row0, col0), counter
+# (c, r // 2, 0, 0) for within-tile row r and column c; words 0-1 are the
+# (b0, b1) streams of the even row of the pair and words 2-3 those of the
+# odd row, so one call serves two rows at one column.  Its bits are not
+# the TPU's.
 
 PRNG_IMPLS = ("threefry", "hw", "hw_emulated")
-_TILE_KEYED_TODO = ("the tile-keyed PRNG impls (hw, hw_emulated) are not "
-                    "ported yet (ROADMAP.md Queue B 12)")
+_TILE_SALT_ROW = 0xA511E9B3
+# Philox4x32 multipliers and Weyl key increments (Random123)
+PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+PHILOX_ROUNDS = 10
+HW_REASON = ("tile-coordinate keyed Philox4x32-10 in the CUDA kernels "
+             "(Hopper has no hardware PRNG); no Threefry per basis element")
+
+
+def hw_tile_key(seed, row0, col0):
+    """Fold a tile's (seed, row0, col0) identity into one uint32 key (the
+    reference's emulated analogue of ``pltpu.prng_seed(seed, row0,
+    col0)``).  Arguments broadcast; int32 tensors of uint32 bits or ints."""
+    s = _operand(seed)
+    r0 = row0 if isinstance(row0, torch.Tensor) else as_u32(row0)
+    c0 = col0 if isinstance(col0, torch.Tensor) else as_u32(col0)
+    a, b = threefry2x32(s, r0 ^ _i32(_TILE_SALT_ROW), c0,
+                        s ^ _i32(_FOLD_SALT))
+    return a ^ _rotl32(b, 16)
+
+
+def emulated_random_bits(key, draw: int, idx: torch.Tensor) -> torch.Tensor:
+    """uint32 bits of one emulated ``prng_random_bits`` draw: Threefry
+    keyed by the tile key on the counter (within-tile index, draw); only
+    the first output word is used."""
+    k = _operand(key)
+    b0, _ = threefry2x32(k, k ^ _i32(KEY_SALT), idx, draw)
+    return b0
+
+
+def _u64(x: torch.Tensor) -> torch.Tensor:
+    """int32 bits -> int64 holding the uint32 value."""
+    return x.to(torch.int64) & 0xFFFFFFFF
+
+
+def _mulhilo(m: int, x64):
+    """(hi, lo) words of the 64-bit product m * x of two uint32 values:
+    one int64 product, which wraps modulo 2^64 as torch's integer
+    arithmetic does (the int32 adds of :func:`threefry2x32` wrap the same
+    way), then masked shifts, so the sign of the wrapped product never
+    shows.  Random123's known answers and the kernels' bits hold it."""
+    p = x64 * m
+    return (p >> 32) & 0xFFFFFFFF, p & 0xFFFFFFFF
+
+
+def philox4x32(ctr, key, rounds: int = PHILOX_ROUNDS):
+    """Philox4x32 (Random123): four uint32 counter words and two key words
+    -> four uint32 words.  Arguments are int32 tensors of uint32 bits or
+    ints and broadcast; results are int32 tensors of uint32 bits."""
+    c = [_word(x) for x in ctr]
+    k0, k1 = (_word(x) for x in key)
+    for _ in range(rounds):
+        hi0, lo0 = _mulhilo(PHILOX_M[0], c[0])
+        hi1, lo1 = _mulhilo(PHILOX_M[1], c[2])
+        c = [hi1 ^ c[1] ^ k0, lo1, hi0 ^ c[3] ^ k1, lo0]
+        k0 = (k0 + PHILOX_W[0]) & 0xFFFFFFFF
+        k1 = (k1 + PHILOX_W[1]) & 0xFFFFFFFF
+    c = [w if isinstance(w, torch.Tensor) else torch.tensor(w) for w in c]
+    return tuple(_i32_tensor(w, None) for w in torch.broadcast_tensors(*c))
+
+
+def _word(x):
+    """A Philox word: a tensor as int64 holding its uint32 value, anything
+    else as a Python int (so constant words take no device)."""
+    if isinstance(x, torch.Tensor):
+        return _u64(x if x.dtype == torch.int32 else as_u32(x))
+    return int(x) & 0xFFFFFFFF
+
+
+def tile_keyed_bits(impl: str, keys, r, c, width: int, n_streams: int = 2):
+    """Bit streams (b0, b1) of the values at within-tile row ``r`` and
+    column ``c`` of tiles keyed ``keys`` (all broadcast; ``width`` is the
+    full tile width, which keys the emulated stream's index even past a
+    segment's ragged end).  ``b1`` is None when ``n_streams`` is 1."""
+    k = _operand(keys)
+    r = r if isinstance(r, torch.Tensor) else as_u32(r)
+    c = c if isinstance(c, torch.Tensor) else as_u32(c)
+    if impl == "hw_emulated":
+        idx = r * width + c
+        b0 = emulated_random_bits(k, 0, idx)
+        b1 = emulated_random_bits(k, 1, idx) if n_streams == 2 else None
+        return b0, b1
+    if impl == "hw":
+        w = philox4x32((c, _shr(r, 1), 0, 0), (k, k ^ _i32(KEY_SALT)))
+        even = (r & 1) == 0
+        return torch.where(even, w[0], w[2]), torch.where(even, w[1], w[3])
+    raise ValueError(f"{impl!r} is not a tile-keyed prng impl")
+
+
+def _tile_samples(impl, seed, row0, col0, shape, distribution, device):
+    rows, cols = shape
+    r = torch.arange(rows, dtype=torch.int32, device=device).reshape(rows, 1)
+    c = torch.arange(cols, dtype=torch.int32, device=device).reshape(1, cols)
+    key = hw_tile_key(seed, row0, col0)
+    if isinstance(key, torch.Tensor):
+        key = key.to(device)
+    b0, b1 = tile_keyed_bits(impl, key, r, c, cols,
+                             N_BIT_STREAMS[distribution])
+    return bits_to_sample(distribution, b0, b1)
+
+
+def generate_tiled_block(impl: str, seed, col0: int, shape,
+                         distribution: Distribution = "normal", *,
+                         dir_block: int = 8, pos_block: int = 512,
+                         device=None) -> torch.Tensor:
+    """Rows ``[0, rows)`` and columns ``[col0, col0 + cols)`` of a
+    segment's virtual basis, float32, as the packed kernels see it: for a
+    tile-keyed ``impl`` each (dir_block, pos_block) tile at (row0, col0)
+    is keyed by its own identity (``col0`` must be a multiple of
+    ``pos_block``; a ragged last tile is generated as far as ``cols``
+    reaches, keyed by the full tile width); for ``threefry`` this is
+    :func:`generate_block`."""
+    if isinstance(seed, torch.Tensor) and device is None:
+        device = seed.device
+    rows, cols = shape
+    if impl == "threefry":
+        return generate_block(seed, 0, col0, shape, distribution,
+                              device=device)
+    if col0 % pos_block or rows % dir_block:
+        raise ValueError(f"tile-keyed block at column {col0} with {rows} "
+                         f"rows is not aligned to ({dir_block}, "
+                         f"{pos_block}) tiles")
+    n_tr, n_tc = rows // dir_block, -(-cols // pos_block)
+    tr = torch.arange(n_tr, dtype=torch.int32, device=device) * dir_block
+    tc = (torch.arange(n_tc, dtype=torch.int64, device=device) * pos_block
+          + col0)
+    keys = hw_tile_key(_operand(seed), tr.reshape(n_tr, 1),
+                       _i32_tensor(tc, None).reshape(1, n_tc))
+    if impl == "hw":
+        # one Philox call per row pair: words 0-1 the even row's streams,
+        # words 2-3 the odd row's; laid out (tile row, row pair, tile
+        # column, column in tile) so each key broadcasts over its tile,
+        # the ragged last tile generated whole and cut
+        half = dir_block // 2
+        k = keys.reshape(n_tr, 1, n_tc, 1)
+        j = torch.arange(half, dtype=torch.int32,
+                         device=device).reshape(1, half, 1, 1)
+        cin = torch.arange(pos_block, dtype=torch.int32, device=device)
+        w = philox4x32((cin, j, 0, 0), (k, k ^ _i32(KEY_SALT)))
+        b0, b1 = (torch.stack([w[a], w[a + 2]], 2)
+                  .reshape(rows, n_tc * pos_block)[:, :cols]
+                  for a in (0, 1))
+        return bits_to_sample(distribution, b0, b1)
+    c = torch.arange(cols, dtype=torch.int32, device=device)
+    r = torch.arange(rows, dtype=torch.int32, device=device)
+    ek = keys[(r // dir_block).reshape(rows, 1),
+              (c // pos_block).reshape(1, cols)]
+    b0, b1 = tile_keyed_bits(impl, ek, (r % dir_block).reshape(rows, 1),
+                             (c % pos_block).reshape(1, cols), pos_block,
+                             N_BIT_STREAMS[distribution])
+    return bits_to_sample(distribution, b0, b1)
 
 
 @dataclasses.dataclass(frozen=True)
 class PrngSpec:
-    """One PRNG backend.  The port generates with ``threefry`` only."""
+    """One PRNG backend (the reference's ``PrngSpec``)."""
 
     impl: str = "threefry"
 
@@ -262,13 +429,34 @@ class PrngSpec:
                 f"unknown prng impl {self.impl!r}; expected one of "
                 f"{PRNG_IMPLS}")
 
+    @property
+    def in_kernel_only(self) -> bool:
+        """True for ``hw``: the reference runs it only inside real TPU
+        kernels, and :func:`resolve_prng_impl` gives it only to the CUDA
+        kernels on a card.  The port's plain version of it exists all the
+        same (the kernels are held against it)."""
+        return self.impl == "hw"
+
+    @property
+    def tile_keyed(self) -> bool:
+        """True when bits are keyed by tile coordinates rather than by
+        per-element counters: values then depend on the tiling."""
+        return self.impl != "threefry"
+
     def generate_tile(self, seed, row0, col0, shape: tuple[int, int],
                       distribution: Distribution = "normal", *,
                       device=None) -> torch.Tensor:
-        if self.impl != "threefry":
-            raise NotImplementedError(_TILE_KEYED_TODO)
-        return generate_block(seed, row0, col0, shape, distribution,
-                              device=device)
+        """A (rows, cols) float32 basis tile at (row0, col0) of its
+        segment: position-keyed :func:`generate_block` for ``threefry``;
+        for the tile-keyed impls the tile's identity keys the stream and
+        the whole shape is one tile."""
+        if self.impl == "threefry":
+            return generate_block(seed, row0, col0, shape, distribution,
+                                  device=device)
+        if isinstance(seed, torch.Tensor) and device is None:
+            device = seed.device
+        return _tile_samples(self.impl, seed, row0, col0, shape,
+                             distribution, device)
 
 
 @functools.cache
@@ -278,18 +466,14 @@ def get_prng_spec(impl) -> PrngSpec:
     return PrngSpec(impl)
 
 
-def check_threefry(impl) -> None:
-    """Raise unless ``impl`` is the counter-keyed Threefry generator."""
-    if get_prng_spec(impl).impl != "threefry":
-        raise NotImplementedError(_TILE_KEYED_TODO)
-
-
 def resolve_prng_impl(requested: str, *, strategy: str, backend: str,
                       hw_available: bool,
                       rbd_enabled: bool = True) -> tuple[str, str]:
     """Reason-coded selection of the effective PRNG impl for an execution
-    strategy; the reason strings are the reference's.  The port's kernel
-    backend ``"cuda"`` takes the place of the reference's ``"pallas"``."""
+    strategy; the reason strings are the reference's, except that of the
+    port's own ``hw`` (:data:`HW_REASON`).  The port's kernel backend
+    ``"cuda"`` takes the place of the reference's ``"pallas"``, and
+    ``hw_available`` means that backend with the tensors on a card."""
     if requested not in PRNG_IMPLS:
         raise ValueError(
             f"unknown prng impl {requested!r}; expected one of {PRNG_IMPLS}")
@@ -318,7 +502,6 @@ def resolve_prng_impl(requested: str, *, strategy: str, backend: str,
             return "hw_emulated", (
                 "hw PRNG requested without a TPU (interpret-mode "
                 "kernels) -> emulated counter stub")
-        return "hw", ("TPU hardware PRNG, tile-coordinate keyed; zero "
-                      "Threefry ALU cost per basis element")
+        return "hw", HW_REASON
     return "hw_emulated", ("emulated hw-PRNG counter stub (CPU-testable "
                            "tile-seeding discipline)")

@@ -35,6 +35,15 @@
 // visits the dir-blocks in order, as the reference's grid (direction
 // innermost) does.
 //
+// PRNG impls: as in rbd_step.cu, each kernel takes the impl as a template
+// argument chosen at launch.  The reference's per-leaf kernels take the
+// tile-keyed impls too (repro/kernels/rbd_project.py:49,
+// rbd_reconstruct.py:40, 65), keyed
+// by the (8, 512) tile at (di * 8, pj * 512) of the compartment, though its
+// resolve_prng_impl routes every per-leaf strategy to Threefry; so do
+// these kernels.  The reconstructions key their block's 512 positions once
+// per CUDA block into dynamic shared memory (one key per dir-block).
+//
 // Kernels launch on the caller's stream, allocate nothing and return
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
 
@@ -53,7 +62,7 @@ constexpr int kPosBlock = 512;     // positions per CUDA block (apply, recon)
 // row s owns dir-block x / n_chunk and the chunk x % n_chunk of
 // `chunk_cols` positions; project_sums and project_store do the rest, as
 // in the packed projection.  Outputs are (n_stack, d_pad).
-template <int DIST>
+template <int DIST, int IMPL>
 __global__ void __launch_bounds__(kThreads)
 project_flat_kernel(const float* __restrict__ g,
                     const uint32_t* __restrict__ seed, int64_t q,
@@ -72,30 +81,36 @@ project_flat_kernel(const float* __restrict__ g,
   const int64_t bid = static_cast<int64_t>(s) * gridDim.x + blockIdx.x;
   const int64_t cblk = static_cast<int64_t>(s) * n_db + di;
   float acc[kAcc];
-  project_sums<DIST>(g + static_cast<int64_t>(s) * q, seed[s],
-                     static_cast<uint32_t>(di * kDirBlock), c0, c1, acc);
+  project_sums<DIST, IMPL, false>(g + static_cast<int64_t>(s) * q, seed[s],
+                                  static_cast<uint32_t>(di * kDirBlock), c0,
+                                  c1, kPosBlock, acc);
   project_store(acc, bid, chunk, n_chunk, cblk, partial, arrived, u, sq);
 }
 
 // Kernel 9: delta_s = scale_s P_s in float32, (n_stack, q).  Grid
 // (ceil(q / 512), n_stack); the accumulator starts at 0 and adds each
 // dir-block's part in order (the reference's `out += part`).
-template <int DIST>
+template <int DIST, int IMPL>
 __global__ void __launch_bounds__(kThreads)
 reconstruct_flat_kernel(const float* __restrict__ scale,
                         const uint32_t* __restrict__ seed, int64_t q,
                         int n_db, float* __restrict__ out) {
+  extern __shared__ uint32_t keys[];
   const int s = blockIdx.y;
   const uint32_t sd = seed[s];
   const float* sc = scale + static_cast<int64_t>(s) * n_db * kDirBlock;
   const int64_t base = static_cast<int64_t>(s) * q;
   const int64_t c0 = static_cast<int64_t>(blockIdx.x) * kPosBlock;
   const int64_t c1 = (c0 + kPosBlock < q) ? c0 + kPosBlock : q;
+  fill_tile_keys<IMPL>(keys, seed + s, 0, 1, n_db, static_cast<uint32_t>(c0));
   for (int64_t col = c0 + threadIdx.x; col < c1; col += kThreads) {
     const uint32_t c32 = static_cast<uint32_t>(col);
+    const uint32_t cin = static_cast<uint32_t>(col - c0);
     float acc = 0.0f;
     for (int db = 0; db < n_db; ++db) {
-      acc = __fadd_rn(acc, dir_block_part<DIST>(sd, sc, db, c32));
+      acc = __fadd_rn(acc, dir_block_part<DIST, IMPL>(
+                               sd, key_of<IMPL>(keys, db), sc, db, c32, cin,
+                               kPosBlock));
     }
     out[base + col] = acc;
   }
@@ -116,77 +131,88 @@ __device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float v) {
 // `out -= eta * part`); the result is rounded to theta's type once, on the
 // store.  `out` may alias `theta`: each thread reads its element before it
 // writes it, and no other thread touches it.
-template <int DIST, typename T>
+template <int DIST, int IMPL, typename T>
 __device__ __forceinline__ void reconstruct_apply_flat_body(
     const float* __restrict__ scale, const T* theta, T* out, float eta,
-    const uint32_t* __restrict__ seed, int64_t q, int n_db) {
+    const uint32_t* __restrict__ seed, int64_t q, int n_db, uint32_t* keys) {
   const int s = blockIdx.y;
   const uint32_t sd = seed[s];
   const float* sc = scale + static_cast<int64_t>(s) * n_db * kDirBlock;
   const int64_t base = static_cast<int64_t>(s) * q;
   const int64_t c0 = static_cast<int64_t>(blockIdx.x) * kPosBlock;
   const int64_t c1 = (c0 + kPosBlock < q) ? c0 + kPosBlock : q;
+  fill_tile_keys<IMPL>(keys, seed + s, 0, 1, n_db, static_cast<uint32_t>(c0));
   for (int64_t col = c0 + threadIdx.x; col < c1; col += kThreads) {
     const uint32_t c32 = static_cast<uint32_t>(col);
+    const uint32_t cin = static_cast<uint32_t>(col - c0);
     float acc = load_f32(theta + base + col);
     for (int db = 0; db < n_db; ++db) {
-      acc = __fsub_rn(acc,
-                      __fmul_rn(eta, dir_block_part<DIST>(sd, sc, db, c32)));
+      acc = __fsub_rn(acc, __fmul_rn(eta, dir_block_part<DIST, IMPL>(
+                                              sd, key_of<IMPL>(keys, db), sc,
+                                              db, c32, cin, kPosBlock)));
     }
     store_from_f32(out + base + col, acc);
   }
 }
 
-template <int DIST>
+template <int DIST, int IMPL>
 __global__ void __launch_bounds__(kThreads)
 reconstruct_apply_flat_f32(const float* __restrict__ scale,
                            const float* theta, float* out, float eta,
                            const uint32_t* __restrict__ seed, int64_t q,
                            int n_db) {
-  reconstruct_apply_flat_body<DIST, float>(scale, theta, out, eta, seed, q,
-                                           n_db);
+  extern __shared__ uint32_t keys[];
+  reconstruct_apply_flat_body<DIST, IMPL, float>(scale, theta, out, eta,
+                                                 seed, q, n_db, keys);
 }
 
-template <int DIST>
+template <int DIST, int IMPL>
 __global__ void __launch_bounds__(kThreads)
 reconstruct_apply_flat_bf16(const float* __restrict__ scale,
                             const __nv_bfloat16* theta, __nv_bfloat16* out,
                             float eta, const uint32_t* __restrict__ seed,
                             int64_t q, int n_db) {
-  reconstruct_apply_flat_body<DIST, __nv_bfloat16>(scale, theta, out, eta,
-                                                   seed, q, n_db);
+  extern __shared__ uint32_t keys[];
+  reconstruct_apply_flat_body<DIST, IMPL, __nv_bfloat16>(
+      scale, theta, out, eta, seed, q, n_db, keys);
 }
 
 }  // namespace rbd
 
 extern "C" {
 
+// Dynamic shared memory of a reconstruction block: one tile key per
+// dir-block; none for Threefry.  `impl` is rbd_common.cuh's Impl code.
+static size_t flat_key_bytes(int impl, int n_db) {
+  return impl == rbd::kThreefry
+             ? 0
+             : static_cast<size_t>(n_db) * sizeof(uint32_t);
+}
+
 // g: (n_stack, q) float32.  `partial` must hold n_stack * n_db * n_chunk *
 // 16 floats, `arrived` n_stack * n_db zeros; u and sq are (n_stack, n_db *
 // 8).
 int rbd_project_flat(const float* g, const uint32_t* seed, int n_stack,
                      int64_t q, int n_db, int n_chunk, int64_t chunk_cols,
-                     int dist, float* partial, int32_t* arrived, float* u,
-                     float* sq, void* stream) {
+                     int dist, int impl, float* partial, int32_t* arrived,
+                     float* u, float* sq, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>(n_db * n_chunk),
                   static_cast<unsigned>(n_stack));
-  RBD_DISPATCH(dist, project_flat_kernel, grid, g, seed, q, n_chunk,
-               chunk_cols, partial, arrived, u, sq);
-  return static_cast<int>(cudaGetLastError());
+  RBD_DISPATCH(impl, dist, project_flat_kernel, grid, 0, g, seed, q,
+               n_chunk, chunk_cols, partial, arrived, u, sq);
 }
 
 // scale: (n_stack, n_db * 8) float32, zero past dim; out: (n_stack, q).
 int rbd_reconstruct_flat(const float* scale, const uint32_t* seed,
                          int n_stack, int64_t q, int n_db, int dist,
-                         float* out, void* stream) {
+                         int impl, float* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>((q + rbd::kPosBlock - 1) /
                                         rbd::kPosBlock),
                   static_cast<unsigned>(n_stack));
-  RBD_DISPATCH(dist, reconstruct_flat_kernel, grid, scale, seed, q, n_db,
-               out);
-  return static_cast<int>(cudaGetLastError());
+  RBD_DISPATCH(impl, dist, reconstruct_flat_kernel, grid,
+               flat_key_bytes(impl, n_db), scale, seed, q, n_db, out);
 }
 
 // theta, out: (n_stack, q) float32 (bf16 == 0) or bfloat16 (bf16 == 1);
@@ -194,7 +220,7 @@ int rbd_reconstruct_flat(const float* scale, const uint32_t* seed,
 int rbd_reconstruct_apply_flat(const float* scale, const void* theta,
                                void* out, float eta, const uint32_t* seed,
                                int n_stack, int64_t q, int n_db, int dist,
-                               int bf16, void* stream) {
+                               int impl, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>((q + rbd::kPosBlock - 1) /
                                         rbd::kPosBlock),
@@ -202,15 +228,13 @@ int rbd_reconstruct_apply_flat(const float* scale, const void* theta,
   if (bf16) {
     const __nv_bfloat16* th = static_cast<const __nv_bfloat16*>(theta);
     __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-    RBD_DISPATCH(dist, reconstruct_apply_flat_bf16, grid, scale, th, o, eta,
-                 seed, q, n_db);
-  } else {
-    const float* th = static_cast<const float*>(theta);
-    float* o = static_cast<float*>(out);
-    RBD_DISPATCH(dist, reconstruct_apply_flat_f32, grid, scale, th, o, eta,
-                 seed, q, n_db);
+    RBD_DISPATCH(impl, dist, reconstruct_apply_flat_bf16, grid,
+                 flat_key_bytes(impl, n_db), scale, th, o, eta, seed, q, n_db);
   }
-  return static_cast<int>(cudaGetLastError());
+  const float* th = static_cast<const float*>(theta);
+  float* o = static_cast<float*>(out);
+  RBD_DISPATCH(impl, dist, reconstruct_apply_flat_f32, grid,
+               flat_key_bytes(impl, n_db), scale, th, o, eta, seed, q, n_db);
 }
 
 }  // extern "C"

@@ -69,6 +69,26 @@
 // to the matching slice of the unsharded output.  Each shard generates
 // only its own positions' values: the m slabs together generate one pass.
 //
+// PRNG impls and the two-slot schedule.  Every kernel takes the impl as a
+// template argument, chosen at launch (RBD_DISPATCH, rbd_common.cuh):
+// Threefry, the reference's hw_emulated stub and the port's hw (tile-keyed
+// Philox4x32-10).  The tile-keyed impls
+// key each (8, pos_block) tile by (seed, row0, col0) WITHIN its segment --
+// slab boundaries fall on pos-blocks, so the sharded kernels see the same
+// tiles -- with the key computed once per (thread, tile): by the
+// projection when a thread's column enters a new pos-block, by the applies
+// once per CUDA block into dynamic shared memory (K or B groups x the
+// segment's dir-blocks, 4 bytes each).  `hw` costs about 30 integer
+// instructions a value where Threefry costs 73; hw_emulated draws one
+// Threefry per bit stream (two for normal and sparse), so it costs about
+// twice Threefry on those.  Kernels 1-3 and 5-7 take the reference's
+// double_buffer flag (_buffered_tile, repro/kernels/rbd_step.py:68) as a
+// template argument: the next column's (projection) or next dir-block's
+// (applies) 8 values are generated into a second register set before the
+// FMAs of the current one.  The sums keep their order, so both settings
+// give the same bits; nothing is generated past the last column or
+// dir-block.
+//
 // Determinism: no float atomics.  Every sum runs in a fixed order, so two
 // launches on the same inputs give bit-identical outputs.
 //
@@ -104,7 +124,7 @@ __device__ __forceinline__ int find_segment(const int64_t* prefix, int n_seg,
 // consecutive pos-blocks of the segment, and in project_store the last
 // block of the (segment, dir-block) to finish writes the 8 coordinates
 // and 8 squared norms.
-template <int DIST>
+template <int DIST, int IMPL, bool DBUF>
 __global__ void __launch_bounds__(kThreads)
 project_kernel(const float* __restrict__ g, const uint32_t* __restrict__ seed,
                const int64_t* __restrict__ size,
@@ -128,23 +148,46 @@ project_kernel(const float* __restrict__ g, const uint32_t* __restrict__ seed,
   const int64_t c_end = c0 + static_cast<int64_t>(pos_chunk) * pos_block;
   const int64_t c1 = c_end < q ? c_end : q;
   float acc[kAcc];
-  project_sums<DIST>(g + param_off[s], seed[s],
-                     static_cast<uint32_t>(di * kDirBlock), c0, c1, acc);
+  project_sums<DIST, IMPL, DBUF>(g + param_off[s], seed[s],
+                                 static_cast<uint32_t>(di * kDirBlock), c0,
+                                 c1, static_cast<uint32_t>(pos_block), acc);
   project_store(acc, bid, chunk, nch, coord_off[s] / kDirBlock + di,
                 partial, arrived, u, sq);
 }
 
 // theta value `th` at column c32 of a segment minus sum_db part_db
 // (rbd_common.cuh's dir_block_part), subtracted dir-block by dir-block
-// (dot first, then subtract -- the reference's association).  Shared by
-// kernels 2, 3 and 4, so one worker's arithmetic is the same instruction
-// sequence in each.
-template <int DIST>
+// (dot first, then subtract -- the reference's association).  `keys` are
+// the segment's tile keys of this pos-block, one per dir-block, `cin` the
+// column within it.  Shared by kernels 2-4 and 6-7, so one worker's
+// arithmetic is the same instruction sequence in each.  With DBUF dir-block
+// db + 1's values are generated before dir-block db's dot.
+template <int DIST, int IMPL, bool DBUF>
 __device__ __forceinline__ float apply_dir_blocks(float th, uint32_t sd,
+                                                  const uint32_t* keys,
                                                   const float* sc, int n_db,
-                                                  uint32_t c32) {
-  for (int db = 0; db < n_db; ++db) {
-    th = __fsub_rn(th, dir_block_part<DIST>(sd, sc, db, c32));
+                                                  uint32_t c32, uint32_t cin,
+                                                  uint32_t pb) {
+  if constexpr (!DBUF) {
+    for (int db = 0; db < n_db; ++db) {
+      th = __fsub_rn(th, dir_block_part<DIST, IMPL>(
+                             sd, key_of<IMPL>(keys, db), sc, db, c32, cin,
+                             pb));
+    }
+  } else {
+    float p[kDirBlock];
+    dir_block_values<DIST, IMPL>(sd, key_of<IMPL>(keys, 0), 0, c32, cin, pb,
+                                 p);
+    for (int db = 0; db < n_db; ++db) {
+      float pn[kDirBlock];
+      if (db + 1 < n_db) {
+        dir_block_values<DIST, IMPL>(sd, key_of<IMPL>(keys, db + 1), db + 1,
+                                     c32, cin, pb, pn);
+      }
+      th = __fsub_rn(th, dot_dir_block(sc, db, p));
+#pragma unroll
+      for (int i = 0; i < kDirBlock; ++i) p[i] = pn[i];
+    }
   }
   return th;
 }
@@ -157,7 +200,7 @@ __device__ __forceinline__ float apply_dir_blocks(float th, uint32_t sd,
 // `theta`: each block reads and writes only its own pos-block, each element
 // is read before it is written by the same thread, so the in-place update
 // is safe.
-template <int DIST>
+template <int DIST, int IMPL, bool DBUF>
 __global__ void __launch_bounds__(kThreads)
 reconstruct_apply_kernel(const float* scale, const float* theta, float* out,
                          const uint32_t* __restrict__ seed,
@@ -167,6 +210,7 @@ reconstruct_apply_kernel(const float* scale, const float* theta, float* out,
                          const int64_t* __restrict__ coord_off,
                          const int64_t* __restrict__ blocks, int n_seg,
                          int pos_block) {
+  extern __shared__ uint32_t keys[];
   const int64_t bid = blockIdx.x;
   const int s = find_segment(blocks, n_seg, bid);
   const int64_t pj = bid - blocks[s];
@@ -177,12 +221,14 @@ reconstruct_apply_kernel(const float* scale, const float* theta, float* out,
   const int64_t base = param_off[s];
 
   const int64_t c0 = pj * pos_block;
+  fill_tile_keys<IMPL>(keys, seed + s, 0, 1, n_db, static_cast<uint32_t>(c0));
   for (int64_t col = c0 + threadIdx.x; col < c0 + pos_block;
        col += kThreads) {
     float th = theta[base + col];
     if (col < q) {
-      th = apply_dir_blocks<DIST>(th, sd, sc, n_db,
-                                  static_cast<uint32_t>(col));
+      th = apply_dir_blocks<DIST, IMPL, DBUF>(
+          th, sd, keys, sc, n_db, static_cast<uint32_t>(col),
+          static_cast<uint32_t>(col - c0), static_cast<uint32_t>(pos_block));
     }
     out[base + col] = th;
   }
@@ -197,7 +243,7 @@ reconstruct_apply_kernel(const float* scale, const float* theta, float* out,
 // workers outside the single-worker tile scan), so the (K*d)-dimensional
 // joint update never exists in memory and any K is one launch.  Padding
 // columns are copied through and `out` may alias `theta`, as in kernel 2.
-template <int DIST>
+template <int DIST, int IMPL, bool DBUF>
 __global__ void __launch_bounds__(kThreads)
 reconstruct_apply_workers_kernel(const float* scale, const float* theta,
                                  float* out,
@@ -209,6 +255,7 @@ reconstruct_apply_workers_kernel(const float* scale, const float* theta,
                                  const int64_t* __restrict__ blocks,
                                  int n_seg, int pos_block, int k_workers,
                                  int64_t d_packed) {
+  extern __shared__ uint32_t keys[];
   const int64_t bid = blockIdx.x;
   const int s = find_segment(blocks, n_seg, bid);
   const int64_t pj = bid - blocks[s];
@@ -218,14 +265,18 @@ reconstruct_apply_workers_kernel(const float* scale, const float* theta,
   const int64_t base = param_off[s];
 
   const int64_t c0 = pj * pos_block;
+  fill_tile_keys<IMPL>(keys, seed + s, n_seg, k_workers, n_db,
+                       static_cast<uint32_t>(c0));
   for (int64_t col = c0 + threadIdx.x; col < c0 + pos_block;
        col += kThreads) {
     float th = theta[base + col];
     if (col < q) {
       const uint32_t c32 = static_cast<uint32_t>(col);
       for (int k = 0; k < k_workers; ++k) {
-        th = apply_dir_blocks<DIST>(th, seed[k * n_seg + s],
-                                    sc + k * d_packed, n_db, c32);
+        th = apply_dir_blocks<DIST, IMPL, DBUF>(
+            th, seed[k * n_seg + s], keys + k * n_db, sc + k * d_packed,
+            n_db, c32, static_cast<uint32_t>(col - c0),
+            static_cast<uint32_t>(pos_block));
       }
     }
     out[base + col] = th;
@@ -239,10 +290,11 @@ reconstruct_apply_workers_kernel(const float* scale, const float* theta,
 // adapter a's segment seed seed[a * n_seg + s] and scale row
 // scale[a * d_packed + ...], writing out[a * q_packed + base + col].  Row a
 // is thus the single-tenant instruction sequence on the same inputs: bit for
-// bit kernel 2's output.  Padding columns copy theta into every row, so the
+// bit kernel 2's output (unbuffered; the reference's adapter kernel takes
+// no double_buffer).  Padding columns copy theta into every row, so the
 // zero padding of a resident theta stays exactly zero.  `out` (B, q_packed)
 // must not alias `theta`.
-template <int DIST>
+template <int DIST, int IMPL>
 __global__ void __launch_bounds__(kThreads)
 reconstruct_apply_adapters_kernel(const float* __restrict__ scale,
                                   const float* __restrict__ theta,
@@ -255,6 +307,7 @@ reconstruct_apply_adapters_kernel(const float* __restrict__ scale,
                                   const int64_t* __restrict__ blocks,
                                   int n_seg, int pos_block, int n_adapters,
                                   int64_t d_packed, int64_t q_packed) {
+  extern __shared__ uint32_t keys[];
   const int64_t bid = blockIdx.x;
   const int s = find_segment(blocks, n_seg, bid);
   const int64_t pj = bid - blocks[s];
@@ -264,6 +317,8 @@ reconstruct_apply_adapters_kernel(const float* __restrict__ scale,
   const int64_t base = param_off[s];
 
   const int64_t c0 = pj * pos_block;
+  fill_tile_keys<IMPL>(keys, seed + s, n_seg, n_adapters, n_db,
+                       static_cast<uint32_t>(c0));
   for (int64_t col = c0 + threadIdx.x; col < c0 + pos_block;
        col += kThreads) {
     const float th = theta[base + col];
@@ -271,8 +326,10 @@ reconstruct_apply_adapters_kernel(const float* __restrict__ scale,
     for (int a = 0; a < n_adapters; ++a) {
       float v = th;
       if (col < q) {
-        v = apply_dir_blocks<DIST>(th, seed[a * n_seg + s], sc + a * d_packed,
-                                   n_db, c32);
+        v = apply_dir_blocks<DIST, IMPL, false>(
+            th, seed[a * n_seg + s], keys + a * n_db, sc + a * d_packed, n_db,
+            c32, static_cast<uint32_t>(col - c0),
+            static_cast<uint32_t>(pos_block));
       }
       out[a * q_packed + base + col] = v;
     }
@@ -286,7 +343,8 @@ reconstruct_apply_adapters_kernel(const float* __restrict__ scale,
 // A segment with no column in the slab has one empty chunk per dir-block,
 // which writes zeros: every coordinate of the partial is written.  `g` is
 // the (q_slab,) slab, whose first element is packed position slab_off.
-template <int DIST>
+// Columns stay within-segment, so the tiles are kernel 1's.
+template <int DIST, int IMPL, bool DBUF>
 __global__ void __launch_bounds__(kThreads)
 project_sharded_kernel(const float* __restrict__ g,
                        const uint32_t* __restrict__ seed,
@@ -314,8 +372,9 @@ project_sharded_kernel(const float* __restrict__ g,
   const int64_t c0 = start > lo ? start : lo;
   const int64_t c1 = start + span < hi ? start + span : hi;
   float acc[kAcc];
-  project_sums<DIST>(g + (param_off[s] - slab_off), seed[s],
-                     static_cast<uint32_t>(di * kDirBlock), c0, c1, acc);
+  project_sums<DIST, IMPL, DBUF>(g + (param_off[s] - slab_off), seed[s],
+                                 static_cast<uint32_t>(di * kDirBlock), c0,
+                                 c1, static_cast<uint32_t>(pos_block), acc);
   project_store(acc, bid, chunk, nch, coord_off[s] / kDirBlock + di,
                 partial, arrived, u, sq);
 }
@@ -325,7 +384,7 @@ project_sharded_kernel(const float* __restrict__ g,
 // unsharded apply prefix `blocks`, and the body is kernel 2's.  Blocks
 // past the live buffer (the last slab's zero padding) copy theta through.
 // `out` may alias `theta`, as in kernel 2.
-template <int DIST>
+template <int DIST, int IMPL, bool DBUF>
 __global__ void __launch_bounds__(kThreads)
 reconstruct_apply_sharded_kernel(const float* scale, const float* theta,
                                  float* out,
@@ -336,6 +395,7 @@ reconstruct_apply_sharded_kernel(const float* scale, const float* theta,
                                  const int64_t* __restrict__ coord_off,
                                  const int64_t* __restrict__ blocks,
                                  int n_seg, int64_t blk_lo, int pos_block) {
+  extern __shared__ uint32_t keys[];
   const int64_t gb = blk_lo + blockIdx.x;
   const int64_t c0 = static_cast<int64_t>(blockIdx.x) * pos_block;
   if (gb >= blocks[n_seg]) {
@@ -353,12 +413,16 @@ reconstruct_apply_sharded_kernel(const float* scale, const float* theta,
   const int64_t base = param_off[s] - blk_lo * pos_block;
 
   const int64_t col0 = pj * pos_block;
+  fill_tile_keys<IMPL>(keys, seed + s, 0, 1, n_db,
+                       static_cast<uint32_t>(col0));
   for (int64_t col = col0 + threadIdx.x; col < col0 + pos_block;
        col += kThreads) {
     float th = theta[base + col];
     if (col < q) {
-      th = apply_dir_blocks<DIST>(th, sd, sc, n_db,
-                                  static_cast<uint32_t>(col));
+      th = apply_dir_blocks<DIST, IMPL, DBUF>(
+          th, sd, keys, sc, n_db, static_cast<uint32_t>(col),
+          static_cast<uint32_t>(col - col0),
+          static_cast<uint32_t>(pos_block));
     }
     out[base + col] = th;
   }
@@ -367,7 +431,7 @@ reconstruct_apply_sharded_kernel(const float* scale, const float* theta,
 // Kernel 7: slab' = slab - sum_k s_k P_k on one slab: kernel 6's window over
 // kernel 3's per-thread loop (workers outer, dir-blocks inner), one launch
 // for any K; each slab is bit-identical to the matching slice of kernel 3.
-template <int DIST>
+template <int DIST, int IMPL, bool DBUF>
 __global__ void __launch_bounds__(kThreads)
 reconstruct_apply_workers_sharded_kernel(
     const float* scale, const float* theta, float* out,
@@ -376,6 +440,7 @@ reconstruct_apply_workers_sharded_kernel(
     const int64_t* __restrict__ coord_off,
     const int64_t* __restrict__ blocks, int n_seg, int64_t blk_lo,
     int pos_block, int k_workers, int64_t d_packed) {
+  extern __shared__ uint32_t keys[];
   const int64_t gb = blk_lo + blockIdx.x;
   const int64_t c0 = static_cast<int64_t>(blockIdx.x) * pos_block;
   if (gb >= blocks[n_seg]) {
@@ -392,31 +457,54 @@ reconstruct_apply_workers_sharded_kernel(
   const int64_t base = param_off[s] - blk_lo * pos_block;
 
   const int64_t col0 = pj * pos_block;
+  fill_tile_keys<IMPL>(keys, seed + s, n_seg, k_workers, n_db,
+                       static_cast<uint32_t>(col0));
   for (int64_t col = col0 + threadIdx.x; col < col0 + pos_block;
        col += kThreads) {
     float th = theta[base + col];
     if (col < q) {
       const uint32_t c32 = static_cast<uint32_t>(col);
       for (int k = 0; k < k_workers; ++k) {
-        th = apply_dir_blocks<DIST>(th, seed[k * n_seg + s],
-                                    sc + k * d_packed, n_db, c32);
+        th = apply_dir_blocks<DIST, IMPL, DBUF>(
+            th, seed[k * n_seg + s], keys + k * n_db, sc + k * d_packed,
+            n_db, c32, static_cast<uint32_t>(col - col0),
+            static_cast<uint32_t>(pos_block));
       }
     }
     out[base + col] = th;
   }
 }
 
-template <int DIST>
-__global__ void generate_tile_kernel(uint32_t seed, uint32_t row0,
-                                     uint32_t col0, int rows, int cols,
-                                     uint32_t* b0, uint32_t* b1, float* out) {
+// Debug: the bits and samples of one (rows, cols) tile at (row0, col0).
+// Threefry keys each element by its own counter; the tile-keyed impls
+// treat the whole shape as ONE tile (the reference's
+// PrngSpec.generate_tile), keyed by hw_tile_key(seed, row0, col0), with
+// b0/b1 its two streams (draws 0 and 1 of hw_emulated at index r * cols +
+// c; words 0-1 or 2-3 of the Philox call (c, r / 2, 0, 0) for hw).
+template <int DIST, int IMPL>
+__global__ void __launch_bounds__(kThreads)
+generate_tile_kernel(uint32_t seed, uint32_t row0, uint32_t col0, int rows,
+                     int cols, uint32_t* b0, uint32_t* b1, float* out) {
   const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   if (idx >= static_cast<int64_t>(rows) * cols) return;
-  const uint32_t r = row0 + static_cast<uint32_t>(idx / cols);
-  const uint32_t c = col0 + static_cast<uint32_t>(idx % cols);
+  const uint32_t r = static_cast<uint32_t>(idx / cols);
+  const uint32_t c = static_cast<uint32_t>(idx % cols);
   uint32_t x0, x1;
-  basis_bits(seed, r, c, x0, x1);
+  if constexpr (IMPL == kThreefry) {
+    basis_bits(seed, row0 + r, col0 + c, x0, x1);
+  } else if constexpr (IMPL == kHwEmulated) {
+    const uint32_t k = hw_tile_key(seed, row0, col0);
+    const uint32_t i = r * static_cast<uint32_t>(cols) + c;
+    x0 = emulated_bits(k, k ^ kKeySalt, i, 0u);
+    x1 = emulated_bits(k, k ^ kKeySalt, i, 1u);
+  } else {
+    const uint32_t k = hw_tile_key(seed, row0, col0);
+    uint32_t w[4];
+    philox4x32_10(philox_key(k, k ^ kKeySalt), c, r >> 1, 0u, 0u, w);
+    x0 = (r & 1u) ? w[2] : w[0];
+    x1 = (r & 1u) ? w[3] : w[1];
+  }
   b0[idx] = x0;
   b1[idx] = x1;
   out[idx] = bits_to_sample<DIST>(x0, x1);
@@ -426,34 +514,45 @@ __global__ void generate_tile_kernel(uint32_t seed, uint32_t row0,
 
 extern "C" {
 
+// Dynamic shared memory of an apply block: the tile keys of `groups` seeds
+// (workers or adapters) x the largest segment's dir-blocks; none for
+// Threefry.  `impl` is rbd_common.cuh's Impl code, `dist` its Dist code.
+static size_t key_bytes(int impl, int groups, int max_ndb) {
+  return impl == rbd::kThreefry
+             ? 0
+             : static_cast<size_t>(groups) * max_ndb * sizeof(uint32_t);
+}
+
 // `arrived` must hold d_packed / 8 zeros; `partial` n_blocks * 16 floats.
 int rbd_project_packed(const float* g, const uint32_t* seed,
                        const int64_t* size, const int64_t* param_off,
                        const int64_t* coord_off, const int32_t* n_chunk,
                        const int64_t* blocks, int n_seg, int64_t n_blocks,
-                       int pos_block, int pos_chunk, int dist, float* partial,
-                       int32_t* arrived, float* u, float* sq, void* stream) {
+                       int pos_block, int pos_chunk, int dist, int impl,
+                       int dbuf, float* partial, int32_t* arrived, float* u,
+                       float* sq, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>(n_blocks));
-  RBD_DISPATCH(dist, project_kernel, grid, g, seed, size, param_off,
-               coord_off, n_chunk, blocks, n_seg, pos_block, pos_chunk,
-               partial, arrived, u, sq);
-  return static_cast<int>(cudaGetLastError());
+  RBD_DISPATCH_DB(impl, dist, dbuf, project_kernel, grid, 0, g, seed, size,
+                  param_off, coord_off, n_chunk, blocks, n_seg, pos_block,
+                  pos_chunk, partial, arrived, u, sq);
 }
 
+// `max_ndb` is the largest pdim / 8 over the segments.
 int rbd_reconstruct_apply_packed(const float* scale, const float* theta,
                                  float* out, const uint32_t* seed,
                                  const int64_t* size, const int32_t* pdim,
                                  const int64_t* param_off,
                                  const int64_t* coord_off,
                                  const int64_t* blocks, int n_seg,
-                                 int64_t n_blocks, int pos_block, int dist,
+                                 int64_t n_blocks, int pos_block,
+                                 int max_ndb, int dist, int impl, int dbuf,
                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>(n_blocks));
-  RBD_DISPATCH(dist, reconstruct_apply_kernel, grid, scale, theta, out, seed,
-               size, pdim, param_off, coord_off, blocks, n_seg, pos_block);
-  return static_cast<int>(cudaGetLastError());
+  RBD_DISPATCH_DB(impl, dist, dbuf, reconstruct_apply_kernel, grid,
+                  key_bytes(impl, 1, max_ndb), scale, theta, out, seed, size,
+                  pdim, param_off, coord_off, blocks, n_seg, pos_block);
 }
 
 // `scale` is (k_workers, d_packed) row-major, `seed` (k_workers, n_seg).
@@ -462,13 +561,13 @@ int rbd_reconstruct_apply_packed_workers(
     const int64_t* size, const int32_t* pdim, const int64_t* param_off,
     const int64_t* coord_off, const int64_t* blocks, int n_seg,
     int64_t n_blocks, int pos_block, int k_workers, int64_t d_packed,
-    int dist, void* stream) {
+    int max_ndb, int dist, int impl, int dbuf, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>(n_blocks));
-  RBD_DISPATCH(dist, reconstruct_apply_workers_kernel, grid, scale, theta,
-               out, seed, size, pdim, param_off, coord_off, blocks, n_seg,
-               pos_block, k_workers, d_packed);
-  return static_cast<int>(cudaGetLastError());
+  RBD_DISPATCH_DB(impl, dist, dbuf, reconstruct_apply_workers_kernel, grid,
+                  key_bytes(impl, k_workers, max_ndb), scale, theta, out, seed,
+                  size, pdim, param_off, coord_off, blocks, n_seg, pos_block,
+                  k_workers, d_packed);
 }
 
 // `scale` is (n_adapters, d_packed) row-major, `seed` (n_adapters, n_seg),
@@ -478,13 +577,13 @@ int rbd_reconstruct_apply_packed_adapters(
     const int64_t* size, const int32_t* pdim, const int64_t* param_off,
     const int64_t* coord_off, const int64_t* blocks, int n_seg,
     int64_t n_blocks, int pos_block, int n_adapters, int64_t d_packed,
-    int64_t q_packed, int dist, void* stream) {
+    int64_t q_packed, int max_ndb, int dist, int impl, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>(n_blocks));
-  RBD_DISPATCH(dist, reconstruct_apply_adapters_kernel, grid, scale, theta,
-               out, seed, size, pdim, param_off, coord_off, blocks, n_seg,
-               pos_block, n_adapters, d_packed, q_packed);
-  return static_cast<int>(cudaGetLastError());
+  RBD_DISPATCH(impl, dist, reconstruct_apply_adapters_kernel, grid,
+               key_bytes(impl, n_adapters, max_ndb), scale, theta, out, seed,
+               size, pdim, param_off, coord_off, blocks, n_seg, pos_block,
+               n_adapters, d_packed, q_packed);
 }
 
 // `g` is the (q_slab,) slab starting at packed position slab_off; `arrived`
@@ -494,14 +593,14 @@ int rbd_project_packed_sharded(
     const int64_t* coord_off, const int64_t* col_lo, const int64_t* col_hi,
     const int32_t* chunk_lo, const int32_t* n_chunk, const int64_t* blocks,
     int n_seg, int64_t n_blocks, int64_t slab_off, int pos_block,
-    int pos_chunk, int dist, float* partial, int32_t* arrived, float* u,
-    float* sq, void* stream) {
+    int pos_chunk, int dist, int impl, int dbuf, float* partial,
+    int32_t* arrived, float* u, float* sq, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>(n_blocks));
-  RBD_DISPATCH(dist, project_sharded_kernel, grid, g, seed, param_off,
-               coord_off, col_lo, col_hi, chunk_lo, n_chunk, blocks, n_seg,
-               slab_off, pos_block, pos_chunk, partial, arrived, u, sq);
-  return static_cast<int>(cudaGetLastError());
+  RBD_DISPATCH_DB(impl, dist, dbuf, project_sharded_kernel, grid, 0, g, seed,
+                  param_off, coord_off, col_lo, col_hi, chunk_lo, n_chunk,
+                  blocks, n_seg, slab_off, pos_block, pos_chunk, partial,
+                  arrived, u, sq);
 }
 
 // `theta`/`out` are the (bps * pos_block,) slab of pos-blocks
@@ -510,13 +609,14 @@ int rbd_reconstruct_apply_packed_sharded(
     const float* scale, const float* theta, float* out, const uint32_t* seed,
     const int64_t* size, const int32_t* pdim, const int64_t* param_off,
     const int64_t* coord_off, const int64_t* blocks, int n_seg, int64_t bps,
-    int64_t blk_lo, int pos_block, int dist, void* stream) {
+    int64_t blk_lo, int pos_block, int max_ndb, int dist, int impl, int dbuf,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>(bps));
-  RBD_DISPATCH(dist, reconstruct_apply_sharded_kernel, grid, scale, theta,
-               out, seed, size, pdim, param_off, coord_off, blocks, n_seg,
-               blk_lo, pos_block);
-  return static_cast<int>(cudaGetLastError());
+  RBD_DISPATCH_DB(impl, dist, dbuf, reconstruct_apply_sharded_kernel, grid,
+                  key_bytes(impl, 1, max_ndb), scale, theta, out, seed, size,
+                  pdim, param_off, coord_off, blocks, n_seg, blk_lo,
+                  pos_block);
 }
 
 // `scale` is (k_workers, d_packed) row-major, `seed` (k_workers, n_seg).
@@ -524,26 +624,26 @@ int rbd_reconstruct_apply_packed_workers_sharded(
     const float* scale, const float* theta, float* out, const uint32_t* seed,
     const int64_t* size, const int32_t* pdim, const int64_t* param_off,
     const int64_t* coord_off, const int64_t* blocks, int n_seg, int64_t bps,
-    int64_t blk_lo, int pos_block, int k_workers, int64_t d_packed, int dist,
-    void* stream) {
+    int64_t blk_lo, int pos_block, int k_workers, int64_t d_packed,
+    int max_ndb, int dist, int impl, int dbuf, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>(bps));
-  RBD_DISPATCH(dist, reconstruct_apply_workers_sharded_kernel, grid, scale,
-               theta, out, seed, size, pdim, param_off, coord_off, blocks,
-               n_seg, blk_lo, pos_block, k_workers, d_packed);
-  return static_cast<int>(cudaGetLastError());
+  RBD_DISPATCH_DB(impl, dist, dbuf, reconstruct_apply_workers_sharded_kernel,
+                  grid, key_bytes(impl, k_workers, max_ndb), scale, theta,
+                  out, seed,
+                  size, pdim, param_off, coord_off, blocks, n_seg, blk_lo,
+                  pos_block, k_workers, d_packed);
 }
 
 int rbd_generate_tile(uint32_t seed, uint32_t row0, uint32_t col0, int rows,
-                      int cols, int dist, uint32_t* b0, uint32_t* b1,
-                      float* out, void* stream) {
+                      int cols, int dist, int impl, uint32_t* b0,
+                      uint32_t* b1, float* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t n = static_cast<int64_t>(rows) * cols;
   const dim3 grid(static_cast<unsigned>((n + rbd::kThreads - 1) /
                                         rbd::kThreads));
-  RBD_DISPATCH(dist, generate_tile_kernel, grid, seed, row0, col0, rows, cols,
-               b0, b1, out);
-  return static_cast<int>(cudaGetLastError());
+  RBD_DISPATCH(impl, dist, generate_tile_kernel, grid, 0, seed, row0, col0,
+               rows, cols, b0, b1, out);
 }
 
 const char* rbd_error_string(int code) {

@@ -44,13 +44,15 @@ def check_flat(name: str, t: torch.Tensor, n_stack: int, q: int,
 
 
 def project_flat(seeds, g: torch.Tensor, dim: int,
-                 distribution: str = "normal"):
+                 distribution: str = "normal", *, prng="threefry"):
     """``(u, sq)``, each ``(n_stack, dim)`` float32, for the ``(n_stack,
     q)`` float32 gradient rows ``g``; ``seeds`` holds the ``(n_stack,)``
-    uint32 compartment seeds as int32 bits."""
+    uint32 compartment seeds as int32 bits.  ``prng`` as in
+    :func:`repro_torch.kernels.rbd_step.project_packed` (tiles of (8,
+    512) at (dir-block, pos-block) of each compartment)."""
     rbd_step.CALLS["project_flat"] += 1
     if g.device.type == "cpu":
-        return project_flat_plain(seeds, g, dim, distribution)
+        return project_flat_plain(seeds, g, dim, distribution, prng=prng)
     n_stack, q = (int(x) for x in g.shape)
     check_flat("g", g, n_stack, q)
     if distribution not in rbd_step._DIST_CODE:
@@ -70,24 +72,28 @@ def project_flat(seeds, g: torch.Tensor, dim: int,
         "project_flat",
         rbd_step.library(rbd_step.FLAT_SOURCE).lib.rbd_project_flat,
         g.data_ptr(), seeds.data_ptr(), n_stack, q, n_db, n_chunk,
-        chunk_cols, rbd_step._DIST_CODE[distribution], partial.data_ptr(),
-        arrived.data_ptr(), u.data_ptr(), sq.data_ptr())
+        chunk_cols, rbd_step._DIST_CODE[distribution],
+        rbd_step.impl_code(prng), partial.data_ptr(), arrived.data_ptr(),
+        u.data_ptr(), sq.data_ptr(),
+        variant=(prng, False))
     return u[:, :dim], sq[:, :dim]
 
 
 def flat_blocks(seeds, n_stack: int, q: int, dim: int, distribution: str,
-                device, *, keep: bool):
+                device, *, keep: bool, prng="threefry"):
     """Yield ``(compartment, first column, block)`` over the (padded dim,
     columns) basis blocks of every compartment (see
     ``rbd_step._plain_blocks``: on the CPU a projection keeps its blocks
     for the apply of the same step)."""
     return rbd_step._plain_blocks(seeds, [q] * n_stack,
                                   [padded_dim(dim)] * n_stack, distribution,
-                                  torch.device(device), keep=keep)
+                                  torch.device(device), keep=keep,
+                                  prng=prng, pos_block=POS_BLOCK,
+                                  dir_block=DIR_BLOCK)
 
 
 def project_flat_plain(seeds, g: torch.Tensor, dim: int,
-                       distribution: str = "normal"):
+                       distribution: str = "normal", *, prng="threefry"):
     """Plain PyTorch version of :func:`project_flat`, on ``g``'s device."""
     n_stack, q = (int(x) for x in g.shape)
     g = g.to(torch.float32)
@@ -95,7 +101,7 @@ def project_flat_plain(seeds, g: torch.Tensor, dim: int,
                     device=g.device)
     sq = torch.zeros_like(u)
     for s, c0, blk in flat_blocks(seeds, n_stack, q, dim, distribution,
-                                  g.device, keep=True):
+                                  g.device, keep=True, prng=prng):
         u[s] += torch.mv(blk, g[s, c0: c0 + blk.shape[1]])
         sq[s] += (blk * blk).sum(1)
     return u[:, :dim], sq[:, :dim]

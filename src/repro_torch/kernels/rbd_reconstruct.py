@@ -10,8 +10,12 @@
   theta's dtype (float32 or bfloat16), the delta never in memory
   (replaces ``reconstruct_apply_flat -> _recon_apply_kernel``).
 
-Per position both visit the dir-blocks in order, forming each block's
-part ``sum_{r<8} s_r P_r`` first (the reference's association).  The
+Both take the reference's ``prng`` (tile-keyed impls keyed by the
+(8, 512) tile at (dir-block, pos-block) of the compartment; the
+reference's resolver routes every per-leaf strategy to Threefry, so only
+callers that ask get them).  Per position both visit the dir-blocks in
+order, forming each block's part ``sum_{r<8} s_r P_r`` first (the
+reference's association).  The
 wrappers take their plain versions for CPU tensors, and only then; for a
 CUDA tensor they launch the kernels of ``csrc/rbd_flat.cu`` or raise.
 Launches, calls and CUDA-event times are counted in
@@ -43,13 +47,15 @@ def _padded_scale(scale: torch.Tensor, n_stack: int, dim: int):
 
 
 def reconstruct_flat(seeds, scale: torch.Tensor, q: int,
-                     distribution: str = "normal") -> torch.Tensor:
+                     distribution: str = "normal", *,
+                     prng="threefry") -> torch.Tensor:
     """``(n_stack, q)`` float32 ``scale @ P`` per compartment; ``scale``
     is ``(n_stack, dim)`` and folds in normalization (and learning rate
     where the caller wants it)."""
     rbd_step.CALLS["reconstruct_flat"] += 1
     if scale.device.type == "cpu":
-        return reconstruct_flat_plain(seeds, scale, q, distribution)
+        return reconstruct_flat_plain(seeds, scale, q, distribution,
+                                      prng=prng)
     n_stack, dim = (int(x) for x in scale.shape)
     if distribution not in rbd_step._DIST_CODE:
         raise ValueError(f"unknown distribution {distribution!r}")
@@ -62,12 +68,13 @@ def reconstruct_flat(seeds, scale: torch.Tensor, q: int,
         rbd_step.library(rbd_step.FLAT_SOURCE).lib.rbd_reconstruct_flat,
         sc.data_ptr(), seeds.data_ptr(), n_stack, q,
         sc.shape[1] // DIR_BLOCK, rbd_step._DIST_CODE[distribution],
-        out.data_ptr())
+        rbd_step.impl_code(prng), out.data_ptr(), variant=(prng, False))
     return out
 
 
 def reconstruct_flat_plain(seeds, scale: torch.Tensor, q: int,
-                           distribution: str = "normal") -> torch.Tensor:
+                           distribution: str = "normal", *,
+                           prng="threefry") -> torch.Tensor:
     """Plain PyTorch version of :func:`reconstruct_flat`: per block of
     positions each dir-block's part is added in dir-block order."""
     n_stack, dim = (int(x) for x in scale.shape)
@@ -75,7 +82,7 @@ def reconstruct_flat_plain(seeds, scale: torch.Tensor, q: int,
     out = torch.zeros((n_stack, q), dtype=torch.float32,
                       device=scale.device)
     for s, c0, blk, parts in _parts(seeds, sc, n_stack, q, dim,
-                                    distribution, scale.device):
+                                    distribution, scale.device, prng):
         o = out[s, c0: c0 + blk.shape[1]]
         for part in parts:
             o += part
@@ -83,14 +90,16 @@ def reconstruct_flat_plain(seeds, scale: torch.Tensor, q: int,
 
 
 def reconstruct_apply_flat(seeds, scale: torch.Tensor, theta: torch.Tensor,
-                           eta, distribution: str = "normal", *, out=None):
+                           eta, distribution: str = "normal", *, out=None,
+                           prng="threefry"):
     """``theta - eta * (scale @ P)`` per compartment, fused; returns
     ``out`` (theta's dtype and shape ``(n_stack, q)``).  ``out=None``
     allocates it; ``out=theta`` updates theta in place."""
     rbd_step.CALLS["reconstruct_apply_flat"] += 1
     if theta.device.type == "cpu":
         return reconstruct_apply_flat_plain(seeds, scale, theta, eta,
-                                            distribution, out=out)
+                                            distribution, out=out,
+                                            prng=prng)
     n_stack, q = (int(x) for x in theta.shape)
     check_flat("theta", theta, n_stack, q, _THETA_DTYPES)
     if distribution not in rbd_step._DIST_CODE:
@@ -107,13 +116,15 @@ def reconstruct_apply_flat(seeds, scale: torch.Tensor, theta: torch.Tensor,
         sc.data_ptr(), theta.data_ptr(), out.data_ptr(),
         float(np.float32(eta)), seeds.data_ptr(), n_stack, q,
         sc.shape[1] // DIR_BLOCK, rbd_step._DIST_CODE[distribution],
-        int(theta.dtype == torch.bfloat16))
+        rbd_step.impl_code(prng), int(theta.dtype == torch.bfloat16),
+        variant=(prng, False))
     return out
 
 
 def reconstruct_apply_flat_plain(seeds, scale: torch.Tensor,
                                  theta: torch.Tensor, eta,
-                                 distribution: str = "normal", *, out=None):
+                                 distribution: str = "normal", *, out=None,
+                                 prng="threefry"):
     """Plain PyTorch version of :func:`reconstruct_apply_flat`: a float32
     copy of theta, each dir-block's ``eta * part`` subtracted in order,
     one cast back to theta's dtype."""
@@ -123,7 +134,7 @@ def reconstruct_apply_flat_plain(seeds, scale: torch.Tensor,
     eta = float(np.float32(eta))
     acc = theta.to(torch.float32, copy=True)
     for s, c0, blk, parts in _parts(seeds, sc, n_stack, q, dim,
-                                    distribution, theta.device):
+                                    distribution, theta.device, prng):
         o = acc[s, c0: c0 + blk.shape[1]]
         for part in parts:
             o -= eta * part
@@ -133,11 +144,11 @@ def reconstruct_apply_flat_plain(seeds, scale: torch.Tensor,
     return out
 
 
-def _parts(seeds, sc, n_stack, q, dim, distribution, device):
+def _parts(seeds, sc, n_stack, q, dim, distribution, device, prng):
     """Yield ``(s, c0, block, parts)``: ``parts[b]`` is dir-block b's
     ``sum_{r<8} sc_r P_r`` over the block's columns."""
     for s, c0, blk in flat_blocks(seeds, n_stack, q, dim, distribution,
-                                  device, keep=False):
+                                  device, keep=False, prng=prng):
         pdim, nc = blk.shape
         parts = (sc[s].reshape(pdim, 1) * blk).reshape(
             pdim // DIR_BLOCK, DIR_BLOCK, nc).sum(1)

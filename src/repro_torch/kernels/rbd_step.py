@@ -26,6 +26,15 @@
 * :func:`generate_tile` -- debug entry: the bits and samples of one tile,
   to hold the device generator against :mod:`repro_torch.core.rng`.
 
+Every wrapper and plain version takes the reference's ``prng`` (a
+:class:`repro_torch.core.rng.PrngSpec` impl name or instance): the
+counter-keyed ``threefry``, or the tile-keyed ``hw_emulated`` and ``hw``,
+whose values are keyed by their (8, pos_block) tile; the six wrappers the
+reference gives ``double_buffer`` take it too (``None``: on for ``hw``
+only, :func:`resolve_double_buffer`), and either setting gives the same
+bits.  The kernels take the impl as a template argument, chosen at
+launch.
+
 Each wrapper takes its plain version for a tensor on the CPU, and only
 then.  For a CUDA tensor it launches the hand-written kernel of
 ``csrc/rbd_step.cu`` (built by :mod:`repro_torch.kernels.build` at first
@@ -62,6 +71,8 @@ KERNELS = ("project_packed", "reconstruct_apply_packed",
            "reconstruct_apply_packed_workers_sharded", "flash_attention")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 CALLS = dict.fromkeys(KERNELS, 0)
+# launches by variant name (:func:`variant_name`), counted with LAUNCHES
+VARIANT_LAUNCHES: dict[str, int] = {}
 SOURCE = "rbd_step.cu"
 FLAT_SOURCE = "rbd_flat.cu"
 FLASH_SOURCE = "flash_attention.cu"
@@ -84,6 +95,16 @@ def reset_counts() -> None:
     for k in KERNELS:
         LAUNCHES[k] = 0
         CALLS[k] = 0
+    VARIANT_LAUNCHES.clear()
+
+
+def variant_name(name: str, prng="threefry", double_buffer=False) -> str:
+    """``name`` for the Threefry kernel, else ``name[impl]`` or
+    ``name[impl,db]``."""
+    impl = rng.get_prng_spec(prng).impl
+    if impl == "threefry" and not double_buffer:
+        return name
+    return f"{name}[{impl}{',db' if double_buffer else ''}]"
 
 
 def set_timing(on: bool) -> None:
@@ -109,38 +130,40 @@ _P, _I, _I64, _U32, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                             ctypes.c_uint32, ctypes.c_float)
 _SIGNATURES = {
     "rbd_project_packed": [_P, _P, _P, _P, _P, _P, _P, _I, _I64, _I, _I, _I,
-                           _P, _P, _P, _P, _P],
+                           _I, _I, _P, _P, _P, _P, _P],
     "rbd_reconstruct_apply_packed": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                     _I64, _I, _I, _P],
+                                     _I64, _I, _I, _I, _I, _I, _P],
     "rbd_reconstruct_apply_packed_workers": [_P, _P, _P, _P, _P, _P, _P, _P,
                                              _P, _I, _I64, _I, _I, _I64, _I,
-                                             _P],
+                                             _I, _I, _I, _P],
     "rbd_reconstruct_apply_packed_adapters": [_P, _P, _P, _P, _P, _P, _P, _P,
                                               _P, _I, _I64, _I, _I, _I64,
-                                              _I64, _I, _P],
+                                              _I64, _I, _I, _I, _P],
     "rbd_project_packed_sharded": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                   _I64, _I64, _I, _I, _I, _P, _P, _P, _P,
-                                   _P],
+                                   _I64, _I64, _I, _I, _I, _I, _I, _P, _P,
+                                   _P, _P, _P],
     "rbd_reconstruct_apply_packed_sharded": [_P, _P, _P, _P, _P, _P, _P, _P,
-                                             _P, _I, _I64, _I64, _I, _I,
-                                             _P],
+                                             _P, _I, _I64, _I64, _I, _I, _I,
+                                             _I, _I, _P],
     "rbd_reconstruct_apply_packed_workers_sharded": [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I64, _I64, _I, _I, _I64,
-        _I, _P],
-    "rbd_generate_tile": [_U32, _U32, _U32, _I, _I, _I, _P, _P, _P, _P],
+        _I, _I, _I, _I, _P],
+    "rbd_generate_tile": [_U32, _U32, _U32, _I, _I, _I, _I, _P, _P, _P, _P],
     "rbd_error_string": [_I],
 }
 _FLAT_SIGNATURES = {
-    "rbd_project_flat": [_P, _P, _I, _I64, _I, _I, _I64, _I, _P, _P, _P, _P,
-                         _P],
-    "rbd_reconstruct_flat": [_P, _P, _I, _I64, _I, _I, _P, _P],
+    "rbd_project_flat": [_P, _P, _I, _I64, _I, _I, _I64, _I, _I, _P, _P, _P,
+                         _P, _P],
+    "rbd_reconstruct_flat": [_P, _P, _I, _I64, _I, _I, _I, _P, _P],
     "rbd_reconstruct_apply_flat": [_P, _P, _P, _F32, _P, _I, _I64, _I, _I,
-                                   _I, _P],
+                                   _I, _I, _P],
 }
 _FLASH_SIGNATURES = {
     "flash_attention_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _F32, _P],
 }
+# csrc/rbd_common.cuh's Impl codes, passed beside the distribution's
+_IMPL_CODE = {"threefry": 0, "hw_emulated": 1, "hw": 2}
 
 
 @functools.cache
@@ -165,7 +188,23 @@ def library(source: str = SOURCE):
     return libraries()[source]
 
 
-def _launch(name: str, fn, *args) -> None:
+def impl_code(prng) -> int:
+    """The kernels' code of a PRNG impl name or :class:`rng.PrngSpec`."""
+    return _IMPL_CODE[rng.get_prng_spec(prng).impl]
+
+
+def resolve_double_buffer(double_buffer, prng) -> bool:
+    """The reference's ``_resolve_double_buffer``: ``None`` = auto, on for
+    the ``hw`` impl only (its per-tile key set-up is the latency the
+    pipeline hides); either setting gives the same bits."""
+    if double_buffer is None:
+        return rng.get_prng_spec(prng).impl == "hw"
+    return bool(double_buffer)
+
+
+def _launch(name: str, fn, *args, variant=("threefry", False)) -> None:
+    """Launch, raise on a refused launch, count (``variant``: the PRNG
+    impl and double-buffer flag the kernel was launched with)."""
     timed = _TIMING["on"]
     if timed:
         start = torch.cuda.Event(enable_timing=True)
@@ -179,6 +218,8 @@ def _launch(name: str, fn, *args) -> None:
         end.record()
         _TIMING["events"][name].append((start, end))
     LAUNCHES[name] += 1
+    key = variant_name(name, *variant)
+    VARIANT_LAUNCHES[key] = VARIANT_LAUNCHES.get(key, 0) + 1
 
 
 def _check(t: torch.Tensor, name: str, shape, dtype=torch.float32) -> None:
@@ -205,6 +246,9 @@ def _device_tables(layout: PackedLayout, device: torch.device):
     dev = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
     dev["n_proj_blocks"] = int(host["proj_blocks"][-1])
     dev["n_recon_blocks"] = int(host["recon_blocks"][-1])
+    # dir-blocks of the largest segment: the tile keys an apply block
+    # holds per seed
+    dev["max_ndb"] = int(host["pdim"].max()) // layout.dir_block
     return dev
 
 
@@ -222,14 +266,15 @@ def _seeds_on(seg_seeds: torch.Tensor, n: int, device):
 
 
 def project_packed(seg_seeds, g_packed: torch.Tensor, layout: PackedLayout,
-                   distribution: str = "normal"):
+                   distribution: str = "normal", *, prng="threefry",
+                   double_buffer=None):
     """Raw projections and squared row norms for ALL segments: returns
     ``(u, sq)``, each ``(d_packed,)`` float32.  ``seg_seeds`` holds the
     ``(n_segments,)`` uint32 segment seeds as int32 bits."""
     CALLS["project_packed"] += 1
     if g_packed.device.type == "cpu":
         return project_packed_plain(seg_seeds, g_packed, layout,
-                                    distribution)
+                                    distribution, prng=prng)
     _check(g_packed, "g_packed", (layout.q_packed,))
     _check_layout(layout, distribution)
     dev = g_packed.device
@@ -241,18 +286,22 @@ def project_packed(seg_seeds, g_packed: torch.Tensor, layout: PackedLayout,
                           device=dev)
     u = torch.empty((layout.d_packed,), dtype=torch.float32, device=dev)
     sq = torch.empty_like(u)
+    db = resolve_double_buffer(double_buffer, prng)
     _launch("project_packed", library().lib.rbd_project_packed,
             g_packed.data_ptr(), seeds.data_ptr(), t["size"].data_ptr(),
             t["param_off"].data_ptr(), t["coord_off"].data_ptr(),
             t["n_chunk"].data_ptr(), t["proj_blocks"].data_ptr(),
             layout.n_segments, n_blocks, layout.pos_block,
-            PROJECT_POS_CHUNK, _DIST_CODE[distribution], partial.data_ptr(),
-            arrived.data_ptr(), u.data_ptr(), sq.data_ptr())
+            PROJECT_POS_CHUNK, _DIST_CODE[distribution], impl_code(prng),
+            int(db), partial.data_ptr(), arrived.data_ptr(), u.data_ptr(),
+            sq.data_ptr(), variant=(prng, db))
     return u, sq
 
 
 def _plain_blocks(seg_seeds, sizes, pdims, distribution: str,
-                  device: torch.device, *, keep: bool, windows=None):
+                  device: torch.device, *, keep: bool, windows=None,
+                  prng="threefry", pos_block: int = 512,
+                  dir_block: int = 8):
     """Yield ``(segment, first column, block)`` over every segment's
     (padded dim, columns) basis blocks, in segment and column order;
     segment s has ``sizes[s]`` positions and ``pdims[s]`` rows.
@@ -262,6 +311,8 @@ def _plain_blocks(seg_seeds, sizes, pdims, distribution: str,
     the caller cuts them after its own arithmetic, so that a column's
     result does not depend on where the window falls (torch's vectorized
     and scalar paths of a transcendental or a sum may differ by an ulp).
+    For a tile-keyed ``prng`` the blocks are whole (dir_block,
+    pos_block) tiles wide (``rng.generate_tiled_block``).
 
     On the CPU a projection (``keep=True``) keeps its blocks, the oldest
     dropped past ``_PLAIN_KEEP_BYTES``, and an apply with the same seeds
@@ -269,6 +320,7 @@ def _plain_blocks(seg_seeds, sizes, pdims, distribution: str,
     generates each block once (each worker's, in the K-worker step).
     Blocks are a pure function of their key, so this changes no
     result."""
+    impl = rng.get_prng_spec(prng).impl
     budget = _PLAIN_BUDGET["cuda" if device.type == "cuda" else "cpu"]
     seeds = rng.as_u32(seg_seeds).cpu().reshape(-1).tolist()
     keeping = keep and device.type == "cpu"
@@ -278,13 +330,17 @@ def _plain_blocks(seg_seeds, sizes, pdims, distribution: str,
         lo, hi = (0, q) if windows is None else (int(windows[0][s]),
                                                  int(windows[1][s]))
         cols = min(q, max(1, budget // pdim))
+        if impl != "threefry":
+            cols = max(pos_block, cols // pos_block * pos_block)
         for c0 in range((lo // cols) * cols, hi, cols):
             nc = min(cols, q - c0)
-            key = (seeds[s], c0, nc, pdim, distribution, device.type)
+            key = (seeds[s], c0, nc, pdim, distribution, device.type, impl,
+                   pos_block)
             blk = None if keep else _KEPT.pop(key, None)
             if blk is None:
-                blk = rng.generate_block(seeds[s], 0, c0, (pdim, nc),
-                                         distribution, device=device)
+                blk = rng.generate_tiled_block(
+                    impl, seeds[s], c0, (pdim, nc), distribution,
+                    dir_block=dir_block, pos_block=pos_block, device=device)
             else:
                 _KEPT_BYTES[0] -= 4 * blk.numel()
             if keeping:
@@ -302,17 +358,25 @@ def _keep(key, blk: torch.Tensor) -> None:
         _KEPT_BYTES[0] -= 4 * old.numel()
 
 
+def _layout_blocks(seg_seeds, layout, distribution, device, prng, *, keep,
+                   windows=None):
+    return _plain_blocks(seg_seeds, layout.seg_size, layout.seg_pdim,
+                         distribution, device, keep=keep, windows=windows,
+                         prng=prng, pos_block=layout.pos_block,
+                         dir_block=layout.dir_block)
+
+
 def project_packed_plain(seg_seeds, g_packed: torch.Tensor,
-                         layout: PackedLayout, distribution: str = "normal"):
+                         layout: PackedLayout, distribution: str = "normal",
+                         *, prng="threefry"):
     """Plain PyTorch version of :func:`project_packed`: per segment and
     chunk of positions, on ``g_packed``'s device."""
     dev = g_packed.device
     g_packed = g_packed.to(torch.float32)
     u = torch.zeros((layout.d_packed,), dtype=torch.float32, device=dev)
     sq = torch.zeros_like(u)
-    for s, c0, blk in _plain_blocks(seg_seeds, layout.seg_size,
-                                    layout.seg_pdim, distribution, dev,
-                                    keep=True):
+    for s, c0, blk in _layout_blocks(seg_seeds, layout, distribution, dev,
+                                     prng, keep=True):
         poff = int(layout.seg_param_off[s]) + c0
         coff = int(layout.seg_coord_off[s])
         rows = slice(coff, coff + blk.shape[0])
@@ -329,7 +393,8 @@ def project_packed_plain(seg_seeds, g_packed: torch.Tensor,
 def reconstruct_apply_packed(seg_seeds, scale_packed: torch.Tensor,
                              theta_packed: torch.Tensor,
                              layout: PackedLayout,
-                             distribution: str = "normal", *, out=None):
+                             distribution: str = "normal", *, out=None,
+                             prng="threefry", double_buffer=None):
     """``theta - scale @ P`` for ALL segments, fused; returns ``out``.
 
     ``scale_packed`` ((d_packed,) float32) folds in learning rate and
@@ -340,7 +405,7 @@ def reconstruct_apply_packed(seg_seeds, scale_packed: torch.Tensor,
     if theta_packed.device.type == "cpu":
         return reconstruct_apply_packed_plain(
             seg_seeds, scale_packed, theta_packed, layout, distribution,
-            out=out)
+            out=out, prng=prng)
     _check(theta_packed, "theta_packed", (layout.q_packed,))
     _check(scale_packed, "scale_packed", (layout.d_packed,))
     _check_layout(layout, distribution)
@@ -350,13 +415,16 @@ def reconstruct_apply_packed(seg_seeds, scale_packed: torch.Tensor,
     _check(out, "out", (layout.q_packed,))
     t = _device_tables(layout, dev)
     seeds = _seeds_on(seg_seeds, layout.n_segments, dev)
+    db = resolve_double_buffer(double_buffer, prng)
     _launch("reconstruct_apply_packed",
             library().lib.rbd_reconstruct_apply_packed,
             scale_packed.data_ptr(), theta_packed.data_ptr(), out.data_ptr(),
             seeds.data_ptr(), t["size"].data_ptr(), t["pdim"].data_ptr(),
             t["param_off"].data_ptr(), t["coord_off"].data_ptr(),
             t["recon_blocks"].data_ptr(), layout.n_segments,
-            t["n_recon_blocks"], layout.pos_block, _DIST_CODE[distribution])
+            t["n_recon_blocks"], layout.pos_block, t["max_ndb"],
+            _DIST_CODE[distribution], impl_code(prng),
+            int(db), variant=(prng, db))
     return out
 
 
@@ -364,7 +432,7 @@ def reconstruct_apply_packed_plain(seg_seeds, scale_packed: torch.Tensor,
                                    theta_packed: torch.Tensor,
                                    layout: PackedLayout,
                                    distribution: str = "normal", *,
-                                   out=None):
+                                   out=None, prng="threefry"):
     """Plain PyTorch version of :func:`reconstruct_apply_packed`.  Per
     segment and chunk of positions it forms each dir-block's part
     ``sum_i s_i P_ij`` and subtracts the parts in dir-block order, the
@@ -376,9 +444,8 @@ def reconstruct_apply_packed_plain(seg_seeds, scale_packed: torch.Tensor,
     elif out is not theta_packed:
         out.copy_(theta_packed)
     scale = scale_packed.to(torch.float32)
-    for s, c0, blk in _plain_blocks(seg_seeds, layout.seg_size,
-                                    layout.seg_pdim, distribution, dev,
-                                    keep=False):
+    for s, c0, blk in _layout_blocks(seg_seeds, layout, distribution, dev,
+                                     prng, keep=False):
         pdim, nc = blk.shape
         coff = int(layout.seg_coord_off[s])
         sc = scale[coff: coff + pdim].reshape(pdim, 1)
@@ -399,7 +466,8 @@ def reconstruct_apply_packed_workers(wseg_seeds, scale_gathered: torch.Tensor,
                                      theta_packed: torch.Tensor,
                                      layout: PackedLayout,
                                      distribution: str = "normal", *,
-                                     out=None):
+                                     out=None, prng="threefry",
+                                     double_buffer=None):
     """``theta - sum_k scale_k @ P_k`` for ALL segments of ALL K workers'
     bases, fused in one launch; returns ``out``.
 
@@ -413,7 +481,7 @@ def reconstruct_apply_packed_workers(wseg_seeds, scale_gathered: torch.Tensor,
     if theta_packed.device.type == "cpu":
         return reconstruct_apply_packed_workers_plain(
             wseg_seeds, scale_gathered, theta_packed, layout, distribution,
-            out=out)
+            out=out, prng=prng)
     k_workers = int(scale_gathered.shape[0])
     _check(theta_packed, "theta_packed", (layout.q_packed,))
     _check(scale_gathered, "scale_gathered", (k_workers, layout.d_packed))
@@ -424,6 +492,7 @@ def reconstruct_apply_packed_workers(wseg_seeds, scale_gathered: torch.Tensor,
     _check(out, "out", (layout.q_packed,))
     t = _device_tables(layout, dev)
     seeds = _seeds_on(wseg_seeds, k_workers * layout.n_segments, dev)
+    db = resolve_double_buffer(double_buffer, prng)
     _launch("reconstruct_apply_packed_workers",
             library().lib.rbd_reconstruct_apply_packed_workers,
             scale_gathered.data_ptr(), theta_packed.data_ptr(),
@@ -431,7 +500,9 @@ def reconstruct_apply_packed_workers(wseg_seeds, scale_gathered: torch.Tensor,
             t["pdim"].data_ptr(), t["param_off"].data_ptr(),
             t["coord_off"].data_ptr(), t["recon_blocks"].data_ptr(),
             layout.n_segments, t["n_recon_blocks"], layout.pos_block,
-            k_workers, layout.d_packed, _DIST_CODE[distribution])
+            k_workers, layout.d_packed, t["max_ndb"],
+            _DIST_CODE[distribution], impl_code(prng),
+            int(db), variant=(prng, db))
     return out
 
 
@@ -440,7 +511,7 @@ def reconstruct_apply_packed_workers_plain(wseg_seeds,
                                            theta_packed: torch.Tensor,
                                            layout: PackedLayout,
                                            distribution: str = "normal", *,
-                                           out=None):
+                                           out=None, prng="threefry"):
     """Plain PyTorch version of :func:`reconstruct_apply_packed_workers`:
     the single-worker plain apply once per worker, in worker order, on
     one buffer -- per parameter the kernel's worker-major order."""
@@ -448,10 +519,11 @@ def reconstruct_apply_packed_workers_plain(wseg_seeds,
     seeds = rng.as_u32(wseg_seeds).reshape(k_workers, layout.n_segments)
     out = reconstruct_apply_packed_plain(seeds[0], scale_gathered[0],
                                          theta_packed, layout, distribution,
-                                         out=out)
+                                         out=out, prng=prng)
     for k in range(1, k_workers):
         reconstruct_apply_packed_plain(seeds[k], scale_gathered[k], out,
-                                       layout, distribution, out=out)
+                                       layout, distribution, out=out,
+                                       prng=prng)
     return out
 
 
@@ -463,7 +535,8 @@ def reconstruct_apply_packed_workers_plain(wseg_seeds,
 def reconstruct_apply_packed_adapters(aseg_seeds, scale_batch: torch.Tensor,
                                       theta_packed: torch.Tensor,
                                       layout: PackedLayout,
-                                      distribution: str = "normal"):
+                                      distribution: str = "normal", *,
+                                      prng="threefry"):
     """B personalized buffers from one shared base in one launch: returns
     the (B, q_packed) float32 ``out`` with row a ``theta - scale_a @ P_a``.
 
@@ -474,11 +547,12 @@ def reconstruct_apply_packed_adapters(aseg_seeds, scale_batch: torch.Tensor,
     instruction sequence, so it is bit-identical to
     :func:`reconstruct_apply_packed` on adapter a's seeds and scale.
     Padding columns copy theta.  ``out`` is always a new tensor (it
-    never aliases theta)."""
+    never aliases theta).  As in the reference, no ``double_buffer``."""
     CALLS["reconstruct_apply_packed_adapters"] += 1
     if theta_packed.device.type == "cpu":
         return reconstruct_apply_packed_adapters_plain(
-            aseg_seeds, scale_batch, theta_packed, layout, distribution)
+            aseg_seeds, scale_batch, theta_packed, layout, distribution,
+            prng=prng)
     n_adapters = int(scale_batch.shape[0])
     _check(theta_packed, "theta_packed", (layout.q_packed,))
     _check(scale_batch, "scale_batch", (n_adapters, layout.d_packed))
@@ -498,7 +572,9 @@ def reconstruct_apply_packed_adapters(aseg_seeds, scale_batch: torch.Tensor,
             t["param_off"].data_ptr(), t["coord_off"].data_ptr(),
             t["recon_blocks"].data_ptr(), layout.n_segments,
             t["n_recon_blocks"], layout.pos_block, n_adapters,
-            layout.d_packed, layout.q_packed, _DIST_CODE[distribution])
+            layout.d_packed, layout.q_packed, t["max_ndb"],
+            _DIST_CODE[distribution], impl_code(prng),
+            variant=(prng, False))
     return out
 
 
@@ -506,7 +582,8 @@ def reconstruct_apply_packed_adapters_plain(aseg_seeds,
                                             scale_batch: torch.Tensor,
                                             theta_packed: torch.Tensor,
                                             layout: PackedLayout,
-                                            distribution: str = "normal"):
+                                            distribution: str = "normal", *,
+                                            prng="threefry"):
     """Plain PyTorch version of :func:`reconstruct_apply_packed_adapters`:
     the single-tenant plain apply of each adapter, in adapter order, from
     the same base theta into its own output row."""
@@ -517,7 +594,7 @@ def reconstruct_apply_packed_adapters_plain(aseg_seeds,
     for a in range(n_adapters):
         reconstruct_apply_packed_plain(seeds[a], scale_batch[a],
                                        theta_packed, layout, distribution,
-                                       out=out[a])
+                                       out=out[a], prng=prng)
     return out
 
 
@@ -542,18 +619,20 @@ def _check_shard(slayout: ShardedPackedLayout, shard: int) -> None:
 
 def project_packed_sharded(seg_seeds, g_slab: torch.Tensor,
                            slayout: ShardedPackedLayout, shard: int,
-                           distribution: str = "normal"):
+                           distribution: str = "normal", *,
+                           prng="threefry", double_buffer=None):
     """The PARTIAL raw projections and squared row norms of one slab:
     ``(u, sq)``, each ``(d_packed,)`` float32, holding only the
     contributions of shard ``shard``'s positions (zero for a coordinate
     with none there).  Their sum over the model group is
     :func:`project_packed`'s output.  ``g_slab`` is the (q_slab,) slice
-    of the zero-padded packed gradient."""
+    of the zero-padded packed gradient.  Tiles are keyed within their
+    segment, as unsharded."""
     CALLS["project_packed_sharded"] += 1
     _check_shard(slayout, shard)
     if g_slab.device.type == "cpu":
         return project_packed_sharded_plain(seg_seeds, g_slab, slayout,
-                                            shard, distribution)
+                                            shard, distribution, prng=prng)
     base = slayout.base
     _check(g_slab, "g_slab", (slayout.q_slab,))
     _check_layout(base, distribution)
@@ -567,6 +646,7 @@ def project_packed_sharded(seg_seeds, g_slab: torch.Tensor,
                           device=dev)
     u = torch.empty((base.d_packed,), dtype=torch.float32, device=dev)
     sq = torch.empty_like(u)
+    db = resolve_double_buffer(double_buffer, prng)
     _launch("project_packed_sharded",
             library().lib.rbd_project_packed_sharded,
             g_slab.data_ptr(), seeds.data_ptr(), t["param_off"].data_ptr(),
@@ -575,14 +655,15 @@ def project_packed_sharded(seg_seeds, g_slab: torch.Tensor,
             w["n_chunk"].data_ptr(), w["proj_blocks"].data_ptr(),
             base.n_segments, n_blocks, slayout.slab_range(int(shard))[0],
             base.pos_block, PROJECT_POS_CHUNK, _DIST_CODE[distribution],
-            partial.data_ptr(), arrived.data_ptr(), u.data_ptr(),
-            sq.data_ptr())
+            impl_code(prng), int(db), partial.data_ptr(), arrived.data_ptr(),
+            u.data_ptr(), sq.data_ptr(), variant=(prng, db))
     return u, sq
 
 
 def project_packed_sharded_plain(seg_seeds, g_slab: torch.Tensor,
                                  slayout: ShardedPackedLayout, shard: int,
-                                 distribution: str = "normal"):
+                                 distribution: str = "normal", *,
+                                 prng="threefry"):
     """Plain PyTorch version of :func:`project_packed_sharded`: the plain
     projection over the slab's columns only."""
     base = slayout.base
@@ -592,9 +673,8 @@ def project_packed_sharded_plain(seg_seeds, g_slab: torch.Tensor,
     lo, hi = slayout.seg_windows(int(shard))
     u = torch.zeros((base.d_packed,), dtype=torch.float32, device=dev)
     sq = torch.zeros_like(u)
-    for s, c0, blk in _plain_blocks(seg_seeds, base.seg_size, base.seg_pdim,
-                                    distribution, dev, keep=True,
-                                    windows=(lo, hi)):
+    for s, c0, blk in _layout_blocks(seg_seeds, base, distribution, dev,
+                                     prng, keep=True, windows=(lo, hi)):
         a, b = max(int(lo[s]), c0), min(int(hi[s]), c0 + blk.shape[1])
         blk = blk[:, a - c0: b - c0]
         poff = int(base.seg_param_off[s]) + a - start
@@ -610,7 +690,8 @@ def reconstruct_apply_packed_sharded(seg_seeds, scale_packed: torch.Tensor,
                                      slayout: ShardedPackedLayout,
                                      shard: int,
                                      distribution: str = "normal", *,
-                                     out=None):
+                                     out=None, prng="threefry",
+                                     double_buffer=None):
     """``slab - scale @ P_slab`` on shard ``shard``'s (q_slab,) slab, in
     one launch; returns ``out``.  ``scale_packed`` is the replicated
     (d_packed,) scale of :func:`reconstruct_apply_packed`.  The slab is
@@ -622,7 +703,7 @@ def reconstruct_apply_packed_sharded(seg_seeds, scale_packed: torch.Tensor,
     if theta_slab.device.type == "cpu":
         return reconstruct_apply_packed_sharded_plain(
             seg_seeds, scale_packed, theta_slab, slayout, shard,
-            distribution, out=out)
+            distribution, out=out, prng=prng)
     base = slayout.base
     _check(theta_slab, "theta_slab", (slayout.q_slab,))
     _check(scale_packed, "scale_packed", (base.d_packed,))
@@ -633,6 +714,7 @@ def reconstruct_apply_packed_sharded(seg_seeds, scale_packed: torch.Tensor,
     _check(out, "out", (slayout.q_slab,))
     t = _device_tables(base, dev)
     seeds = _seeds_on(seg_seeds, base.n_segments, dev)
+    db = resolve_double_buffer(double_buffer, prng)
     _launch("reconstruct_apply_packed_sharded",
             library().lib.rbd_reconstruct_apply_packed_sharded,
             scale_packed.data_ptr(), theta_slab.data_ptr(), out.data_ptr(),
@@ -641,7 +723,8 @@ def reconstruct_apply_packed_sharded(seg_seeds, scale_packed: torch.Tensor,
             t["recon_blocks"].data_ptr(), base.n_segments,
             slayout.blocks_per_shard,
             int(shard) * slayout.blocks_per_shard, base.pos_block,
-            _DIST_CODE[distribution])
+            t["max_ndb"], _DIST_CODE[distribution], impl_code(prng),
+            int(db), variant=(prng, db))
     return out
 
 
@@ -651,7 +734,7 @@ def reconstruct_apply_packed_sharded_plain(seg_seeds,
                                            slayout: ShardedPackedLayout,
                                            shard: int,
                                            distribution: str = "normal", *,
-                                           out=None):
+                                           out=None, prng="threefry"):
     """Plain PyTorch version of :func:`reconstruct_apply_packed_sharded`:
     the plain apply over the slab's columns, the same blocks and the same
     association, so the slab is bit-identical to the matching slice of
@@ -666,9 +749,8 @@ def reconstruct_apply_packed_sharded_plain(seg_seeds,
     scale = scale_packed.to(torch.float32)
     start = slayout.slab_range(int(shard))[0]
     lo, hi = slayout.seg_windows(int(shard))
-    for s, c0, blk in _plain_blocks(seg_seeds, base.seg_size, base.seg_pdim,
-                                    distribution, dev, keep=False,
-                                    windows=(lo, hi)):
+    for s, c0, blk in _layout_blocks(seg_seeds, base, distribution, dev,
+                                     prng, keep=False, windows=(lo, hi)):
         pdim, nc = blk.shape
         coff = int(base.seg_coord_off[s])
         sc = scale[coff: coff + pdim].reshape(pdim, 1)
@@ -689,7 +771,8 @@ def reconstruct_apply_packed_workers_sharded(wseg_seeds,
                                              slayout: ShardedPackedLayout,
                                              shard: int,
                                              distribution: str = "normal",
-                                             *, out=None):
+                                             *, out=None, prng="threefry",
+                                             double_buffer=None):
     """``slab - sum_k scale_k @ P_k`` on shard ``shard``'s slab, in one
     launch for any K: :func:`reconstruct_apply_packed_workers`'s contract
     on a (q_slab,) slab, bit-identical to the matching slice of its
@@ -699,7 +782,7 @@ def reconstruct_apply_packed_workers_sharded(wseg_seeds,
     if theta_slab.device.type == "cpu":
         return reconstruct_apply_packed_workers_sharded_plain(
             wseg_seeds, scale_gathered, theta_slab, slayout, shard,
-            distribution, out=out)
+            distribution, out=out, prng=prng)
     base = slayout.base
     k_workers = int(scale_gathered.shape[0])
     _check(theta_slab, "theta_slab", (slayout.q_slab,))
@@ -711,6 +794,7 @@ def reconstruct_apply_packed_workers_sharded(wseg_seeds,
     _check(out, "out", (slayout.q_slab,))
     t = _device_tables(base, dev)
     seeds = _seeds_on(wseg_seeds, k_workers * base.n_segments, dev)
+    db = resolve_double_buffer(double_buffer, prng)
     _launch("reconstruct_apply_packed_workers_sharded",
             library().lib.rbd_reconstruct_apply_packed_workers_sharded,
             scale_gathered.data_ptr(), theta_slab.data_ptr(),
@@ -719,14 +803,15 @@ def reconstruct_apply_packed_workers_sharded(wseg_seeds,
             t["coord_off"].data_ptr(), t["recon_blocks"].data_ptr(),
             base.n_segments, slayout.blocks_per_shard,
             int(shard) * slayout.blocks_per_shard, base.pos_block,
-            k_workers, base.d_packed, _DIST_CODE[distribution])
+            k_workers, base.d_packed, t["max_ndb"], _DIST_CODE[distribution],
+            impl_code(prng),             int(db), variant=(prng, db))
     return out
 
 
 def reconstruct_apply_packed_workers_sharded_plain(
         wseg_seeds, scale_gathered: torch.Tensor, theta_slab: torch.Tensor,
         slayout: ShardedPackedLayout, shard: int,
-        distribution: str = "normal", *, out=None):
+        distribution: str = "normal", *, out=None, prng="threefry"):
     """Plain PyTorch version of
     :func:`reconstruct_apply_packed_workers_sharded`: the plain slab apply
     once per worker, in worker order, on one buffer."""
@@ -734,11 +819,11 @@ def reconstruct_apply_packed_workers_sharded_plain(
     seeds = rng.as_u32(wseg_seeds).reshape(k_workers, slayout.n_segments)
     out = reconstruct_apply_packed_sharded_plain(
         seeds[0], scale_gathered[0], theta_slab, slayout, shard,
-        distribution, out=out)
+        distribution, out=out, prng=prng)
     for k in range(1, k_workers):
         reconstruct_apply_packed_sharded_plain(
             seeds[k], scale_gathered[k], out, slayout, shard, distribution,
-            out=out)
+            out=out, prng=prng)
     return out
 
 
@@ -748,16 +833,25 @@ def reconstruct_apply_packed_workers_sharded_plain(
 
 
 def generate_tile(seed: int, row0: int, col0: int, shape: tuple[int, int],
-                  distribution: str = "normal", *, device="cuda"):
+                  distribution: str = "normal", *, device="cuda",
+                  prng="threefry"):
     """Bits ``(b0, b1)`` (int32 tensors of uint32 bits) and float32 samples
     of the (rows, cols) basis tile at (row0, col0), from the kernel on a
-    CUDA device or from :mod:`repro_torch.core.rng` on the CPU."""
+    CUDA device or from :mod:`repro_torch.core.rng` on the CPU.  A
+    tile-keyed ``prng`` makes the whole shape one tile
+    (``PrngSpec.generate_tile``); b0 and b1 are then its two streams."""
     CALLS["generate_tile"] += 1
     device = torch.device(device)
+    impl = rng.get_prng_spec(prng).impl
     rows, cols = shape
     if device.type == "cpu":
-        r, c = rng.tile_counters(row0, col0, shape)
-        b0, b1 = rng._bits_for_counters(seed, c, r)
+        if impl == "threefry":
+            r, c = rng.tile_counters(row0, col0, shape)
+            b0, b1 = rng._bits_for_counters(seed, c, r)
+        else:
+            r, c = rng.tile_counters(0, 0, shape)
+            b0, b1 = rng.tile_keyed_bits(
+                impl, rng.hw_tile_key(seed, row0, col0), r, c, cols)
         return b0, b1, rng.bits_to_sample(distribution, b0, b1)
     if distribution not in _DIST_CODE:
         raise ValueError(f"unknown distribution {distribution!r}")
@@ -766,6 +860,6 @@ def generate_tile(seed: int, row0: int, col0: int, shape: tuple[int, int],
     out = torch.empty(shape, dtype=torch.float32, device=device)
     _launch("generate_tile", library().lib.rbd_generate_tile,
             seed & 0xFFFFFFFF, row0 & 0xFFFFFFFF, col0 & 0xFFFFFFFF, rows,
-            cols, _DIST_CODE[distribution], b0.data_ptr(), b1.data_ptr(),
-            out.data_ptr())
+            cols, _DIST_CODE[distribution], impl_code(prng), b0.data_ptr(),
+            b1.data_ptr(), out.data_ptr(), variant=(prng, False))
     return b0, b1, out

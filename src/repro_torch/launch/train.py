@@ -22,6 +22,11 @@
     ... --rbd-backend cuda --weight-decay 0.01
     ... --mode sgd
 
+    # the tile-keyed PRNG of the packed step on the CPU (the plain
+    # versions; ``hw`` resolves to hw_emulated off a card, as the
+    # reference's does off a TPU)
+    ... --device cpu --rbd-backend cuda --prng-impl hw_emulated
+
 Flag names are the reference's for what the port runs: ``--mode
 sharedseed`` (the paper's Algorithm 1) over ``--data K`` ranks, each
 taking its shard of the global batch, with one coordinate collective per
@@ -112,6 +117,15 @@ def main(argv=None) -> RunResult:
     ap.add_argument("--packed", default="auto",
                     choices=["auto", "on", "off"],
                     help="packed two-launch step (auto: on for cuda)")
+    ap.add_argument("--prng-impl", default="threefry",
+                    choices=["threefry", "hw", "hw_emulated"],
+                    help="basis-generation PRNG backend: bit-stable "
+                         "Threefry counters, the TPU hardware PRNG "
+                         "(packed megakernels, real TPU only; degrades "
+                         "to the emulated stub off-TPU with a logged "
+                         "reason), or the CPU-testable emulated stub.  "
+                         "In this port hw is a tile-keyed Philox4x32-10 "
+                         "in the CUDA kernels, on a card")
     ap.add_argument("--reduced", action="store_true",
                     help="use the smoke-scale variant of the arch")
     ap.add_argument("--device", default="cuda",
@@ -133,7 +147,8 @@ def main(argv=None) -> RunResult:
         seq=args.seq, grad_accum_steps=args.grad_accum_steps, lr=args.lr,
         rbd_dim=args.rbd_dim, normalization=args.normalization,
         rbd_backend=args.rbd_backend, packed=args.packed,
-        optimizer=args.optimizer, weight_decay=args.weight_decay,
+        prng_impl=args.prng_impl, optimizer=args.optimizer,
+        weight_decay=args.weight_decay,
         momentum_beta=args.momentum_beta, nesterov=args.nesterov,
         adam_b1=args.adam_b1, adam_b2=args.adam_b2, adam_eps=args.adam_eps,
         device=args.device, kernel_times=args.kernel_times)
@@ -152,10 +167,10 @@ def resolve_backend(rbd_backend: str, device) -> str:
 def run_training(cfg, *, mode="sharedseed", rbd_mode="shared_basis", data=1,
                  model=1, steps=10, batch=8, seq=128, grad_accum_steps=1,
                  lr=0.125, rbd_dim=1024, normalization="rsqrt_dim",
-                 rbd_backend="auto", packed="auto", optimizer="sgd",
-                 weight_decay=0.0, momentum_beta=0.9, nesterov=False,
-                 adam_b1=0.9, adam_b2=0.999, adam_eps=1e-8, device="cuda",
-                 kernel_times=False) -> RunResult:
+                 rbd_backend="auto", packed="auto", prng_impl="threefry",
+                 optimizer="sgd", weight_decay=0.0, momentum_beta=0.9,
+                 nesterov=False, adam_b1=0.9, adam_b2=0.999, adam_eps=1e-8,
+                 device="cuda", kernel_times=False) -> RunResult:
     from repro_torch.launch import mesh as meshlib
     from repro_torch.models.registry import resolve_device
 
@@ -171,7 +186,7 @@ def run_training(cfg, *, mode="sharedseed", rbd_mode="shared_basis", data=1,
                     seq=seq, grad_accum_steps=grad_accum_steps, lr=lr,
                     rbd_dim=rbd_dim, normalization=normalization,
                     rbd_backend=resolve_backend(rbd_backend, mesh.device),
-                    packed=packed, optimizer=optimizer,
+                    packed=packed, prng_impl=prng_impl, optimizer=optimizer,
                     weight_decay=weight_decay, momentum_beta=momentum_beta,
                     nesterov=nesterov, adam_b1=adam_b1, adam_b2=adam_b2,
                     adam_eps=adam_eps, device=mesh.device,
@@ -182,8 +197,8 @@ def run_training(cfg, *, mode="sharedseed", rbd_mode="shared_basis", data=1,
 
 def _run(cfg, *, mode, rbd_mode, data, model, mesh, steps, batch, seq,
          grad_accum_steps, lr, rbd_dim, normalization, rbd_backend, packed,
-         optimizer, weight_decay, momentum_beta, nesterov, adam_b1, adam_b2,
-         adam_eps, device, kernel_times) -> RunResult:
+         prng_impl, optimizer, weight_decay, momentum_beta, nesterov, adam_b1,
+         adam_b2, adam_eps, device, kernel_times) -> RunResult:
     import torch
     import torch.distributed as dist
 
@@ -199,7 +214,8 @@ def _run(cfg, *, mode, rbd_mode, data, model, mesh, steps, batch, seq,
     net = get_model(cfg)
     rbd_cfg = RBDConfig(enabled=(mode != "sgd"), total_dim=rbd_dim,
                         mode=rbd_mode, normalization=normalization,
-                        backend=rbd_backend, packed=packed)
+                        backend=rbd_backend, packed=packed,
+                        prng_impl=prng_impl)
     tcfg = TrainConfig(model=cfg, rbd=rbd_cfg, learning_rate=lr,
                        steps=steps, batch_size=batch, seq_len=seq,
                        grad_accum_steps=grad_accum_steps,
@@ -223,7 +239,8 @@ def _run(cfg, *, mode, rbd_mode, data, model, mesh, steps, batch, seq,
     if model > 1 and mode == "sharedseed":
         probe = steplib.make_subspace_optimizer(
             net, tcfg, transform, axis_name, k_workers=k_workers,
-            model_sharded=True, model_axis="model", model_shards=model)
+            model_sharded=True, model_axis="model", model_shards=model,
+            device=device)
         if probe.plan_execution().packed_resident:
             model_axis = mesh.model_group
             if axis_name is not None:

@@ -415,12 +415,16 @@ class SubspaceOptimizer:
     log_update_norm: bool = True
     params_template: Any = None       # {name: tensor} of shapes/dtypes
                                       # (meta tensors will do)
+    device: Any = None                # where the step's tensors live:
+                                      # the hw PRNG needs the cuda
+                                      # backend on a CUDA device
 
     @classmethod
     def from_config(cls, tcfg, transform=None, axis_name=None,
                     model_sharded=False, params_template=None,
                     k_workers: int = 1, model_axis=None,
-                    model_shards: int = 1) -> "SubspaceOptimizer":
+                    model_shards: int = 1,
+                    device=None) -> "SubspaceOptimizer":
         if (tcfg.coord_clip_norm or tcfg.lr_schedule != "constant"
                 or tcfg.lr_warmup_steps):
             raise NotImplementedError(
@@ -446,6 +450,7 @@ class SubspaceOptimizer:
             switch_policy=tcfg.rbd.switch_policy,
             log_update_norm=tcfg.log_update_norm,
             params_template=params_template,
+            device=device,
         )
 
     # -- static planning ----------------------------------------------------
@@ -465,10 +470,20 @@ class SubspaceOptimizer:
             model_axis=self.model_axis,
             k_workers=self.k_workers,
             prng_impl=(t.prng if t else "threefry"),
-            hw_prng_available=False,
+            hw_prng_available=self.hw_prng_available(),
             overlap=self.overlap,
             basis=(t.basis if t else "random"),
         )
+
+    def hw_prng_available(self) -> bool:
+        """The counterpart of the reference's "real TPU kernels exist":
+        the kernel backend, with the step's tensors on a CUDA device.
+        Elsewhere a requested ``hw`` resolves to ``hw_emulated``, with the
+        reference's reason."""
+        t = self.transform
+        return (t is not None and t.backend == KERNEL_BACKEND
+                and self.device is not None
+                and torch.device(self.device).type == "cuda")
 
     @property
     def joint_subspace(self) -> bool:
@@ -500,7 +515,6 @@ class SubspaceOptimizer:
                 "the sequential K-worker simulation does not compose with "
                 "model_axis (the slab projection needs real groups); run "
                 "over a data group")
-        rng.check_threefry(eplan.prng_impl)
         if self.optimizer in opt.SECOND_ORDER_OPTIMIZERS:
             raise NotImplementedError(
                 f"the {self.optimizer} coordinate optimizer is not ported "

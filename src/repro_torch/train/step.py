@@ -78,16 +78,17 @@ def make_subspace_optimizer(
         model: Model, tcfg: TrainConfig,
         transform: Optional[rbd_lib.RandomBasesTransform] = None,
         axis_name=None, *, k_workers: int = 1, model_sharded: bool = False,
-        model_axis=None, model_shards: int = 1
+        model_axis=None, model_shards: int = 1, device=None
 ) -> subspace.SubspaceOptimizer:
-    """The one update-path object for a (model, TrainConfig) pair."""
+    """The one update-path object for a (model, TrainConfig) pair;
+    ``device`` is where its step's tensors live."""
     if transform is None and tcfg.rbd.enabled:
         transform = make_transform(model, tcfg.rbd)
     return subspace.SubspaceOptimizer.from_config(
         tcfg, transform=transform, axis_name=axis_name,
         k_workers=k_workers, model_sharded=model_sharded,
         model_axis=model_axis, model_shards=model_shards,
-        params_template=model.param_template())
+        params_template=model.param_template(), device=device)
 
 
 def make_loss_fn(model: Model, aux_coef: float = 0.01):
@@ -145,7 +146,8 @@ def make_train_step(model: Model, tcfg: TrainConfig,
         model, tcfg, transform, axis_name, k_workers=k_workers,
         model_sharded=model_sharded or model_axis is not None,
         model_axis=model_axis,
-        model_shards=model_shards if model_axis is not None else 1)
+        model_shards=model_shards if model_axis is not None else 1,
+        device=device)
     split = sub_opt.check_supported().strategy == "fused_packed"
     sharded = model_axis is not None
 

@@ -639,3 +639,155 @@ def test_prefill_launches_flash_once_per_layer(cuda):
     assert rbd_step.LAUNCHES["flash_attention"] == cfg.n_layers
     scale = float(full[:, -1].abs().max())
     assert float((logits[:, 0] - full[:, -1]).abs().max()) <= 1e-5 * scale
+
+
+# ---------------------------------------------------------------------------
+# the tile-keyed PRNG impls and the double buffer
+# ---------------------------------------------------------------------------
+
+TILE_KEYED = ["hw_emulated", "hw"]
+
+
+@pytest.mark.parametrize("prng", TILE_KEYED)
+@pytest.mark.parametrize("dist", DISTS + ["bernoulli"])
+def test_tile_keyed_generate_tile_matches_plain(cuda, dist, prng):
+    for row0, col0 in ((16, 1024), (2**32 - 4, 2**32 - 300), (0, 0)):
+        b0, b1, x = rbd_step.generate_tile(123, row0, col0, (8, 512), dist,
+                                           device=cuda, prng=prng)
+        p0, p1, px = rbd_step.generate_tile(123, row0, col0, (8, 512), dist,
+                                            device="cpu", prng=prng)
+        assert torch.equal(b0.cpu(), p0) and torch.equal(b1.cpu(), p1)
+        if dist == "normal":
+            assert float((x.cpu() - px).abs().max()) <= 1e-6
+        else:
+            assert torch.equal(x.cpu(), px)
+
+
+def _theta_tol(ref, theta):
+    return (1e-4 * float((ref - theta).abs().max())
+            + 2 * 2.0**-23 * float(theta.abs().max()))
+
+
+@pytest.mark.parametrize("prng", TILE_KEYED)
+@pytest.mark.parametrize("dist", DISTS)
+def test_tile_keyed_packed_kernels_match_plain(cuda, dist, prng):
+    """Rows 1-4 and 5-7 (m = 2) under a tile-keyed impl: each kernel
+    against its plain version, the adapter rows and the slabs
+    bit-identical to the single-tenant and unsharded kernels."""
+    plan, lay = _layout(dist)
+    seeds = projector.segment_seeds(plan, rng.fold_seed(8))
+    wseeds = projector.worker_segment_seeds(plan, rng.fold_seed(8), 2)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    valid = _valid(lay, cuda)
+    g = torch.where(valid, torch.randn(lay.q_packed, generator=gen,
+                                       device=cuda), 0)
+    theta = torch.where(valid, torch.randn(lay.q_packed, generator=gen,
+                                           device=cuda), 0)
+    scale = (torch.randn((2, lay.d_packed), generator=gen, device=cuda)
+             * 1e-2 * torch.from_numpy(lay.coord_valid).to(cuda))
+    u, sq = rbd_step.project_packed(seeds, g, lay, dist, prng=prng)
+    up, sqp = rbd_step.project_packed_plain(seeds, g, lay, dist, prng=prng)
+    for s in range(lay.n_segments):
+        o, q = int(lay.seg_param_off[s]), int(lay.seg_size[s])
+        c, n = int(lay.seg_coord_off[s]), int(lay.seg_pdim[s])
+        bound = g[o: o + q].norm() * torch.sqrt(sqp[c: c + n] / q)
+        assert bool(((u - up)[c: c + n].abs() <= 2e-5 * bound).all())
+    assert bool(((sq - sqp).abs() <= 2e-5 * sqp).all())
+    out = rbd_step.reconstruct_apply_packed(seeds, scale[0], theta, lay,
+                                            dist, prng=prng)
+    ref = rbd_step.reconstruct_apply_packed_plain(seeds, scale[0], theta,
+                                                  lay, dist, prng=prng)
+    assert float((out - ref).abs().max()) <= _theta_tol(ref, theta)
+    assert bool((out[~valid] == 0).all())
+    w = rbd_step.reconstruct_apply_packed_workers(wseeds, scale, theta, lay,
+                                                  dist, prng=prng)
+    ref = rbd_step.reconstruct_apply_packed_workers_plain(
+        wseeds, scale, theta, lay, dist, prng=prng)
+    assert float((w - ref).abs().max()) <= _theta_tol(ref, theta)
+    a = rbd_step.reconstruct_apply_packed_adapters(wseeds, scale, theta,
+                                                   lay, dist, prng=prng)
+    assert torch.equal(a[0], rbd_step.reconstruct_apply_packed(
+        wseeds[:lay.n_segments], scale[0], theta, lay, dist, prng=prng,
+        double_buffer=False))
+    sl = compartments.sharded_packed_layout(lay, 2)
+    pad = sl.q_padded - lay.q_packed
+    gp = torch.cat([g, g.new_zeros(pad)])
+    tp = torch.cat([theta, theta.new_zeros(pad)])
+    us = 0
+    for shard in range(2):
+        lo, hi = sl.slab_range(shard)
+        su, _ = rbd_step.project_packed_sharded(
+            seeds, gp[lo:hi].contiguous(), sl, shard, dist, prng=prng)
+        us = us + su
+        so = rbd_step.reconstruct_apply_packed_sharded(
+            seeds, scale[0], tp[lo:hi].contiguous(), sl, shard, dist,
+            prng=prng)
+        assert torch.equal(so, torch.cat([out, out.new_zeros(pad)])[lo:hi])
+        sw = rbd_step.reconstruct_apply_packed_workers_sharded(
+            wseeds, scale, tp[lo:hi].contiguous(), sl, shard, dist,
+            prng=prng)
+        assert torch.equal(sw, torch.cat([w, w.new_zeros(pad)])[lo:hi])
+    assert float((us - u).abs().max()) <= 1e-4 * float(u.abs().max())
+
+
+@pytest.mark.parametrize("prng", ["threefry"] + TILE_KEYED)
+def test_double_buffer_is_bit_identical(cuda, prng):
+    """Rows 1-3 and 5-7: double_buffer on and off give the same bits;
+    the variant counts see both launches."""
+    plan, lay = _layout("normal")
+    seeds = projector.segment_seeds(plan, rng.fold_seed(9))
+    wseeds = projector.worker_segment_seeds(plan, rng.fold_seed(9), 2)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    valid = _valid(lay, cuda)
+    g = torch.where(valid, torch.randn(lay.q_packed, generator=gen,
+                                       device=cuda), 0)
+    scale = torch.randn((2, lay.d_packed), generator=gen, device=cuda) * 1e-2
+    sl = compartments.sharded_packed_layout(lay, 2)
+    lo, hi = sl.slab_range(1)
+    gp = torch.cat([g, g.new_zeros(sl.q_padded - lay.q_packed)])[lo:hi]
+    calls = [
+        lambda d: rbd_step.project_packed(seeds, g, lay, prng=prng,
+                                          double_buffer=d),
+        lambda d: rbd_step.reconstruct_apply_packed(
+            seeds, scale[0], g, lay, prng=prng, double_buffer=d),
+        lambda d: rbd_step.reconstruct_apply_packed_workers(
+            wseeds, scale, g, lay, prng=prng, double_buffer=d),
+        lambda d: rbd_step.project_packed_sharded(
+            seeds, gp.contiguous(), sl, 1, prng=prng, double_buffer=d),
+        lambda d: rbd_step.reconstruct_apply_packed_sharded(
+            seeds, scale[0], gp.contiguous(), sl, 1, prng=prng,
+            double_buffer=d),
+        lambda d: rbd_step.reconstruct_apply_packed_workers_sharded(
+            wseeds, scale, gp.contiguous(), sl, 1, prng=prng,
+            double_buffer=d),
+    ]
+    rbd_step.reset_counts()
+    for fn in calls:
+        off, on = fn(False), fn(True)
+        off = off if isinstance(off, tuple) else (off,)
+        on = on if isinstance(on, tuple) else (on,)
+        assert all(torch.equal(a, b) for a, b in zip(off, on))
+    assert rbd_step.VARIANT_LAUNCHES[rbd_step.variant_name(
+        "project_packed", prng, True)] == 1
+
+
+@pytest.mark.parametrize("prng", TILE_KEYED)
+def test_tile_keyed_flat_kernels_match_plain(cuda, prng):
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    seeds = rng.fold_seed(rng.fold_seed(10), torch.arange(2,
+                                                          dtype=torch.int32))
+    g = torch.randn((2, 1500), generator=gen, device=cuda)
+    u, sq = rbd_project.project_flat(seeds, g, 30, prng=prng)
+    up, sqp = rbd_project.project_flat_plain(seeds, g, 30, prng=prng)
+    bound = g.norm(dim=1, keepdim=True) * torch.sqrt(sqp / 1500)
+    assert bool(((u - up).abs() <= 2e-5 * bound).all())
+    sc = torch.randn((2, 30), generator=gen, device=cuda) * 0.1
+    d = rbd_reconstruct.reconstruct_flat(seeds, sc, 1500, prng=prng)
+    dp = rbd_reconstruct.reconstruct_flat_plain(seeds, sc, 1500, prng=prng)
+    assert float((d - dp).abs().max()) <= 2e-5 * float(dp.abs().max())
+    th = torch.randn((2, 1500), generator=gen, device=cuda)
+    out = rbd_reconstruct.reconstruct_apply_flat(seeds, sc, th, 0.1,
+                                                 prng=prng)
+    ref = rbd_reconstruct.reconstruct_apply_flat_plain(seeds, sc, th, 0.1,
+                                                       prng=prng)
+    assert float((out - ref).abs().max()) <= _theta_tol(ref, th)

@@ -106,15 +106,28 @@ def test_generate_block(dist, row0, col0):
 @pytest.mark.parametrize("backend,hw", [("kernels", False),
                                         ("kernels", True), ("plain", False)])
 def test_resolve_prng_impl_same_reasons(requested, strategy, backend, hw):
+    """The reference's impl and reason in every case but one: ``hw`` on
+    the kernels with the card there runs the port's own generator and
+    says so (the reference's reason names the TPU's hardware PRNG)."""
     port_backend = {"kernels": "cuda", "plain": "torch"}[backend]
     ref_backend = {"kernels": "pallas", "plain": "jnp"}[backend]
-    assert rng.resolve_prng_impl(
-        requested, strategy=strategy, backend=port_backend,
-        hw_available=hw) == ref.resolve_prng_impl(
-            requested, strategy=strategy, backend=ref_backend,
-            hw_available=hw)
+    got = rng.resolve_prng_impl(
+        requested, strategy=strategy, backend=port_backend, hw_available=hw)
+    want = ref.resolve_prng_impl(
+        requested, strategy=strategy, backend=ref_backend, hw_available=hw)
+    if (requested, strategy, backend, hw) == ("hw", "fused_packed",
+                                              "kernels", True):
+        assert want[0] == "hw" and got == ("hw", rng.HW_REASON)
+        assert "Philox4x32-10" in got[1] and "hardware PRNG" in got[1]
+    else:
+        assert got == want
 
 
 def test_tile_keyed_impls_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue B 12"):
-        rng.PrngSpec("hw_emulated").generate_tile(0, 0, 0, (8, 8))
+    """The tile-keyed impls are ported: ``hw_emulated`` generates the
+    reference's tile."""
+    want = np.asarray(ref.get_prng_spec("hw_emulated").generate_tile(
+        ref.fold_seed(3), np.uint32(8), np.uint32(512), (8, 8), "uniform"))
+    got = rng.PrngSpec("hw_emulated").generate_tile(
+        rng.fold_seed(3), 8, 512, (8, 8), "uniform")
+    np.testing.assert_array_equal(got.numpy(), want)

@@ -54,12 +54,12 @@ def test_three_fused_packed_steps_match_reference(optimizer, lr):
     run_three_steps_against_reference(optimizer, lr)
 
 
-def run_three_steps_against_reference(optimizer, lr):
+def run_three_steps_against_reference(optimizer, lr, prng="threefry"):
     rcfg = ref_config("qwen2-0.5b").reduced(compute_dtype="float32")
     rmodel = ref_model(rcfg)
     rtcfg = RefTrainConfig(model=rcfg, rbd=RefRBDConfig(
-        total_dim=128, backend="jnp", packed="on"), learning_rate=lr,
-        optimizer=optimizer)
+        total_dim=128, backend="jnp", packed="on", prng_impl=prng),
+        learning_rate=lr, optimizer=optimizer)
     r_init, r_step, r_opt = ref_step.make_train_step(
         rmodel, rtcfg, return_optimizer=True)
     assert r_opt.plan_execution().strategy == "fused_packed"
@@ -71,7 +71,8 @@ def run_three_steps_against_reference(optimizer, lr):
 
     cfg = get_config("qwen2-0.5b").reduced(compute_dtype="float32")
     tcfg = TrainConfig(model=cfg, rbd=RBDConfig(total_dim=128,
-                                                backend="cuda"),
+                                                backend="cuda",
+                                                prng_impl=prng),
                        learning_rate=lr, optimizer=optimizer)
     init_state, train_step, sub_opt = steplib.make_train_step(
         get_model(cfg), tcfg, device="cpu", return_optimizer=True)
