@@ -1,57 +1,112 @@
 // Flash attention (forward) for Hopper (sm_90a): the prefill's causal /
-// sliding-window GQA attention in one online-softmax pass over K/V.
+// sliding-window GQA attention in one online-softmax pass over K/V, as two
+// kernels chosen by the wrapper from (dtype, head size) alone:
 //
-//   flash_attention_forward   replaces repro/kernels/flash_attention.py:
-//                             flash_attention -> _flash_kernel
+//   flash_attention_forward_wgmma   bf16, head size 64 or 128 (every config
+//                                   of the port): flash_wgmma.cuh
+//   flash_attention_forward         f32 (TF32 is not allowed), and bf16 at
+//                                   head size 16 or 32: flash_fwd_kernel
 //
-// q is (B, Sq, H, hd), k and v (B, Sk, KV, hd), all contiguous, f32 or
-// bf16; query head h reads K/V head h / (H / KV) directly (no replicated
-// K/V).  The output is (B, Sq, H, hd) in q's dtype.  The function is the
-// Pallas kernel's: scores s = (q . k) * scale, masked to the -1e30 sentinel
-// (not -inf) where k_pos >= Sk, where k_pos > q_pos (causal) and where
-// k_pos <= q_pos - window (a static window, also when not causal), with
-// q_pos counted from 0; per row a running max m, denominator l and
-// accumulator acc, all f32, updated per kv tile as
+// Both replace repro/kernels/flash_attention.py: flash_attention ->
+// _flash_kernel.
+//
+// q is (B, Sq, H, hd), k and v (B, Sk, KV, hd), all contiguous; query head
+// h reads K/V head h / (H / KV) directly (no replicated K/V).  The output is
+// (B, Sq, H, hd) in q's dtype.  The function is the Pallas kernel's: scores
+// s = (q . k) * scale, masked to the -1e30 sentinel (not -inf) where k_pos
+// >= Sk, where k_pos > q_pos (causal) and where k_pos <= q_pos - window (a
+// static window, also when not causal), with q_pos counted from 0; per row
+// a running max m, denominator l and accumulator acc, all f32, updated per
+// kv tile as
 //   m' = max(m, rowmax s), p = exp(s - m'), alpha = exp(m - m'),
 //   l' = l alpha + rowsum p, acc' = acc alpha + p v;
 // out = acc / max(l, 1e-30).  The (Sq, Sk) scores never reach memory.
-//
-// Bound on this card: at the prefill's shapes (qwen2-0.5b: H 14, KV 2,
-// hd 64, Sq = Sk in the thousands) the work is 4 hd flops per live (q, k)
-// pair against one read of q, k, v and one write of o, hundreds of flops
-// per byte: the kernel is bound by arithmetic, at 989 TFLOP/s only on the
-// tensor cores (bf16) and at 67 TFLOP/s on the f32 CUDA cores.
-//
-// What this design does about it (a first, simple kernel; the tensor
-// cores are later work): one CTA of 128 threads per (batch x head, block of
-// 64 query rows), heaviest query blocks first so the causal triangle's long
-// rows do not trail.  The query block is staged once in shared memory as
-// f32; a loop over 64-row kv tiles stages K and V as f32 (bf16 widened on
-// load, which is exact) and each thread computes a 4 x 8 register tile of
-// scores with f32 FMAs, so every shared-memory read feeds ~10 FMAs.  The 8
-// threads of a row group are lanes of one warp: row max and row sum are
-// warp shuffles, and P goes through a warp-private patch of shared memory
-// (only __syncwarp) into the P.V product, whose 4 x hd/8 accumulator tile
-// each thread keeps in registers.  No TF32, no fast-math intrinsics: expf,
-// an IEEE divide, P kept in f32 for P.V as in the reference.
 //
 // kv tiles that lie wholly outside every row's causal / window band are
 // skipped, which leaves the result unchanged: in the reference a wholly
 // masked block before a row's first live one gives p = 1 everywhere, and
 // the first live block multiplies that by alpha = exp(-1e30 - m) = 0; a
-// wholly masked block after a live one gives p = 0 and alpha = 1.  A row
-// with no live key at all (only with a window, when q_pos >= Sk + window -
-// 1) keeps p = 1 over every position of the reference's padded K/V, zero
-// rows included: its output is sum(v) / Sk_pad.  A CTA holding such a row
-// visits every tile up to Sk_pad (a multiple of the 64-row tile, which the
-// wrapper checks), masking the positions past Sk as the reference does.
+// wholly masked block after a live one gives p = 0 and alpha = 1 (both
+// exact in bf16 too).  A row with no live key at all (only with a window,
+// when q_pos >= Sk + window - 1) keeps p = 1 over every position of the
+// reference's padded K/V, zero rows included: its output is sum(v) /
+// Sk_pad.  A CTA holding such a row visits every tile up to Sk_pad (a
+// multiple of 64, which the wrapper checks), masking the positions past Sk
+// as the reference does; the wgmma kernel's 128-row tiles set the
+// positions past Sk_pad to -inf (p = 0: the reference has no such
+// position).
 //
-// The kernel launches on the caller's stream, allocates nothing and returns
-// cudaGetLastError() so the Python wrapper can raise on a refused launch.
+// -- flash_attention_forward_wgmma (flash_wgmma.cuh) --------------------------
+//
+// Bound on this card: at the prefill's shapes (qwen2-0.5b: H 14, KV 2, hd
+// 64, Sq = Sk in the thousands) the work is 4 hd flops per live (q, k) pair
+// against one read of q, k, v and one write of o, hundreds of flops per
+// byte: bound by the tensor cores' 989 TFLOP/s (bf16), 0.1216 ms for the
+// 8,192-token causal prefill of one layer.  At hd 64 the exponentials bound
+// as hard: one MUFU ex2 per live pair against 256 tensor-core flops, at 16
+// ex2 a clock per SM about 0.12 ms at 8,192 tokens; expf without fast-math
+// adds its range reduction on the FMA pipe.
+//
+// What the design does about it: a CTA of 384 threads owns 128 query rows
+// of one (batch, head), heaviest query blocks first.  One producer warp
+// (its warpgroup gives up registers with setmaxnreg.dec to 24) loads Q once
+// and K/V in 128-row tiles by TMA (4-D tensor maps, so the rows past Sk
+// are zero-filled, 128-byte swizzle) into a 3-stage ring guarded by full /
+// empty mbarriers.  Two consumer warpgroups (setmaxnreg.inc to 240) take 64
+// query rows each: S = Q K^T is hd / 16 wgmma m64n128k16 from shared memory
+// (both operands K-major), masked in registers from positions computed
+// from the accumulator layout (only on tiles that cross a band edge), the
+// online softmax in registers (row max and sum across a quad's 4 lanes,
+// expf of one FFMA s scale - m, no fast-math), then O += P V is 8 wgmma
+// m64n{hd}k16 with P from registers (the S fragment of 16 keys is the A
+// fragment of one step) and V read MN-major from shared memory.  The two
+// consumers take turns on two named barriers (ping-pong): each issues its
+// products (the last tile's P V, this tile's Q K^T) while the other runs
+// its softmax.  O stays in f32 registers and is divided by max(l, 1e-30)
+// and rounded once to bf16 at the end.  Shared memory: 112 KB at hd 64,
+// 224 KB at hd 128; one CTA per SM (registers).
+//
+// Where the time goes (PERF.md, the kernel table): the softmax, not the
+// tensor cores -- expf's range reduction is most of its instructions an
+// element, with two consumer warps a scheduler.
+//
+// The one difference from the reference: the tensor cores take bf16
+// operands, so P is rounded to bf16 for P V (l is summed from the f32 p).
+// Each p moves by at most 2^-8 of itself and the weights p / l sum to 1, so
+// an output element moves by at most 2^-8 max|v|; the plain version with
+// p_dtype=bfloat16 rounds at the same points (128-key tiles).
+//
+// ptxas (-Xptxas -v, CUDA 12.8, sm_90a): flash_wgmma_kernel<64> and <128>
+// 168 registers (the launch bound; ptxas allocates the consumers within it,
+// though setmaxnreg raises them to 240 at run time), 0 bytes spilled.
+//
+// -- flash_attention_forward (flash_fwd_kernel, below) ------------------------
+//
+// Bound: 4 hd flops per live pair at 67 TFLOP/s on the f32 CUDA cores (f32
+// inputs; bf16 at hd 16 / 32 reads too few columns a row to feed wgmma's
+// 64-column swizzle rows, and takes this kernel).
+//
+// What this design does about it (a first, simple kernel): one CTA of 128
+// threads per (batch x head, block of 64 query rows), heaviest query blocks
+// first so the causal triangle's long rows do not trail.  The query block
+// is staged once in shared memory as f32; a loop over 64-row kv tiles
+// stages K and V as f32 (bf16 widened on load, which is exact) and each
+// thread computes a 4 x 8 register tile of scores with f32 FMAs, so every
+// shared-memory read feeds ~10 FMAs.  The 8 threads of a row group are
+// lanes of one warp: row max and row sum are warp shuffles, and P goes
+// through a warp-private patch of shared memory (only __syncwarp) into the
+// P.V product, whose 4 x hd/8 accumulator tile each thread keeps in
+// registers.  No TF32, no fast-math intrinsics: expf, an IEEE divide, P
+// kept in f32 for P.V as in the reference.
+//
+// Both kernels launch on the caller's stream, allocate nothing and return
+// a cudaError_t so the Python wrapper can raise on a refused launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_wgmma.cuh"
 
 namespace flash {
 
@@ -378,6 +433,26 @@ int flash_attention_forward(const void* q, const void* k, const void* v,
         scale, stream));
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// bf16 only; hd 64 or 128; the same arguments otherwise.
+int flash_attention_forward_wgmma(const void* q, const void* k, const void* v,
+                                  void* o, int hd, int batch, int sq, int sk,
+                                  int n_heads, int n_kv, int causal,
+                                  int window, int sk_pad, float scale,
+                                  cudaStream_t stream) {
+  switch (hd) {
+    case 64:
+      return static_cast<int>(flash_wgmma::launch<64>(
+          q, k, v, o, batch, sq, sk, n_heads, n_kv, causal, window, sk_pad,
+          scale, stream));
+    case 128:
+      return static_cast<int>(flash_wgmma::launch<128>(
+          q, k, v, o, batch, sq, sk, n_heads, n_kv, causal, window, sk_pad,
+          scale, stream));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

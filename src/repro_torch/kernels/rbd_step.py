@@ -161,6 +161,8 @@ _FLAT_SIGNATURES = {
 _FLASH_SIGNATURES = {
     "flash_attention_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _F32, _P],
+    "flash_attention_forward_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                      _I, _I, _I, _I, _F32, _P],
 }
 # csrc/rbd_common.cuh's Impl codes, passed beside the distribution's
 _IMPL_CODE = {"threefry": 0, "hw_emulated": 1, "hw": 2}
@@ -202,9 +204,11 @@ def resolve_double_buffer(double_buffer, prng) -> bool:
     return bool(double_buffer)
 
 
-def _launch(name: str, fn, *args, variant=("threefry", False)) -> None:
+def _launch(name: str, fn, *args, variant=("threefry", False),
+            key=None) -> None:
     """Launch, raise on a refused launch, count (``variant``: the PRNG
-    impl and double-buffer flag the kernel was launched with)."""
+    impl and double-buffer flag the kernel was launched with; ``key``, if
+    given, the ``VARIANT_LAUNCHES`` name instead)."""
     timed = _TIMING["on"]
     if timed:
         start = torch.cuda.Event(enable_timing=True)
@@ -218,7 +222,7 @@ def _launch(name: str, fn, *args, variant=("threefry", False)) -> None:
         end.record()
         _TIMING["events"][name].append((start, end))
     LAUNCHES[name] += 1
-    key = variant_name(name, *variant)
+    key = key or variant_name(name, *variant)
     VARIANT_LAUNCHES[key] = VARIANT_LAUNCHES.get(key, 0) + 1
 
 

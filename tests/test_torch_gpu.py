@@ -18,9 +18,14 @@ same u/sq tolerances and bit-identical to ``project_packed`` on the same
 seeds (the same grid and sum order); ``reconstruct_flat`` within 2e-5 of
 its largest value; ``reconstruct_apply_flat`` 1e-4 of the update plus 2
 ulp of theta's dtype, bf16 rounded once.  The prefill's flash-attention
-kernel: within 1e-5 of max|v| of its plain version (f32 sums over another
-tiling), plus one bf16 ulp of the larger value for bf16 outputs; reruns
-bit-identical.
+kernels: the CUDA-core one (f32; bf16 at head size 16 / 32) within 1e-5
+of max|v| of its plain version (f32 sums over another tiling), plus one
+bf16 ulp of the larger value for bf16 outputs; the tensor-core one (bf16
+at head size 64 / 128) against the plain version with p_dtype=bfloat16 (P
+rounded to bf16 at the same tiles) within the same plus 2**-7 max|v|
+min(1 / l, 1 - 1 / l) of the row (one p landing on the other bf16
+neighbour, at the largest weight such a key may have), and within 2**-10
+of the output's norm in relative L2; reruns bit-identical.
 """
 
 import math
@@ -554,22 +559,29 @@ def test_shards_in_turn_launch_two_kernels_per_shard(cuda):
 
 # -- the prefill's flash-attention kernel ------------------------------------
 
-# (B, Sq, Sk, H, KV, hd, causal, window): tests/test_flash_kernel.py's
-# cases, qwen2-0.5b's heads at a ragged length, rows with no live key, and
-# the ragged lengths 1, 127 and 129
+# (B, Sq, Sk, H, KV, hd, causal, window, kv_block):
+# tests/test_flash_kernel.py's cases, qwen2-0.5b's heads at a ragged
+# length, rows with no live key, the ragged lengths 1, 127 and 129; then batch 2 with a ragged Sk (the rows
+# past Sk of a 128-row box are the hardware's zeros, not the next batch's),
+# head size 128 with a window, kv_block 64 with Sk = 150 (Sk_pad 192 is
+# not a multiple of the 128-row tile) and rows with no live key, and Sq = 1
 FLASH_CASES = [
-    (2, 256, 256, 4, 4, 16, True, None),
-    (2, 256, 256, 8, 2, 16, True, None),
-    (2, 200, 200, 4, 1, 16, True, None),
-    (2, 256, 256, 4, 2, 16, True, 64),
-    (2, 384, 384, 2, 2, 16, True, 100),
-    (1, 128, 256, 4, 4, 32, False, None),
-    (1, 200, 200, 14, 2, 64, True, None),
-    (1, 300, 100, 2, 1, 16, False, 50),
-    (1, 300, 100, 2, 1, 128, True, 50),
-    (1, 1, 1, 14, 2, 64, True, None),
-    (1, 127, 127, 32, 4, 64, True, 100),
-    (1, 129, 129, 14, 2, 64, True, None),
+    (2, 256, 256, 4, 4, 16, True, None, 128),
+    (2, 256, 256, 8, 2, 16, True, None, 128),
+    (2, 200, 200, 4, 1, 16, True, None, 128),
+    (2, 256, 256, 4, 2, 16, True, 64, 128),
+    (2, 384, 384, 2, 2, 16, True, 100, 128),
+    (1, 128, 256, 4, 4, 32, False, None, 128),
+    (1, 200, 200, 14, 2, 64, True, None, 128),
+    (1, 300, 100, 2, 1, 16, False, 50, 128),
+    (1, 300, 100, 2, 1, 128, True, 50, 128),
+    (1, 1, 1, 14, 2, 64, True, None, 128),
+    (1, 127, 127, 32, 4, 64, True, 100, 128),
+    (1, 129, 129, 14, 2, 64, True, None, 128),
+    (2, 300, 200, 14, 2, 64, True, None, 128),
+    (1, 512, 512, 4, 2, 128, True, 200, 128),
+    (1, 400, 150, 2, 1, 64, True, 50, 64),
+    (2, 1, 77, 14, 2, 128, False, None, 128),
 ]
 
 
@@ -585,26 +597,84 @@ def _flash_close(out, ref, v):
     return bool(((a - b).abs() <= tol).all())
 
 
+def _flash_close_p_bf16(out, ref, l, v):
+    """The tensor-core kernel against the plain version with
+    p_dtype=bfloat16 (P rounded at the same 128-key tiles; ``l`` its
+    denominators): within _flash_close's tolerance + 2**-7 max|v| min(1 /
+    l, 1 - 1 / l) of the row (where the two f32 p of a key round to
+    neighbouring bf16 values, 2**-7 of its weight p / l at most, allowed
+    once a row; the row's largest key has p = 1 on both sides and weight
+    1 / l, any other at most min(1 / l, 1 - 1 / l)), and within 2**-10
+    of the output's norm in relative L2."""
+    a, b = out.float(), ref.float()
+    vmax = float(v.float().abs().max())
+    big = torch.maximum(a.abs(), b.abs()).clamp(min=2.0 ** -126)
+    w = 1.0 / l[..., None]
+    tol = (1e-5 * vmax + torch.exp2(torch.floor(torch.log2(big)) - 7)
+           + 2.0 ** -7 * vmax * torch.minimum(w, 1.0 - w))
+    diff = (a - b).abs()
+    rel = torch.linalg.vector_norm(diff) / torch.linalg.vector_norm(b)
+    return bool((diff <= tol).all()) and float(rel) <= 2.0 ** -10
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", FLASH_CASES,
                          ids=[str(i) for i in range(len(FLASH_CASES))])
 def test_flash_attention_matches_plain(cuda, case, dtype):
+    """Each case through the kernel the wrapper chooses: the tensor-core
+    one for bf16 at head size 64 / 128, the CUDA-core one otherwise (f32,
+    and bf16 at 16 / 32, under _flash_close as before); the variant counts
+    show which ran."""
     from repro_torch.kernels import flash_attention as flash
 
-    b, sq, sk, h, kv, hd, causal, window = case
+    b, sq, sk, h, kv, hd, causal, window, kv_block = case
     gen = torch.Generator(device=cuda).manual_seed(sq + h)
     q = torch.randn((b, sq, h, hd), generator=gen, device=cuda).to(dtype)
     k, v = (torch.randn((b, sk, kv, hd), generator=gen, device=cuda)
             .to(dtype) for _ in range(2))
+    kernel = flash.kernel_for(dtype, hd)
+    other = "fma" if kernel == "wgmma" else "wgmma"
+    variants = rbd_step.VARIANT_LAUNCHES
     before = rbd_step.LAUNCHES["flash_attention"]
-    out = flash.flash_attention(q, k, v, causal=causal, window=window)
-    again = flash.flash_attention(q, k, v, causal=causal, window=window)
+    ran = variants.get(f"flash_attention[{kernel}]", 0)
+    not_ran = variants.get(f"flash_attention[{other}]", 0)
+    out = flash.flash_attention(q, k, v, causal=causal, window=window,
+                                kv_block=kv_block)
+    again = flash.flash_attention(q, k, v, causal=causal, window=window,
+                                  kv_block=kv_block)
     torch.cuda.synchronize()
     assert rbd_step.LAUNCHES["flash_attention"] == before + 2
+    assert variants.get(f"flash_attention[{kernel}]", 0) == ran + 2
+    assert variants.get(f"flash_attention[{other}]", 0) == not_ran
     assert out.dtype == dtype and tuple(out.shape) == (b, sq, h, hd)
     assert torch.equal(out, again)
-    ref = flash.flash_attention_plain(q, k, v, causal=causal, window=window)
-    assert _flash_close(out, ref, v)
+    ref, l = flash.flash_attention_plain(
+        q, k, v, causal=causal, window=window, kv_block=kv_block,
+        p_dtype=flash.P_DTYPE[kernel], return_l=True)
+    if kernel == "wgmma":
+        assert _flash_close_p_bf16(out, ref, l, v)
+    else:
+        assert _flash_close(out, ref, v)
+
+
+def test_cuda_core_kernel_still_takes_bf16_at_64(cuda):
+    """The CUDA-core kernel, named explicitly for bf16 at head size 64
+    (as chip_smoke.py times it beside the tensor-core one), still matches
+    the f32-P plain version under _flash_close."""
+    from repro_torch.kernels import flash_attention as flash
+
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    q = torch.randn((1, 200, 14, 64), generator=gen, device=cuda).bfloat16()
+    k, v = (torch.randn((1, 200, 2, 64), generator=gen, device=cuda)
+            .bfloat16() for _ in range(2))
+    before = rbd_step.VARIANT_LAUNCHES.get("flash_attention[fma]", 0)
+    out = flash._launch_kernel(q, k, v, kernel="fma")
+    torch.cuda.synchronize()
+    assert rbd_step.VARIANT_LAUNCHES["flash_attention[fma]"] == before + 1
+    assert _flash_close(out, flash.flash_attention_plain(q, k, v), v)
+    with pytest.raises(ValueError, match="wgmma kernel takes bfloat16"):
+        flash._launch_kernel(q.float(), k.float(), v.float(),
+                             kernel="wgmma")
 
 
 def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
@@ -639,6 +709,27 @@ def test_prefill_launches_flash_once_per_layer(cuda):
     assert rbd_step.LAUNCHES["flash_attention"] == cfg.n_layers
     scale = float(full[:, -1].abs().max())
     assert float((logits[:, 0] - full[:, -1]).abs().max()) <= 1e-5 * scale
+
+
+def test_bf16_prefill_runs_the_tensor_core_kernel(cuda):
+    """qwen2-0.5b's head size (64) at the reduced width, bf16 compute: every
+    layer's prefill launch is the tensor-core kernel's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_model
+
+    cfg = get_config("qwen2-0.5b").reduced(d_head=64)
+    assert cfg.compute_dtype == "bfloat16"
+    model = get_model(cfg)
+    params = model.init(0, device=cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 300), device=cuda)
+    rbd_step.reset_counts()
+    with torch.no_grad():
+        logits, _ = transformer.prefill(cfg, params, tokens, 304)
+    torch.cuda.synchronize()
+    assert rbd_step.VARIANT_LAUNCHES == {
+        "flash_attention[wgmma]": cfg.n_layers}
+    assert bool(torch.isfinite(logits).all())
 
 
 # ---------------------------------------------------------------------------
