@@ -2,19 +2,41 @@
 """GPU smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py            # needs one CUDA card, exits 0 if all pass
+    python3 chip_smoke.py --base DIR # A/B of the RBD kernels against DIR
+
+``--base DIR`` (DIR another checkout, e.g. the parent commit unpacked
+with ``git archive`` under ``build/``) runs no phase: it builds this
+tree's and DIR's kernels (one nvcc per source, all started together),
+runs rows 1-10 at full qwen2-0.5b width under every PRNG impl (and the
+buffered hw instances of rows 1-3 and 5-7) through this tree's wrappers
+on either tree's kernels (``rbd_step.kernels_from``), holds every output
+bit for bit against DIR's, times each in turns (DIR, this, this, DIR)
+and exits non-zero if any output differs.
 
 Phases, each printing its own lines; any failure exits non-zero before the
 result line:
 
 1. device   -- card name and power limit, TF32 off, kernels built from
                ``src/repro_torch/kernels/csrc`` (build time, ptxas report);
-               Philox4x32-10's instructions a value counted in the SASS
-               of a probe loop (PHILOX_PROBE), for the hw bound;
+               the pipe probes (PIPE_PROBE, built beside the kernels):
+               each instruction class's rate in lanes per SM per clock
+               (IMAD.WIDE.U32, IMAD, LOP3, FFMA, I2FP, MUFU, F2I, and
+               pairs interleaved to see which share a pipe; logged, a
+               diagnostic), the SASS instructions a value of
+               Philox4x32-10, Threefry-2x32-20 and the normal transform
+               by pipe class, Philox feeding the transform timed; the
+               must path of the hot loops of ``project_kernel`` and
+               ``reconstruct_apply_kernel`` <normal, hw> and <normal,
+               threefry> counted in ``cuobjdump -sass`` (LDL / STL too);
+               the bounds take the counts (value_counts) at the peaks of
+               PIPE_LANES_PER_SM;
 2. generator -- the ``generate_tile`` kernel against the plain generator
                under each PRNG impl (threefry, hw_emulated, hw) at three
                tile corners, the 2**32 wrap included: bits bit-exact for
                every distribution, samples bit-exact except normal (held
-               to a stated tolerance);
+               to a stated tolerance); the hw paths' normal transform
+               (``hw_logf``, ``hw_sqrtf``, ``hw_cosf``) bit for bit the
+               CUDA library's on all 2**24 inputs of each;
 3. kernels  -- ``project_packed`` and ``reconstruct_apply_packed`` against
                their plain versions on full-width qwen2-0.5b slices (one
                layer's 12 segments plus ``final_norm``; one dir-block of
@@ -119,10 +141,11 @@ result line:
                kernel's row logged;
 17. prng     -- the tile-keyed PRNG path: the launcher's packed step at
                full width and depth, 3 steps each under ``--prng-impl hw``
-               (the port's tile-keyed Philox4x32-10, double buffer on by
-               the reference's auto rule) and ``hw_emulated``: the
-               expected ``prng impl:`` line, 2 launches a step, finite
-               losses; the unbuffered ``hw`` kernels driven through the
+               (the port's tile-keyed Philox4x32-10; the auto rule takes
+               the unbuffered kernels on a card) and ``hw_emulated``: the
+               expected ``prng impl:`` and ``prng kernels:`` lines, 2
+               launches a step, finite losses; the buffered ``hw``
+               kernels (the reference's auto rule) driven through the
                kernel API for 3 steps; rows 1-10 under both impls against
                their plain versions (phase 3's full-width layer, four
                distributions on rows 1-2, embed's first dir-block under
@@ -143,10 +166,13 @@ It imports nothing of JAX or of the reference package ``repro``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -162,19 +188,11 @@ NORMAL_SAMPLE_ATOL = 1e-6   # normal samples: CUDA logf/cosf vs torch's, ulps
 U_RTOL = 2e-5    # |du| / (||g_seg|| sqrt(sq/Q)): f32 sums in another order
 SQ_RTOL = 2e-5   # |dsq| / sq: f32 sums of squares in another order
 THETA_RTOL = 1e-4  # |dtheta| / max|update|, plus 2 ulp of max|theta|
-# Operation count of one live basis value (see csrc/rbd_step.cu), counted
-# from the source as a floor: Threefry-2x32-20 is 20 x (add, funnel shift,
-# xor) + 5 x 2 injection adds + 3 set-up ops; the sample mapping adds
-# FP32/SFU instructions per distribution (normal: two uniforms, logf,
-# sqrtf, cosf, three multiplies); the contraction adds FMAs.  Integer adds
-# may also issue on the FP32 pipe (as IMAD), so the bound is total issue:
-# 4 schedulers x 32 lanes per SM per clock, at the card's max SM clock.
-INT_OPS_PER_VALUE = 73
-# hw: Philox4x32-10's instructions a value are read from the SASS of
-# PHILOX_PROBE in phase 1 (philox_sass_ops), each instruction one issue
-# slot -- an IMAD.WIDE (both halves of a product) counts one, and the
-# integer pipes' rates are not modelled (total issue, as above)
-HW_INT_OPS = {}
+# Operation counts of one live basis value (see csrc/rbd_step.cu): the
+# generator's and the normal transform's are read from the SASS of phase
+# 1's probes (PIPE_PROBE, value_counts); the other distributions' sample
+# mappings are counted from the source (FP32 instructions); the
+# contraction adds FMAs.
 FP_OPS_PER_VALUE = {"normal": 41, "uniform": 6, "rademacher": 1,
                     "sparse": 5}
 FMA_PER_VALUE = {"project_packed": 2, "reconstruct_apply_packed": 1,
@@ -250,14 +268,28 @@ FLASH_P_FLIP = 2.0 ** -7
 FLASH_REL_L2 = 2.0 ** -10
 PREFILL_LOGIT_RTOL = 0.04
 PREFILL_F32_RTOL = 2e-5
+# Peak rates of an H100 SM (sm_90) in lanes a clock, the bound's table:
+# 4 schedulers issue one warp instruction a clock each (128); the integer
+# ALU 64 (LOP3, shifts, compares, selects, I2FP); the FP32 "heavy" pipe 64,
+# the only one that runs IMAD (IMAD.WIDE's 64-bit result takes it twice);
+# the FP32 "lite" pipe 64; the XU 16 (MUFU, F2I and the other
+# conversions).  Adds and moves (IADD3, LEA, MOV and their IMAD forms) run
+# on the ALU or the heavy pipe, FFMA / FMUL / FADD on either FP32 pipe.
+# Phase 1's probes measure each class's rate; they are logged, not used.
 ISSUE_LANES_PER_SM = 128
+PIPE_LANES_PER_SM = {"alu": 64, "heavy": 64, "lite": 64, "xu": 16}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
 # peaks of the H100 SXM at 700 W (NVIDIA's data sheet, dense): bf16 on the
 # tensor cores, f32 on the CUDA cores
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str = "") -> None:
+    if msg.startswith("== phase"):   # each phase's start, in the run's time
+        msg += f"  [{time.perf_counter() - T_START:.1f} s]"
     print(msg, flush=True)
 
 
@@ -273,47 +305,313 @@ def nvidia_smi(query: str) -> str:
     ).stdout.strip().splitlines()[0]
 
 
-# The Philox loop whose SASS phase 1 counts: CALLS calls a trip on the
-# counter (column, j, 0, 0), j = 0 .. CALLS - 1, as rbd_common.cuh's
-# tile_column makes them (4 a column), under round keys set up once a trip
-# from a key that changes every trip, as the kernels' tile keys do.  The
-# loop bodies of CALLS = 8 and 4 differ by 4 calls and by the 2 LOP3 a
-# call that fold its 4 words into the accumulator.
-PHILOX_PROBE = r"""
+# Phase 1's probes (PIPE_PROBE): loops timed on the whole card whose SASS
+# is read with cuobjdump.  Each probe kernel runs `trips` trips of one
+# fully unrolled body; thread 0 of each block stamps the SM's clock64 at
+# entry and after a block barrier at exit, with the SM's id, so a class's
+# rate is its lanes over the SMs' cycles (lanes per SM per clock), whatever
+# clock the card runs at.  Single-class probes: 8 independent chains of
+# one PTX instruction (mad.wide.u32 -> IMAD.WIDE.U32, mad.lo.u32 -> IMAD,
+# lop3.b32 -> LOP3, fma.rn.f32 -> FFMA, cvt.rn.f32.u32 -> I2F,
+# rsqrt.approx.f32 -> MUFU.RSQ), 4 trips of 8 chains a trip.  Generator
+# probes, each in two sizes whose bodies differ by 8 basis values (the
+# difference is what one value costs, loop overhead cancelled): Philox
+# as the hw projection runs it (philox_start / philox_rounds under round
+# keys in shared memory, 1 or 2 columns of 4 calls, its words folded with
+# 3-input xors: 2 LOP3 a call), Threefry-2x32-20 (4 or 8
+# calls, each folded with one LOP3), the normal transform alone on bits
+# from an LCG (8 or 16 values; 2 IMAD for the bits and one FADD for the
+# sum a value) in the hw form (the library's fast paths, one-FFMA
+# uniforms) and in Threefry's (the library calls); and
+# Philox feeding the hw transform (16 values a trip, summed).
+PIPE_PROBE = r"""
 #include <stdint.h>
+#include <string.h>
 #include "philox.cuh"
-template <int CALLS>
-__device__ __forceinline__ void probe(const uint32_t* in, uint32_t* out,
-                                      uint32_t n) {
+#include "threefry.cuh"
+
+__device__ __forceinline__ void stamp(long long t0, long long* clk) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned sm;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+    clk[3 * blockIdx.x] = t0;
+    clk[3 * blockIdx.x + 1] = clock64();
+    clk[3 * blockIdx.x + 2] = sm;
+  }
+}
+
+__device__ __forceinline__ uint32_t fold(uint64_t v) {
+  return static_cast<uint32_t>(v) ^ static_cast<uint32_t>(v >> 32);
+}
+__device__ __forceinline__ uint32_t fold(uint32_t v) { return v; }
+__device__ __forceinline__ uint32_t fold(float v) { return __float_as_uint(v); }
+
+#define CHAIN_PROBE(NAME, T, INIT, ASM, ...)                                 \
+  extern "C" __global__ void NAME(uint32_t s, int trips, uint32_t* sink,     \
+                                  long long* clk) {                          \
+    const long long t0 = clock64();                                          \
+    T a[8];                                                                  \
+    _Pragma("unroll") for (int k = 0; k < 8; ++k) a[k] = INIT;               \
+    _Pragma("unroll 1") for (int t = 0; t < trips; ++t) {                    \
+      _Pragma("unroll") for (int u = 0; u < 4; ++u) {                        \
+        _Pragma("unroll") for (int k = 0; k < 8; ++k) {                      \
+          asm volatile(ASM : __VA_ARGS__);                                   \
+        }                                                                    \
+      }                                                                      \
+    }                                                                        \
+    uint32_t acc = 0;                                                        \
+    _Pragma("unroll") for (int k = 0; k < 8; ++k) acc ^= fold(a[k]);         \
+    sink[blockIdx.x * blockDim.x + threadIdx.x] = acc;                       \
+    stamp(t0, clk);                                                          \
+  }
+
+CHAIN_PROBE(p_imad_wide, uint64_t, s + threadIdx.x * 8u + k,
+            "mad.wide.u32 %0, %1, %2, %0;",
+            "+l"(a[k]) : "r"(static_cast<uint32_t>(a[k])), "r"(0xD2511F53u))
+CHAIN_PROBE(p_imad, uint32_t, s + threadIdx.x * 8u + k,
+            "mad.lo.u32 %0, %0, %1, %2;",
+            "+r"(a[k]) : "r"(0xD2511F53u), "r"(a[(k + 1) & 7]))
+CHAIN_PROBE(p_lop3, uint32_t, s + threadIdx.x * 8u + k,
+            "lop3.b32 %0, %0, %1, %2, 0x96;",
+            "+r"(a[k]) : "r"(a[(k + 1) & 7]), "r"(a[(k + 2) & 7]))
+CHAIN_PROBE(p_ffma, float, 1.0f + 1e-3f * (threadIdx.x + k),
+            "fma.rn.f32 %0, %0, %1, %2;",
+            "+f"(a[k]) : "f"(0.999f), "f"(a[(k + 1) & 7]))
+CHAIN_PROBE(p_i2f, float, static_cast<float>(s + threadIdx.x + k),
+            "cvt.rn.f32.u32 %0, %1;",
+            "+f"(a[k]) : "r"(__float_as_uint(a[k])))
+CHAIN_PROBE(p_mufu, float, 1.0f + 1e-3f * (threadIdx.x + k),
+            "rsqrt.approx.f32 %0, %0;", "+f"(a[k]))
+CHAIN_PROBE(p_f2i, float, 1.0f + 1e-3f * (threadIdx.x + k),
+            "{.reg .s32 t; cvt.rni.s32.f32 t, %0; mov.b32 %0, t;}",
+            "+f"(a[k]))
+// two classes interleaved, 16 of each a trip: do they share a pipe?
+CHAIN_PROBE(p_lop3_i2f, uint32_t, s + threadIdx.x * 8u + k,
+            "{.reg .f32 t; lop3.b32 %0, %0, %1, %2, 0x96; "
+            "cvt.rn.f32.u32 t, %0; mov.b32 %0, t;}",
+            "+r"(a[k]) : "r"(a[(k + 1) & 7]), "r"(a[(k + 2) & 7]))
+CHAIN_PROBE(p_ffma_imad, float, 1.0f + 1e-3f * (threadIdx.x + k),
+            "{.reg .u32 t; fma.rn.f32 %0, %0, %1, %2; mov.b32 t, %0; "
+            "mad.lo.u32 t, t, 3, t; mov.b32 %0, t;}",
+            "+f"(a[k]) : "f"(0.999f), "f"(a[(k + 1) & 7]))
+
+// the round keys of the key (s, s ^ salt) in shared memory, as the hw
+// projection holds them
+__device__ __forceinline__ const uint32_t* probe_round_keys(uint32_t s) {
+  __shared__ __align__(16) uint32_t rk[2 * rbd::kPhiloxRounds];
+  if (threadIdx.x == 0) rbd::philox_store_round_keys(s, s ^ 0x85EBCA6Bu, rk);
+  __syncthreads();
+  return rk;
+}
+
+template <int NC>
+__device__ __forceinline__ void philox_body(uint32_t s, int trips,
+                                            uint32_t* sink, long long* clk) {
+  const long long t0 = clock64();
+  const uint32_t* rk = probe_round_keys(s);
   uint32_t acc = 0;
 #pragma unroll 1
-  for (uint32_t c = threadIdx.x; c < n; c += blockDim.x) {
-    const rbd::PhiloxKey pk = rbd::philox_key(in[0] ^ c, in[1]);
+  for (int t = 0; t < trips; ++t) {
 #pragma unroll
-    for (uint32_t j = 0; j < CALLS; ++j) {
-      uint32_t w[4];
-      rbd::philox4x32_10(pk, c, j, 0u, 0u, w);
-      acc ^= w[0] ^ w[1] ^ w[2] ^ w[3];
+    for (int n = 0; n < NC; ++n) {
+      uint32_t w[4][4];
+      rbd::philox_start(threadIdx.x + 256u * n + t, w);
+      rbd::philox_rounds<0, rbd::kPhiloxRounds>(rk, w);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc ^= w[j][0] ^ w[j][1];
+        acc ^= w[j][2] ^ w[j][3];
+      }
     }
   }
-  out[threadIdx.x] = acc;
+  sink[blockIdx.x * blockDim.x + threadIdx.x] = acc;
+  stamp(t0, clk);
 }
-extern "C" __global__ void philox_probe4(const uint32_t* in, uint32_t* out,
-                                         uint32_t n) { probe<4>(in, out, n); }
-extern "C" __global__ void philox_probe8(const uint32_t* in, uint32_t* out,
-                                         uint32_t n) { probe<8>(in, out, n); }
+extern "C" __global__ void p_philox8(uint32_t s, int trips, uint32_t* sink,
+                                     long long* clk) {
+  philox_body<1>(s, trips, sink, clk);
+}
+extern "C" __global__ void p_philox16(uint32_t s, int trips, uint32_t* sink,
+                                      long long* clk) {
+  philox_body<2>(s, trips, sink, clk);
+}
+
+template <int CALLS>
+__device__ __forceinline__ void threefry_body(uint32_t s, int trips,
+                                              uint32_t* sink,
+                                              long long* clk) {
+  const long long t0 = clock64();
+  uint32_t acc = 0;
+#pragma unroll 1
+  for (int t = 0; t < trips; ++t) {
+#pragma unroll
+    for (int i = 0; i < CALLS; ++i) {
+      uint32_t b0, b1;
+      rbd::basis_bits(s, static_cast<uint32_t>(i), threadIdx.x + t, b0, b1);
+      acc ^= b0 ^ b1;
+    }
+  }
+  sink[blockIdx.x * blockDim.x + threadIdx.x] = acc;
+  stamp(t0, clk);
+}
+extern "C" __global__ void p_threefry4(uint32_t s, int trips, uint32_t* sink,
+                                       long long* clk) {
+  threefry_body<4>(s, trips, sink, clk);
+}
+extern "C" __global__ void p_threefry8(uint32_t s, int trips, uint32_t* sink,
+                                       long long* clk) {
+  threefry_body<8>(s, trips, sink, clk);
+}
+
+template <int VALUES, bool FMA_U>
+__device__ __forceinline__ void normal_body(uint32_t s, int trips,
+                                            uint32_t* sink, long long* clk) {
+  const long long t0 = clock64();
+  uint32_t x = s ^ (threadIdx.x * 0x9E3779B9u);
+  float acc = 0.0f;
+#pragma unroll 1
+  for (int t = 0; t < trips; ++t) {
+#pragma unroll
+    for (int i = 0; i < VALUES; ++i) {
+      const uint32_t b0 = x * 1664525u + 1013904223u;
+      x = b0 * 1664525u + 1013904223u;
+      acc += rbd::bits_to_sample<rbd::kNormal, FMA_U>(b0, x);
+    }
+  }
+  sink[blockIdx.x * blockDim.x + threadIdx.x] = __float_as_uint(acc);
+  stamp(t0, clk);
+}
+extern "C" __global__ void p_normal8(uint32_t s, int trips, uint32_t* sink,
+                                     long long* clk) {
+  normal_body<8, true>(s, trips, sink, clk);
+}
+extern "C" __global__ void p_normal16(uint32_t s, int trips, uint32_t* sink,
+                                      long long* clk) {
+  normal_body<16, true>(s, trips, sink, clk);
+}
+extern "C" __global__ void p_normal8t(uint32_t s, int trips, uint32_t* sink,
+                                      long long* clk) {
+  normal_body<8, false>(s, trips, sink, clk);
+}
+extern "C" __global__ void p_normal16t(uint32_t s, int trips, uint32_t* sink,
+                                       long long* clk) {
+  normal_body<16, false>(s, trips, sink, clk);
+}
+
+extern "C" __global__ void p_philox_normal(uint32_t s, int trips,
+                                           uint32_t* sink, long long* clk) {
+  const long long t0 = clock64();
+  const uint32_t* rk = probe_round_keys(s);
+  float acc = 0.0f;
+#pragma unroll 1
+  for (int t = 0; t < trips; ++t) {
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      uint32_t w[4][4];
+      rbd::philox_start(threadIdx.x + 256u * n + t, w);
+      rbd::philox_rounds<0, rbd::kPhiloxRounds>(rk, w);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc += rbd::bits_to_sample<rbd::kNormal, true>(w[j][0], w[j][1]);
+        acc += rbd::bits_to_sample<rbd::kNormal, true>(w[j][2], w[j][3]);
+      }
+    }
+  }
+  sink[blockIdx.x * blockDim.x + threadIdx.x] = __float_as_uint(acc);
+  stamp(t0, clk);
+}
+
+typedef void (*Probe)(uint32_t, int, uint32_t*, long long*);
+extern "C" int run_probe(const char* name, uint32_t s, int trips, int blocks,
+                         uint32_t* sink, long long* clk, void* stream) {
+  static const struct { const char* name; Probe fn; } probes[] = {
+      {"p_imad_wide", p_imad_wide}, {"p_imad", p_imad},
+      {"p_lop3", p_lop3}, {"p_ffma", p_ffma}, {"p_i2f", p_i2f},
+      {"p_mufu", p_mufu}, {"p_f2i", p_f2i}, {"p_lop3_i2f", p_lop3_i2f},
+      {"p_ffma_imad", p_ffma_imad}, {"p_philox8", p_philox8},
+      {"p_philox16", p_philox16}, {"p_threefry4", p_threefry4},
+      {"p_threefry8", p_threefry8}, {"p_normal8", p_normal8},
+      {"p_normal16", p_normal16}, {"p_normal8t", p_normal8t},
+      {"p_normal16t", p_normal16t}, {"p_philox_normal", p_philox_normal}};
+  for (const auto& p : probes) {
+    if (strcmp(p.name, name) != 0) continue;
+    p.fn<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(s, trips,
+                                                               sink, clk);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return -1;
+}
 """
+# the single-class probes: (kernel, its opcode class, chains x unroll a trip)
+# (kernel, rate key, the opcodes counted): 8 chains of one instruction,
+# or two classes interleaved (a rate near one class's alone means they
+# share a pipe; near the sum, that they do not)
+CHAIN_PROBES = (("p_imad_wide", "imad_wide", ("IMAD.WIDE",)),
+                ("p_imad", "imad", ("IMAD",)),
+                ("p_lop3", "alu", ("LOP3",)),
+                ("p_ffma", "fp32", ("FFMA",)),
+                ("p_i2f", "cvt", ("I2FP", "I2F")),
+                ("p_mufu", "xu", ("MUFU",)),
+                ("p_f2i", "f2i", ("F2I",)),
+                ("p_lop3_i2f", "alu+cvt", ("LOP3", "I2FP", "I2F")),
+                ("p_ffma_imad", "fp32+imad", ("FFMA", "IMAD")))
+# the generator probes: (label, kernel of the smaller body, of the larger,
+# values the larger adds, instructions a value of the fold/bits/sum)
+DIFF_PROBES = (("philox", "p_philox8", "p_philox16", 8, {"alu": 1.0}),
+               ("threefry", "p_threefry4", "p_threefry8", 4, {"alu": 1.0}),
+               ("normal_hw", "p_normal8", "p_normal16", 8,
+                {"imad": 2.0, "fp32": 1.0}),
+               ("normal", "p_normal8t", "p_normal16t", 8,
+                {"imad": 2.0, "fp32": 1.0}))
+# Opcode classes of the bound (PIPE_LANES_PER_SM): "alu" runs only on the
+# integer ALU, "iadd" (adds and moves) on the ALU or the heavy pipe,
+# "imad" (a multiply) only on the heavy pipe, "imad_wide" on it twice,
+# "fp32" on either FP32 pipe, "xu" on the XU.  VIADD (an add ptxas folds
+# in any chain of its own) and the rest count for issue only.
+PIPE_OF = {"IMAD": "imad", "FFMA": "fp32", "FMUL": "fp32", "FADD": "fp32",
+           "I2F": "xu", "F2F": "xu", "FRND": "xu", "MUFU": "xu",
+           "F2I": "xu",
+           "LOP3": "alu", "SHF": "alu", "ISETP": "alu", "FSETP": "alu",
+           "SEL": "alu", "FSEL": "alu", "PRMT": "alu", "IMNMX": "alu",
+           "FMNMX": "alu", "IABS": "alu", "PLOP3": "alu", "R2P": "alu",
+           "P2R": "alu", "FCHK": "alu", "LOP": "alu", "SHL": "alu",
+           "SHR": "alu", "I2FP": "alu",
+           "IADD3": "iadd", "IADD": "iadd", "LEA": "iadd", "MOV": "iadd"}
+# IMAD forms that only add, move or shift: "iadd"
+IMAD_ADDS = ("MOV", "IADD", "SHL", "X")
+# the kernels' hot loops whose SASS phase 1 counts (DBUF off, normal):
+# label -> (mangled-name fragment, source file)
+HOT_LOOPS = {
+    "project_kernel<normal, hw>": ("project_kernelILi0ELi2ELb0E",
+                                   "rbd_step.cu"),
+    "project_kernel<normal, threefry>": ("project_kernelILi0ELi0ELb0E",
+                                         "rbd_step.cu"),
+    "reconstruct_apply_kernel<normal, hw>": (
+        "reconstruct_apply_kernelILi0ELi2ELb0E", "rbd_step.cu"),
+    "reconstruct_apply_kernel<normal, threefry>": (
+        "reconstruct_apply_kernelILi0ELi0ELb0E", "rbd_step.cu"),
+}
+PROBE_BLOCKS_PER_SM = 8
+PIPES = {}       # filled by phase 1: measured rates and SASS counts
 
 
-def _sass_loop(sass: str, function: str) -> list[str]:
-    """Opcodes of the longest loop (a branch back to an earlier
-    instruction, by label or by address) of one function in ``cuobjdump
-    -sass`` output."""
+def _sass_functions(sass: str) -> dict:
+    """{function name: its SASS text} of ``cuobjdump -sass`` output."""
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        name, body = part.split("\n", 1)
+        out[name.strip()] = body
+    return out
+
+
+def _sass_ops(body: str):
+    """The instructions of one function: [(opcode with modifiers, branch
+    target label or address or None, predicated)], and {label or address:
+    index}."""
     import re
 
-    body = sass.split(f"Function : {function}\n", 1)[1]
-    body = body.split("Function : ", 1)[0]
-    ops, at, best = [], {}, []
+    ops, at = [], {}
     for line in body.splitlines():
         m = re.match(r"\s*(\.L_x_\d+):", line)
         if m:
@@ -324,48 +622,294 @@ def _sass_loop(sass: str, function: str) -> list[str]:
             continue
         at[int(m.group(1), 16)] = len(ops)
         words = m.group(2).split()
-        if words[0].startswith("@"):
+        pred = words[0].startswith("@")
+        if pred:
             words = words[1:]
-        ops.append(words[0])
         t = re.search(r"BRA\s+(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))",
                       m.group(2))
-        if t:
-            target = t.group(1) or int(t.group(2), 16)
-            if target in at and len(ops) - at[target] > len(best):
-                best = ops[at[target]:]
-    check(bool(best), f"no loop found in the SASS of {function}")
-    return best
+        target = (t.group(1) or int(t.group(2), 16)) if t else None
+        ops.append((words[0], target, pred))
+    return ops, at
 
 
-def philox_sass_ops() -> dict:
-    """Build PHILOX_PROBE with the kernels' nvcc flags, read its SASS with
-    cuobjdump and count Philox4x32-10's instructions a basis value (two
-    values a call): (body of 8 calls - body of 4 calls - 4 x 2 LOP3) / 8.
-    Returns the count and the opcodes of the 8-call body."""
-    import collections
+def _must_path(ops, at, lo: int, hi: int) -> list[str]:
+    """Opcodes of the loop ops[lo .. hi] (hi its branch back to lo) that
+    every trip runs: the basic blocks on every path from the head to the
+    back branch.  A branch's other side (a slow path of logf / cosf /
+    sqrtf, an early exit) is left out when a path runs around it, so this
+    is the trip's fast path, a floor on what it issues."""
+    ops_in = ops[lo:hi + 1]
+    idx = {k: v - lo for k, v in at.items() if lo <= v <= hi}
+    leaders = {0}
+    for i, (op, target, _) in enumerate(ops_in):
+        if target is not None:
+            if target in idx:
+                leaders.add(idx[target])
+            leaders.add(i + 1)
+        elif op in ("EXIT", "RET", "BRX", "JMX"):
+            leaders.add(i + 1)
+    starts = sorted(x for x in leaders if x < len(ops_in))
+    block_of = {}
+    for b, s0 in enumerate(starts):
+        e0 = starts[b + 1] if b + 1 < len(starts) else len(ops_in)
+        for i in range(s0, e0):
+            block_of[i] = b
+    ends = [(starts[b + 1] if b + 1 < len(starts) else len(ops_in)) - 1
+            for b in range(len(starts))]
+    succ = []
+    for b, e0 in enumerate(ends):
+        op, target, pred = ops_in[e0]
+        out = set()
+        if target is not None and target in idx and idx[target] > 0:
+            out.add(block_of[idx[target]])
+        falls = not ((target is not None or op in ("EXIT", "RET", "BRX",
+                                                   "JMX")) and not pred)
+        if falls and e0 + 1 < len(ops_in):
+            out.add(block_of[e0 + 1])
+        succ.append(out)
+    latch = block_of[len(ops_in) - 1]
 
+    def reaches(skip):
+        seen, todo = {0}, [0]
+        while todo:
+            b = todo.pop()
+            if b == latch:
+                return True
+            for n in succ[b]:
+                if n != skip and n not in seen:
+                    seen.add(n)
+                    todo.append(n)
+        return False
+
+    must = [b for b in range(len(starts))
+            if b in (0, latch) or not reaches(b)]
+    return [ops_in[i][0] for b in must for i in range(starts[b], ends[b] + 1)]
+
+
+def _sass_loops(body: str) -> list[tuple[list[str], list[str]]]:
+    """Every loop (a branch back to an earlier instruction) of one
+    function: (all its opcodes, its must-path opcodes)."""
+    ops, at = _sass_ops(body)
+    loops = []
+    for i, (_, target, _) in enumerate(ops):
+        if target is not None and target in at and at[target] <= i:
+            lo = at[target]
+            loops.append(([op for op, _, _ in ops[lo:i + 1]],
+                          _must_path(ops, at, lo, i)))
+    return loops
+
+
+def _sass_loop(sass: str, function: str) -> list[str]:
+    """Must-path opcodes of the longest loop of one function."""
+    loops = _sass_loops(_sass_functions(sass)[function])
+    check(bool(loops), f"no loop found in the SASS of {function}")
+    return max(loops, key=lambda lp: len(lp[0]))[1]
+
+
+def _pipe_class(op: str) -> str:
+    """The bound's class of one opcode with its modifiers (PIPE_OF)."""
+    base, *mods = op.split(".")
+    if base == "IMAD" and "WIDE" in mods:
+        return "imad_wide"
+    if base == "IMAD" and any(m in IMAD_ADDS for m in mods):
+        return "iadd"
+    return PIPE_OF.get(base, "other")
+
+
+def _pipe_counts(opcodes) -> dict:
+    """{pipe class: count} of a list of opcodes (_pipe_class), the rest
+    under "other" ("all" counts every instruction)."""
+    counts = {"all": len(opcodes)}
+    for op in opcodes:
+        cls = _pipe_class(op)
+        counts[cls] = counts.get(cls, 0) + 1
+    return counts
+
+
+def _hot_loop(body: str) -> tuple[list[str], list[str], int]:
+    """The hot loop of a kernel on the normal distribution: the smallest
+    loop whose must path holds the most MUFU.RSQ (one per value: sqrtf);
+    returns its opcodes, its must-path opcodes and its values a trip (those
+    MUFU.RSQ)."""
+    loops = _sass_loops(body)
+    check(bool(loops), "no loop in a kernel's SASS")
+    rsq = [sum(op.startswith("MUFU.RSQ") for op in must) for _, must in loops]
+    values = max(rsq)
+    check(values > 0, "no MUFU.RSQ on the must path of a kernel's loops")
+    loop, must = min((lp for lp, n in zip(loops, rsq) if n == values),
+                     key=lambda lp: len(lp[0]))
+    return loop, must, values
+
+
+def _cuobjdump(path, functions=()) -> str:
+    """``cuobjdump -sass`` of a built library, only ``functions`` (mangled
+    names) if given."""
     from repro_torch.kernels import build
 
-    src = build.BUILD_DIR / "philox_probe.cu"
-    cubin = src.with_suffix(".cubin")
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    args = [a for f in functions for a in ("-fun", f)]
+    return subprocess.run([tool, "-sass", *args, str(path)], check=True,
+                          capture_output=True, text=True,
+                          timeout=300).stdout
+
+
+def start_probe_build():
+    """Write PIPE_PROBE and start its nvcc (the kernels' flags); returns
+    (process, library path)."""
+    from repro_torch.kernels import build
+
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src.write_text(PHILOX_PROBE)
-    flags = [f for f in build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler",
-                                                       "-fPIC")]
-    subprocess.run([build.nvcc_path(), *flags, "-cubin", "-I",
-                    str(build.CSRC), "-o", str(cubin), str(src)],
-                   check=True, capture_output=True, text=True, timeout=300)
-    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(cubin)], check=True,
-                          capture_output=True, text=True, timeout=120).stdout
-    src.with_suffix(".sass").write_text(sass)
-    body4 = _sass_loop(sass, "philox_probe4")
-    body8 = _sass_loop(sass, "philox_probe8")
-    per_value = (len(body8) - len(body4) - 4 * 2) / 8
-    check(per_value > 0, f"Philox SASS count {per_value}")
-    return {"per_value": per_value, "body4": len(body4),
-            "body8": len(body8),
-            "opcodes8": dict(collections.Counter(body8).most_common())}
+    src = build.BUILD_DIR / "pipe_probe.cu"
+    src.write_text(PIPE_PROBE)
+    lib = src.with_suffix(".so")
+    proc = subprocess.Popen([build.nvcc_path(), *build.NVCC_FLAGS, "-I",
+                             str(build.CSRC), "-o", str(lib), str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, lib
+
+
+def pipe_probes(proc, lib_path, sms: int) -> dict:
+    """Finish the probe build; read each probe's loop body from its SASS,
+    time each probe on the whole card (CUDA events, clock64 spans), and
+    return {"rates": {class: lanes per SM per clock}, "per_value":
+    {generator: {class: instructions a value}}, "clock_mhz": the SM clock
+    the probes ran at, "lines": what to log}.  The rates are a diagnostic:
+    the bounds take the peaks of PIPE_LANES_PER_SM."""
+    import collections
+    import ctypes
+
+    import torch
+
+    log_text, _ = proc.communicate(timeout=600)
+    check(proc.returncode == 0, f"probe nvcc failed:\n{log_text}")
+    sass = _cuobjdump(lib_path)
+    lib_path.with_suffix(".sass").write_text(sass)
+    funcs = _sass_functions(sass)
+    lib = ctypes.CDLL(str(lib_path))
+    fn = lib.run_probe
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_uint32, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    blocks = sms * PROBE_BLOCKS_PER_SM
+    sink = torch.empty(blocks * 256, dtype=torch.int32, device="cuda")
+    clk = torch.zeros(blocks * 3, dtype=torch.int64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def timed(name, trips):
+        """(ms, SM-cycles summed over SMs) of one launch, after a warm-up."""
+        for _ in range(2):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            rc = fn(name.encode(), 12345, trips, blocks, sink.data_ptr(),
+                    clk.data_ptr(), stream)
+            b.record()
+            torch.cuda.synchronize()
+            check(rc == 0, f"probe {name} launch failed ({rc})")
+        c = clk.view(-1, 3).cpu()
+        spans = {}
+        for t0, t1, sm in c.tolist():
+            lo, hi = spans.get(sm, (t0, t1))
+            spans[sm] = (min(lo, t0), max(hi, t1))
+        cycles = sum(hi - lo for lo, hi in spans.values())
+        return a.elapsed_time(b), cycles, len(spans)
+
+    lines, rates, clocks = [], {}, []
+    bodies = {}
+    for name in funcs:
+        if name.startswith("p_"):
+            bodies[name] = _sass_loop(sass, name)
+    # chain probes: 4 x 8 chained instructions a trip
+    for name, key, opcodes in CHAIN_PROBES:
+        body = bodies[name]
+        n = sum(op.startswith(opcodes) for op in body)
+        trips = 4096
+        ms, cycles, n_sm = timed(name, trips)
+        lanes = blocks * 256 * trips
+        rates[key] = n * lanes / cycles
+        clocks.append(cycles / n_sm / (ms * 1e-3) / 1e6)
+        lines.append(
+            f"  probe {name}: body "
+            f"{dict(collections.Counter(body).most_common())}; {ms:.3f} "
+            f"ms, {cycles / n_sm:,.0f} cycles an SM -> {key} "
+            f"{rates[key]:.2f} lanes/SM/clock, all instructions "
+            f"{len(body) * lanes / cycles:.2f}")
+    # I2FP shares the ALU when, interleaved with LOP3, the two together
+    # run at no more than 1.25 x the faster alone
+    shares = rates["alu+cvt"] <= 1.25 * max(rates["alu"], rates["cvt"])
+    lines.append(f"  I2FP shares the ALU pipe with LOP3: {shares}")
+    per_value = {}
+    for label, small, large, values, extra in DIFF_PROBES:
+        c_small = _pipe_counts(bodies[small])
+        c_large = _pipe_counts(bodies[large])
+        counts = {k: (c_large.get(k, 0) - c_small.get(k, 0)) / values
+                  for k in set(c_small) | set(c_large)}
+        for k, v in extra.items():   # the fold, the bits, the sum
+            counts[k] = counts.get(k, 0.0) - v
+            counts["all"] -= v
+        per_value[label] = {k: v for k, v in counts.items() if v}
+        check(per_value[label]["all"] > 0,
+              f"{label} SASS count {per_value[label]}")
+        ms, cycles, n_sm = timed(large, 256)
+        vals = blocks * 256 * 256 * 2 * values
+        lines.append(
+            f"  probe {large}/{small}: bodies {len(bodies[large])} / "
+            f"{len(bodies[small])} -> {label} a value "
+            f"{ {k: round(v, 3) for k, v in sorted(per_value[label].items())} }"
+            f"; {large} {ms:.3f} ms, {vals * 1.0 / cycles:.3f} values/SM/"
+            f"clock, issue {len(bodies[large]) * blocks * 256 * 256 / cycles:.1f}"
+            f" lanes/SM/clock")
+    body = bodies["p_philox_normal"]
+    ms, cycles, n_sm = timed("p_philox_normal", 256)
+    vals = blocks * 256 * 256 * 16
+    lines.append(f"  probe p_philox_normal (Philox feeding the hw transform,"
+                 f" 16 values a trip): body {_pipe_counts(body)}; "
+                 f"{ms:.3f} ms, {vals / cycles:.3f} values/SM/clock, "
+                 f"issue {len(body) * blocks * 256 * 256 / cycles:.1f} "
+                 f"lanes/SM/clock")
+    clock = sorted(clocks)[len(clocks) // 2]
+    lines.append(f"  SM clock under the probes (cycles / event time): "
+                 f"{clock:.0f} MHz")
+    return {"rates": rates, "per_value": per_value,
+            "clock_mhz": clock, "lines": lines}
+
+
+def hot_loop_counts(libs) -> list[str]:
+    """The must paths of HOT_LOOPS in the built libraries' SASS, as lines
+    to log: instructions a value by class, LDL / STL counted."""
+    import re
+
+    sass = {}
+    lines = []
+    for label, (frag, source) in HOT_LOOPS.items():
+        if source not in sass:
+            # the entries HOT_LOOPS names, from ptxas's report of the build
+            # (the whole library's SASS if the build was reused)
+            entries = re.findall(r"Compiling entry function '(\S+)'",
+                                 libs[source].log)
+            want = [e for e in entries
+                    if any(f in e for f, src in HOT_LOOPS.values()
+                           if src == source)]
+            text = _cuobjdump(libs[source].path, want)
+            sass[source] = _sass_functions(text)
+            libs[source].path.with_suffix(".sass").write_text(text)
+        names = [n for n in sass[source] if frag in n]
+        if not names:   # -fun took none of them: the whole library
+            sass[source] = _sass_functions(_cuobjdump(libs[source].path))
+            names = [n for n in sass[source] if frag in n]
+        check(len(names) == 1, f"{label}: functions {names}")
+        loop, must, values = _hot_loop(sass[source][names[0]])
+        counts = _pipe_counts(must)
+        local = sum(op.startswith(("LDL", "STL")) for op in loop)
+        local_must = sum(op.startswith(("LDL", "STL")) for op in must)
+        lines.append(
+            f"  hot loop {label}: {len(loop)} instructions, {len(must)} on "
+            f"the must path for {values} values -> {len(must) / values:.2f}"
+            f" a value; LDL/STL {local} in the loop, {local_must} on the "
+            f"must path; by class "
+            f"{ {k: round(v / values, 2) for k, v in sorted(counts.items())} }")
+    return lines
 
 
 def cuda_ms(fn, repeat: int = 1) -> list[float]:
@@ -402,6 +946,7 @@ def phase_device():
     log(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
+    probe = start_probe_build()   # beside the kernels' nvcc
     libs = rbd_step.libraries()   # one nvcc per source, started together
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
     for built in libs.values():
@@ -409,14 +954,16 @@ def phase_device():
         for line in built.log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"  ptxas: {line.strip()}")
-    HW_INT_OPS.update(philox_sass_ops())
-    log(f"Philox4x32-10 SASS (cuobjdump of the probe): loop bodies "
-        f"{HW_INT_OPS['body4']} / {HW_INT_OPS['body8']} instructions for "
-        f"4 / 8 calls -> {HW_INT_OPS['per_value']} a value; 8-call body "
-        f"{HW_INT_OPS['opcodes8']}")
     props = torch.cuda.get_device_properties(0)
     clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     log(f"SMs {props.multi_processor_count}, max SM clock {clock_mhz} MHz")
+    PIPES.update(pipe_probes(*probe, props.multi_processor_count))
+    hot_lines = hot_loop_counts(libs)
+    log("pipe probes (PIPE_PROBE; measured rates in lanes per SM per "
+        "clock, a diagnostic: the bounds take the peaks "
+        f"{PIPE_LANES_PER_SM}, issue {ISSUE_LANES_PER_SM}):")
+    for line in PIPES["lines"] + hot_lines:
+        log(line)
     return {"smi": smi, "sms": props.multi_processor_count,
             "clock_hz": clock_mhz * 1e6}
 
@@ -449,6 +996,14 @@ def phase_generator():
                 log(f"  {dist:10s} tile ({row0},{col0}) vs plain on {where}:"
                     f" bits exact, samples max|d|={float(diff.max()):.3g}"
                     f" ({n_diff} of 4096 differ)")
+    # the hw paths' normal transform (the library's fast paths without
+    # the code their inputs never reach) against logf / sqrtf / cosf on
+    # all 2**24 inputs each can get: bit for bit
+    mism = rbd_step.hw_transform_mismatches()
+    check(mism["radius"] == 0 and mism["cosine"] == 0,
+          f"hw transform differs from the library's: {mism}")
+    log(f"  hw normal transform vs logf/sqrtf and cosf on all 2^24 inputs:"
+        f" {mism['radius']} + {mism['cosine']} differ")
     # the tile-keyed impls: the whole (8, 512) shape is one tile keyed by
     # (seed, row0, col0); b0/b1 are its two streams
     for impl in TILE_KEYED:
@@ -725,18 +1280,84 @@ REPLACES = {
 FLAT_KERNELS = ("project_flat", "reconstruct_flat", "reconstruct_apply_flat")
 
 
-def int_ops_per_value(prng, dist):
-    """Integer instructions of one basis value's bits, as a floor:
-    Threefry-2x32-20 (73, counted from the source) for threefry; one
-    Threefry per bit stream plus the within-tile index for hw_emulated;
-    for hw half a Philox4x32-10 call, counted in this run's SASS (phase
-    1).  The per-tile key and round keys are left out."""
+TILE_VALUES = 8 * 512   # values of one (8, 512) tile
+
+
+def value_counts(name, prng, dist) -> dict:
+    """{pipe class: instructions} of one basis value of kernel ``name``,
+    from this run's probe SASS (phase 1): the generator (Threefry-2x32-20;
+    one Threefry per bit stream plus the within-tile index for
+    hw_emulated; half a Philox4x32-10 call for hw), the sample transform
+    (normal: the hw form -- the library's fast paths and one-FFMA
+    uniforms, the same bits -- the least; the other distributions
+    from the source, FP_OPS_PER_VALUE), the contraction's FMAs; for the
+    tile-keyed impls, the tile key (one Threefry) and its 18 round-key
+    adds once per (8, 512) tile.  Classes as _pipe_class."""
+    pv = PIPES["per_value"]
+    out = {}
+
+    def add(counts, times=1.0):
+        for k, v in counts.items():
+            out[k] = out.get(k, 0.0) + times * v
+
     if prng == "hw":
-        return HW_INT_OPS["per_value"]
-    if prng == "hw_emulated":
-        return (INT_OPS_PER_VALUE + 1) * (2 if dist in ("normal", "sparse")
-                                          else 1)
-    return INT_OPS_PER_VALUE
+        add(pv["philox"])
+    elif prng == "hw_emulated":
+        streams = 2 if dist in ("normal", "sparse") else 1
+        add(pv["threefry"], streams)
+        add({"all": 1, "iadd": 1}, streams)
+    else:
+        add(pv["threefry"])
+    if prng != "threefry":
+        add(pv["threefry"], 1.0 / TILE_VALUES)
+        add({"all": 18, "iadd": 18}, 1.0 / TILE_VALUES)
+    if dist == "normal":
+        add(pv["normal_hw"])
+    else:
+        add({"all": FP_OPS_PER_VALUE[dist], "fp32": FP_OPS_PER_VALUE[dist]})
+    add({"all": FMA_PER_VALUE[name], "fp32": FMA_PER_VALUE[name]})
+    return out
+
+
+def pipe_seconds(values, counts, dev) -> dict:
+    """Seconds that ``values`` basis values of ``counts`` (value_counts)
+    need on the whole card at the peaks of PIPE_LANES_PER_SM, one term per
+    limit: total issue; the XU; the classes that run on one pipe only (the
+    ALU's, IMAD's on the heavy pipe); the FP32 pipes, which FFMA shares
+    with IMAD; the integer work (ALU, adds, IMAD) on the ALU and the
+    heavy pipe; all of it on the three.  The largest term is the least
+    time the counts can be spread over the pipes each class may use."""
+    lanes = PIPE_LANES_PER_SM
+    alu, iadd = counts.get("alu", 0), counts.get("iadd", 0)
+    imad = counts.get("imad", 0) + 2 * counts.get("imad_wide", 0)
+    fp32 = counts.get("fp32", 0)
+    per_clock = {
+        "issue": counts["all"] / ISSUE_LANES_PER_SM,
+        "xu": counts.get("xu", 0) / lanes["xu"],
+        "alu": alu / lanes["alu"],
+        "imad": imad / lanes["heavy"],
+        "fp32": (fp32 + imad) / (lanes["heavy"] + lanes["lite"]),
+        "int": (alu + iadd + imad) / (lanes["alu"] + lanes["heavy"]),
+        "alu+fp32": (alu + iadd + imad + fp32) / (
+            lanes["alu"] + lanes["heavy"] + lanes["lite"]),
+    }
+    return {k: values * v / (dev["sms"] * dev["clock_hz"])
+            for k, v in per_clock.items()}
+
+
+def ops_bound(values, nbytes, counts, dev) -> tuple[float, str, str]:
+    """(ms, "operations" or "bytes", what sets it): the larger of the
+    bytes over HBM_BYTES_PER_S and the largest term of pipe_seconds."""
+    t = pipe_seconds(values, counts, dev)
+    pipe = max(t, key=t.get)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    note = (f"set by {pipe}; "
+            + ", ".join(f"{k} {1e3 * v:.3f}" for k, v in t.items())
+            + f"; {counts['all']:.2f} instructions a value "
+            + str({k: round(v, 3) for k, v in sorted(counts.items())}))
+    if t_bytes > t[pipe]:
+        return 1e3 * t_bytes, "bytes", note
+    return 1e3 * t[pipe], "operations", note
 
 
 def bound_ms(name, lay, dist, dev, k_workers=1, prng="threefry"):
@@ -753,17 +1374,16 @@ def bound_ms(name, lay, dist, dev, k_workers=1, prng="threefry"):
     else:
         nbytes = (8 * lay.q_packed + 4 * k_workers * lay.n_segments
                   + 4 * k_workers * lay.d_packed)
-    ops = values * (int_ops_per_value(prng, dist) + FP_OPS_PER_VALUE[dist]
-                    + FMA_PER_VALUE[name])
-    t_ops = ops / (dev["sms"] * ISSUE_LANES_PER_SM * dev["clock_hz"])
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes")
+    ms, by, note = ops_bound(values, nbytes,
+                             value_counts(name, prng, dist), dev)
+    log(f"  bound {name}[{prng}] (K or B={k_workers}): {ms:.3f} ms -- "
+        f"{note}")
+    return ms, by
 
 
 def flat_bound_ms(name, plan, dist, dev):
     """(least time in ms, "operations" or "bytes") for the 14 per-leaf
-    launches of one step: live values over total issue, against each
+    launches of one step: live values over the pipes, against each
     leaf's rows read once and written once."""
     values = sum(lp.n_stack * lp.dim * lp.size for lp in plan.leaves)
     q, d = plan.total_params, plan.total_dim
@@ -774,12 +1394,10 @@ def flat_bound_ms(name, plan, dist, dev):
         nbytes = 4 * q + 4 * d + 4 * n_seeds
     else:                           # theta read and written
         nbytes = 8 * q + 4 * d + 4 * n_seeds
-    ops = values * (INT_OPS_PER_VALUE + FP_OPS_PER_VALUE[dist]
-                    + FMA_PER_VALUE[name])
-    t_ops = ops / (dev["sms"] * ISSUE_LANES_PER_SM * dev["clock_hz"])
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes")
+    ms, by, note = ops_bound(values, nbytes,
+                             value_counts(name, "threefry", dist), dev)
+    log(f"  bound {name} (14 leaves): {ms:.3f} ms -- {note}")
+    return ms, by
 
 
 def kernel_row(name, lay, dist, dev, k_workers, launches, err, ms,
@@ -1641,7 +2259,7 @@ def phase_per_leaf(full_plan):
 
 def shard_bound_ms(name, sl, shard, dist, dev, k_workers=1):
     """(least time in ms, "operations" or "bytes") for one launch on one
-    slab: the shard's live basis values over total issue, against the
+    slab: the shard's live basis values over the pipes, against the
     slab read once and written once (the apply) or read once (the
     projection, which writes the (d_packed,) partials)."""
     lay = sl.base
@@ -1651,12 +2269,11 @@ def shard_bound_ms(name, sl, shard, dist, dev, k_workers=1):
     else:
         nbytes = (8 * sl.q_slab + 4 * k_workers * lay.n_segments
                   + 4 * k_workers * lay.d_packed)
-    ops = values * (INT_OPS_PER_VALUE + FP_OPS_PER_VALUE[dist]
-                    + FMA_PER_VALUE[name])
-    t_ops = ops / (dev["sms"] * ISSUE_LANES_PER_SM * dev["clock_hz"])
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes")
+    ms, by, note = ops_bound(values, nbytes,
+                             value_counts(name, "threefry", dist), dev)
+    log(f"  bound {name} shard {shard} (K={k_workers}): {ms:.3f} ms -- "
+        f"{note}")
+    return ms, by
 
 
 def _median(xs):
@@ -2426,9 +3043,10 @@ PRNG_REPLACES = {
 
 def _run_launcher_with_prng(impl):
     """The launcher's sharedseed packed step at full width and depth under
-    ``--prng-impl impl``: its prng line, 2 launches a step (the variant
-    the auto double-buffer rule picks), finite losses.  Returns (the
-    run's per-launch kernel ms, its variant launch counts)."""
+    ``--prng-impl impl``: its prng line and its prng kernels line, 2
+    launches a step (the variant the auto double-buffer rule picks on a
+    card: unbuffered), finite losses.  Returns (the run's per-launch
+    kernel ms, its variant launch counts)."""
     import contextlib
     import io
 
@@ -2449,10 +3067,13 @@ def _run_launcher_with_prng(impl):
                                    backend="cuda", hw_available=True)
     check(f"prng impl: {impl} -- {why}" in buf.getvalue().splitlines(),
           f"--prng-impl {impl}: no 'prng impl: {impl}' line")
-    db = rbd_step.resolve_double_buffer(None, impl)
+    db = rbd_step.resolve_double_buffer(None, impl, "cuda")
     want = {rbd_step.variant_name("project_packed", impl, db): STEPS,
             rbd_step.variant_name("reconstruct_apply_packed", impl, db):
                 STEPS}
+    check(any(line.startswith("prng kernels: " + ", ".join(want))
+              for line in buf.getvalue().splitlines()),
+          f"--prng-impl {impl}: no 'prng kernels: {', '.join(want)}' line")
     check(launches == want, f"--prng-impl {impl}: launches {launches}, "
           f"expected {want}")
     check(all(math.isfinite(x) for x in res.losses),
@@ -2476,8 +3097,7 @@ def _prng_kernels_vs_plain(full_plan):
     errs = {}
 
     def note(name, impl, err, label=None):
-        auto = impl == "hw" and name in BUFFERED   # the auto rule's buffer
-        key = (name, label or ("hw,db" if auto else impl))
+        key = (name, label or impl)   # the auto rule: unbuffered on a card
         errs[key] = max(errs.get(key, 0.0), err)
 
     gen = torch.Generator(device="cuda").manual_seed(17)
@@ -2513,16 +3133,17 @@ def _prng_kernels_vs_plain(full_plan):
                 note("reconstruct_apply_packed", impl,
                      _check_apply(tag, out, ref, theta))
                 if impl == "hw":
-                    # the unbuffered kernels against the same plain
+                    # the buffered kernels against the same plain
                     u1, sq1 = rbd_step.project_packed(
-                        seeds, g, lay, dist, prng=impl, double_buffer=False)
+                        seeds, g, lay, dist, prng=impl, double_buffer=True)
                     note("project_packed", impl, _check_project(
-                        f"{tag} unbuffered", u1, sq1, up, sqp, g, lay), "hw")
+                        f"{tag} buffered", u1, sq1, up, sqp, g, lay),
+                        "hw,db")
                     note("reconstruct_apply_packed", impl, _check_apply(
-                        f"{tag} unbuffered",
+                        f"{tag} buffered",
                         rbd_step.reconstruct_apply_packed(
                             seeds, scale[0], theta, lay, dist, prng=impl,
-                            double_buffer=False), ref, theta), "hw")
+                            double_buffer=True), ref, theta), "hw,db")
                     del u1, sq1
                 if not layer or dist != "normal":
                     continue
@@ -2730,12 +3351,12 @@ def _prng_timing(full_plan):
     return times, plain_ms, errs
 
 
-def _drive_unbuffered_hw(full_plan):
+def _drive_buffered_hw(full_plan):
     """The packed step's two launches through the kernel wrappers with
-    ``prng="hw", double_buffer=False`` (the reference's kernel API: its
-    auto rule turns the buffer on for hw), STEPS times at full width:
-    the [hw] rows' path.  Returns ({kernel: ms list}, variant launch
-    counts)."""
+    ``prng="hw", double_buffer=True`` (the reference's auto rule for hw;
+    on a card the port's auto rule takes the unbuffered kernels), STEPS
+    times at full width: the [hw,db] rows' path.  Returns ({kernel: ms
+    list}, variant launch counts)."""
     import torch
     from repro_torch.core import projector, rng
     from repro_torch.kernels import rbd_step
@@ -2756,19 +3377,19 @@ def _drive_unbuffered_hw(full_plan):
         res = {}
         ms["project_packed"] += cuda_ms(lambda: res.update(
             u=rbd_step.project_packed(seeds, g, lay, dist, prng="hw",
-                                      double_buffer=False)))
+                                      double_buffer=True)))
         u, sq = res["u"]
         scale = u * cvalid * 1e-6
         ms["reconstruct_apply_packed"] += cuda_ms(
             lambda: rbd_step.reconstruct_apply_packed(
                 seeds, scale, theta, lay, dist, out=theta, prng="hw",
-                double_buffer=False))
-        check(bool(torch.isfinite(theta).all()), "unbuffered hw step: theta "
+                double_buffer=True))
+        check(bool(torch.isfinite(theta).all()), "buffered hw step: theta "
               "is not finite")
     launches = dict(rbd_step.VARIANT_LAUNCHES)
-    check(launches == {"project_packed[hw]": STEPS,
-                       "reconstruct_apply_packed[hw]": STEPS},
-          f"unbuffered hw drive: launches {launches}")
+    check(launches == {"project_packed[hw,db]": STEPS,
+                       "reconstruct_apply_packed[hw,db]": STEPS},
+          f"buffered hw drive: launches {launches}")
     return ms, launches
 
 
@@ -2777,7 +3398,7 @@ def phase_prng(full_plan, dev):
         "hw_emulated) and the double buffer, qwen2-0.5b full width and "
         "depth")
     runs = {impl: _run_launcher_with_prng(impl) for impl in TILE_KEYED}
-    hw_ms, hw_launches = _drive_unbuffered_hw(full_plan)
+    db_ms, db_launches = _drive_buffered_hw(full_plan)
     errs = _prng_kernels_vs_plain(full_plan)
     times, plain_ms, full_errs = _prng_timing(full_plan)
     lay = full_plan.packed()
@@ -2787,8 +3408,8 @@ def phase_prng(full_plan, dev):
                         ("hw", "hw")):
         for name in ("project_packed", "reconstruct_apply_packed"):
             variant = f"{name}[{label}]"
-            if label == "hw":
-                launches, ms_list = hw_launches[variant], hw_ms[name]
+            if label == "hw,db":
+                launches, ms_list = db_launches[variant], db_ms[name]
             else:
                 kernel_ms, launch = runs[impl]
                 launches, ms_list = launch[variant], kernel_ms[name]
@@ -2812,14 +3433,184 @@ def phase_prng(full_plan, dev):
     return rows
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# --base DIR: rows 1-10 of this tree against another tree's kernels
+# ---------------------------------------------------------------------------
+
+AB_IMPLS = ("threefry", "hw_emulated", "hw")
+AB_K = 2           # workers of row 3 and 7, adapters of row 4
+AB_TURNS = ("base", "this", "this", "base")
+
+
+def _ab_cases(full_plan):
+    """{(kernel, impl, double_buffer): fn returning its outputs} at full
+    width: rows 1-4 on the packed layout, 5-7 on shard 0 of m = 2 (the
+    slab holding embed), 8-10 over the plan's 14 leaves; the inputs made
+    once from seeds on the card."""
+    import torch
+    from repro_torch.core import compartments, projector, rng
+    from repro_torch.kernels import rbd_project, rbd_reconstruct, rbd_step
+
+    lay = full_plan.packed()
+    gen = torch.Generator(device="cuda").manual_seed(190)
+    valid = _valid_mask(lay, "cuda")
+    seeds = projector.segment_seeds(full_plan, rng.fold_seed(0, 19))
+    wseeds = projector.worker_segment_seeds(full_plan, rng.fold_seed(0, 19),
+                                            AB_K)
+    g = torch.where(valid, torch.randn(lay.q_packed, generator=gen,
+                                       device="cuda"), 0.0)
+    theta = torch.where(valid, torch.randn(lay.q_packed, generator=gen,
+                                           device="cuda"), 0.0)
+    cvalid = torch.from_numpy(lay.coord_valid).cuda()
+    scale = torch.randn((AB_K, lay.d_packed), generator=gen,
+                        device="cuda") * 1e-4 * cvalid
+    sl = compartments.sharded_packed_layout(lay, 2)
+    lo, hi = sl.slab_range(0)
+    g_slab, t_slab = g[lo:hi].contiguous(), theta[lo:hi].contiguous()
+    leaves = full_plan.leaves
+    fseeds = [projector._leaf_seeds(rng.fold_seed(0, 19), lp)
+              for lp in leaves]
+    fg = [torch.randn((lp.n_stack, lp.size), generator=gen, device="cuda")
+          for lp in leaves]
+    fsc = [torch.randn((lp.n_stack, lp.dim), generator=gen, device="cuda")
+           * 1e-4 for lp in leaves]
+    dist = full_plan.distribution
+    buffered = {
+        "project_packed": lambda p, d: rbd_step.project_packed(
+            seeds, g, lay, dist, prng=p, double_buffer=d),
+        "reconstruct_apply_packed": lambda p, d:
+            rbd_step.reconstruct_apply_packed(
+                seeds, scale[0], theta, lay, dist, prng=p, double_buffer=d),
+        "reconstruct_apply_packed_workers": lambda p, d:
+            rbd_step.reconstruct_apply_packed_workers(
+                wseeds, scale, theta, lay, dist, prng=p, double_buffer=d),
+        "project_packed_sharded": lambda p, d:
+            rbd_step.project_packed_sharded(seeds, g_slab, sl, 0, dist,
+                                            prng=p, double_buffer=d),
+        "reconstruct_apply_packed_sharded": lambda p, d:
+            rbd_step.reconstruct_apply_packed_sharded(
+                seeds, scale[0], t_slab, sl, 0, dist, prng=p,
+                double_buffer=d),
+        "reconstruct_apply_packed_workers_sharded": lambda p, d:
+            rbd_step.reconstruct_apply_packed_workers_sharded(
+                wseeds, scale, t_slab, sl, 0, dist, prng=p,
+                double_buffer=d),
+    }
+    unbuffered = {
+        "reconstruct_apply_packed_adapters": lambda p:
+            rbd_step.reconstruct_apply_packed_adapters(
+                wseeds, scale, theta, lay, dist, prng=p),
+        "project_flat": lambda p: [
+            rbd_project.project_flat(s, x, lp.dim, dist, prng=p)
+            for s, x, lp in zip(fseeds, fg, leaves)],
+        "reconstruct_flat": lambda p: [
+            rbd_reconstruct.reconstruct_flat(s, c, lp.size, dist, prng=p)
+            for s, c, lp in zip(fseeds, fsc, leaves)],
+        "reconstruct_apply_flat": lambda p: [
+            rbd_reconstruct.reconstruct_apply_flat(s, c, x, 0.5, dist,
+                                                   prng=p)
+            for s, c, x in zip(fseeds, fsc, fg)],
+    }
+    cases = {}
+    for impl in AB_IMPLS:
+        for db in ((False, True) if impl == "hw" else (False,)):
+            for name, fn in buffered.items():
+                cases[(name, impl, db)] = functools.partial(fn, impl, db)
+        for name, fn in unbuffered.items():
+            cases[(name, impl, False)] = functools.partial(fn, impl)
+    return cases
+
+
+def _tensors(out) -> list:
+    if isinstance(out, (list, tuple)):
+        return [t for o in out for t in _tensors(o)]
+    return [out]
+
+
+def ab_against(base: str) -> int:
+    """``--base DIR``: the A/B described in the module docstring; returns
+    the exit code."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RBDConfig
+    from repro_torch.kernels import build, rbd_step
+    from repro_torch.models.registry import get_model
+    from repro_torch.train import step as steplib
+
+    csrc = os.path.join(os.path.abspath(base), "src", "repro_torch",
+                        "kernels", "csrc")
+    check(os.path.isdir(csrc), f"--base {base}: no {csrc}")
+    smi = nvidia_smi("name,power.limit")
+    log(f"nvidia-smi: {smi}")
+    t0 = time.perf_counter()
+    sources = (rbd_step.SOURCE, rbd_step.FLAT_SOURCE, rbd_step.FLASH_SOURCE)
+    started = {}   # one nvcc per distinct source: equal files share a build
+    for tree, where in (("this", build.CSRC), ("base", csrc)):
+        for src in sources:
+            if build.output_path(src, where) not in started:
+                started[build.output_path(src, where)] = (
+                    tree, build.start_build(src, where))
+    for tree, (proc, out) in started.values():
+        built = build.finish_build(proc, out, t0)
+        for line in built.log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"  [{tree}] ptxas: {line.strip()}")
+    log(f"both trees built in {time.perf_counter() - t0:.1f} s")
+    trees = {"this": contextlib.nullcontext,
+             "base": lambda: rbd_step.kernels_from(csrc)}
+    full_plan = steplib.make_plan(get_model(get_config("qwen2-0.5b")),
+                                  RBDConfig(total_dim=1024))
+    cases = _ab_cases(full_plan)
+    differ = []
+    for key, fn in cases.items():
+        with trees["base"]():
+            ref = _tensors(fn())
+        out = _tensors(fn())
+        if not all(torch.equal(a, b) for a, b in zip(ref, out)):
+            differ.append(key)
+        del ref, out
+    log(f"outputs bit-identical to the base tree's: "
+        f"{len(cases) - len(differ)} of {len(cases)} (kernel, impl, "
+        f"double_buffer)" + (f"; differ: {differ}" if differ else ""))
+    times = {}
+    for tree in AB_TURNS:
+        with trees[tree]():
+            for key, fn in cases.items():
+                times.setdefault((tree,) + key, []).extend(cuda_ms(fn))
+    rows = []
+    for key in cases:
+        b = statistics.median(times[("base",) + key])
+        t = statistics.median(times[("this",) + key])
+        name, impl, db = key
+        label = f"{name}[{impl}{',db' if db else ''}]"
+        turns = {tree: [round(x, 3) for x in times[(tree,) + key]]
+                 for tree in ("base", "this")}
+        log(f"  {label}: base {b:.3f} ms, this {t:.3f} ms, this/base "
+            f"{t / b:.4f} (turns {turns})")
+        rows.append({"kernel": name, "impl": impl, "double_buffer": db,
+                     "base_ms": b, "this_ms": t, "ratio": t / b})
+    print(json.dumps({"ab": rows, "differ": [list(k) for k in differ]}),
+          flush=True)
+    print(smi, flush=True)
+    return 1 if differ else 0
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--base", metavar="DIR",
+                    help="A/B rows 1-10 against DIR's kernels; no phase")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr, flush=True)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    if args.base:
+        return ab_against(args.base)
     from repro_torch.configs import get_config
     from repro_torch.configs.base import RBDConfig
     from repro_torch.core import compartments

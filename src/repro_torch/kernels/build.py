@@ -48,17 +48,26 @@ class BuiltLibrary:
 
 def _digest(source: pathlib.Path) -> str:
     h = hashlib.sha256()
-    for f in sorted(CSRC.glob("*.cuh")) + [source]:
+    for f in sorted(source.parent.glob("*.cuh")) + [source]:
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
-def start_build(source: str):
-    """Start nvcc on one source; returns (process or None, output path).
-    None means a build with the same hash already exists."""
-    src = CSRC / source
-    out = BUILD_DIR / f"{src.stem}-{_digest(src)}.so"
+def output_path(source: str, csrc: pathlib.Path = CSRC) -> pathlib.Path:
+    """Where the build of one source of ``csrc`` goes (another tree's
+    kernel sources may be given: their builds land beside these, under
+    their own hash; equal sources share one)."""
+    src = pathlib.Path(csrc) / source
+    return BUILD_DIR / f"{src.stem}-{_digest(src)}.so"
+
+
+def start_build(source: str, csrc: pathlib.Path = CSRC):
+    """Start nvcc on one source of ``csrc``; returns (process or None,
+    output_path).  None means a build with the same hash already
+    exists."""
+    src = pathlib.Path(csrc) / source
+    out = output_path(source, csrc)
     if out.exists():
         return None, out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -79,9 +88,10 @@ def finish_build(proc, out: pathlib.Path, started: float) -> BuiltLibrary:
     return BuiltLibrary(out, log, time.perf_counter() - started)
 
 
-def build_all(sources) -> dict[str, BuiltLibrary]:
+def build_all(sources,
+              csrc: pathlib.Path = CSRC) -> dict[str, BuiltLibrary]:
     """Build several sources with one nvcc each, all started together."""
     t0 = time.perf_counter()
-    started = {s: start_build(s) for s in sources}
+    started = {s: start_build(s, csrc) for s in sources}
     return {s: finish_build(proc, out, t0)
             for s, (proc, out) in started.items()}

@@ -15,10 +15,29 @@
 //   kHw          the reference's _hw_tile (348), which is the TPU's
 //                hardware PRNG; here the tile-keyed Philox4x32-10 of
 //                philox.cuh, one call per two rows at one column.
-// A thread computes a tile's key once per (thread, tile) -- the projection
-// when its column enters a new pos-block, the applies once per CUDA block
-// into shared memory (fill_tile_keys) -- and, for kHw, the 20 Philox
-// round keys once per tile visit.
+// The applies compute a tile's key once per CUDA block into shared memory
+// (fill_tile_keys); the projection computes it once per (thread, tile)
+// for hw_emulated, when a thread's column enters a new pos-block.
+//
+// kHw, designed for this card (the other impls keep their code paths).
+// Its Philox costs ~17 instructions a value, so the work around it sets
+// the pace: the hw kernels run at about 78% of issue whatever their form
+// (chip_smoke.py phase 1 counts the hot loops' SASS; PERF.md, PR 19), so
+// what they issue is what they take:
+//   * the normal transform, 71 instructions a value through the CUDA math
+//     library, runs the library's own fast paths without the code its
+//     inputs never reach (threefry.cuh: hw_logf, hw_cosf, hw_sqrtf; the
+//     same bits on every input): 55;
+//   * the projection's tile keys: its CUDA block computes the key of
+//     every pos-block of its chunk once, one thread each, and stores the
+//     20 Philox round keys in shared memory (project_sums_hw), where each
+//     thread had formed key and round keys at every pos-block it entered;
+//   * uniforms in one FFMA (uniform01_fma, the same bits).
+// The projection's loop went from 108 to 78 instructions a value, the
+// apply's from 107 to 83.  A thread takes one column at a time: two
+// columns of a pos-block together (one key set-up, 8 Philox chains), the
+// next column's Philox rounds spread between this one's transforms, and
+// 64 registers (launch bounds) all measured slower on an H100.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -33,6 +52,11 @@ constexpr int kDirBlock = 8;       // directions per coordinate block
 constexpr int kThreads = 256;      // threads per CUDA block
 constexpr int kWarps = kThreads / 32;
 constexpr int kAcc = 2 * kDirBlock;  // u and sq per direction
+// tile keys a hw projection block holds, one per pos-block of its chunk
+// (the launches pass pos_chunk <= kMaxTileKeys), each as its 20 Philox
+// round keys
+constexpr int kMaxTileKeys = 64;
+constexpr int kRoundKeyWords = 2 * kPhiloxRounds;
 
 enum Impl : int { kThreefry = 0, kHwEmulated = 1, kHw = 2 };
 
@@ -83,9 +107,24 @@ __device__ __forceinline__ void tile_column(const TileKey<IMPL>& tk,
     for (int j = 0; j < kDirBlock / 2; ++j) {
       uint32_t w[4];
       philox4x32_10(tk.pk, cin, static_cast<uint32_t>(j), 0u, 0u, w);
-      p[2 * j] = bits_to_sample<DIST>(w[0], w[1]);
-      p[2 * j + 1] = bits_to_sample<DIST>(w[2], w[3]);
+      p[2 * j] = bits_to_sample<DIST, true>(w[0], w[1]);
+      p[2 * j + 1] = bits_to_sample<DIST, true>(w[2], w[3]);
     }
+  }
+}
+
+// hw: the 8 values at within-tile column cin of the tile whose round keys
+// are at rk (shared memory), as tile_column's kHw branch computes them.
+template <int DIST>
+__device__ __forceinline__ void hw_column(const uint32_t* rk, uint32_t cin,
+                                          float (&p)[kDirBlock]) {
+  uint32_t w[4][4];
+  philox_start(cin, w);
+  philox_rounds<0, kPhiloxRounds>(rk, w);
+#pragma unroll
+  for (int j = 0; j < kDirBlock / 2; ++j) {
+    p[2 * j] = bits_to_sample<DIST, true>(w[j][0], w[j][1]);
+    p[2 * j + 1] = bits_to_sample<DIST, true>(w[j][2], w[j][3]);
   }
 }
 
@@ -150,12 +189,90 @@ __device__ __forceinline__ void block_sum(float (&acc)[kAcc],
 // current one (the reference's two-slot _buffered_tile, rbd_step.py:68, as
 // a register pipeline); the sums keep their order, so the result is
 // bit-identical either way.  No value is generated past c1.
+//
+// kHw (project_sums_hw): the block first writes the round keys of every
+// pos-block that meets [c0, c1) into shared memory, one thread a
+// pos-block (c0 may start inside one: the sharded projection's slab
+// edge); each thread then reads its column's from there.  Every thread of
+// the block must call it (it synchronizes once).
+template <int DIST, bool DBUF>
+__device__ __forceinline__ void project_sums_hw(const float* __restrict__ gs,
+                                                uint32_t sd, uint32_t row0,
+                                                int64_t c0, int64_t c1,
+                                                uint32_t pb,
+                                                float (&acc)[kAcc]) {
+  __shared__ __align__(16) uint32_t rks[kMaxTileKeys * kRoundKeyWords];
+#pragma unroll
+  for (int k = 0; k < kAcc; ++k) acc[k] = 0.0f;
+  const int64_t first = c0 / pb;  // the block's first pos-block
+  const int n_tiles =
+      c1 > c0 ? static_cast<int>((c1 - 1) / pb - first) + 1 : 0;
+  for (int i = threadIdx.x; i < n_tiles; i += kThreads) {
+    const uint32_t k =
+        hw_tile_key(sd, row0, static_cast<uint32_t>((first + i) * pb));
+    philox_store_round_keys(k, k ^ kKeySalt, rks + i * kRoundKeyWords);
+  }
+  __syncthreads();
+  // the next column to generate: its place in its pos-block and the
+  // pos-block's index in rks
+  int64_t col = c0 + threadIdx.x;
+  const int64_t rel = col - first * pb;
+  int ti = static_cast<int>(rel / pb);
+  uint32_t cin = static_cast<uint32_t>(rel - static_cast<int64_t>(ti) * pb);
+  auto gen = [&](float (&p)[kDirBlock]) {
+    hw_column<DIST>(rks + ti * kRoundKeyWords, cin, p);
+    cin += kThreads;
+    while (cin >= pb) {
+      cin -= pb;
+      ++ti;
+    }
+  };
+  auto fma_column = [&](float gv, const float (&p)[kDirBlock]) {
+#pragma unroll
+    for (int i = 0; i < kDirBlock; ++i) {
+      acc[i] = fmaf(p[i], gv, acc[i]);
+      acc[kDirBlock + i] = fmaf(p[i], p[i], acc[kDirBlock + i]);
+    }
+  };
+  if constexpr (!DBUF) {
+    for (; col < c1; col += kThreads) {
+      const float gv = gs[col];
+      float p[kDirBlock];
+      gen(p);
+      fma_column(gv, p);
+    }
+  } else {
+    float p[kDirBlock];
+    float gv = 0.0f;
+    if (col < c1) {
+      gv = gs[col];
+      gen(p);
+    }
+    for (; col < c1; col += kThreads) {
+      float pn[kDirBlock];
+      float gn = 0.0f;
+      if (col + kThreads < c1) {
+        gn = gs[col + kThreads];
+        gen(pn);
+      }
+      fma_column(gv, p);
+#pragma unroll
+      for (int i = 0; i < kDirBlock; ++i) p[i] = pn[i];
+      gv = gn;
+    }
+  }
+}
+
 template <int DIST, int IMPL, bool DBUF>
 __device__ __forceinline__ void project_sums(const float* __restrict__ gs,
                                              uint32_t sd, uint32_t row0,
                                              int64_t c0, int64_t c1,
                                              uint32_t pb,
                                              float (&acc)[kAcc]) {
+  if constexpr (IMPL == kHw) {
+    project_sums_hw<DIST, DBUF>(gs, sd, row0, c0, c1, pb, acc);
+    return;
+  }
 #pragma unroll
   for (int k = 0; k < kAcc; ++k) acc[k] = 0.0f;
   TileKey<IMPL> tk(0u);

@@ -191,7 +191,9 @@ static size_t flat_key_bytes(int impl, int n_db) {
 
 // g: (n_stack, q) float32.  `partial` must hold n_stack * n_db * n_chunk *
 // 16 floats, `arrived` n_stack * n_db zeros; u and sq are (n_stack, n_db *
-// 8).
+// 8).  Under hw, chunk_cols is whole pos-blocks, at most
+// rbd::kMaxTileKeys of them: a block holds the round keys of the
+// pos-blocks its chunk meets.
 int rbd_project_flat(const float* g, const uint32_t* seed, int n_stack,
                      int64_t q, int n_db, int n_chunk, int64_t chunk_cols,
                      int dist, int impl, float* partial, int32_t* arrived,
@@ -199,6 +201,11 @@ int rbd_project_flat(const float* g, const uint32_t* seed, int n_stack,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>(n_db * n_chunk),
                   static_cast<unsigned>(n_stack));
+  if (impl == rbd::kHw &&
+      (chunk_cols % rbd::kPosBlock != 0 ||
+       chunk_cols > static_cast<int64_t>(rbd::kMaxTileKeys) * rbd::kPosBlock)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   RBD_DISPATCH(impl, dist, project_flat_kernel, grid, 0, g, seed, q,
                n_chunk, chunk_cols, partial, arrived, u, sq);
 }

@@ -30,6 +30,9 @@
 //                             _recon_apply_kernel over one shard's worker
 //                             tables
 //   rbd_generate_tile         debug: bits and samples of one tile
+//   rbd_hw_transform_mismatches
+//                             debug: hw's normal transform against the
+//                             CUDA math library on every input
 //
 // Bound on this card.  Both kernels regenerate every basis value they use:
 // per value one Threefry-2x32-20 (about 75 integer instructions: 20 x
@@ -72,22 +75,25 @@
 // PRNG impls and the two-slot schedule.  Every kernel takes the impl as a
 // template argument, chosen at launch (RBD_DISPATCH, rbd_common.cuh):
 // Threefry, the reference's hw_emulated stub and the port's hw (tile-keyed
-// Philox4x32-10).  The tile-keyed impls
-// key each (8, pos_block) tile by (seed, row0, col0) WITHIN its segment --
-// slab boundaries fall on pos-blocks, so the sharded kernels see the same
-// tiles -- with the key computed once per (thread, tile): by the
-// projection when a thread's column enters a new pos-block, by the applies
-// once per CUDA block into dynamic shared memory (K or B groups x the
-// segment's dir-blocks, 4 bytes each).  `hw` costs about 30 integer
-// instructions a value where Threefry costs 73; hw_emulated draws one
-// Threefry per bit stream (two for normal and sparse), so it costs about
-// twice Threefry on those.  Kernels 1-3 and 5-7 take the reference's
+// Philox4x32-10).  The tile-keyed impls key each (8, pos_block) tile by
+// (seed, row0, col0) WITHIN its segment -- slab boundaries fall on
+// pos-blocks, so the sharded kernels see the same tiles.  The applies
+// compute the keys once per CUDA block into dynamic shared memory (K or B
+// groups x the segment's dir-blocks, 4 bytes each); the hw projection
+// writes the 20 round keys of each pos-block of its chunk into static
+// shared memory once per CUDA block (5 KB), hw_emulated's once per
+// (thread, tile).  hw's instances are designed for this card
+// (rbd_common.cuh's header): Philox ~18 SASS instructions a value and the
+// normal transform's library fast paths ~55, ~77 a value in all, against
+// ~140 for Threefry's; hw_emulated draws one Threefry per bit stream (two
+// for normal and sparse).  Kernels 1-3 and 5-7 take the reference's
 // double_buffer flag (_buffered_tile, repro/kernels/rbd_step.py:68) as a
 // template argument: the next column's (projection) or next dir-block's
 // (applies) 8 values are generated into a second register set before the
 // FMAs of the current one.  The sums keep their order, so both settings
 // give the same bits; nothing is generated past the last column or
-// dir-block.
+// dir-block.  On this card the unbuffered instances are the faster for
+// every impl, and the wrappers' auto rule takes them.
 //
 // Determinism: no float atomics.  Every sum runs in a fixed order, so two
 // launches on the same inputs give bit-identical outputs.
@@ -507,12 +513,46 @@ generate_tile_kernel(uint32_t seed, uint32_t row0, uint32_t col0, int rows,
   }
   b0[idx] = x0;
   b1[idx] = x1;
-  out[idx] = bits_to_sample<DIST>(x0, x1);
+  out[idx] = bits_to_sample<DIST, IMPL == kHw>(x0, x1);
+}
+
+// Debug: the hw normal transform's fast paths (threefry.cuh) against the
+// library's logf / sqrtf and cosf on every input the transform can give
+// them: x = 0 .. 2^24 - 1 is the top 24 bits of a uniform's word.  Counts
+// the x whose radius sqrtf(-2 logf(u)) or whose cosf(2 pi u) differs in
+// any bit into mism[0] / mism[1], and the first such x into mism[2] /
+// mism[3] (atomicMin; they start at 0xFFFFFFFF).
+__global__ void __launch_bounds__(kThreads)
+hw_transform_check_kernel(uint32_t* mism) {
+  const uint32_t x = blockIdx.x * kThreads + threadIdx.x;
+  if (x >= (1u << 24)) return;
+  const uint32_t bits = x << 8;
+  const float u = uniform01_fma(bits);
+  const float r_lib = sqrtf(__fmul_rn(-2.0f, logf(u)));
+  const float r_hw = hw_sqrtf(__fmul_rn(-2.0f, hw_logf(u)));
+  const float a = __fmul_rn(kTwoPi, u);
+  if (__float_as_uint(r_lib) != __float_as_uint(r_hw)) {
+    atomicAdd(&mism[0], 1u);
+    atomicMin(&mism[2], x);
+  }
+  if (__float_as_uint(cosf(a)) != __float_as_uint(hw_cosf(a))) {
+    atomicAdd(&mism[1], 1u);
+    atomicMin(&mism[3], x);
+  }
 }
 
 }  // namespace rbd
 
 extern "C" {
+
+// `mism` is 4 uint32 on the card: (radius mismatches, cosine mismatches,
+// first x of each), the first two 0 and the last two 0xFFFFFFFF on entry.
+int rbd_hw_transform_mismatches(uint32_t* mism, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  rbd::hw_transform_check_kernel<<<(1u << 24) / rbd::kThreads, rbd::kThreads,
+                                   0, st>>>(mism);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // Dynamic shared memory of an apply block: the tile keys of `groups` seeds
 // (workers or adapters) x the largest segment's dir-blocks; none for
@@ -523,7 +563,8 @@ static size_t key_bytes(int impl, int groups, int max_ndb) {
              : static_cast<size_t>(groups) * max_ndb * sizeof(uint32_t);
 }
 
-// `arrived` must hold d_packed / 8 zeros; `partial` n_blocks * 16 floats.
+// `arrived` must hold d_packed / 8 zeros; `partial` n_blocks * 16 floats;
+// pos_chunk at most rbd::kMaxTileKeys under hw.
 int rbd_project_packed(const float* g, const uint32_t* seed,
                        const int64_t* size, const int64_t* param_off,
                        const int64_t* coord_off, const int32_t* n_chunk,
@@ -533,6 +574,9 @@ int rbd_project_packed(const float* g, const uint32_t* seed,
                        float* sq, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>(n_blocks));
+  if (impl == rbd::kHw && pos_chunk > rbd::kMaxTileKeys) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   RBD_DISPATCH_DB(impl, dist, dbuf, project_kernel, grid, 0, g, seed, size,
                   param_off, coord_off, n_chunk, blocks, n_seg, pos_block,
                   pos_chunk, partial, arrived, u, sq);
@@ -587,7 +631,8 @@ int rbd_reconstruct_apply_packed_adapters(
 }
 
 // `g` is the (q_slab,) slab starting at packed position slab_off; `arrived`
-// must hold d_packed / 8 zeros; `partial` n_blocks * 16 floats.
+// must hold d_packed / 8 zeros; `partial` n_blocks * 16 floats; pos_chunk
+// at most rbd::kMaxTileKeys under hw.
 int rbd_project_packed_sharded(
     const float* g, const uint32_t* seed, const int64_t* param_off,
     const int64_t* coord_off, const int64_t* col_lo, const int64_t* col_hi,
@@ -597,6 +642,9 @@ int rbd_project_packed_sharded(
     int32_t* arrived, float* u, float* sq, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>(n_blocks));
+  if (impl == rbd::kHw && pos_chunk > rbd::kMaxTileKeys) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   RBD_DISPATCH_DB(impl, dist, dbuf, project_sharded_kernel, grid, 0, g, seed,
                   param_off, coord_off, col_lo, col_hi, chunk_lo, n_chunk,
                   blocks, n_seg, slab_off, pos_block, pos_chunk, partial,

@@ -61,6 +61,9 @@ def project_flat(seeds, g: torch.Tensor, dim: int,
     seeds = rbd_step._seeds_on(seeds, n_stack, dev)
     n_db = padded_dim(dim) // DIR_BLOCK
     chunk_cols = POS_CHUNK * POS_BLOCK
+    # under hw a CUDA block holds the round keys of the pos-blocks its
+    # chunk meets: whole pos-blocks, at most 64 (csrc/rbd_flat.cu)
+    assert chunk_cols % POS_BLOCK == 0 and chunk_cols <= 64 * POS_BLOCK
     n_chunk = max(1, -(-q // chunk_cols))
     partial = torch.empty((n_stack * n_db * n_chunk * 2 * DIR_BLOCK,),
                           dtype=torch.float32, device=dev)

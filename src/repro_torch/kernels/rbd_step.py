@@ -30,10 +30,10 @@ Every wrapper and plain version takes the reference's ``prng`` (a
 :class:`repro_torch.core.rng.PrngSpec` impl name or instance): the
 counter-keyed ``threefry``, or the tile-keyed ``hw_emulated`` and ``hw``,
 whose values are keyed by their (8, pos_block) tile; the six wrappers the
-reference gives ``double_buffer`` take it too (``None``: on for ``hw``
-only, :func:`resolve_double_buffer`), and either setting gives the same
-bits.  The kernels take the impl as a template argument, chosen at
-launch.
+reference gives ``double_buffer`` take it too (``None``: the faster
+instance on a CUDA device, the reference's rule elsewhere,
+:func:`resolve_double_buffer`), and either setting gives the same bits.
+The kernels take the impl as a template argument, chosen at launch.
 
 Each wrapper takes its plain version for a tensor on the CPU, and only
 then.  For a CUDA tensor it launches the hand-written kernel of
@@ -53,6 +53,7 @@ one ``LAUNCHES``/``CALLS`` pair, and the three sources are built by one
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -149,6 +150,7 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I64, _I64, _I, _I, _I64,
         _I, _I, _I, _I, _P],
     "rbd_generate_tile": [_U32, _U32, _U32, _I, _I, _I, _I, _P, _P, _P, _P],
+    "rbd_hw_transform_mismatches": [_P, _P],
     "rbd_error_string": [_I],
 }
 _FLAT_SIGNATURES = {
@@ -169,25 +171,52 @@ _IMPL_CODE = {"threefry": 0, "hw_emulated": 1, "hw": 2}
 
 
 @functools.cache
-def libraries():
+def libraries(csrc=None):
     """Every kernel library, built at first call (one nvcc per source,
-    started together): ``{source: BuiltLibrary}``."""
+    started together): ``{source: BuiltLibrary}``.  ``csrc``: another
+    tree's kernel source directory (default this package's); an entry
+    point its sources lack is left unbound."""
     from repro_torch.kernels import build
 
-    built = build.build_all([SOURCE, FLAT_SOURCE, FLASH_SOURCE])
+    built = build.build_all([SOURCE, FLAT_SOURCE, FLASH_SOURCE],
+                            *([csrc] if csrc is not None else []))
     for src, sigs in ((SOURCE, _SIGNATURES), (FLAT_SOURCE, _FLAT_SIGNATURES),
                       (FLASH_SOURCE, _FLASH_SIGNATURES)):
         for name, argtypes in sigs.items():
-            fn = getattr(built[src].lib, name)
-            fn.argtypes = argtypes
-            fn.restype = (ctypes.c_char_p if name.endswith("error_string")
-                          else ctypes.c_int)
+            fn = getattr(built[src].lib, name, None)
+            if fn is None and csrc is None:
+                raise AttributeError(f"{src} has no entry {name}")
+            if fn is not None:
+                fn.argtypes = argtypes
+                fn.restype = (ctypes.c_char_p
+                              if name.endswith("error_string")
+                              else ctypes.c_int)
     return built
+
+
+# the kernel sources library() serves (None: this package's); set only
+# inside kernels_from
+_CSRC = [None]
+
+
+@contextlib.contextmanager
+def kernels_from(csrc):
+    """Inside the block every wrapper launches the kernels built from
+    ``csrc``, another tree's kernel source directory with the same C
+    interface: an A/B of two trees' kernels on the same inputs through
+    one set of wrappers (``chip_smoke.py --base``)."""
+    prev = _CSRC[0]
+    _CSRC[0] = str(csrc)
+    try:
+        yield libraries(_CSRC[0])
+    finally:
+        _CSRC[0] = prev
 
 
 def library(source: str = SOURCE):
     """The built library of one source (all are built at first call)."""
-    return libraries()[source]
+    return (libraries() if _CSRC[0] is None
+            else libraries(_CSRC[0]))[source]
 
 
 def impl_code(prng) -> int:
@@ -195,13 +224,36 @@ def impl_code(prng) -> int:
     return _IMPL_CODE[rng.get_prng_spec(prng).impl]
 
 
-def resolve_double_buffer(double_buffer, prng) -> bool:
-    """The reference's ``_resolve_double_buffer``: ``None`` = auto, on for
-    the ``hw`` impl only (its per-tile key set-up is the latency the
-    pipeline hides); either setting gives the same bits."""
+def resolve_double_buffer(double_buffer, prng, device=None) -> bool:
+    """``double_buffer`` as the kernels take it; either setting gives the
+    same bits.  ``None`` = auto: the reference's ``_resolve_double_buffer``
+    (on for the ``hw`` impl only: its per-tile key set-up is the latency
+    the pipeline hides) unless ``device`` is a CUDA device, where it is
+    off for every impl -- the unbuffered instance is the faster on an
+    H100 (PERF.md, PR 19: the buffer's second register set costs more
+    than it hides)."""
     if double_buffer is None:
+        if device is not None and torch.device(device).type == "cuda":
+            return False
         return rng.get_prng_spec(prng).impl == "hw"
     return bool(double_buffer)
+
+
+def hw_transform_mismatches() -> dict[str, int]:
+    """Debug check on the card: the hw normal transform's fast paths
+    (``csrc/threefry.cuh``: ``hw_logf``, ``hw_sqrtf``, ``hw_cosf``)
+    against the CUDA math library's ``logf`` / ``sqrtf`` and ``cosf`` on
+    every input the transform can give them (the 2**24 uniforms): the
+    count of inputs whose radius or cosine differs in any bit, and the
+    first such input of each (-1 if none)."""
+    mism = torch.tensor([0, 0, -1, -1], dtype=torch.int32, device="cuda")
+    rc = library().lib.rbd_hw_transform_mismatches(
+        mism.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        msg = library().lib.rbd_error_string(rc).decode()
+        raise RuntimeError(f"hw transform check launch failed: {msg} ({rc})")
+    r, c, r0, c0 = mism.tolist()
+    return {"radius": r, "cosine": c, "first_radius": r0, "first_cosine": c0}
 
 
 def _launch(name: str, fn, *args, variant=("threefry", False),
@@ -290,7 +342,7 @@ def project_packed(seg_seeds, g_packed: torch.Tensor, layout: PackedLayout,
                           device=dev)
     u = torch.empty((layout.d_packed,), dtype=torch.float32, device=dev)
     sq = torch.empty_like(u)
-    db = resolve_double_buffer(double_buffer, prng)
+    db = resolve_double_buffer(double_buffer, prng, dev)
     _launch("project_packed", library().lib.rbd_project_packed,
             g_packed.data_ptr(), seeds.data_ptr(), t["size"].data_ptr(),
             t["param_off"].data_ptr(), t["coord_off"].data_ptr(),
@@ -419,7 +471,7 @@ def reconstruct_apply_packed(seg_seeds, scale_packed: torch.Tensor,
     _check(out, "out", (layout.q_packed,))
     t = _device_tables(layout, dev)
     seeds = _seeds_on(seg_seeds, layout.n_segments, dev)
-    db = resolve_double_buffer(double_buffer, prng)
+    db = resolve_double_buffer(double_buffer, prng, dev)
     _launch("reconstruct_apply_packed",
             library().lib.rbd_reconstruct_apply_packed,
             scale_packed.data_ptr(), theta_packed.data_ptr(), out.data_ptr(),
@@ -496,7 +548,7 @@ def reconstruct_apply_packed_workers(wseg_seeds, scale_gathered: torch.Tensor,
     _check(out, "out", (layout.q_packed,))
     t = _device_tables(layout, dev)
     seeds = _seeds_on(wseg_seeds, k_workers * layout.n_segments, dev)
-    db = resolve_double_buffer(double_buffer, prng)
+    db = resolve_double_buffer(double_buffer, prng, dev)
     _launch("reconstruct_apply_packed_workers",
             library().lib.rbd_reconstruct_apply_packed_workers,
             scale_gathered.data_ptr(), theta_packed.data_ptr(),
@@ -650,7 +702,7 @@ def project_packed_sharded(seg_seeds, g_slab: torch.Tensor,
                           device=dev)
     u = torch.empty((base.d_packed,), dtype=torch.float32, device=dev)
     sq = torch.empty_like(u)
-    db = resolve_double_buffer(double_buffer, prng)
+    db = resolve_double_buffer(double_buffer, prng, dev)
     _launch("project_packed_sharded",
             library().lib.rbd_project_packed_sharded,
             g_slab.data_ptr(), seeds.data_ptr(), t["param_off"].data_ptr(),
@@ -718,7 +770,7 @@ def reconstruct_apply_packed_sharded(seg_seeds, scale_packed: torch.Tensor,
     _check(out, "out", (slayout.q_slab,))
     t = _device_tables(base, dev)
     seeds = _seeds_on(seg_seeds, base.n_segments, dev)
-    db = resolve_double_buffer(double_buffer, prng)
+    db = resolve_double_buffer(double_buffer, prng, dev)
     _launch("reconstruct_apply_packed_sharded",
             library().lib.rbd_reconstruct_apply_packed_sharded,
             scale_packed.data_ptr(), theta_slab.data_ptr(), out.data_ptr(),
@@ -798,7 +850,7 @@ def reconstruct_apply_packed_workers_sharded(wseg_seeds,
     _check(out, "out", (slayout.q_slab,))
     t = _device_tables(base, dev)
     seeds = _seeds_on(wseg_seeds, k_workers * base.n_segments, dev)
-    db = resolve_double_buffer(double_buffer, prng)
+    db = resolve_double_buffer(double_buffer, prng, dev)
     _launch("reconstruct_apply_packed_workers_sharded",
             library().lib.rbd_reconstruct_apply_packed_workers_sharded,
             scale_gathered.data_ptr(), theta_slab.data_ptr(),

@@ -295,8 +295,15 @@ def _run(cfg, *, mode, rbd_mode, data, model, mesh, steps, batch, seq,
     losses = []
     t0 = time.time()
     for i in range(steps):
+        before = dict(rbd_step.VARIANT_LAUNCHES)
         state, metrics = train_step(state, fetch())
         losses.append(float(metrics["loss"]))
+        if i == 0 and rbd_cfg.enabled:
+            # the kernel variants (PRNG impl, double buffer) step 0 ran
+            took = [k for k, n in rbd_step.VARIANT_LAUNCHES.items()
+                    if n > before.get(k, 0)]
+            if took:
+                say(f"prng kernels: {', '.join(took)} (launched in step 0)")
         say(f"step {i} loss={losses[-1]:.4f} "
             f"wall={time.time() - t0:.1f}s")
     collectives = dict(distributed.COLLECTIVES)

@@ -882,3 +882,250 @@ def test_tile_keyed_flat_kernels_match_plain(cuda, prng):
     ref = rbd_reconstruct.reconstruct_apply_flat_plain(seeds, sc, th, 0.1,
                                                        prng=prng)
     assert float((out - ref).abs().max()) <= _theta_tol(ref, th)
+
+
+# ---------------------------------------------------------------------------
+# the hw kernels' key handling, exactly: one-hot inputs make every output
+# a single basis value (u = P[:, c] for a one-hot g at column c; theta' =
+# theta - P[r, :] for a one-hot scale at row r), and uniform samples are
+# bit-exact against the plain generator, so the kernels must equal their
+# plain versions bit for bit -- on the tiles a block's shared keys cover
+# ---------------------------------------------------------------------------
+
+# segments: shorter than one pos-block; a chunk (64 pos-blocks) and a
+# partial pos-block whose last 2-column apply group ends inside its second
+# column (q % 512 = 300); one ending inside its first (q % 512 = 100); a
+# stacked leaf of 3 short compartments
+HW_SHAPES = {"short": (5, 20), "chunk": (64 * 512 + 300,),
+             "first": (2, 512 + 50), "layers/k": (3, 7, 33)}
+HW_DISTS = ["uniform", "sparse"]
+
+
+def _hw_layout(dist):
+    plan = compartments.make_plan(
+        HW_SHAPES, 24, is_stacked=lambda n: n.startswith("layers"),
+        distribution=dist)
+    return plan, plan.packed()
+
+
+def _one_hot_g(lay, cuda, pick):
+    """A gradient with one 1.0 per segment, at within-segment column
+    pick(q)."""
+    g = torch.zeros(lay.q_packed, device=cuda)
+    for off, q in zip(lay.seg_param_off, lay.seg_size):
+        g[int(off) + pick(int(q))] = 1.0
+    return g
+
+
+def _one_hot_scale(lay, cuda, pick, k=1):
+    """k scale rows with one 1.0 per segment, at coordinate pick(dim)."""
+    sc = torch.zeros((k, lay.d_packed), device=cuda)
+    for off, d in zip(lay.seg_coord_off, lay.seg_dim):
+        sc[:, int(off) + pick(int(d))] = 1.0
+    return sc
+
+
+# within-segment columns that land on the edges the shared keys cover:
+# the first, the second column of a thread's pair, the last of the first
+# chunk, the first of the second chunk, the last column of the segment
+HW_COLUMNS = [lambda q: 0, lambda q: min(q - 1, 300),
+              lambda q: min(q - 1, 64 * 512 - 1),
+              lambda q: min(q - 1, 64 * 512 + 7), lambda q: q - 1]
+
+
+@pytest.mark.parametrize("dist", HW_DISTS)
+def test_hw_projection_is_plain_bit_for_bit(cuda, dist):
+    """project_packed under hw, both double-buffer settings: u equal to
+    the plain version's for one-hot gradients (a segment shorter than a
+    pos-block, a chunk whose last pos-block is partial); sq within 2e-5."""
+    plan, lay = _hw_layout(dist)
+    seeds = projector.segment_seeds(plan, rng.fold_seed(21))
+    for pick in HW_COLUMNS:
+        g = _one_hot_g(lay, cuda, pick)
+        up, sqp = rbd_step.project_packed_plain(seeds, g, lay, dist,
+                                                prng="hw")
+        outs = [rbd_step.project_packed(seeds, g, lay, dist, prng="hw",
+                                        double_buffer=db)
+                for db in (False, True)]
+        for u, sq in outs:
+            assert torch.equal(u, up)
+            assert bool(((sq - sqp).abs() <= 2e-5 * sqp).all())
+        assert torch.equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.parametrize("dist", HW_DISTS)
+def test_hw_applies_are_plain_bit_for_bit(cuda, dist):
+    """The hw applies (rows 2-4), both double-buffer settings: theta' =
+    theta - P[r, :] exactly for one-hot scales, on every column of every
+    segment -- the 2-column groups where q ends inside one (q % 512 =
+    300 and 100) and a segment shorter than a pos-block included."""
+    plan, lay = _hw_layout(dist)
+    seeds = projector.segment_seeds(plan, rng.fold_seed(22))
+    wseeds = projector.worker_segment_seeds(plan, rng.fold_seed(22), 2)
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    theta = torch.where(_valid(lay, cuda), torch.randn(
+        lay.q_packed, generator=gen, device=cuda), 0)
+    for pick in (lambda d: 0, lambda d: d - 1):
+        sc = _one_hot_scale(lay, cuda, pick, 2)
+        ref = rbd_step.reconstruct_apply_packed_plain(seeds, sc[0], theta,
+                                                      lay, dist, prng="hw")
+        wref = rbd_step.reconstruct_apply_packed_workers_plain(
+            wseeds, sc, theta, lay, dist, prng="hw")
+        for db in (False, True):
+            assert torch.equal(rbd_step.reconstruct_apply_packed(
+                seeds, sc[0], theta, lay, dist, prng="hw",
+                double_buffer=db), ref)
+            assert torch.equal(rbd_step.reconstruct_apply_packed_workers(
+                wseeds, sc, theta, lay, dist, prng="hw",
+                double_buffer=db), wref)
+        a = rbd_step.reconstruct_apply_packed_adapters(wseeds, sc, theta,
+                                                       lay, dist, prng="hw")
+        aref = rbd_step.reconstruct_apply_packed_adapters_plain(
+            wseeds, sc, theta, lay, dist, prng="hw")
+        assert torch.equal(a, aref)
+
+
+@pytest.mark.parametrize("dist", HW_DISTS)
+def test_hw_sharded_kernels_are_plain_bit_for_bit(cuda, dist):
+    """The sharded hw kernels (rows 5-7) on m = 3 slabs (a slab starting
+    inside a projection chunk), both double-buffer settings: each slab's
+    partial u equal to the plain version's for one-hot gradients, each
+    slab's applies equal to the plain version's for one-hot scales."""
+    plan, lay = _hw_layout(dist)
+    seeds = projector.segment_seeds(plan, rng.fold_seed(23))
+    wseeds = projector.worker_segment_seeds(plan, rng.fold_seed(23), 2)
+    sl = compartments.sharded_packed_layout(lay, 3)
+    pad = sl.q_padded - lay.q_packed
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    theta = torch.where(_valid(lay, cuda), torch.randn(
+        lay.q_packed, generator=gen, device=cuda), 0)
+    tp = torch.cat([theta, theta.new_zeros(pad)])
+    sc = _one_hot_scale(lay, cuda, lambda d: d - 1, 2)
+    for pick in HW_COLUMNS:
+        gp = torch.cat([_one_hot_g(lay, cuda, pick),
+                        theta.new_zeros(pad)])
+        for shard in range(3):
+            lo, hi = sl.slab_range(shard)
+            up, _ = rbd_step.project_packed_sharded_plain(
+                seeds, gp[lo:hi].contiguous(), sl, shard, dist, prng="hw")
+            for db in (False, True):
+                u, _ = rbd_step.project_packed_sharded(
+                    seeds, gp[lo:hi].contiguous(), sl, shard, dist,
+                    prng="hw", double_buffer=db)
+                assert torch.equal(u, up)
+    for shard in range(3):
+        lo, hi = sl.slab_range(shard)
+        ts = tp[lo:hi].contiguous()
+        ref = rbd_step.reconstruct_apply_packed_sharded_plain(
+            seeds, sc[0], ts, sl, shard, dist, prng="hw")
+        wref = rbd_step.reconstruct_apply_packed_workers_sharded_plain(
+            wseeds, sc, ts, sl, shard, dist, prng="hw")
+        for db in (False, True):
+            assert torch.equal(rbd_step.reconstruct_apply_packed_sharded(
+                seeds, sc[0], ts, sl, shard, dist, prng="hw",
+                double_buffer=db), ref)
+            assert torch.equal(
+                rbd_step.reconstruct_apply_packed_workers_sharded(
+                    wseeds, sc, ts, sl, shard, dist, prng="hw",
+                    double_buffer=db), wref)
+
+
+@pytest.mark.parametrize("dist", HW_DISTS)
+def test_hw_flat_kernels_are_plain_bit_for_bit(cuda, dist):
+    """The per-leaf kernels under hw (rows 8-10): project_flat's u equal
+    to the plain version's for one-hot gradients and bit-identical to
+    project_packed on the same seeds; the reconstructions equal to the
+    plain versions' for one-hot scales (f32 and bf16 theta)."""
+    n, q, dim = 2, 64 * 512 + 300, 19
+    seeds = rng.fold_seed(rng.fold_seed(24), torch.arange(
+        n, dtype=torch.int32))
+    for c in (0, 300, 64 * 512 - 1, 64 * 512 + 7, q - 1):
+        g = torch.zeros((n, q), device=cuda)
+        g[:, c] = 1.0
+        u, sq = rbd_project.project_flat(seeds, g, dim, dist, prng="hw")
+        up, _ = rbd_project.project_flat_plain(seeds, g, dim, dist,
+                                               prng="hw")
+        assert torch.equal(u, up)
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    sc = torch.zeros((n, dim), device=cuda)
+    sc[:, dim - 1] = 1.0
+    d = rbd_reconstruct.reconstruct_flat(seeds, sc, q, dist, prng="hw")
+    assert torch.equal(d, rbd_reconstruct.reconstruct_flat_plain(
+        seeds, sc, q, dist, prng="hw"))
+    for dtype in (torch.float32, torch.bfloat16):
+        th = torch.randn((n, q), generator=gen, device=cuda).to(dtype)
+        out = rbd_reconstruct.reconstruct_apply_flat(seeds, sc, th, 1.0,
+                                                     dist, prng="hw")
+        assert torch.equal(out, rbd_reconstruct.reconstruct_apply_flat_plain(
+            seeds, sc, th, 1.0, dist, prng="hw"))
+    # project_flat is project_packed on the same seeds, bit for bit
+    shapes = {"layers/w": (n, q)}
+    plan = compartments.make_plan(shapes, dim * n,
+                                  is_stacked=lambda x: True,
+                                  distribution=dist)
+    lay = plan.packed()
+    lp = plan.leaves[0]
+    pseeds = projector.segment_seeds(plan, rng.fold_seed(24))
+    g = torch.randn((n, q), generator=gen, device=cuda)
+    u, sq = rbd_project.project_flat(pseeds, g, lp.dim, dist, prng="hw")
+    pu, psq = rbd_step.project_packed(
+        pseeds, projector.pack_tree({"layers/w": g}, plan, lay), lay, dist,
+        prng="hw")
+    assert torch.equal(u, projector.unpack_coords(pu, plan, lay)[0])
+    assert torch.equal(sq, projector.unpack_coords(psq, plan, lay)[0])
+
+
+def test_hw_transform_is_the_librarys_on_every_input(cuda):
+    """The hw paths' normal transform (the CUDA library's fast paths of
+    logf, sqrtf and cosf without the code their inputs never reach)
+    equals the library's bit for bit on all 2**24 inputs of each."""
+    mism = rbd_step.hw_transform_mismatches()
+    assert mism["radius"] == 0 and mism["cosine"] == 0, mism
+
+
+def test_hw_projection_normal_is_generate_tile_bit_for_bit(cuda):
+    """Normal under hw: u for one-hot gradients equals the generate_tile
+    kernel's samples of the column's tile (both through the hw transform),
+    on the edges the projection's shared keys cover."""
+    plan, lay = _hw_layout("normal")
+    seeds = projector.segment_seeds(plan, rng.fold_seed(25))
+    su = rng.as_u32(seeds).tolist()
+    for pick in HW_COLUMNS:
+        g = _one_hot_g(lay, cuda, pick)
+        for db in (False, True):
+            u, _ = rbd_step.project_packed(seeds, g, lay, "normal",
+                                           prng="hw", double_buffer=db)
+            for s in range(lay.n_segments):
+                c = pick(int(lay.seg_size[s]))
+                col0 = c - c % 512
+                off = int(lay.seg_coord_off[s])
+                for d in range(int(lay.seg_pdim[s]) // 8):
+                    _, _, x = rbd_step.generate_tile(
+                        su[s], 8 * d, col0, (8, 512), "normal",
+                        device=cuda, prng="hw")
+                    assert torch.equal(u[off + 8 * d: off + 8 * d + 8],
+                                       x[:, c - col0])
+
+
+@pytest.mark.parametrize("chunk_cols", [64 * 512 - 1, 63 * 512 + 7,
+                                        65 * 512])
+def test_hw_flat_projection_refuses_chunks_off_the_pos_blocks(cuda,
+                                                              chunk_cols):
+    """rbd_project_flat under hw takes whole pos-blocks, at most 64 a
+    chunk (a block holds the round keys of the pos-blocks its chunk
+    meets): other chunk widths are refused, not run past the keys."""
+    n, q, n_db = 1, 3 * 64 * 512, 1
+    n_chunk = -(-q // chunk_cols)
+    g = torch.zeros((n, q), device=cuda)
+    seeds = torch.zeros((n,), dtype=torch.int32, device=cuda)
+    partial = torch.empty((n * n_db * n_chunk * 16,), device=cuda)
+    arrived = torch.zeros((n * n_db,), dtype=torch.int32, device=cuda)
+    u = torch.empty((n, 8), device=cuda)
+    sq = torch.empty_like(u)
+    lib = rbd_step.library(rbd_step.FLAT_SOURCE).lib
+    rc = lib.rbd_project_flat(
+        g.data_ptr(), seeds.data_ptr(), n, q, n_db, n_chunk, chunk_cols,
+        0, rbd_step.impl_code("hw"), partial.data_ptr(), arrived.data_ptr(),
+        u.data_ptr(), sq.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
+    assert arrived.sum().item() == 0   # nothing ran

@@ -589,6 +589,21 @@ def test_double_buffer_auto_rule_is_the_references(double_buffer, prng):
                                            ref_rng.get_prng_spec(prng))
 
 
+@pytest.mark.parametrize("prng", ["threefry", "hw", "hw_emulated"])
+def test_double_buffer_auto_rule_by_device(prng):
+    """``None`` resolves by the reference's rule off a card and to the
+    faster, unbuffered instance on a CUDA device; an explicit setting is
+    kept on both."""
+    for dev in (None, "cpu", torch.device("cpu")):
+        assert rbd_step.resolve_double_buffer(None, prng, dev) is (
+            prng == "hw")
+    for dev in ("cuda", torch.device("cuda", 0)):
+        assert rbd_step.resolve_double_buffer(None, prng, dev) is False
+    for dev in ("cpu", "cuda"):
+        assert rbd_step.resolve_double_buffer(True, prng, dev) is True
+        assert rbd_step.resolve_double_buffer(False, prng, dev) is False
+
+
 REASON_CASES = [
     dict(use_packed=True, prng_impl="threefry"),
     dict(use_packed=True, prng_impl="hw"),
