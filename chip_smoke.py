@@ -157,6 +157,22 @@ result line:
                threefry, hw_emulated, hw and hw + buffer in turns, each
                tile-keyed plain version once at the full shapes and held
                against each timed variant of its kernel;
+18. resilience -- the guarded packed step at full qwen2-0.5b width and
+               depth (batch 8 x 128, rbd-dim 1024, adam, Threefry) through
+               ``launch.train.run_training`` with the guard, the sentinel
+               every 2 steps, the replay log and a snapshot every 3 steps,
+               a NaN gradient at step 1: (a) 6 steps straight through,
+               (b) killed before step 4, (c) resumed from (b)'s directory;
+               (c)'s theta, adam state and guard state bit for bit (a)'s,
+               recovery from snapshot 3 with 1 record replayed (1
+               ``reconstruct_apply_packed`` launch, no projection), step 1
+               rejected as ``nonfinite_local``, 2 launches and 1 all-reduce
+               (the rider on it) a live step; one guarded and one
+               unguarded ``train_step`` under
+               ``torch.cuda.set_sync_debug_mode("warn")`` (the guard adds
+               no host synchronization), both timed; the snapshot's size,
+               write and verified restore times, the replay of one record
+               timed beside a step; the directory removed at the end;
 then the ``kernels`` line (eleven rows, then the six tile-keyed rows
 ``[hw_emulated]``, ``[hw,db]`` and ``[hw]`` of rows 1-2), the card line
 and the result line.
@@ -268,6 +284,10 @@ FLASH_P_FLIP = 2.0 ** -7
 FLASH_REL_L2 = 2.0 ** -10
 PREFILL_LOGIT_RTOL = 0.04
 PREFILL_F32_RTOL = 2e-5
+# phase 18: the resilience runs (adam at the launcher's adam rate), the
+# fault plan (a NaN gradient at step 1, a kill before step 4) and the
+# steps timed of each of the guarded and the unguarded train_step
+RES_STEPS, RES_LR, RES_TIMED = 6, 0.02, 4
 # Peak rates of an H100 SM (sm_90) in lanes a clock, the bound's table:
 # 4 schedulers issue one warp instruction a clock each (128); the integer
 # ALU 64 (LOP3, shifts, compares, selects, I2FP); the FP32 "heavy" pipe 64,
@@ -3595,6 +3615,258 @@ def ab_against(base: str) -> int:
     return 1 if differ else 0
 
 
+def _sync_warnings(torch, fn) -> dict:
+    """The synchronizing CUDA operations ``fn`` runs, counted under
+    ``torch.cuda.set_sync_debug_mode("warn")``, by the Python line that
+    issued each."""
+    import collections
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return dict(collections.Counter(
+        f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message)))
+
+
+def _guard_vs_unguarded(cfg, smi):
+    """One guarded and one unguarded ``train_step`` (the phase's config
+    without faults) under the sync debug mode, then RES_TIMED steps of
+    each timed in turns.  Returns the guarded and unguarded step times."""
+    import torch
+    from repro_torch.configs.base import RBDConfig, TrainConfig
+    from repro_torch.core import resilience as res
+    from repro_torch.data import synthetic
+    from repro_torch.models.registry import get_model
+    from repro_torch.train import step as steplib
+
+    model = get_model(cfg)
+    tcfg = TrainConfig(model=cfg, rbd=RBDConfig(total_dim=1024,
+                                                backend="cuda"),
+                       optimizer="adam", learning_rate=RES_LR,
+                       batch_size=8, seq_len=128)
+    runs = {}
+    for name, rcfg in (("unguarded", None),
+                       ("guarded", res.ResilienceConfig(
+                           guard=res.GuardConfig(), sentinel_every=2))):
+        init_state, train_step = steplib.make_train_step(
+            model, tcfg, device="cuda", resilience=rcfg)
+        data = synthetic.lm_batches(0, 8, 128, cfg.vocab, device="cuda")
+        runs[name] = [train_step, init_state(0), data]
+    for run in runs.values():                         # warm-up, both
+        train_step, state, data = run
+        for _ in range(2):
+            state, _ = train_step(state, next(data))
+        run[1] = state
+    warns = {}
+    for name, run in runs.items():
+        train_step, state, data = run
+        batch = next(data)
+        out = {}
+        warns[name] = _sync_warnings(
+            torch, lambda: out.update(r=train_step(state, batch)))
+        run[1] = out["r"][0]
+    n = {k: sum(v.values()) for k, v in warns.items()}
+    log(f"  synchronizing CUDA operations in one train_step: {n}; by "
+        f"line: {warns} [{smi}]")
+    check(n["guarded"] <= n["unguarded"],
+          f"the guard adds host synchronization: {warns}")
+    times = {name: [] for name in runs}
+    order = list(runs)
+    for turn in range(RES_TIMED):
+        for name in (order if turn % 2 == 0 else order[::-1]):
+            train_step, state, data = runs[name]
+            batch = next(data)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, metrics = train_step(state, batch)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t)
+            runs[name][1] = state
+        check(int(runs["guarded"][1].guard.nonfinite_count) == 0,
+              "the guarded step rejected a healthy step")
+    check(torch.equal(runs["guarded"][1].params,
+                      runs["unguarded"][1].params),
+          "the healthy guarded steps are not the unguarded steps bit for "
+          "bit")
+    med = {k: statistics.median(v) for k, v in times.items()}
+    log(f"  step wall (host clock, synchronized), {RES_TIMED} in turns: "
+        f"guarded {[round(x, 4) for x in times['guarded']]} median "
+        f"{med['guarded']:.4f} s, unguarded "
+        f"{[round(x, 4) for x in times['unguarded']]} median "
+        f"{med['unguarded']:.4f} s (x{med['guarded'] / med['unguarded']:.4f})"
+        f"; in turns, alternating first; theta bit-identical [{smi}]")
+    params = runs["guarded"][1].params
+    ms = cuda_ms(lambda: res.state_checksum(params), repeat=3)
+    log(f"  sgd's rider (state_checksum of the {params.numel():,}-element "
+        f"packed buffer, chunks of {res._CHECKSUM_CHUNK:,}): "
+        f"{[round(x, 3) for x in ms]} ms [{smi}]")
+    return med
+
+
+def phase_resilience(dev):
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.configs import get_config
+    from repro_torch.core import resilience as res
+    from repro_torch.kernels import rbd_step
+    from repro_torch.launch import train as launcher
+
+    smi = dev["smi"]
+    log("== phase 18: resilience of the packed step (guard, sentinel, "
+        "replay log, snapshots, kill and resume) at full qwen2-0.5b")
+    cfg = get_config("qwen2-0.5b")
+    plan = res.FaultPlan((res.FaultEvent(1, "nan_grad"),
+                          res.FaultEvent(4, "kill")))
+    directory = os.path.join(ROOT, "build", "resilience_smoke")
+    snap_dir = os.path.join(directory, "snapshots")
+    kw = dict(mode="sharedseed", data=1, steps=RES_STEPS, batch=8, seq=128,
+              rbd_dim=1024, rbd_backend="cuda", optimizer="adam", lr=RES_LR,
+              device="cuda")
+
+    def rcfg(d, faults):
+        return res.ResilienceConfig(directory=d, snapshot_every=3,
+                                    guard=res.GuardConfig(),
+                                    sentinel_every=2, fault_plan=faults)
+
+    def launches():
+        n = dict(rbd_step.LAUNCHES)
+        return n["project_packed"], n["reconstruct_apply_packed"]
+
+    shutil.rmtree(directory, ignore_errors=True)
+    try:
+        log("  (a) 6 steps, a NaN gradient at step 1, no kill, no directory")
+        rbd_step.reset_counts()
+        t = time.perf_counter()
+        ref = launcher.run_training(
+            cfg, **kw, resilience=rcfg(None, plan.without("kill")))
+        log(f"  (a) {time.perf_counter() - t:.1f} s, launches {launches()}, "
+            f"collectives {ref.collectives}, losses {ref.losses}")
+        check(launches() == (RES_STEPS, RES_STEPS),
+              f"(a): expected 2 launches a step, got {launches()}")
+        check(ref.collectives["all_reduce"] == RES_STEPS
+              and ref.collectives["all_gather"] == 0,
+              f"(a): expected one all-reduce a step, {ref.collectives}")
+        events = [(e.step, res.reason_name(e.reason))
+                  for e in ref.monitor.events]
+        check(events == [(1, "nonfinite_local")],
+              f"(a): expected step 1 rejected as nonfinite_local: {events}")
+        check(int(ref.state.guard.nonfinite_count) == 1,
+              "(a): the guard did not count one rejected step")
+        check(all(math.isfinite(x) for x in ref.losses),
+              f"(a): losses {ref.losses}")
+
+        log("  (b) the same with the replay log, a snapshot every 3 "
+            "steps, killed before step 4")
+        rbd_step.reset_counts()
+        t = time.perf_counter()
+        try:
+            launcher.run_training(cfg, **kw, resilience=rcfg(directory,
+                                                             plan))
+            check(False, "(b): the fault plan's kill did not fire")
+        except res.SimulatedWorkerKill as e:
+            log(f"  (b) {time.perf_counter() - t:.1f} s: {e}")
+        check(launches() == (4, 4),
+              f"(b): expected 2 launches a step, got {launches()}")
+        snap = os.path.join(snap_dir, "ckpt_00000003.npz")
+        snap_bytes = os.path.getsize(snap)
+        log_bytes = os.path.getsize(os.path.join(directory, "replay.log"))
+        log(f"  snapshot {snap_bytes:,} B ({snap_bytes / 1e9:.3f} GB), "
+            f"replay log {log_bytes:,} B for 4 records")
+
+        log("  (c) resumed from (b)'s directory, the kill dropped")
+        rbd_step.reset_counts()
+        t = time.perf_counter()
+        resumed = launcher.run_training(
+            cfg, **kw, resume=True,
+            resilience=rcfg(directory, plan.without("kill")))
+        rec = resumed.recovery
+        log(f"  (c) {time.perf_counter() - t:.1f} s: snapshot "
+            f"{rec['snapshot_step']}, replayed {rec['replayed']}, recovery "
+            f"launches {rec['launches']}, then launches {launches()}, "
+            f"collectives {resumed.collectives}")
+        check(rec["snapshot_step"] == 3 and rec["replayed"] == 1,
+              f"(c): expected snapshot 3 and 1 record replayed: {rec}")
+        check(rec["launches"]["reconstruct_apply_packed"] == 1
+              and rec["launches"]["project_packed"] == 0
+              and sum(rec["launches"].values()) == 1,
+              f"(c): the replay should be one apply: {rec['launches']}")
+        check(launches() == (2, 3),
+              f"(c): expected 2 live steps + 1 replayed apply, got "
+              f"{launches()}")
+        check(resumed.collectives["all_reduce"] == 2
+              and resumed.collectives["resync"] == 0,
+              f"(c): expected one all-reduce a live step, "
+              f"{resumed.collectives}")
+        a, c = ref.state, resumed.state
+        check(c.step == a.step == RES_STEPS, f"steps {a.step} {c.step}")
+        same = {
+            "theta": torch.equal(a.params, c.params),
+            "adam count": torch.equal(a.opt_state.count, c.opt_state.count),
+            "adam mu": torch.equal(a.opt_state.mu, c.opt_state.mu),
+            "adam nu": torch.equal(a.opt_state.nu, c.opt_state.nu),
+            "guard": all(torch.equal(x, y) for x, y in zip(a.guard,
+                                                          c.guard)),
+        }
+        log(f"  resumed == uninterrupted, bit for bit: {same}; guard "
+            f"{[x.item() for x in c.guard]}")
+        check(all(same.values()), f"(c) is not (a) bit for bit: {same}")
+        check(int(c.guard.nonfinite_count) == 1,
+              "(c): the guard's count is not 1")
+
+        # the recovery's pieces timed: the verified restore (CRC of every
+        # array), the replay of one record, the snapshot's write
+        sub = resumed.sub_opt
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        restored = ckpt_io.restore(snap_dir, c, 3)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        _, records, _ = res.ReplayLog.read(os.path.join(directory,
+                                                        "replay.log"))
+        record = [r for r in records if r.step == 3]
+        replay_ms, outs = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out, n = res.replay_records(sub, restored, record)
+            torch.cuda.synchronize()
+            replay_ms.append(1e3 * (time.perf_counter() - t))
+            outs.append(out.params)
+        check(n == 1 and all(torch.equal(x, outs[0]) for x in outs),
+              "the replay of record 3 is not bit-identical across reruns")
+        del outs
+        shutil.rmtree(snap_dir)
+        monitor = res.ResilienceMonitor(rcfg(directory, None), sub)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        monitor.snapshot(restored)
+        write_s = time.perf_counter() - t
+        monitor.log.close()
+        log(f"  snapshot write (device to host, npz, CRC32s, fsync) "
+            f"{write_s:.3f} s, verified restore {restore_s:.3f} s for "
+            f"{snap_bytes / 1e9:.3f} GB [{smi}]")
+        log(f"  replay of one record (1 reconstruct_apply_packed launch) "
+            f"{[round(x, 1) for x in replay_ms]} ms [{smi}]")
+        del ref, resumed, restored, a, c
+        torch.cuda.empty_cache()
+        med = _guard_vs_unguarded(cfg, smi)
+        log(f"  replay of one record / a guarded step: "
+            f"{statistics.median(replay_ms) / 1e3 / med['guarded']:.3f} "
+            f"[{smi}]")
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3667,6 +3939,7 @@ def main(argv=None) -> int:
             "bound_ms": b_ms, "bound_by": by, "library_ms": None})
     rows.append(phase_prefill())
     rows.extend(phase_prng(full_plan, dev))
+    phase_resilience(dev)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(dev["smi"], flush=True)

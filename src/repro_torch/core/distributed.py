@@ -38,8 +38,10 @@ buffer, both of which gloo and NCCL implement, issued with
 ``async_op=True`` so that :func:`start_exchange` returns at once and
 :func:`finish_exchange` waits.
 
-Not ported yet: the resilience sentinel's rider scalar (ROADMAP.md Queue
-A 13).
+The resilience sentinel's checksum (``core.resilience.sentinel_rider``)
+rides the one coordinate exchange as one extra trailing element
+(``rider=``): the payload grows by one float, the collective count does
+not.
 """
 
 from __future__ import annotations
@@ -57,10 +59,12 @@ from repro_torch.core import projector, rng
 # the SGD baseline (grad_mean), the model-axis completion of the sharded
 # projection (complete_model_partials, one per optimizer step) and the
 # forward's all-gather of the slabs (all_gather_slabs, the one D-sized
-# collective of the sharded path, outside the optimizer step)
+# collective of the sharded path, outside the optimizer step) and the
+# resilience repair's broadcasts from rank 0 (resilience.
+# resync_from_worker0: one per state buffer, only after a detection)
 COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "scalar": 0,
                "grad_all_reduce": 0, "model_all_reduce": 0,
-               "model_all_gather": 0}
+               "model_all_gather": 0, "resync": 0}
 
 
 def reset_counts() -> None:
@@ -175,22 +179,30 @@ class PendingExchange(NamedTuple):
     widened: bool
     work: Any = None   # torch.distributed work handle
     world: int = 1     # group size (the pmean divisor)
+    has_rider: bool = False   # one sentinel scalar trails the payload
+    rider_local: Any = None   # the locally computed rider
 
 
 def start_exchange(coords, sq, axis_name, *, kind: str = "pmean",
-                   widened: bool = False) -> PendingExchange:
+                   widened: bool = False, rider=None) -> PendingExchange:
     """Issue the single per-step coordinate collective and return its
     token.  ``coords``/``sq`` are the LOCAL (d_packed,) projection
-    outputs; ``widened=True`` ('exact') puts the norms on the wire.
-    With ``axis_name=None`` (or ``kind="local"``) nothing is issued."""
+    outputs; ``widened=True`` ('exact') puts the norms on the wire, and
+    ``rider`` (a 0-d float32 tensor) appends the one sentinel scalar: a
+    payload of d + 1, or 2d + 1 widened.  With ``axis_name=None`` (or
+    ``kind="local"``) nothing is issued."""
     d = coords.shape[-1]
+    has_rider = rider is not None
     if axis_name is None or kind == "local":
-        return PendingExchange("local", coords, sq, d, widened)
+        return PendingExchange("local", coords, sq, d, widened,
+                               has_rider=has_rider, rider_local=rider)
     group = process_group(axis_name)
     world = dist.get_world_size(group)
     # a fresh buffer: the collective writes it in place
     body = (widen_coord_buffer(coords, sq) if widened
             else coords.to(torch.float32, copy=True))
+    if has_rider:
+        body = torch.cat([body, rider.reshape(1).to(torch.float32)], dim=-1)
     if kind == "pmean":
         work = dist.all_reduce(body, op=dist.ReduceOp.SUM, group=group,
                                async_op=True)
@@ -204,23 +216,32 @@ def start_exchange(coords, sq, axis_name, *, kind: str = "pmean",
     else:
         raise ValueError(f"unknown exchange kind {kind!r}")
     return PendingExchange(kind, buf, None if widened else sq, d, widened,
-                           work, world)
+                           work, world, has_rider, rider)
 
 
 def finish_exchange(pending: PendingExchange):
     """Wait for a :class:`PendingExchange` and split the exchanged buffer
     into ``(coords, sq)``.  ``sq`` is the exchanged norms when widened,
     the local passthrough otherwise (``None`` on a non-widened
-    all-gather, which never carried norms)."""
+    all-gather, which never carried norms).  With a rider the return
+    grows to ``(coords, sq, rider)``: the mean of the ranks' riders
+    (pmean), the gathered (K,) riders (all-gather) or the local one."""
     kind, buf, d = pending.kind, pending.buf, pending.d
     if kind == "local":
+        if pending.has_rider:
+            return buf, pending.sq, pending.rider_local
         return buf, pending.sq
     pending.work.wait()
     if kind == "pmean":
         buf = buf / pending.world
+    if pending.has_rider:
+        rider = buf[..., -1]
+        buf = buf[..., :-1]
     if not pending.widened:
-        return buf, (pending.sq if kind == "pmean" else None)
-    return split_coord_buffer(buf, d)
+        out = buf, (pending.sq if kind == "pmean" else None)
+    else:
+        out = split_coord_buffer(buf, d)
+    return out + (rider,) if pending.has_rider else out
 
 
 def shared_basis_packed_exchange(coords, sq, axis_name, *,
@@ -297,12 +318,12 @@ def independent_bases_start_exchange(transform, local_grads, state,
                                      axis_name, *, layout=None,
                                      prepacked: bool = True,
                                      prng="threefry",
-                                     return_norms: bool = False
-                                     ) -> PendingExchange:
+                                     return_norms: bool = False,
+                                     rider=None) -> PendingExchange:
     """Project the worker's gradient onto its OWN basis and issue the one
     all-gather of its (d_packed,) coordinates -- (2*d_packed,) with the
-    norms when ``return_norms`` ('exact') -- into the (K, ...) joint
-    buffer; returns the token."""
+    norms when ``return_norms`` ('exact'), one more element with a
+    ``rider`` -- into the (K, ...) joint buffer; returns the token."""
     plan = transform.plan
     layout = layout if layout is not None else plan.packed()
     proj = projector.project_packed(
@@ -311,7 +332,7 @@ def independent_bases_start_exchange(transform, local_grads, state,
         prng=prng, return_norms=return_norms)
     coords, sq = proj if return_norms else (proj, None)
     return start_exchange(coords, sq, axis_name, kind="all_gather",
-                          widened=return_norms)
+                          widened=return_norms, rider=rider)
 
 
 def independent_bases_coords(transform, local_grads, state, axis_name, *,

@@ -20,7 +20,8 @@ from repro_torch.core import rng
 
 
 class CounterStream:
-    """Iterator over a pure ``make(step)`` batch function."""
+    """Iterator over a pure ``make(step)`` batch function: batch ``i`` is
+    a function of ``(seed, i)`` alone, so :meth:`skip` is O(1)."""
 
     def __init__(self, make):
         self._make = make
@@ -33,6 +34,14 @@ class CounterStream:
         out = self._make(self.step)
         self.step += 1
         return out
+
+    def skip(self, n: int) -> "CounterStream":
+        """Advance past ``n`` batches without generating them (resume keeps
+        the stream step-aligned with ``skip(start * n_accum)``)."""
+        if n < 0:
+            raise ValueError(f"cannot skip {n} < 0 batches")
+        self.step += int(n)
+        return self
 
 
 @functools.lru_cache(maxsize=8)

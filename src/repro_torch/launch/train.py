@@ -27,6 +27,12 @@
     # reference's does off a TPU)
     ... --device cpu --rbd-backend cuda --prng-impl hw_emulated
 
+    # resilience: the non-finite guard, the divergence sentinel, the
+    # coordinate replay log with a snapshot every 50 steps; --resume
+    # restores the newest snapshot and replays the log before training
+    ... --rbd-backend cuda --guard --sentinel-every 2 \
+        --resilience-dir runs/res --snapshot-every 50 [--resume]
+
 Flag names are the reference's for what the port runs: ``--mode
 sharedseed`` (the paper's Algorithm 1) over ``--data K`` ranks, each
 taking its shard of the global batch, with one coordinate collective per
@@ -41,7 +47,10 @@ one rank: the port always runs the data group), a full-space optimizer.
 ``--data`` must equal the world size ``torchrun`` gives; ``--data 1``
 runs a one-rank group without ``torchrun``.  ``--mode pjit`` raises,
 naming its ROADMAP item.  Runs on the GPU (NCCL) unless ``--device cpu``
-(gloo).
+(gloo).  The resilience flags (``--guard``, ``--resilience-dir``,
+``--snapshot-every``, ``--sentinel-every``, ``--on-divergence``,
+``--resume``) and ``--checkpoint-dir`` are the reference's; they need the
+packed step.
 """
 
 from __future__ import annotations
@@ -59,6 +68,9 @@ class RunResult(NamedTuple):
     peak_bytes: int            # torch.cuda.max_memory_allocated (0 on CPU)
     kernel_ms: dict            # per-launch ms by kernel (--kernel-times)
     collectives: dict          # collectives issued during the steps, by kind
+    monitor: Any = None        # the ResilienceMonitor (resilience on)
+    recovery: Any = None       # --resume: recover()'s info, plus the kernel
+                               # launches of the restore and replay
 
 
 def main(argv=None) -> RunResult:
@@ -134,6 +146,31 @@ def main(argv=None) -> RunResult:
     ap.add_argument("--kernel-times", action="store_true",
                     help="time every kernel launch with CUDA events and "
                          "print launches, median ms and peak memory")
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--guard", action="store_true",
+                    help="non-finite step guard: a NaN/Inf step is "
+                         "rejected (params and optimizer state untouched, "
+                         "reason-coded) and the effective LR backs off; "
+                         "detection reads only the (d,)-sized coordinate "
+                         "buffers and the step stays two launches")
+    ap.add_argument("--resilience-dir", default=None,
+                    help="directory for the coordinate replay log + "
+                         "sparse packed snapshots (micro-checkpoints); "
+                         "recovery = newest intact snapshot + replay of "
+                         "the logged d-dimensional updates")
+    ap.add_argument("--snapshot-every", type=int, default=50,
+                    help="sparse full-state snapshot period (steps)")
+    ap.add_argument("--sentinel-every", type=int, default=0,
+                    help="replica-divergence sentinel period (0 = off); "
+                         "the checksum rides the existing coordinate "
+                         "exchange as ONE extra scalar")
+    ap.add_argument("--on-divergence", default="fail",
+                    choices=["fail", "repair"],
+                    help="divergence response: hard failure (CI) or "
+                         "reason-coded re-broadcast from worker 0")
+    ap.add_argument("--resume", action="store_true",
+                    help="recover from --resilience-dir (snapshot + "
+                         "coordinate replay) before training")
     args = ap.parse_args(argv)
 
     from repro_torch.configs import get_config
@@ -141,6 +178,16 @@ def main(argv=None) -> RunResult:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced(compute_dtype="float32")
+    resilience = None
+    if args.guard or args.resilience_dir or args.sentinel_every:
+        from repro_torch.core.resilience import GuardConfig, ResilienceConfig
+
+        resilience = ResilienceConfig(
+            directory=args.resilience_dir,
+            snapshot_every=args.snapshot_every,
+            guard=GuardConfig() if args.guard else None,
+            sentinel_every=args.sentinel_every,
+            on_divergence=args.on_divergence)
     return run_training(
         cfg, mode=args.mode, rbd_mode=args.rbd_mode, data=args.data,
         model=args.model, steps=args.steps, batch=args.batch,
@@ -151,7 +198,9 @@ def main(argv=None) -> RunResult:
         weight_decay=args.weight_decay,
         momentum_beta=args.momentum_beta, nesterov=args.nesterov,
         adam_b1=args.adam_b1, adam_b2=args.adam_b2, adam_eps=args.adam_eps,
-        device=args.device, kernel_times=args.kernel_times)
+        device=args.device, kernel_times=args.kernel_times,
+        resilience=resilience, resume=args.resume,
+        checkpoint_dir=args.checkpoint_dir)
 
 
 def resolve_backend(rbd_backend: str, device) -> str:
@@ -170,7 +219,14 @@ def run_training(cfg, *, mode="sharedseed", rbd_mode="shared_basis", data=1,
                  rbd_backend="auto", packed="auto", prng_impl="threefry",
                  optimizer="sgd", weight_decay=0.0, momentum_beta=0.9,
                  nesterov=False, adam_b1=0.9, adam_b2=0.999, adam_eps=1e-8,
-                 device="cuda", kernel_times=False) -> RunResult:
+                 device="cuda", kernel_times=False, resilience=None,
+                 resume=False, checkpoint_dir=None) -> RunResult:
+    """Train ``steps`` optimizer steps (see the module docstring).
+    ``resilience``: an optional ``core.resilience.ResilienceConfig``;
+    ``resume`` recovers from its directory first (the newest intact
+    snapshot, then the replay log) and trains the remaining steps;
+    ``checkpoint_dir`` saves the final state, the parameters as a map,
+    as checkpoint ``steps``."""
     from repro_torch.launch import mesh as meshlib
     from repro_torch.models.registry import resolve_device
 
@@ -190,7 +246,8 @@ def run_training(cfg, *, mode="sharedseed", rbd_mode="shared_basis", data=1,
                     weight_decay=weight_decay, momentum_beta=momentum_beta,
                     nesterov=nesterov, adam_b1=adam_b1, adam_b2=adam_b2,
                     adam_eps=adam_eps, device=mesh.device,
-                    kernel_times=kernel_times)
+                    kernel_times=kernel_times, resilience=resilience,
+                    resume=resume, checkpoint_dir=checkpoint_dir)
     finally:
         meshlib.destroy_mesh(mesh)
 
@@ -198,12 +255,14 @@ def run_training(cfg, *, mode="sharedseed", rbd_mode="shared_basis", data=1,
 def _run(cfg, *, mode, rbd_mode, data, model, mesh, steps, batch, seq,
          grad_accum_steps, lr, rbd_dim, normalization, rbd_backend, packed,
          prng_impl, optimizer, weight_decay, momentum_beta, nesterov, adam_b1,
-         adam_b2, adam_eps, device, kernel_times) -> RunResult:
+         adam_b2, adam_eps, device, kernel_times, resilience, resume,
+         checkpoint_dir) -> RunResult:
     import torch
     import torch.distributed as dist
 
     from repro_torch.configs.base import RBDConfig, TrainConfig
     from repro_torch.core import distributed
+    from repro_torch.core import resilience as res_lib
     from repro_torch.data import synthetic
     from repro_torch.kernels import rbd_step
     from repro_torch.launch import mesh as meshlib
@@ -240,7 +299,7 @@ def _run(cfg, *, mode, rbd_mode, data, model, mesh, steps, batch, seq,
         probe = steplib.make_subspace_optimizer(
             net, tcfg, transform, axis_name, k_workers=k_workers,
             model_sharded=True, model_axis="model", model_shards=model,
-            device=device)
+            device=device, resilience=resilience)
         if probe.plan_execution().packed_resident:
             model_axis = mesh.model_group
             if axis_name is not None:
@@ -248,7 +307,7 @@ def _run(cfg, *, mode, rbd_mode, data, model, mesh, steps, batch, seq,
     init_state, train_step, sub_opt = steplib.make_train_step(
         net, tcfg, transform, axis_name=axis_name, k_workers=k_workers,
         model_sharded=model > 1, model_axis=model_axis, model_shards=model,
-        device=device, return_optimizer=True)
+        device=device, return_optimizer=True, resilience=resilience)
     eplan = sub_opt.plan_execution()
     n_accum = max(1, int(grad_accum_steps))
 
@@ -271,12 +330,44 @@ def _run(cfg, *, mode, rbd_mode, data, model, mesh, steps, batch, seq,
             f"{slayout.q_slab:,} (q_padded {slayout.q_padded:,}, q_packed "
             f"{slayout.base.q_packed:,}); this rank's slab "
             f"{mesh.model_index}")
+    resilient = resilience is not None and resilience.any_enabled
+    if resilient:
+        say("resilience: "
+            f"guard={'on' if resilience.guard else 'off'} "
+            f"sentinel_every={resilience.sentinel_every} "
+            f"replay_log={'on' if resilience.directory else 'off'} "
+            f"snapshot_every={resilience.snapshot_every} "
+            f"on_divergence={resilience.on_divergence}")
 
     cuda = device.type == "cuda"
     state = init_state(tcfg.seed)
     theta_init_sum = params_sum(state.params)
+    monitor = recovery = None
+    start = 0
+    if resilient:
+        if resume and resilience.directory:
+            before = dict(rbd_step.LAUNCHES)
+            recovered, recovery = res_lib.recover(resilience, sub_opt, state)
+            recovery["launches"] = {
+                k: n - before.get(k, 0)
+                for k, n in rbd_step.LAUNCHES.items()}
+            if recovered is not None:
+                state = recovered
+                start = int(state.step)
+                say(f"recovered to step {start} (snapshot "
+                    f"{recovery['snapshot_step']}, replayed "
+                    f"{recovery['replayed']} records)")
+                for ev in recovery["events"]:
+                    say(f"[resilience] step {ev.step}: "
+                        f"{res_lib.reason_name(ev.reason)} -- {ev.detail}")
+        monitor = res_lib.ResilienceMonitor(resilience, sub_opt)
+    repair = (resilient and resilience.on_divergence == "repair"
+              and axis_name is not None)
     stream = synthetic.lm_batches(tcfg.seed, batch, seq, cfg.vocab,
                                   device=device)
+    # keep the data stream step-aligned on resume: each optimizer step
+    # consumed n_accum batches (an O(1) counter skip)
+    stream.skip(start * n_accum)
 
     def fetch():
         # sharded over data, the same on every rank of a model group
@@ -294,22 +385,46 @@ def _run(cfg, *, mode, rbd_mode, data, model, mesh, steps, batch, seq,
     distributed.reset_counts()
     losses = []
     t0 = time.time()
-    for i in range(steps):
-        before = dict(rbd_step.VARIANT_LAUNCHES)
-        state, metrics = train_step(state, fetch())
-        losses.append(float(metrics["loss"]))
-        if i == 0 and rbd_cfg.enabled:
-            # the kernel variants (PRNG impl, double buffer) step 0 ran
-            took = [k for k, n in rbd_step.VARIANT_LAUNCHES.items()
-                    if n > before.get(k, 0)]
-            if took:
-                say(f"prng kernels: {', '.join(took)} (launched in step 0)")
-        say(f"step {i} loss={losses[-1]:.4f} "
-            f"wall={time.time() - t0:.1f}s")
+    try:
+        for i in range(start, steps):
+            if monitor is not None and monitor.should_kill(i):
+                raise res_lib.SimulatedWorkerKill(f"fault plan kills step {i}")
+            before = dict(rbd_step.VARIANT_LAUNCHES)
+            state, metrics = train_step(state, fetch())
+            losses.append(float(metrics["loss"]))
+            if i == start and rbd_cfg.enabled:
+                # the kernel variants (PRNG impl, double buffer) step 0 ran
+                took = [k for k, n in rbd_step.VARIANT_LAUNCHES.items()
+                        if n > before.get(k, 0)]
+                if took:
+                    say(f"prng kernels: {', '.join(took)} (launched in step "
+                        f"{i})")
+            if monitor is not None:
+                events = monitor.observe(state, metrics)
+                for ev in events:
+                    say(f"[resilience] step {ev.step}: "
+                        f"{res_lib.reason_name(ev.reason)} -- {ev.detail}")
+                diverged = any(e.reason == res_lib.REASON_REPLICA_DIVERGENCE
+                               for e in events)
+                if repair and diverged:
+                    # reason-coded repair: every state buffer re-broadcast
+                    # from rank 0 of the data group (only on a detection;
+                    # the per-step exchange stays one collective)
+                    state = res_lib.resync_from_worker0(state, axis_name)
+                    monitor.events.append(res_lib.RecoveryEvent(
+                        i, res_lib.REASON_RESYNC,
+                        "state re-broadcast from worker 0"))
+                    say(f"[resilience] step {i}: resync -- state "
+                        "re-broadcast from worker 0")
+            say(f"step {i} loss={losses[-1]:.4f} "
+                f"wall={time.time() - t0:.1f}s")
+    finally:
+        if monitor is not None and monitor.log is not None:
+            monitor.log.close()
     collectives = dict(distributed.COLLECTIVES)
-    say(f"collectives: {collectives} over {steps} steps (the coordinate "
-        "exchange or the SGD baseline's gradient mean, plus the scalar "
-        "loss mean)")
+    say(f"collectives: {collectives} over {steps - start} steps (the "
+        "coordinate exchange or the SGD baseline's gradient mean, plus the "
+        "scalar loss mean)")
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     kernel_ms = {}
     if kernel_times:
@@ -321,8 +436,30 @@ def _run(cfg, *, mode, rbd_mode, data, model, mesh, steps, batch, seq,
                 say(f"kernel {name}: launches={len(times)} "
                     f"median_ms={med:.3f}")
         say(f"peak device memory: {peak / 2**30:.2f} GiB")
+    if checkpoint_dir and rank == 0:
+        from repro_torch.checkpoint import io as ckpt
+
+        # the parameters as a map (nested at "/": the reference's tree and
+        # keys), whatever the stored representation
+        ckpt.save(checkpoint_dir, state._replace(
+            params=nest_params(sub_opt.materialize_params(state.params))),
+            steps)
+        say(f"checkpoint saved to {checkpoint_dir}")
     return RunResult(state, losses, theta_init_sum, sub_opt, peak,
-                     kernel_ms, collectives)
+                     kernel_ms, collectives, monitor, recovery)
+
+
+def nest_params(params: dict) -> dict:
+    """``{"layers/attn/wq": x, ...}`` -> ``{"layers": {"attn": {"wq": x}}}``
+    (the reference's parameter tree)."""
+    out: dict = {}
+    for name, x in params.items():
+        node = out
+        *path, leaf = name.split("/")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = x
+    return out
 
 
 def params_sum(params) -> float:

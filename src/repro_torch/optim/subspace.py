@@ -47,9 +47,18 @@ D-sized collective, outside the optimizer step.
 model group one after the other in one process (one device), with the
 completion a sum in shard order.
 
-Resilience hooks (ROADMAP.md Queue A 13), pjit-style parameter sharding
-(Queue A 20) and materialized bases and second-order optimizers (15)
-raise ``NotImplementedError`` naming their item.
+Resilience hooks (``core.resilience``; all off by default): ``guard``
+(the non-finite step guard), ``sentinel_every`` (the divergence sentinel,
+its checksum riding the one exchange), ``capture_coords`` (the
+post-exchange coordinates on ``aux``, the replay log's record) and
+``fault_plan`` (fault injection).  They need the packed two-launch step,
+and the decision stays on the device: no host synchronization is added
+to the step.  :meth:`SubspaceOptimizer.apply_exchanged` is the
+post-exchange half both the live step and the coordinate replay run.
+
+Pjit-style parameter sharding (ROADMAP.md Queue A 20), materialized bases
+and second-order optimizers (15) and resilience on the model-sharded
+slabs (21) raise ``NotImplementedError`` naming their item.
 """
 
 from __future__ import annotations
@@ -60,7 +69,8 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import BASIS_SPECS, KERNEL_BACKEND
-from repro_torch.core import compartments, distributed, projector, rng
+from repro_torch.core import (compartments, distributed, projector,
+                              resilience, rng)
 from repro_torch.core.compartments import PACKABLE_NORMALIZATIONS
 from repro_torch.core.rbd import RandomBasesTransform, RBDState
 from repro_torch.optim import transforms as opt
@@ -369,7 +379,15 @@ def plan_from_flags(*, optimizer: str = "sgd", weight_decay: float = 0.0,
 
 
 class _Aux(NamedTuple):
+    """Step byproducts.  The resilience fields stay () unless their
+    feature is on."""
+
     update_norm: torch.Tensor
+    coords: Any = ()      # post-exchange coordinate buffer (replay capture)
+    row_sq: Any = ()      # its squared row norms, when the step has them
+    guard: Any = ()       # new GuardState (non-finite step guard on)
+    reason: Any = ()      # int32 REASON_* code of this step (guard on)
+    diverged: Any = ()    # bool sentinel verdict (sentinel on)
 
 
 class StepTicket(NamedTuple):
@@ -384,6 +402,9 @@ class StepTicket(NamedTuple):
     pending: Any = None   # PendingExchange, or None on the sync schedule
     coords: Any = None    # local (d_packed,) coordinates (sync schedule)
     sq: Any = None        # local squared row norms (sync schedule)
+    rider: Any = None     # locally computed sentinel rider scalar
+    local_ok: Any = ()    # pre-exchange finite check (guard on,
+                          # shared_basis only; () = not computed)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -418,6 +439,12 @@ class SubspaceOptimizer:
     device: Any = None                # where the step's tensors live:
                                       # the hw PRNG needs the cuda
                                       # backend on a CUDA device
+    # -- resilience hooks (core.resilience; all off by default) --
+    guard: Any = None                 # GuardConfig -> non-finite step guard
+    sentinel_every: int = 0           # divergence-sentinel cadence (0=off)
+    capture_coords: bool = False      # emit post-exchange coords on aux
+                                      # (the replay log's per-step record)
+    fault_plan: Any = None            # FaultPlan (tests only)
 
     @classmethod
     def from_config(cls, tcfg, transform=None, axis_name=None,
@@ -519,7 +546,26 @@ class SubspaceOptimizer:
             raise NotImplementedError(
                 f"the {self.optimizer} coordinate optimizer is not ported "
                 "yet (ROADMAP.md Queue A 15)")
+        if self.resilience_active and self.model_axis is not None:
+            raise NotImplementedError(
+                "resilience (guard/sentinel/replay capture/fault injection) "
+                "on the model-sharded slabs is not ported yet (ROADMAP.md "
+                "Queue A 21): each rank holds its own slab, and a snapshot "
+                "would have to gather the whole padded buffer")
         return eplan
+
+    @property
+    def resilience_active(self) -> bool:
+        return bool(self.guard is not None or self.sentinel_every
+                    or self.capture_coords or self.fault_plan is not None)
+
+    def _check_resilience(self, eplan) -> None:
+        if self.resilience_active and eplan.strategy != "fused_packed":
+            raise ValueError(
+                "resilience features (guard/sentinel/replay capture/"
+                "fault injection) require the packed two-launch "
+                f"strategy; this config plans {eplan.strategy!r} -- "
+                + eplan.reason)
 
     def _optimizer(self) -> opt.Transform:
         return opt.get_optimizer(
@@ -638,12 +684,15 @@ class SubspaceOptimizer:
 
     # -- the update ---------------------------------------------------------
 
-    def step(self, params, grads, rbd_state, opt_state):
+    def step(self, params, grads, rbd_state, opt_state, guard_state=()):
         """One optimizer step on the stored representation (the packed
         buffer, or the parameter map of the unpacked strategies).  Returns
         ``(new_params, new_rbd_state, new_opt_state, aux)``.  In the
         K-worker simulation ``grads`` is the stacked (K, q_packed) buffer
-        of the workers' gradients."""
+        of the workers' gradients.  ``guard_state`` threads the non-finite
+        step guard's GuardState when ``guard`` is set (the new state comes
+        back on ``aux.guard``)."""
+        self._check_resilience(self.plan_execution())
         eplan = self.check_supported()
         if eplan.strategy == "full_space":
             return self._full_space_step(params, grads, rbd_state,
@@ -653,14 +702,15 @@ class SubspaceOptimizer:
                 params, grads, rbd_state, opt_state,
                 fused=eplan.strategy == "fused_per_leaf")
         ticket = self.step_sketch(params, grads, rbd_state, opt_state)
-        return self.step_finish(params, ticket, rbd_state, opt_state)
+        return self.step_finish(params, ticket, rbd_state, opt_state,
+                                guard_state)
 
-    def _check_split(self) -> ExecutionPlan:
+    def _check_split(self, what="step_sketch/step_finish split the packed "
+                     "two-launch step") -> ExecutionPlan:
         eplan = self.check_supported()
         if eplan.strategy != "fused_packed":
             raise ValueError(
-                "step_sketch/step_finish split the packed two-launch "
-                f"step; this config plans {eplan.strategy!r} -- "
+                f"{what}; this config plans {eplan.strategy!r} -- "
                 + eplan.reason)
         return eplan
 
@@ -669,7 +719,8 @@ class SubspaceOptimizer:
         """First half of the split step: project the gradient (launch 1;
         one launch per worker in the K-worker simulation) and -- under
         the ``issue_early`` schedule -- issue the one coordinate
-        collective at once.  ``step() == step_finish(step_sketch())``."""
+        collective at once, the sentinel's checksum riding it.
+        ``step() == step_finish(step_sketch())``."""
         eplan = self._check_split()
         if self.model_axis is not None:
             return self._sharded_sketch(grads, rbd_state, eplan)
@@ -679,6 +730,8 @@ class SubspaceOptimizer:
         prng = eplan.prng_impl
         exact = plan.normalization == "exact"
         seed = t.step_seed(rbd_state.step)
+        rider = (resilience.sentinel_rider(opt_state, params)
+                 if self.sentinel_every else None)
         if self.joint_subspace:
             if self.axis_name is None:
                 # sequential K-worker simulation: the "gather" is local
@@ -695,58 +748,177 @@ class SubspaceOptimizer:
                 coords = torch.stack([c for c, _ in outs])
                 sq = torch.stack([q for _, q in outs]) if exact else None
                 return StepTicket(pending=distributed.PendingExchange(
-                    "local", coords, sq, layout.d_packed, exact))
+                    "local", coords, sq, layout.d_packed, exact,
+                    has_rider=rider is not None, rider_local=rider),
+                    rider=rider)
             if eplan.overlap_exchange == "issue_early":
                 return StepTicket(
                     pending=distributed.independent_bases_start_exchange(
                         t, grads, rbd_state, self.axis_name, layout=layout,
-                        prng=prng, return_norms=exact))
+                        prng=prng, return_norms=exact, rider=rider),
+                    rider=rider)
             proj = projector.project_packed(
                 grads, plan,
                 distributed.worker_seed(t, rbd_state, self.axis_name),
                 backend=t.backend, layout=layout, prepacked=True,
                 prng=prng, return_norms=exact)
             coords, sq = proj if exact else (proj, None)
-            return StepTicket(coords=coords, sq=sq)
+            return StepTicket(coords=coords, sq=sq, rider=rider)
         coords, sq = projector.project_packed(
             grads, plan, seed, backend=t.backend, layout=layout,
             return_norms=True, prepacked=True, prng=prng)
+        local_ok = (resilience.all_finite(coords, sq)
+                    if self.guard is not None else ())
         if self.axis_name is not None and eplan.overlap_exchange == "sync":
-            return StepTicket(coords=coords, sq=sq)
+            return StepTicket(coords=coords, sq=sq, rider=rider,
+                              local_ok=local_ok)
         return StepTicket(pending=distributed.start_exchange(
-            coords, sq, self.axis_name, kind="pmean", widened=exact))
+            coords, sq, self.axis_name, kind="pmean", widened=exact,
+            rider=rider), rider=rider, local_ok=local_ok)
 
-    def step_finish(self, params, ticket: StepTicket, rbd_state, opt_state):
+    def step_finish(self, params, ticket: StepTicket, rbd_state, opt_state,
+                    guard_state=()):
         """Second half: wait for the collective (on the ``sync`` schedule
         issue it first -- same payload, same collective), then the
-        coordinate-space optimizer and launch 2 (reconstruct-apply; on
-        this rank's slab under a declared ``model_axis``).  Functional:
-        returns a new parameter buffer unless ``log_update_norm`` is off,
-        in which case ``params`` is updated in place (the update norm
-        needs the old buffer)."""
+        post-exchange chain: fault injection on the received payload, the
+        guard's reason code from the (d,)-sized buffers, the sentinel's
+        verdict from the rider, and :meth:`apply_exchanged` (the
+        coordinate-space optimizer and launch 2, on this rank's slab under
+        a declared ``model_axis``).  Still two launches and one collective
+        with every resilience hook on.  Functional: returns a new
+        parameter buffer unless ``log_update_norm`` is off, in which case
+        ``params`` is updated in place (the update norm needs the old
+        buffer)."""
         eplan = self._check_split()
-        coords, sq = self._finish_exchange(ticket)
+        guard_on = self.guard is not None
+        joint = self.joint_subspace
+        coords, sq, rider_out = self._finish_exchange(ticket)
+        sim = joint and self.axis_name is None
+        widx = (distributed.axis_index(self.axis_name)
+                if self.axis_name is not None else 0)
+        local_ok = ticket.local_ok
+        if joint:
+            if sim and ticket.rider is not None:
+                # sequential simulation: K copies of the one local checksum
+                rider_out = ticket.rider.expand(self.k_workers)
+            if guard_on:
+                # the own row only LABELS the reason (LOCAL vs EXCHANGE);
+                # the decision reads the whole gathered buffer, which every
+                # rank sees alike, so the guarded update stays replicated
+                local_ok = (resilience.all_finite(coords, sq) if sim else
+                            resilience.all_finite(
+                                coords[widx],
+                                None if sq is None else sq[widx]))
+        if self.fault_plan is not None:
+            coords = resilience.inject_collective_faults(
+                self.fault_plan, rbd_state.step, coords, widx)
+        reason = None
+        if guard_on:
+            dev = coords.device
+            ok_code = torch.full((), resilience.REASON_OK, dtype=torch.int32,
+                                 device=dev)
+            reason = torch.where(
+                local_ok,
+                torch.where(resilience.all_finite(coords, sq), ok_code,
+                            torch.full_like(
+                                ok_code,
+                                resilience.REASON_NONFINITE_EXCHANGE)),
+                torch.full_like(ok_code, resilience.REASON_NONFINITE_LOCAL))
+        diverged = ()
+        if rider_out is not None:
+            diverged = resilience.sentinel_check(
+                ticket.rider, rider_out, rbd_state.step,
+                self.sentinel_every)
+        new_params, new_rbd, new_opt, new_guard, in_place = \
+            self._apply_exchanged(params, coords, sq, rbd_state, opt_state,
+                                  guard_state, reason, eplan)
+        aux = self._delta_aux(params, new_params, in_place)
+        if self.resilience_active:
+            aux = aux._replace(
+                coords=coords if self.capture_coords else (),
+                row_sq=(sq if self.capture_coords and sq is not None
+                        else ()),
+                guard=new_guard if guard_on else (),
+                reason=reason if guard_on else (),
+                diverged=diverged)
+        return new_params, new_rbd, new_opt, aux
+
+    def apply_exchanged(self, params, coords, sq, rbd_state, opt_state,
+                        guard_state=(), reason=None):
+        """The POST-EXCHANGE half of the packed step: [guard transition +
+        sanitize] -> coordinate-space optimizer -> reconstruct-apply
+        (launch 2).  The live step and the coordinate replay
+        (``core.resilience.replay_records``) both run this code, which is
+        what makes restore + replay bit-exact by construction.
+
+        ``coords``/``sq``: the post-exchange buffers ((d_packed,) or the
+        gathered (K, d_packed); ``sq`` may be None on the joint path under
+        static-factor normalizations).  ``reason``: this step's REASON_*
+        code (a 0-d int32 tensor); with a guard set, a non-OK reason zeroes
+        the applied update and freezes the optimizer state bit-exactly
+        while the basis schedule still advances.  Returns ``(new_params,
+        new_rbd_state, new_opt_state, new_guard_state)``."""
+        eplan = self._check_split(
+            "apply_exchanged is the packed two-launch step's post-exchange "
+            "half")
+        return self._apply_exchanged(params, coords, sq, rbd_state,
+                                     opt_state, guard_state, reason,
+                                     eplan)[:4]
+
+    def _apply_exchanged(self, params, coords, sq, rbd_state, opt_state,
+                         guard_state, reason, eplan):
+        # the switch-policy reset comes BEFORE the guard reads opt_state,
+        # so a rejected switch step freezes the RESET state
+        opt_state = self._switch_opt_state(opt_state, rbd_state.step)
+        gain = ok = None
+        new_guard = guard_state
+        if self.guard is not None:
+            if reason is None:
+                reason = torch.zeros((), dtype=torch.int32,
+                                     device=coords.device)
+            ok = reason == resilience.REASON_OK
+            new_guard = resilience.guard_transition(self.guard, guard_state,
+                                                    reason)
+            # sanitize BEFORE the optimizer, so NaN/Inf never reach the
+            # state buffers; sq -> 1 keeps the 'exact' rsqrt finite
+            coords = torch.where(ok, coords, torch.zeros_like(coords))
+            if sq is not None:
+                sq = torch.where(ok, sq, torch.ones_like(sq))
+            # a rejected step applies a gain of exactly 0 (theta - 0 is
+            # bit-exact); an accepted one the effective-LR scale (1.0 in a
+            # healthy run: bit-identical to the unguarded step)
+            gain = torch.where(ok, new_guard.lr_scale,
+                               torch.zeros_like(new_guard.lr_scale))
+        coords_u, new_opt = self._optimizer().update(coords, opt_state)
+        if gain is not None:
+            coords_u = coords_u * gain
+            # freeze the optimizer state on a rejected step (momentum /
+            # adam must not absorb the sanitized zeros' decay)
+            new_opt = opt._map(lambda n, o: torch.where(ok, n, o), new_opt,
+                               opt_state)
         shard = self.model_index() if self.model_axis is not None else None
-        coords_u, new_opt = self._update_coords(coords, rbd_state, opt_state)
         new_params, in_place = self._apply(params, coords_u, sq, rbd_state,
                                            eplan, shard)
         return (new_params, RBDState(step=rbd_state.step + 1), new_opt,
-                self._delta_aux(params, new_params, in_place))
+                new_guard, in_place)
 
     def _finish_exchange(self, ticket: StepTicket):
+        """``(coords, sq, rider)`` after the one exchange (the rider None
+        when none rode it)."""
         exact = self.transform.plan.normalization == "exact"
         joint = self.joint_subspace
         pending = ticket.pending
         if pending is None:
             pending = distributed.start_exchange(
                 ticket.coords, ticket.sq, self.axis_name,
-                kind="all_gather" if joint else "pmean", widened=exact)
-        coords, sq = distributed.finish_exchange(pending)
+                kind="all_gather" if joint else "pmean", widened=exact,
+                rider=ticket.rider)
+        coords, sq, *rider = distributed.finish_exchange(pending)
         if joint and coords.shape[0] != self.k_workers:
             raise ValueError(
                 f"k_workers={self.k_workers} does not match the "
                 f"'{self.axis_name}' group size {coords.shape[0]}")
-        return coords, sq
+        return coords, sq, (rider[0] if rider else None)
 
     # -- model-sharded slabs --------------------------------------------------
 
@@ -818,7 +990,8 @@ class SubspaceOptimizer:
             psq = ps if psq is None else psq + ps
         if exact:
             csq = psq
-        coords, sq = self._finish_exchange(self.sketch_from_sums(u, psq, csq))
+        coords, sq, _ = self._finish_exchange(
+            self.sketch_from_sums(u, psq, csq))
         coords_u, new_opt = self._update_coords(coords, rbd_state, opt_state)
         new, in_place = [], False
         for shard, slab in enumerate(slabs):

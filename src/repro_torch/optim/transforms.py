@@ -26,10 +26,13 @@ class Transform(NamedTuple):
 
 
 def _map(fn, *trees):
-    """Apply ``fn`` leafwise over a tensor, a list/tuple of tensors or a
-    map of them (keys in the first tree's order)."""
+    """Apply ``fn`` leafwise over a tensor, a list/tuple (NamedTuples
+    included) of tensors or a map of them (keys in the first tree's
+    order)."""
     if isinstance(trees[0], dict):
         return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    if isinstance(trees[0], tuple) and hasattr(trees[0], "_fields"):
+        return type(trees[0])(*(_map(fn, *xs) for xs in zip(*trees)))
     if isinstance(trees[0], (list, tuple)):
         return type(trees[0])(_map(fn, *xs) for xs in zip(*trees))
     return fn(*trees)

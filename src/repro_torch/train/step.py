@@ -18,16 +18,24 @@ optimizer step, whatever ``grad_accum_steps`` is.  With ``model_axis``
 declared as well, ``TrainState.params`` is this rank's slab of the
 model-sharded packed buffer: the step all-gathers the slabs for the
 forward pass and keeps its own slab of the gradient.
+
+With ``resilience`` (a ``core.resilience.ResilienceConfig``) the packed
+step runs the non-finite guard (``TrainState.guard``), the divergence
+sentinel, the replay capture and fault injection, and the metrics gain
+their reason-coded entries; each key is present only when its feature is
+on.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, NamedTuple, Optional
 
 import torch
 
 from repro_torch.configs.base import RBDConfig, TrainConfig
 from repro_torch.core import compartments, distributed, rbd as rbd_lib
+from repro_torch.core import resilience as res_lib
 from repro_torch.models.registry import Model, resolve_device
 from repro_torch.optim import subspace
 
@@ -39,6 +47,9 @@ class TrainState(NamedTuple):
     opt_state: Any          # coordinate-space state, or shaped like params
                             # on full_space
     step: int
+    guard: Any = ()         # resilience.GuardState when the non-finite
+                            # guard is on; () keeps the state (and every
+                            # snapshot without the guard) unchanged
 
 
 def softmax_cross_entropy(logits, labels):
@@ -78,17 +89,27 @@ def make_subspace_optimizer(
         model: Model, tcfg: TrainConfig,
         transform: Optional[rbd_lib.RandomBasesTransform] = None,
         axis_name=None, *, k_workers: int = 1, model_sharded: bool = False,
-        model_axis=None, model_shards: int = 1, device=None
-) -> subspace.SubspaceOptimizer:
+        model_axis=None, model_shards: int = 1, device=None,
+        resilience=None) -> subspace.SubspaceOptimizer:
     """The one update-path object for a (model, TrainConfig) pair;
-    ``device`` is where its step's tensors live."""
+    ``device`` is where its step's tensors live.  ``resilience``: an
+    optional ``ResilienceConfig``; it turns on the non-finite step guard,
+    the divergence sentinel, coordinate capture (for the replay log, when
+    a directory is set) and fault injection on the optimizer."""
     if transform is None and tcfg.rbd.enabled:
         transform = make_transform(model, tcfg.rbd)
-    return subspace.SubspaceOptimizer.from_config(
+    sub_opt = subspace.SubspaceOptimizer.from_config(
         tcfg, transform=transform, axis_name=axis_name,
         k_workers=k_workers, model_sharded=model_sharded,
         model_axis=model_axis, model_shards=model_shards,
         params_template=model.param_template(), device=device)
+    if resilience is not None and resilience.any_enabled:
+        sub_opt = dataclasses.replace(
+            sub_opt, guard=resilience.guard,
+            sentinel_every=resilience.sentinel_every,
+            capture_coords=bool(resilience.directory),
+            fault_plan=resilience.fault_plan)
+    return sub_opt
 
 
 def make_loss_fn(model: Model, aux_coef: float = 0.01):
@@ -112,7 +133,7 @@ def make_train_step(model: Model, tcfg: TrainConfig,
                     axis_name: Optional[str] = None, *,
                     k_workers: int = 1, model_sharded: bool = False,
                     model_axis=None, model_shards: int = 1, device="cuda",
-                    return_optimizer: bool = False):
+                    return_optimizer: bool = False, resilience=None):
     """Returns ``(init_state, train_step)`` -- plus the
     :class:`SubspaceOptimizer` when ``return_optimizer`` is set.
 
@@ -136,7 +157,14 @@ def make_train_step(model: Model, tcfg: TrainConfig,
     With ``tcfg.grad_accum_steps == N > 1`` every batch tensor carries a
     leading (N,) microbatch axis
     (:func:`stack_microbatches`): the gradients accumulate in the packed
-    buffer and the step runs once -- two launches, one collective."""
+    buffer and the step runs once -- two launches, one collective.
+    ``resilience``: an optional ``ResilienceConfig`` (see
+    :func:`make_subspace_optimizer`): ``TrainState.guard`` carries the
+    guard state, gradient faults are injected after accumulation and
+    before the sketch, and the metrics gain ``guard_reason``,
+    ``guard_count``, ``guard_lr_scale``, ``sentinel_diverged``,
+    ``replay_coords`` and ``replay_row_sq`` -- each only when its feature
+    is on."""
     device = resolve_device(device)
     n_accum = int(tcfg.grad_accum_steps)
     if n_accum < 1:
@@ -147,8 +175,9 @@ def make_train_step(model: Model, tcfg: TrainConfig,
         model_sharded=model_sharded or model_axis is not None,
         model_axis=model_axis,
         model_shards=model_shards if model_axis is not None else 1,
-        device=device)
+        device=device, resilience=resilience)
     split = sub_opt.check_supported().strategy == "fused_packed"
+    guard_on = sub_opt.guard is not None
     sharded = model_axis is not None
 
     def init_state(seed: Optional[int] = None, params=None) -> TrainState:
@@ -161,6 +190,7 @@ def make_train_step(model: Model, tcfg: TrainConfig,
             rbd_state=sub_opt.init_rbd_state(params),
             opt_state=sub_opt.init_opt_state(params, device=device),
             step=0,
+            guard=res_lib.guard_init(device) if guard_on else (),
         )
 
     def grad_of(params, batch):
@@ -208,6 +238,11 @@ def make_train_step(model: Model, tcfg: TrainConfig,
             loss = sum(losses) / n_accum
             metrics = {k: sum(m[k] for m in parts) / n_accum
                        for k in parts[0]}
+        if sub_opt.fault_plan is not None:
+            grads = res_lib.inject_grad_faults(
+                sub_opt.fault_plan, state.rbd_state.step, grads,
+                worker_index=(distributed.axis_index(axis_name)
+                              if axis_name is not None else None))
         with torch.no_grad():
             params = state.params
             if split:
@@ -219,13 +254,25 @@ def make_train_step(model: Model, tcfg: TrainConfig,
                 loss = distributed.mean_scalar(loss, axis_name)
             if split:
                 params, rbd_state, opt_state, aux = sub_opt.step_finish(
-                    params, ticket, state.rbd_state, state.opt_state)
+                    params, ticket, state.rbd_state, state.opt_state,
+                    state.guard)
             else:
                 params, rbd_state, opt_state, aux = sub_opt.step(
-                    params, grads, state.rbd_state, state.opt_state)
+                    params, grads, state.rbd_state, state.opt_state,
+                    state.guard)
         metrics.update(loss=loss, update_norm=aux.update_norm)
-        return TrainState(params, rbd_state, opt_state,
-                          state.step + 1), metrics
+        if guard_on:
+            metrics.update(guard_reason=aux.reason,
+                           guard_count=aux.guard.nonfinite_count,
+                           guard_lr_scale=aux.guard.lr_scale)
+        if sub_opt.sentinel_every:
+            metrics["sentinel_diverged"] = aux.diverged
+        if sub_opt.capture_coords:
+            metrics["replay_coords"] = aux.coords
+            if not isinstance(aux.row_sq, tuple):  # () = no norms
+                metrics["replay_row_sq"] = aux.row_sq
+        return TrainState(params, rbd_state, opt_state, state.step + 1,
+                          aux.guard if guard_on else state.guard), metrics
 
     if return_optimizer:
         return init_state, train_step, sub_opt

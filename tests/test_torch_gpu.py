@@ -25,7 +25,10 @@ at head size 64 / 128) against the plain version with p_dtype=bfloat16 (P
 rounded to bf16 at the same tiles) within the same plus 2**-7 max|v|
 min(1 / l, 1 - 1 / l) of the row (one p landing on the other bf16
 neighbour, at the largest weight such a key may have), and within 2**-10
-of the output's norm in relative L2; reruns bit-identical.
+of the output's norm in relative L2; reruns bit-identical.  The guarded
+packed step (resilience) bit for bit: healthy, it is the unguarded step;
+a NaN step leaves theta and the adam state untouched; restore + replay is
+the uninterrupted run.
 """
 
 import math
@@ -1129,3 +1132,138 @@ def test_hw_flat_projection_refuses_chunks_off_the_pos_blocks(cuda,
         u.data_ptr(), sq.data_ptr(), torch.cuda.current_stream().cuda_stream)
     assert rc != 0
     assert arrived.sum().item() == 0   # nothing ran
+
+
+# ---------------------------------------------------------------------------
+# resilience: the guarded packed step and its replay on the card
+# ---------------------------------------------------------------------------
+
+RES_SHAPES = {"w": (48, 20), "layers/k": (3, 40, 10), "s": (),
+              "odd": (7, 73), "long": (700,)}
+
+
+def _res_sub(mode="shared_basis", k=1, optimizer="adam", guarded=True,
+             capture=True):
+    from repro_torch.core import resilience as res
+    from repro_torch.core.rbd import RandomBasesTransform
+    from repro_torch.optim import subspace
+
+    plan = compartments.make_plan(
+        RES_SHAPES, 96, is_stacked=lambda n: n.startswith("layers"),
+        normalization="exact")
+    return subspace.SubspaceOptimizer(
+        transform=RandomBasesTransform(plan, base_seed=11, backend="cuda"),
+        learning_rate=0.3, use_packed=True, optimizer=optimizer, mode=mode,
+        k_workers=k, guard=res.GuardConfig() if guarded else None,
+        capture_coords=capture)
+
+
+def _res_grads(sub, cuda, key):
+    lay = sub.transform.plan.packed()
+    valid = _valid(lay, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(100 + key)
+    shape = ((sub.k_workers, lay.q_packed) if sub.joint_subspace
+             else (lay.q_packed,))
+    return torch.where(valid, torch.randn(shape, generator=gen, device=cuda),
+                       0)
+
+
+def _res_state(sub, cuda):
+    from repro_torch.core import resilience as res
+    from repro_torch.train.step import TrainState
+
+    lay = sub.transform.plan.packed()
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    theta = torch.where(_valid(lay, cuda),
+                        torch.randn(lay.q_packed, generator=gen, device=cuda),
+                        0)
+    return TrainState(theta, sub.init_rbd_state(),
+                      sub.init_opt_state(device=cuda), 0,
+                      res.guard_init(cuda) if sub.guard is not None else ())
+
+
+def _res_drive(sub, cuda, state, keys, monitor=None):
+    from repro_torch.train.step import TrainState
+
+    for key in keys:
+        p, r, o, aux = sub.step(state.params, _res_grads(sub, cuda, key),
+                                state.rbd_state, state.opt_state,
+                                state.guard)
+        state = TrainState(p, r, o, state.step + 1,
+                           aux.guard if sub.guard is not None else ())
+        if monitor is not None:
+            metrics = {"guard_reason": aux.reason,
+                       "guard_lr_scale": aux.guard.lr_scale,
+                       "replay_coords": aux.coords}
+            if not isinstance(aux.row_sq, tuple):
+                metrics["replay_row_sq"] = aux.row_sq
+            monitor.observe(state, metrics)
+    return state
+
+
+def _res_leaves_equal(a, b):
+    from repro_torch.core import resilience as res
+
+    la, lb = res._tree_leaves(a), res._tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def test_guarded_healthy_step_is_the_unguarded_step(cuda):
+    guarded = _res_sub()
+    plain = _res_sub(guarded=False, capture=False)
+    rbd_step.reset_counts()
+    s_g = _res_drive(guarded, cuda, _res_state(guarded, cuda), range(3))
+    assert rbd_step.LAUNCHES["project_packed"] == 3
+    assert rbd_step.LAUNCHES["reconstruct_apply_packed"] == 3
+    s_p = _res_drive(plain, cuda, _res_state(plain, cuda), range(3))
+    assert torch.equal(s_g.params, s_p.params)
+    assert _res_leaves_equal(s_g.opt_state, s_p.opt_state)
+    assert float(s_g.guard.lr_scale) == 1.0
+    assert int(s_g.guard.nonfinite_count) == 0
+
+
+def test_nonfinite_step_rejected_with_theta_untouched(cuda):
+    from repro_torch.core import resilience as res
+
+    sub = _res_sub()
+    state = _res_drive(sub, cuda, _res_state(sub, cuda), range(1))
+    g = _res_grads(sub, cuda, 1)
+    g[3] = float("nan")
+    p, r, o, aux = sub.step(state.params, g, state.rbd_state,
+                            state.opt_state, state.guard)
+    assert torch.equal(p, state.params)
+    assert _res_leaves_equal(o, state.opt_state)
+    assert int(aux.reason) == res.REASON_NONFINITE_LOCAL
+    assert int(aux.guard.nonfinite_count) == 1
+    assert float(aux.guard.lr_scale) == 0.5 and r.step == 2
+
+
+@pytest.mark.parametrize("mode,k", [("shared_basis", 1),
+                                    ("independent_bases", 3)])
+def test_resume_is_bit_exact_on_the_card(cuda, tmp_path, mode, k):
+    """5 steps against crash before step 4, snapshot 3 + 1 replayed
+    record: theta, adam state and guard state bit for bit; the replay is
+    one apply launch (the K-worker one, row 3, in the joint subspace) and
+    no projection."""
+    from repro_torch.core import resilience as res
+
+    sub = _res_sub(mode, k)
+    apply = ("reconstruct_apply_packed_workers" if k > 1
+             else "reconstruct_apply_packed")
+    ref = _res_drive(sub, cuda, _res_state(sub, cuda), range(5))
+    cfg = res.ResilienceConfig(directory=str(tmp_path), snapshot_every=3,
+                               guard=res.GuardConfig())
+    monitor = res.ResilienceMonitor(cfg, sub)
+    _res_drive(sub, cuda, _res_state(sub, cuda), range(4), monitor)
+    monitor.log.close()
+    rbd_step.reset_counts()
+    recovered, info = res.recover(cfg, sub, _res_state(sub, cuda))
+    assert (info["snapshot_step"], info["replayed"]) == (3, 1)
+    assert rbd_step.LAUNCHES[apply] == 1
+    assert rbd_step.LAUNCHES["project_packed"] == 0
+    assert recovered.params.device.type == cuda.type
+    done = _res_drive(sub, cuda, recovered, range(4, 5))
+    assert torch.equal(done.params, ref.params)
+    assert _res_leaves_equal(done.opt_state, ref.opt_state)
+    assert _res_leaves_equal(done.guard, ref.guard)
