@@ -173,9 +173,36 @@ result line:
                no host synchronization), both timed; the snapshot's size,
                write and verified restore times, the replay of one record
                timed beside a step; the directory removed at the end;
+19. basis    -- the basis layer.  (a) FPD (a fixed random basis) with
+               L-BFGS (history 8), coordinate clipping at norm 1 and a
+               cosine schedule with 1 warmup step on the packed kernels at
+               full qwen2-0.5b width and depth (batch 8 x 128, rbd-dim
+               1024, Threefry, one-rank NCCL group), 4 steps: exactly 2
+               launches and one (d,) all-reduce a step, finite losses, the
+               L-BFGS ring's fill after each step, step wall and launch
+               ms, and no more synchronizing operations in one such step
+               than in one step of bare sgd (``set_sync_debug_mode``);
+               (b) the resident basis at the largest size one card holds:
+               full width cut to depth 1, rbd-dim 14 (total_dim 25,
+               q_packed 151,049,216, a 15.1 GB basis): the draw and the
+               QR (``projector.orthonormal_rows``, CholeskyQR2) timed
+               apart, their peak memory, max|B B^T - I| <= 1e-4, padding
+               columns exactly 0, both products timed against their byte
+               bounds, then ``launch.train.run_training`` with
+               ``--basis trajectory_pca --coord-optimizer lbfgs`` for 3
+               steps: 0 RBD launches, the run's basis held the same way,
+               theta's padding exactly 0, the collector's host pull of
+               theta timed; (c) the reference's acceptance experiment
+               (``tests/test_basis.py:343``) at its own size (reduced
+               qwen2-0.5b, rbd-dim 40, batch 2 x 16, 40 steps): random +
+               sgd at lr 0.5 on the kernels, trajectory_pca + lbfgs at lr
+               1.0 refreshed every 8 steps, tail-mean losses and their
+               order reported; gradient_informed + momentum, 8 steps,
+               refresh every 3: the basis changed, same shape,
+               orthonormal within 1e-4;
 then the ``kernels`` line (eleven rows, then the six tile-keyed rows
-``[hw_emulated]``, ``[hw,db]`` and ``[hw]`` of rows 1-2), the card line
-and the result line.
+``[hw_emulated]``, ``[hw,db]`` and ``[hw]`` of rows 1-2; rows 1-2 count
+phase 19 (a)'s launches too), the card line and the result line.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -288,6 +315,14 @@ PREFILL_F32_RTOL = 2e-5
 # fault plan (a NaN gradient at step 1, a kill before step 4) and the
 # steps timed of each of the guarded and the unguarded train_step
 RES_STEPS, RES_LR, RES_TIMED = 6, 0.02, 4
+# phase 19: (a) the FPD + L-BFGS run's steps; (b) the depth-1 resident
+# basis's rbd-dim and steps, the column chunk of its Gram check; (c) the
+# reference's acceptance run and its gradient_informed check
+BASIS_STEPS = 4
+RESIDENT_DIM, RESIDENT_STEPS = 14, 3
+GRAM_CHUNK = 1 << 24
+ACCEPT_STEPS, ACCEPT_REFRESH, ACCEPT_TAIL = 40, 8, 5
+GI_STEPS, GI_REFRESH = 8, 3
 # Peak rates of an H100 SM (sm_90) in lanes a clock, the bound's table:
 # 4 schedulers issue one warp instruction a clock each (128); the integer
 # ALU 64 (LOP3, shifts, compares, selects, I2FP); the FP32 "heavy" pipe 64,
@@ -3867,6 +3902,306 @@ def phase_resilience(dev):
         shutil.rmtree(directory, ignore_errors=True)
 
 
+def materialized_bytes(d: int, q: int) -> dict:
+    """Bytes the two materialized products must move: the (d, q) float32
+    basis read once, plus the projection's (q,) gradient read and (d,)
+    coordinates written, the apply's (d,) coordinates and (q,) theta read
+    and (q,) theta written."""
+    basis = 4 * d * q
+    return {"project_materialized": basis + 4 * q + 4 * d,
+            "reconstruct_apply_materialized": basis + 4 * d + 8 * q}
+
+
+def _gram_error(basis) -> float:
+    """max|B B^T - I| of a (d, q) basis, the Gram summed in float64 over
+    column chunks."""
+    import torch
+
+    d, q = basis.shape
+    gram = torch.zeros((d, d), dtype=torch.float64, device=basis.device)
+    for i in range(0, q, GRAM_CHUNK):
+        c = basis[:, i: i + GRAM_CHUNK].to(torch.float64)
+        gram.addmm_(c, c.T)
+    eye = torch.eye(d, dtype=torch.float64, device=basis.device)
+    return float((gram - eye).abs().max())
+
+
+def _basis_fpd_lbfgs(smi) -> dict:
+    """(a): returns the launches of rows 1-2 over its steps."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RBDConfig, TrainConfig
+    from repro_torch.core import distributed
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import rbd_step
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models.registry import get_model
+    from repro_torch.train import step as steplib
+
+    cfg = get_config("qwen2-0.5b")
+    model = get_model(cfg)
+    rbd = RBDConfig(total_dim=1024, backend="cuda", redraw=False)
+    common = dict(model=cfg, rbd=rbd, learning_rate=0.125,
+                  steps=BASIS_STEPS, batch_size=8, seq_len=128)
+    lbfgs_cfg = TrainConfig(optimizer="lbfgs", lbfgs_history=8,
+                            coord_clip_norm=1.0, lr_schedule="cosine",
+                            lr_warmup_steps=1, **common)
+    mesh = meshlib.init_mesh(1, 1, "cuda")   # the one-rank data group
+    try:
+        init_state, train_step, sub = steplib.make_train_step(
+            model, lbfgs_cfg, axis_name="data", device="cuda",
+            return_optimizer=True)
+        eplan = sub.plan_execution()
+        log(f"  (a) update path: {eplan.strategy} -- FPD (redraw=False), "
+            "lbfgs history 8, clip 1.0, cosine with 1 warmup step")
+        check(eplan.strategy == "fused_packed",
+              f"(a) plans {eplan.strategy}, not fused_packed")
+        state = init_state(0)
+        data = synthetic.lm_batches(0, 8, 128, cfg.vocab, device="cuda")
+        rbd_step.reset_counts()
+        distributed.reset_counts()
+        rbd_step.set_timing(True)
+        losses, walls, fills = [], [], []
+        for _ in range(BASIS_STEPS):
+            batch = next(data)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, metrics = train_step(state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            losses.append(float(metrics["loss"]))
+            fills.append(int(state.opt_state[1].mask.sum()))
+        kms = rbd_step.kernel_times_ms()
+        rbd_step.set_timing(False)
+        launches = dict(rbd_step.LAUNCHES)
+        coll = dict(distributed.COLLECTIVES)
+        log(f"  (a) losses {losses}; L-BFGS pairs held after each step "
+            f"{fills}; step wall {[round(x, 4) for x in walls]} s [{smi}]")
+        log(f"  (a) launches {launches}; collectives {coll}; launch ms "
+            + "; ".join(f"{k} {[round(x, 3) for x in v]}"
+                        for k, v in kms.items() if v) + f" [{smi}]")
+        check(all(math.isfinite(x) for x in losses), f"(a) losses {losses}")
+        check(launches["project_packed"] == BASIS_STEPS
+              and launches["reconstruct_apply_packed"] == BASIS_STEPS
+              and sum(launches.values()) == 2 * BASIS_STEPS,
+              f"(a) expected 2 launches a step, got {launches}")
+        check(coll["all_reduce"] == BASIS_STEPS and coll["all_gather"] == 0
+              and coll["grad_all_reduce"] == 0
+              and coll["basis_grad_all_reduce"] == 0,
+              f"(a) expected one (d,) all-reduce a step, got {coll}")
+        check(fills[0] == 0 and max(fills) <= 8,
+              f"(a) L-BFGS ring fill {fills}")
+        # steps of each under the sync debug mode, bare sgd (no clip, no
+        # schedule) warmed by one step first; two rounds in turns, since
+        # the first step measured also counts a first-call sync inside
+        # torch.cuda, and each config's fewer counts
+        sgd_init, sgd_step = steplib.make_train_step(
+            model, TrainConfig(optimizer="sgd", **common),
+            axis_name="data", device="cuda")
+        sgd_state, _ = sgd_step(sgd_init(0), next(data))
+        batch = next(data)
+        steps = {"lbfgs": lambda: train_step(state, batch),
+                 "sgd": lambda: sgd_step(sgd_state, batch)}
+        warns = {k: [] for k in steps}
+        for order in (("lbfgs", "sgd"), ("sgd", "lbfgs")):
+            for k in order:
+                warns[k].append(_sync_warnings(torch, steps[k]))
+        n = {k: min(sum(w.values()) for w in v) for k, v in warns.items()}
+        log(f"  (a) synchronizing CUDA operations in one step (fewer of "
+            f"two rounds): {n}; by line: {warns} [{smi}]")
+        check(n["lbfgs"] <= n["sgd"],
+              f"(a) the L-BFGS step synchronizes more than sgd's: {warns}")
+    finally:
+        meshlib.destroy_mesh(mesh)
+    return {k: launches[k] for k in ("project_packed",
+                                     "reconstruct_apply_packed")}
+
+
+def _basis_resident(smi):
+    """(b): the 15.1 GB basis at full width, depth 1."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RBDConfig
+    from repro_torch.core import projector
+    from repro_torch.kernels import rbd_step
+    from repro_torch.launch import train as launcher
+    from repro_torch.models.registry import get_model
+    from repro_torch.train import loop
+    from repro_torch.train import step as steplib
+
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), n_layers=1)
+    plan = steplib.make_plan(get_model(cfg),
+                             RBDConfig(total_dim=RESIDENT_DIM))
+    lay = plan.packed()
+    d, q = plan.total_dim, lay.q_packed
+    log(f"  (b) qwen2-0.5b width, depth 1, rbd-dim {RESIDENT_DIM}: "
+        f"total_dim {d}, q_packed {q:,}, basis {4 * d * q:,} B")
+    valid = torch.from_numpy(lay.param_valid).cuda()
+    pad = ~valid.bool()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t = time.perf_counter()
+    a = torch.randn((q, d), generator=gen, dtype=torch.float32,
+                    device="cuda")
+    a.mul_(valid[:, None])
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t
+    t = time.perf_counter()
+    basis = projector.orthonormal_rows(a)
+    del a
+    torch.cuda.synchronize()
+    qr_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() - held
+    err = _gram_error(basis)
+    pad_zero = bool((basis[:, pad] == 0).all())
+    log(f"  (b) draw {draw_s:.3f} s, QR (CholeskyQR2, float64 Gram) "
+        f"{qr_s:.3f} s, peak {peak / 1e9:.2f} GB above the {held / 1e9:.2f}"
+        f" GB held; max|B B^T - I| {err:.3e}; padding columns zero "
+        f"{pad_zero} [{smi}]")
+    check(err <= 1e-4, f"(b) the basis is not orthonormal: {err}")
+    check(pad_zero, "(b) the basis's padding columns are not zero")
+    check(torch.equal(basis, projector.materialize_random_basis(
+        plan, lay, 0, device="cuda")),
+        "(b) materialize_random_basis is not the timed draw + QR")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    g = torch.randn(q, generator=gen, device="cuda") * valid
+    theta = torch.randn(q, generator=gen, device="cuda") * valid
+    c = torch.randn(d, generator=gen, device="cuda")
+    times = {
+        "project_materialized": cuda_ms(
+            lambda: projector.project_materialized(basis, g), repeat=3),
+        "reconstruct_apply_materialized": cuda_ms(
+            lambda: projector.reconstruct_apply_materialized(
+                c, basis, theta, 0.125), repeat=3),
+    }
+    for name, nbytes in materialized_bytes(d, q).items():
+        b_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        med = statistics.median(times[name])
+        log(f"  (b) {name}: {[round(x, 3) for x in times[name]]} ms, "
+            f"bound {b_ms:.3f} ms ({nbytes:,} B at HBM_BYTES_PER_S), "
+            f"{b_ms / med:.1%} of bound [{smi}]")
+    del basis, g, theta, c
+    torch.cuda.empty_cache()
+
+    rbd_step.reset_counts()
+    t = time.perf_counter()
+    res = launcher.run_training(
+        cfg, steps=RESIDENT_STEPS, batch=8, seq=128, rbd_dim=RESIDENT_DIM,
+        rbd_backend="cuda", basis="trajectory_pca", optimizer="lbfgs",
+        device="cuda")
+    run_s = time.perf_counter() - t
+    launches = dict(rbd_step.LAUNCHES)
+    basis = res.state.rbd_state.basis
+    err = _gram_error(basis)
+    log(f"  (b) run_training {RESIDENT_STEPS} steps in {run_s:.1f} s: "
+        f"losses {res.losses}, launches {launches}, collectives "
+        f"{res.collectives}, refreshes {res.collector.refreshes}, ring "
+        f"{len(res.collector.ring)}; peak during the steps "
+        f"{res.peak_bytes / 1e9:.2f} GB; max|B B^T - I| {err:.3e} [{smi}]")
+    check(sum(launches.values()) == 0,
+          f"(b) the materialized step launched RBD kernels: {launches}")
+    check(all(math.isfinite(x) for x in res.losses), f"(b) {res.losses}")
+    check(err <= 1e-4, f"(b) the run's basis is not orthonormal: {err}")
+    check(bool((basis[:, pad] == 0).all()),
+          "(b) the run's basis has nonzero padding columns")
+    check(bool((res.state.params[pad] == 0).all()),
+          "(b) theta's padding is not zero")
+    pulls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loop._host(res.state.params)
+        pulls.append(time.perf_counter() - t)
+    log(f"  (b) the collector's host pull of theta ({4 * q:,} B): "
+        f"{[round(x, 4) for x in pulls]} s [{smi}]")
+    del res, basis
+    torch.cuda.empty_cache()
+
+
+def _basis_acceptance(smi):
+    """(c): the reference's acceptance run and the gradient_informed
+    refresh, at the reference's reduced size."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import projector
+    from repro_torch.kernels import rbd_step
+    from repro_torch.launch import train as launcher
+
+    cfg = get_config("qwen2-0.5b").reduced(compute_dtype="float32")
+    kw = dict(batch=2, seq=16, rbd_dim=40, rbd_backend="cuda",
+              device="cuda")
+    tails = {}
+    for name, optimizer, basis, lr in (
+            ("random_sgd", "sgd", "random", 0.5),
+            ("pca_lbfgs", "lbfgs", "trajectory_pca", 1.0)):
+        rbd_step.reset_counts()
+        t = time.perf_counter()
+        res = launcher.run_training(
+            cfg, steps=ACCEPT_STEPS, lr=lr, optimizer=optimizer, basis=basis,
+            basis_refresh_every=ACCEPT_REFRESH, **kw)
+        tails[name] = statistics.mean(res.losses[-ACCEPT_TAIL:])
+        n = (rbd_step.LAUNCHES["project_packed"],
+             rbd_step.LAUNCHES["reconstruct_apply_packed"])
+        refreshes = res.collector.refreshes if res.collector else 0
+        log(f"  (c) {name}: {time.perf_counter() - t:.1f} s, launches {n}, "
+            f"refreshes {refreshes}, loss {res.losses[0]:.4f} -> "
+            f"{res.losses[-1]:.4f}, tail mean of {ACCEPT_TAIL} "
+            f"{tails[name]:.4f}")
+        check(all(math.isfinite(x) for x in res.losses),
+              f"(c) {name} losses {res.losses}")
+        want = ((ACCEPT_STEPS, ACCEPT_STEPS) if basis == "random"
+                else (0, 0))
+        check(n == want, f"(c) {name}: launches {n}, expected {want}")
+        if basis != "random":
+            check(refreshes == ACCEPT_STEPS // ACCEPT_REFRESH,
+                  f"(c) {name}: {refreshes} refreshes")
+    order = ("below" if tails["pca_lbfgs"] < tails["random_sgd"]
+             else "not below")
+    log(f"  (c) tail means {tails}: trajectory_pca + lbfgs {order} random "
+        f"+ sgd (a result, not a gate) [{smi}]")
+    res = launcher.run_training(
+        cfg, steps=GI_STEPS, lr=0.5, optimizer="momentum",
+        basis="gradient_informed", basis_refresh_every=GI_REFRESH, **kw)
+    plan = res.sub_opt.transform.plan
+    basis0 = projector.materialize_random_basis(plan, plan.packed(), 0,
+                                                device="cuda")
+    basis = res.state.rbd_state.basis
+    err = _gram_error(basis)
+    log(f"  (c) gradient_informed + momentum: refreshes "
+        f"{res.collector.refreshes}, collectives {res.collectives}, "
+        f"max|B B^T - I| {err:.3e}, changed "
+        f"{not torch.equal(basis, basis0)}")
+    check(res.collector.refreshes == GI_STEPS // GI_REFRESH,
+          f"(c) gradient_informed: {res.collector.refreshes} refreshes")
+    check(basis.shape == basis0.shape and not torch.equal(basis, basis0),
+          "(c) gradient_informed: the refresh did not change the basis")
+    check(err <= 1e-4, f"(c) gradient_informed basis: {err}")
+    check(res.collectives["basis_grad_all_reduce"] == GI_STEPS,
+          f"(c) gradient_informed: {res.collectives}")
+
+
+def phase_basis(dev) -> dict:
+    """Returns the launches of rows 1-2 in (a)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    smi = dev["smi"]
+    log("== phase 19: the basis layer (FPD + L-BFGS on the packed kernels, "
+        "the resident basis, the reference's acceptance run)")
+    launches = _basis_fpd_lbfgs(smi)
+    _basis_resident(smi)
+    _basis_acceptance(smi)
+    log(f"  phase 19 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3940,6 +4275,10 @@ def main(argv=None) -> int:
     rows.append(phase_prefill())
     rows.extend(phase_prng(full_plan, dev))
     phase_resilience(dev)
+    for name, n in phase_basis(dev).items():
+        for row in rows:
+            if row["name"] == name:
+                row["launches"] += n
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(dev["smi"], flush=True)

@@ -61,10 +61,13 @@ from repro_torch.core import projector, rng
 # forward's all-gather of the slabs (all_gather_slabs, the one D-sized
 # collective of the sharded path, outside the optimizer step) and the
 # resilience repair's broadcasts from rank 0 (resilience.
-# resync_from_worker0: one per state buffer, only after a detection)
+# resync_from_worker0: one per state buffer, only after a detection) and
+# the packed-gradient mean the gradient_informed basis collector reads
+# (basis_grad_mean: on the metrics path, outside the update)
 COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "scalar": 0,
                "grad_all_reduce": 0, "model_all_reduce": 0,
-               "model_all_gather": 0, "resync": 0}
+               "model_all_gather": 0, "resync": 0,
+               "basis_grad_all_reduce": 0}
 
 
 def reset_counts() -> None:
@@ -251,6 +254,18 @@ def shared_basis_packed_exchange(coords, sq, axis_name, *,
     coords+norms buffer.  Returns ``(coords, sq)``."""
     return finish_exchange(start_exchange(coords, sq, axis_name,
                                           kind="pmean", widened=widened))
+
+
+def basis_grad_mean(g_packed: torch.Tensor, axis_name) -> torch.Tensor:
+    """The packed (q_packed,) gradient averaged over the group, for the
+    gradient_informed basis collector: one all-reduce on the metrics path
+    of that configuration only, counted as ``basis_grad_all_reduce`` (the
+    update itself still exchanges (d,) floats)."""
+    buf = g_packed.to(torch.float32, copy=True)
+    group = process_group(axis_name)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    COLLECTIVES["basis_grad_all_reduce"] += 1
+    return buf / dist.get_world_size(group)
 
 
 def grad_mean(grads: dict, axis_name) -> dict:

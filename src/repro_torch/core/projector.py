@@ -700,6 +700,117 @@ def rbd_gradient(grads, plan: Plan, seed, *, backend: str = "torch") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# materialized bases (trajectory_pca / gradient_informed BasisSpec)
+# ---------------------------------------------------------------------------
+#
+# The random path never stores a basis.  The materialized path inverts the
+# trade: the basis IS data, a (d, q_packed) row-orthonormal tensor carried
+# on ``core.rbd.RBDState.basis`` and refreshed by the training loop's
+# collector (``train.loop.BasisCollector``).  The rows are orthonormal by
+# construction (every refresh ends in a QR), so projection and
+# reconstruction are two dense products with no normalization factor.  No
+# kernel of the reference computes them: they are library matmuls, as the
+# reference's are XLA's.
+
+
+def materialize_random_basis(plan: Plan, layout, seed, *, device,
+                             generator=None) -> torch.Tensor:
+    """Initial (total_dim, q_packed) row-orthonormal basis: a Gaussian
+    (q, d) draw from ``generator`` (default: a generator on ``device``
+    seeded with ``seed & 0x7FFFFFFF``), its padding rows zeroed, then
+    :func:`orthonormal_rows`.  A zero row of the input stays exactly zero,
+    so an update through the basis never writes a padding slot.  The
+    values are not the reference's (``jax.random`` is not reproducible
+    here); the properties are."""
+    d = int(plan.total_dim)
+    q = int(layout.q_packed)
+    if q < d:
+        raise ValueError(
+            f"materialized basis needs q_packed >= d ({q} < {d})")
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(
+            int(seed) & 0x7FFFFFFF)
+    a = torch.randn((q, d), generator=generator, dtype=torch.float32,
+                    device=device)
+    a.mul_(torch.from_numpy(layout.param_valid).to(device)[:, None])
+    return orthonormal_rows(a)
+
+
+# rows of the (q, d) input taken to float64 at a time by orthonormal_rows
+QR_CHUNK_ROWS = 1 << 22
+
+
+def orthonormal_rows(a: torch.Tensor,
+                     chunk: int = QR_CHUNK_ROWS) -> torch.Tensor:
+    """The (d, q) transpose of the Q of a tall (q, d) float32 matrix:
+    rows orthonormal, spanning ``a``'s columns.  CholeskyQR2: twice, the
+    (d, d) Gram matrix summed in float64 over row chunks, its Cholesky
+    factor R, and ``a <- a R^-1`` in float64, rounded to float32 in place.
+    A QR by Householder reflections (``torch.linalg.qr``) faults on the
+    card once q * d passes 2**31 (q = 151,049,216, d = 25 at full
+    qwen2-0.5b width); this one needs no workspace beyond a chunk, and a
+    zero row of ``a`` stays exactly zero."""
+    q, d = a.shape
+    eye = torch.eye(d, dtype=torch.float64, device=a.device)
+    for _ in range(2):
+        gram = torch.zeros((d, d), dtype=torch.float64, device=a.device)
+        for i in range(0, q, chunk):
+            c = a[i: i + chunk].to(torch.float64)
+            gram.addmm_(c.T, c)
+        r = torch.linalg.cholesky(gram, upper=True)
+        r_inv = torch.linalg.solve_triangular(r, eye, upper=True)
+        for i in range(0, q, chunk):
+            rows = a[i: i + chunk]
+            rows.copy_(rows.to(torch.float64) @ r_inv)
+    return a.T.contiguous()
+
+
+def refresh_materialized_basis(basis, snapshots):
+    """New (d, q_packed) row-orthonormal basis from collected snapshots
+    (host numpy, the reference's code line for line, so the same inputs
+    give the same bits).
+
+    The top right-singular vectors of the (m, q) snapshot matrix lead
+    (rows norm-scaled first); rows of the OLD basis fill the remaining
+    slots, and one float64 QR re-orthonormalizes the stack.  All-zero
+    snapshots leave the old basis unchanged."""
+    basis = np.asarray(basis, np.float32)
+    d = basis.shape[0]
+    m = np.asarray(snapshots, np.float32).reshape(-1, basis.shape[1])
+    norms = np.linalg.norm(m, axis=1)
+    m = m[norms > 1e-30]
+    if not len(m):
+        return basis
+    m = m / np.linalg.norm(m, axis=1, keepdims=True)
+    _, _, vt = np.linalg.svd(m, full_matrices=False)
+    cand = np.concatenate([vt[:d], basis], axis=0)
+    qmat, _ = np.linalg.qr(cand.T.astype(np.float64))
+    new = np.ascontiguousarray(qmat[:, :d].T.astype(np.float32))
+    # positions the old basis never touched (padding) stay exactly zero
+    new *= (np.abs(basis) > 0).any(axis=0).astype(np.float32)
+    return new
+
+
+def project_materialized(basis: torch.Tensor,
+                         g_packed: torch.Tensor) -> torch.Tensor:
+    """(d,) coordinates of the packed gradient on the stored basis: one
+    (d, q) @ (q,) product, no kernel launch.  This buffer is what the
+    data group's mean sees."""
+    return torch.mv(basis, g_packed.to(torch.float32))
+
+
+def reconstruct_apply_materialized(coords, basis, theta,
+                                   eta) -> torch.Tensor:
+    """``theta' = theta - eta * (c @ B)`` on the packed buffer: one (d,) @
+    (d, q) product, rounded, then scaled and subtracted (the reference's
+    two roundings).  The rows are orthonormal, so there is no
+    normalization factor."""
+    return (theta.to(torch.float32)
+            - float(np.float32(eta))
+            * (coords.to(torch.float32) @ basis))
+
+
+# ---------------------------------------------------------------------------
 # backend dispatch (plain PyTorch vs the CUDA kernels)
 # ---------------------------------------------------------------------------
 

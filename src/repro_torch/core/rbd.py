@@ -25,7 +25,9 @@ __all__ = ["BASIS_SPECS", "RBDState", "RandomBasesTransform"]
 
 class RBDState(NamedTuple):
     step: int        # step counter (folds into the per-step seed)
-    basis: Any = ()  # materialized basis (not ported: ROADMAP.md Queue A 15)
+    basis: Any = ()  # the (total_dim, q_packed) float32 row-orthonormal
+                     # basis on the materialized path (trajectory_pca /
+                     # gradient_informed); () on the random path
 
 
 @dataclasses.dataclass(frozen=True)

@@ -33,6 +33,11 @@
     ... --rbd-backend cuda --guard --sentinel-every 2 \
         --resilience-dir runs/res --snapshot-every 50 [--resume]
 
+    # the basis layer: a materialized basis refreshed from the trajectory
+    # (or the gradient history) every 3 steps, L-BFGS in its coordinates
+    ... --device cpu --rbd-backend cuda --basis trajectory_pca \
+        --coord-optimizer lbfgs --basis-refresh-every 3 --steps 6
+
 Flag names are the reference's for what the port runs: ``--mode
 sharedseed`` (the paper's Algorithm 1) over ``--data K`` ranks, each
 taking its shard of the global batch, with one coordinate collective per
@@ -50,7 +55,13 @@ naming its ROADMAP item.  Runs on the GPU (NCCL) unless ``--device cpu``
 (gloo).  The resilience flags (``--guard``, ``--resilience-dir``,
 ``--snapshot-every``, ``--sentinel-every``, ``--on-divergence``,
 ``--resume``) and ``--checkpoint-dir`` are the reference's; they need the
-packed step.
+packed step.  ``--basis trajectory_pca | gradient_informed`` plans the
+materialized basis (``materialized_packed``: two matmuls a step, no kernel
+launch) where a resident basis can exist, refreshed by
+``train.loop.BasisCollector`` every ``--basis-refresh-every`` steps;
+``--coord-optimizer`` supersedes ``--optimizer`` and adds ``lbfgs`` and
+``newton``, which need a basis fixed between steps (a materialized
+``--basis``).
 """
 
 from __future__ import annotations
@@ -71,6 +82,7 @@ class RunResult(NamedTuple):
     monitor: Any = None        # the ResilienceMonitor (resilience on)
     recovery: Any = None       # --resume: recover()'s info, plus the kernel
                                # launches of the restore and replay
+    collector: Any = None      # the BasisCollector (materialized --basis)
 
 
 def main(argv=None) -> RunResult:
@@ -105,6 +117,13 @@ def main(argv=None) -> RunResult:
                     help="coordinate-space optimizer; state lives on the "
                          "packed (d,) buffer, still two launches per step "
                          "(on the parameters under full_space)")
+    ap.add_argument("--coord-optimizer", default=None,
+                    choices=["sgd", "momentum", "adam", "lbfgs", "newton"],
+                    help="coordinate-space optimizer, superseding "
+                         "--optimizer; lbfgs/newton run second-order "
+                         "updates on the (d,) coordinate buffer and "
+                         "require a basis FIXED between steps (a "
+                         "materialized --basis, or FPD)")
     ap.add_argument("--weight-decay", type=float, default=0.0,
                     help="couples the update to the full-space parameters: "
                          "plans the full_space strategy")
@@ -138,6 +157,18 @@ def main(argv=None) -> RunResult:
                          "reason), or the CPU-testable emulated stub.  "
                          "In this port hw is a tile-keyed Philox4x32-10 "
                          "in the CUDA kernels, on a card")
+    ap.add_argument("--basis", default="random",
+                    choices=["random", "trajectory_pca",
+                             "gradient_informed"],
+                    help="BasisSpec, one level above --prng-impl: the "
+                         "paper's per-step random redraw, or a "
+                         "MATERIALIZED basis stored on RBDState and "
+                         "refreshed from trajectory PCA / gradient "
+                         "history (degrades to random with a printed "
+                         "reason where no resident basis can exist)")
+    ap.add_argument("--basis-refresh-every", type=int, default=0,
+                    help="materialized-basis refresh cadence in steps "
+                         "(0: a default derived from the subspace dim)")
     ap.add_argument("--reduced", action="store_true",
                     help="use the smoke-scale variant of the arch")
     ap.add_argument("--device", default="cuda",
@@ -194,7 +225,9 @@ def main(argv=None) -> RunResult:
         seq=args.seq, grad_accum_steps=args.grad_accum_steps, lr=args.lr,
         rbd_dim=args.rbd_dim, normalization=args.normalization,
         rbd_backend=args.rbd_backend, packed=args.packed,
-        prng_impl=args.prng_impl, optimizer=args.optimizer,
+        prng_impl=args.prng_impl, basis=args.basis,
+        basis_refresh_every=args.basis_refresh_every,
+        optimizer=(args.coord_optimizer or args.optimizer),
         weight_decay=args.weight_decay,
         momentum_beta=args.momentum_beta, nesterov=args.nesterov,
         adam_b1=args.adam_b1, adam_b2=args.adam_b2, adam_eps=args.adam_eps,
@@ -217,10 +250,11 @@ def run_training(cfg, *, mode="sharedseed", rbd_mode="shared_basis", data=1,
                  model=1, steps=10, batch=8, seq=128, grad_accum_steps=1,
                  lr=0.125, rbd_dim=1024, normalization="rsqrt_dim",
                  rbd_backend="auto", packed="auto", prng_impl="threefry",
-                 optimizer="sgd", weight_decay=0.0, momentum_beta=0.9,
-                 nesterov=False, adam_b1=0.9, adam_b2=0.999, adam_eps=1e-8,
-                 device="cuda", kernel_times=False, resilience=None,
-                 resume=False, checkpoint_dir=None) -> RunResult:
+                 basis="random", basis_refresh_every=0, optimizer="sgd",
+                 weight_decay=0.0, momentum_beta=0.9, nesterov=False,
+                 adam_b1=0.9, adam_b2=0.999, adam_eps=1e-8, device="cuda",
+                 kernel_times=False, resilience=None, resume=False,
+                 checkpoint_dir=None) -> RunResult:
     """Train ``steps`` optimizer steps (see the module docstring).
     ``resilience``: an optional ``core.resilience.ResilienceConfig``;
     ``resume`` recovers from its directory first (the newest intact
@@ -242,7 +276,9 @@ def run_training(cfg, *, mode="sharedseed", rbd_mode="shared_basis", data=1,
                     seq=seq, grad_accum_steps=grad_accum_steps, lr=lr,
                     rbd_dim=rbd_dim, normalization=normalization,
                     rbd_backend=resolve_backend(rbd_backend, mesh.device),
-                    packed=packed, prng_impl=prng_impl, optimizer=optimizer,
+                    packed=packed, prng_impl=prng_impl, basis=basis,
+                    basis_refresh_every=basis_refresh_every,
+                    optimizer=optimizer,
                     weight_decay=weight_decay, momentum_beta=momentum_beta,
                     nesterov=nesterov, adam_b1=adam_b1, adam_b2=adam_b2,
                     adam_eps=adam_eps, device=mesh.device,
@@ -254,9 +290,9 @@ def run_training(cfg, *, mode="sharedseed", rbd_mode="shared_basis", data=1,
 
 def _run(cfg, *, mode, rbd_mode, data, model, mesh, steps, batch, seq,
          grad_accum_steps, lr, rbd_dim, normalization, rbd_backend, packed,
-         prng_impl, optimizer, weight_decay, momentum_beta, nesterov, adam_b1,
-         adam_b2, adam_eps, device, kernel_times, resilience, resume,
-         checkpoint_dir) -> RunResult:
+         prng_impl, basis, basis_refresh_every, optimizer, weight_decay,
+         momentum_beta, nesterov, adam_b1, adam_b2, adam_eps, device,
+         kernel_times, resilience, resume, checkpoint_dir) -> RunResult:
     import torch
     import torch.distributed as dist
 
@@ -268,13 +304,15 @@ def _run(cfg, *, mode, rbd_mode, data, model, mesh, steps, batch, seq,
     from repro_torch.launch import mesh as meshlib
     from repro_torch.models.registry import get_model
     from repro_torch.train import step as steplib
+    from repro_torch.train.loop import BasisCollector
 
     rank = dist.get_rank()
     net = get_model(cfg)
     rbd_cfg = RBDConfig(enabled=(mode != "sgd"), total_dim=rbd_dim,
                         mode=rbd_mode, normalization=normalization,
                         backend=rbd_backend, packed=packed,
-                        prng_impl=prng_impl)
+                        prng_impl=prng_impl, basis=basis,
+                        basis_refresh_every=basis_refresh_every)
     tcfg = TrainConfig(model=cfg, rbd=rbd_cfg, learning_rate=lr,
                        steps=steps, batch_size=batch, seq_len=seq,
                        grad_accum_steps=grad_accum_steps,
@@ -363,6 +401,9 @@ def _run(cfg, *, mode, rbd_mode, data, model, mesh, steps, batch, seq,
         monitor = res_lib.ResilienceMonitor(resilience, sub_opt)
     repair = (resilient and resilience.on_divergence == "repair"
               and axis_name is not None)
+    # materialized BasisSpecs: the host-side snapshot ring and its periodic
+    # refresh (None on the random path)
+    collector = BasisCollector.build(sub_opt, tcfg)
     stream = synthetic.lm_batches(tcfg.seed, batch, seq, cfg.vocab,
                                   device=device)
     # keep the data stream step-aligned on resume: each optimizer step
@@ -391,6 +432,12 @@ def _run(cfg, *, mode, rbd_mode, data, model, mesh, steps, batch, seq,
                 raise res_lib.SimulatedWorkerKill(f"fault plan kills step {i}")
             before = dict(rbd_step.VARIANT_LAUNCHES)
             state, metrics = train_step(state, fetch())
+            if collector is not None:
+                refreshes = collector.refreshes
+                state = collector.observe(state, metrics, i)
+                if collector.refreshes > refreshes:
+                    say(f"basis refresh {collector.refreshes} after step {i} "
+                        f"({collector.spec})")
             losses.append(float(metrics["loss"]))
             if i == start and rbd_cfg.enabled:
                 # the kernel variants (PRNG impl, double buffer) step 0 ran
@@ -446,7 +493,7 @@ def _run(cfg, *, mode, rbd_mode, data, model, mesh, steps, batch, seq,
             steps)
         say(f"checkpoint saved to {checkpoint_dir}")
     return RunResult(state, losses, theta_init_sum, sub_opt, peak,
-                     kernel_ms, collectives, monitor, recovery)
+                     kernel_ms, collectives, monitor, recovery, collector)
 
 
 def nest_params(params: dict) -> dict:

@@ -1,5 +1,6 @@
 """Uniform model API (port of ``repro.models.registry``), plus the bridge
-that carries the reference's parameters into the port."""
+that carries the reference's parameters and optimizer state into the
+port."""
 
 from __future__ import annotations
 
@@ -103,3 +104,35 @@ def slabs_from_reference(padded, slayout, *,
                          f"buffer, got {tuple(buf.shape)}")
     return [buf[a:b].clone() for a, b in
             map(slayout.slab_range, range(slayout.n_shards))]
+
+
+def rbd_state_from_reference(state, *, device="cuda"):
+    """The reference's ``RBDState`` (numpy arrays: the step counter and,
+    on the materialized path, the (total_dim, q_packed) basis) as the
+    port's: a host step counter and the basis on ``device``, or ()."""
+    device = resolve_device(device)
+    from repro_torch.core.rbd import RBDState
+
+    basis = state.basis
+    if not isinstance(basis, tuple):
+        basis = torch.from_numpy(np.array(basis, dtype=np.float32)).to(
+            device)
+    return RBDState(step=int(np.asarray(state.step)), basis=basis)
+
+
+def opt_state_from_reference(state, *, device="cuda"):
+    """The reference's coordinate optimizer state (numpy arrays) as the
+    port's: its NamedTuples (``AdamState``, ``LBFGSState``,
+    ``NewtonState``, ``ScheduleState``) by name, a ``chain``'s tuple
+    item by item, each array as a tensor of its dtype on ``device``."""
+    device = resolve_device(device)
+    from repro_torch.optim import transforms as opt
+
+    def convert(x):
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return getattr(opt, type(x).__name__)(*map(convert, x))
+        if isinstance(x, (tuple, list)):
+            return type(x)(map(convert, x))
+        return torch.from_numpy(np.array(x)).to(device)
+
+    return convert(state)

@@ -3,14 +3,25 @@
 :class:`SubspaceOptimizer` owns the whole update chain of one step
 
     packed gradient -> project (launch 1) -> [one coordinate collective]
-    -> coordinate-space optimizer (sgd | momentum | adam) -> reconstruct-
-    apply (launch 2)
+    -> coordinate-space optimizer (sgd | momentum | adam | lbfgs |
+    newton, with optional clipping before and an LR schedule after) ->
+    reconstruct-apply (launch 2)
 
 on the ``fused_packed`` strategy: the parameters stay packed in one
 ``(q_packed,)`` float32 buffer across steps, and the step is two kernel
 launches whatever the number of compartments.  :func:`plan_from_flags`
 is the reference's decision function, strategy names and reason strings
 unchanged.
+
+``materialized_packed`` (``basis=trajectory_pca | gradient_informed``)
+keeps the basis itself as data, a (total_dim, q_packed) row-orthonormal
+tensor on ``RBDState.basis``: the step is one projection product, one
+(d,) all-reduce over the data group, the coordinate optimizer and one
+apply product -- no kernel launch -- and the training loop's
+``train.loop.BasisCollector`` refreshes the basis.  The second-order
+optimizers pair coordinate gradients across steps, so they run only where
+the basis is fixed between steps: the materialized path, or FPD
+(``redraw=False``) on the packed step.
 
 The unpacked strategies keep the parameters as a map ``{leaf name:
 tensor}`` and run one launch per ``LeafPlan`` instead:
@@ -56,9 +67,9 @@ and the decision stays on the device: no host synchronization is added
 to the step.  :meth:`SubspaceOptimizer.apply_exchanged` is the
 post-exchange half both the live step and the coordinate replay run.
 
-Pjit-style parameter sharding (ROADMAP.md Queue A 20), materialized bases
-and second-order optimizers (15) and resilience on the model-sharded
-slabs (21) raise ``NotImplementedError`` naming their item.
+Pjit-style parameter sharding (ROADMAP.md Queue A 20) and resilience on
+the model-sharded slabs (21) raise ``NotImplementedError`` naming their
+item.
 """
 
 from __future__ import annotations
@@ -74,10 +85,6 @@ from repro_torch.core import (compartments, distributed, projector,
 from repro_torch.core.compartments import PACKABLE_NORMALIZATIONS
 from repro_torch.core.rbd import RandomBasesTransform, RBDState
 from repro_torch.optim import transforms as opt
-
-_NOT_PORTED = {
-    "materialized_packed": "ROADMAP.md Queue A 15 (basis layer)",
-}
 
 
 class ExecutionPlan(NamedTuple):
@@ -433,6 +440,14 @@ class SubspaceOptimizer:
     model_shards: int = 1
     overlap: str = "auto"
     switch_policy: str = "reset"
+    coord_clip_norm: float = 0.0      # >0: clip the (d,) coordinate
+                                      # gradient to this global norm
+                                      # before the optimizer
+    lr_schedule: str = "constant"     # LR schedule after the optimizer
+                                      # ("constant" | "cosine")
+    lr_warmup_steps: int = 0          # linear warmup steps of the schedule
+    lr_total_steps: int = 0           # cosine horizon (TrainConfig.steps)
+    lbfgs_history: int = 8            # (m, d) ring depth of lbfgs
     log_update_norm: bool = True
     params_template: Any = None       # {name: tensor} of shapes/dtypes
                                       # (meta tensors will do)
@@ -452,11 +467,6 @@ class SubspaceOptimizer:
                     k_workers: int = 1, model_axis=None,
                     model_shards: int = 1,
                     device=None) -> "SubspaceOptimizer":
-        if (tcfg.coord_clip_norm or tcfg.lr_schedule != "constant"
-                or tcfg.lr_warmup_steps):
-            raise NotImplementedError(
-                "coordinate clipping and LR schedules are not ported yet "
-                "(ROADMAP.md Queue A 15)")
         return cls(
             transform=transform,
             optimizer=tcfg.optimizer,
@@ -475,6 +485,11 @@ class SubspaceOptimizer:
             model_axis=model_axis,
             model_shards=model_shards,
             switch_policy=tcfg.rbd.switch_policy,
+            coord_clip_norm=tcfg.coord_clip_norm,
+            lr_schedule=tcfg.lr_schedule,
+            lr_warmup_steps=tcfg.lr_warmup_steps,
+            lr_total_steps=tcfg.steps,
+            lbfgs_history=tcfg.lbfgs_history,
             log_update_norm=tcfg.log_update_norm,
             params_template=params_template,
             device=device,
@@ -524,10 +539,6 @@ class SubspaceOptimizer:
         """The execution plan, or ``NotImplementedError`` naming the
         ROADMAP item of a route this slice does not run."""
         eplan = self.plan_execution()
-        if eplan.strategy in _NOT_PORTED:
-            raise NotImplementedError(
-                f"strategy {eplan.strategy!r} is not ported yet "
-                f"({_NOT_PORTED[eplan.strategy]}): {eplan.reason}")
         if self.model_axis is None and self.model_sharded \
                 or self.model_axis is not None \
                 and eplan.strategy != "fused_packed":
@@ -542,10 +553,6 @@ class SubspaceOptimizer:
                 "the sequential K-worker simulation does not compose with "
                 "model_axis (the slab projection needs real groups); run "
                 "over a data group")
-        if self.optimizer in opt.SECOND_ORDER_OPTIMIZERS:
-            raise NotImplementedError(
-                f"the {self.optimizer} coordinate optimizer is not ported "
-                "yet (ROADMAP.md Queue A 15)")
         if self.resilience_active and self.model_axis is not None:
             raise NotImplementedError(
                 "resilience (guard/sentinel/replay capture/fault injection) "
@@ -568,41 +575,102 @@ class SubspaceOptimizer:
                 + eplan.reason)
 
     def _optimizer(self) -> opt.Transform:
-        return opt.get_optimizer(
+        base = opt.get_optimizer(
             self.optimizer, momentum_beta=self.momentum_beta,
             nesterov=self.nesterov, adam_b1=self.adam_b1,
             adam_b2=self.adam_b2, adam_eps=self.adam_eps,
-            learning_rate=self.learning_rate)
+            learning_rate=self.learning_rate,
+            lbfgs_history=self.lbfgs_history)
+        pre = ([opt.clip_by_global_norm(self.coord_clip_norm)]
+               if self.coord_clip_norm else [])
+        post = ([opt.schedule(self.lr_schedule,
+                              total_steps=self.lr_total_steps,
+                              warmup_steps=self.lr_warmup_steps)]
+                if (self.lr_schedule != "constant"
+                    or self.lr_warmup_steps) else [])
+        if not pre and not post:
+            # the bare optimizer: its state (and every snapshot of it) is
+            # unchanged by the chain existing
+            return base
+        return opt.chain(*pre, base, *post)
+
+    def _validate_second_order(self, eplan) -> None:
+        """The second-order coordinate optimizers pair gradients ACROSS
+        steps, so the basis must be fixed between steps: materialized
+        (trajectory_pca / gradient_informed) or FPD (redraw=False).
+        Per-step random redraw makes coordinate gradients incomparable,
+        and the per-leaf / joint (K, d) states have no single (d,) buffer
+        for the curvature history."""
+        if self.optimizer not in opt.SECOND_ORDER_OPTIMIZERS:
+            return
+        t = self.transform
+        if eplan.strategy not in ("materialized_packed", "fused_packed") \
+                or self.joint_subspace:
+            raise ValueError(
+                f"{self.optimizer} needs the single (d,)-shaped packed "
+                "coordinate buffer for its curvature history; this "
+                f"config plans {eplan.strategy!r} "
+                f"(joint_subspace={self.joint_subspace}) -- "
+                + eplan.reason)
+        fixed = eplan.materialized or (t is not None and not t.redraw
+                                       and not t.steps_fpd)
+        if not fixed:
+            raise ValueError(
+                f"{self.optimizer} pairs coordinate gradients across "
+                "steps, which requires a basis FIXED between steps: a "
+                "materialized BasisSpec (basis=trajectory_pca / "
+                "gradient_informed) or FPD (redraw=False, steps_fpd=0). "
+                "A per-step random redraw makes coordinate gradients "
+                "incomparable across steps.")
 
     # -- state --------------------------------------------------------------
 
-    def init_rbd_state(self, params=None):
+    def init_rbd_state(self, params=None, *, device=None):
+        """The basis state; on the materialized plan it carries the
+        initial basis, drawn from the base seed on ``device`` (default:
+        the parameters' device, else the optimizer's)."""
         if self.transform is None:
             return ()
-        return self.transform.init(params)
+        state = self.transform.init(params)
+        if self.plan_execution().materialized:
+            t = self.transform
+            if device is None:
+                device = (self.device if params is None
+                          else _device_of(params))
+            state = state._replace(basis=projector.materialize_random_basis(
+                t.plan, t.plan.packed(), t.base_seed, device=device))
+        return state
 
     def init_opt_state(self, params=None, *, device=None):
         """Optimizer state (SGD is stateless): on the (d_packed,) or
         gathered (K, d_packed) coordinate buffer on the packed path, on
-        the per-leaf (n_stack, dim) coordinate list on the per-leaf
-        coordinate-space strategies, and shaped like ``params`` (the
-        parameter map, required) on ``full_space``.  ``device`` defaults
-        to the parameters' device."""
+        the (total_dim,) buffer on the materialized path, on the per-leaf
+        (n_stack, dim) coordinate list on the per-leaf coordinate-space
+        strategies, and shaped like ``params`` (the parameter map,
+        required) on ``full_space``.  ``device`` defaults to the
+        parameters' device, else the optimizer's (``params=None``: the
+        collector's re-zeroing after a refresh)."""
         eplan = self.check_supported()
+        self._validate_second_order(eplan)
         if not eplan.coord_space:
             if not isinstance(params, dict):
                 raise ValueError("the full_space optimizer state is shaped "
                                  "like the parameter map: pass params")
             return self._optimizer().init(params)
         if device is None:
-            device = _device_of(params)
+            device = self.device if params is None else _device_of(params)
         return self._optimizer().init(self._coord_template(device, eplan))
 
     def _coord_template(self, device, eplan):
         """Zeros shaped like the post-exchange coordinates: the packed
         (d_packed,) buffer -- (K, d_packed) for the K*d-dimensional joint
-        subspace -- or one (n_stack, dim) block per LeafPlan."""
+        subspace -- the materialized path's (total_dim,) buffer (exactly
+        total_dim live rows, no dir-block padding), or one (n_stack, dim)
+        block per LeafPlan."""
         plan = self.transform.plan
+        if eplan.materialized:
+            return torch.zeros((plan.total_dim,), dtype=torch.float32,
+                               device=device)
         if eplan.strategy != "fused_packed":
             return [torch.zeros((lp.n_stack, lp.dim), dtype=torch.float32,
                                 device=device) for lp in plan.leaves]
@@ -694,9 +762,13 @@ class SubspaceOptimizer:
         back on ``aux.guard``)."""
         self._check_resilience(self.plan_execution())
         eplan = self.check_supported()
+        self._validate_second_order(eplan)
         if eplan.strategy == "full_space":
             return self._full_space_step(params, grads, rbd_state,
                                          opt_state)
+        if eplan.materialized:
+            return self._materialized_step(params, grads, rbd_state,
+                                           opt_state)
         if eplan.strategy != "fused_packed":
             return self._per_leaf_step(
                 params, grads, rbd_state, opt_state,
@@ -1052,6 +1124,23 @@ class SubspaceOptimizer:
               if self.joint_subspace else projector.reconstruct_apply_packed)
         return fn(coords_u, plan, seed, params, eta, layout=plan.packed(),
                   prepacked=True, **kw), in_place
+
+    def _materialized_step(self, params, grads, rbd_state, opt_state):
+        """One step on the MATERIALIZED basis: coordinates = basis @
+        g_packed, one (d,) all-reduce mean over the data group, the
+        coordinate optimizer, theta - lr * (c @ basis).  No kernel launch
+        and one collective; the collector refreshes the basis outside the
+        step."""
+        basis = rbd_state.basis
+        coords = projector.project_materialized(basis, grads)
+        if self.axis_name is not None:
+            coords, _ = distributed.shared_basis_packed_exchange(
+                coords, None, self.axis_name)
+        coords_u, new_opt = self._optimizer().update(coords, opt_state)
+        new_params = projector.reconstruct_apply_materialized(
+            coords_u, basis, params, self.learning_rate)
+        return (new_params, RBDState(step=rbd_state.step + 1, basis=basis),
+                new_opt, self._delta_aux(params, new_params, False))
 
     def _per_leaf_step(self, params, grads, rbd_state, opt_state, *,
                        fused: bool):

@@ -19,6 +19,10 @@ declared as well, ``TrainState.params`` is this rank's slab of the
 model-sharded packed buffer: the step all-gathers the slabs for the
 forward pass and keeps its own slab of the gradient.
 
+On the materialized ``gradient_informed`` basis the metrics carry
+``basis_grad``, the packed gradient (averaged over the data group) that
+``train.loop.BasisCollector`` refreshes the basis from.
+
 With ``resilience`` (a ``core.resilience.ResilienceConfig``) the packed
 step runs the non-finite guard (``TrainState.guard``), the divergence
 sentinel, the replay capture and fault injection, and the metrics gain
@@ -176,7 +180,9 @@ def make_train_step(model: Model, tcfg: TrainConfig,
         model_axis=model_axis,
         model_shards=model_shards if model_axis is not None else 1,
         device=device, resilience=resilience)
-    split = sub_opt.check_supported().strategy == "fused_packed"
+    eplan = sub_opt.check_supported()
+    split = eplan.strategy == "fused_packed"
+    emit_basis_grad = eplan.materialized and eplan.basis == "gradient_informed"
     guard_on = sub_opt.guard is not None
     sharded = model_axis is not None
 
@@ -261,6 +267,12 @@ def make_train_step(model: Model, tcfg: TrainConfig,
                     params, grads, state.rbd_state, state.opt_state,
                     state.guard)
         metrics.update(loss=loss, update_norm=aux.update_norm)
+        if emit_basis_grad:
+            # the collector needs the GLOBAL mean gradient: a (q_packed,)
+            # all-reduce of this configuration's metrics path only
+            metrics["basis_grad"] = (
+                grads if axis_name is None
+                else distributed.basis_grad_mean(grads, axis_name))
         if guard_on:
             metrics.update(guard_reason=aux.reason,
                            guard_count=aux.guard.nonfinite_count,

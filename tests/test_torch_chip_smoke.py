@@ -137,3 +137,22 @@ def test_ab_builds_are_shared_by_equal_sources(tmp_path):
     head.write_text(head.read_text() + "\n// another tree\n")
     assert build.output_path("rbd_flat.cu", other) != build.output_path(
         "rbd_flat.cu")
+
+
+def test_materialized_bytes_and_bound():
+    """Phase 19 (b)'s byte bounds: the 15.1 GB basis read once, plus the
+    vectors; at the H100's HBM rate the projection's bound is ~4.69 ms."""
+    d, q = 25, 151_049_216
+    b = chip_smoke.materialized_bytes(d, q)
+    assert b["project_materialized"] == 4 * d * q + 4 * q + 4 * d
+    assert b["reconstruct_apply_materialized"] == 4 * d * q + 4 * d + 8 * q
+    ms = 1e3 * b["project_materialized"] / chip_smoke.HBM_BYTES_PER_S
+    assert ms == pytest.approx(4.689, abs=1e-3)
+
+
+def test_gram_error_of_a_basis():
+    import torch
+
+    q, _ = torch.linalg.qr(torch.randn(50, 4, dtype=torch.float64))
+    assert chip_smoke._gram_error(q.T.float()) < 1e-6
+    assert chip_smoke._gram_error(2 * q.T.float()) == pytest.approx(3.0)

@@ -1267,3 +1267,96 @@ def test_resume_is_bit_exact_on_the_card(cuda, tmp_path, mode, k):
     assert torch.equal(done.params, ref.params)
     assert _res_leaves_equal(done.opt_state, ref.opt_state)
     assert _res_leaves_equal(done.guard, ref.guard)
+
+
+# ---------------------------------------------------------------------------
+# the basis layer: the materialized products and L-BFGS on the card
+# ---------------------------------------------------------------------------
+
+
+def _materialized_plan():
+    return compartments.make_plan({"w": (640, 33), "layers/k": (3, 700, 10),
+                                   "s": ()}, 40,
+                                  is_stacked=lambda n: n.startswith("layers"))
+
+
+def test_materialized_basis_on_the_card(cuda):
+    """The card's basis has the CPU's properties: rows orthonormal within
+    1e-5, padding columns exactly zero, the same seed the same bits."""
+    plan = _materialized_plan()
+    layout = plan.packed()
+    basis = projector.materialize_random_basis(plan, layout, 7, device=cuda)
+    assert basis.device.type == cuda.type
+    assert basis.shape == (plan.total_dim, layout.q_packed)
+    gram = (basis.double() @ basis.double().T).cpu()
+    assert float((gram - torch.eye(plan.total_dim,
+                                   dtype=torch.float64)).abs().max()) <= 1e-5
+    assert bool((basis[:, ~_valid(layout, cuda)] == 0).all())
+    assert torch.equal(basis, projector.materialize_random_basis(
+        plan, layout, 7, device=cuda))
+
+
+def test_materialized_products_match_the_cpu(cuda):
+    """``project_materialized`` and ``reconstruct_apply_materialized`` on
+    the card against the same products on the CPU: within 1e-5 of the
+    largest magnitude (float32 sums in another order; TF32 off)."""
+    plan = _materialized_plan()
+    layout = plan.packed()
+    basis = projector.materialize_random_basis(plan, layout, 3, device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    g = torch.randn(layout.q_packed, generator=gen)
+    theta = torch.randn(layout.q_packed, generator=gen)
+    c = torch.randn(plan.total_dim, generator=gen)
+    u_cpu = projector.project_materialized(basis, g)
+    u = projector.project_materialized(basis.to(cuda), g.to(cuda)).cpu()
+    assert float((u - u_cpu).abs().max()) <= 1e-5 * float(
+        u_cpu.abs().max())
+    new_cpu = projector.reconstruct_apply_materialized(c, basis, theta, 0.3)
+    new = projector.reconstruct_apply_materialized(
+        c.to(cuda), basis.to(cuda), theta.to(cuda), 0.3).cpu()
+    assert float((new - new_cpu).abs().max()) <= 1e-5 * float(
+        (new_cpu - theta).abs().max()) + 2 * 2.0 ** -23 * float(
+        theta.abs().max())
+
+
+@pytest.mark.parametrize("name", ["lbfgs", "newton", "chain"])
+def test_second_order_on_the_card_matches_the_cpu(cuda, name):
+    """14 steps of L-BFGS (history 4, so the ring wraps; two repeated
+    gradients skip their pairs), BFGS and clip -> lbfgs -> cosine schedule
+    on the card against the CPU: every output and state field within 1e-4
+    of its largest magnitude."""
+    from repro_torch.optim import transforms as opt
+
+    def make():
+        if name == "lbfgs":
+            return opt.lbfgs(4, 0.05)
+        if name == "newton":
+            return opt.newton(0.05)
+        return opt.chain(opt.clip_by_global_norm(30.0), opt.lbfgs(4, 0.05),
+                         opt.schedule("cosine", total_steps=10,
+                                      warmup_steps=3))
+
+    rs = np.random.default_rng(0)
+    qm, _ = np.linalg.qr(rs.standard_normal((24, 24)))
+    h = (qm * np.logspace(0, 1.5, 24)) @ qm.T
+    x = rs.standard_normal(24)
+    tr_cpu, tr_gpu = make(), make()
+    st_cpu = tr_cpu.init(torch.zeros(24))
+    st_gpu = tr_gpu.init(torch.zeros(24, device=cuda))
+    prev = None
+    for k in range(14):
+        g = prev if k in (4, 9) else torch.from_numpy(
+            (h @ x).astype(np.float32))
+        prev = g
+        x = x - 0.05 * g.numpy()
+        u_cpu, st_cpu = tr_cpu.update(g, st_cpu)
+        u_gpu, st_gpu = tr_gpu.update(g.to(cuda), st_gpu)
+        for a, b in zip([u_cpu] + opt.leaves(st_cpu),
+                        [u_gpu] + opt.leaves(st_gpu)):
+            b = b.cpu()
+            assert a.dtype == b.dtype and a.shape == b.shape
+            if not a.is_floating_point():
+                assert torch.equal(a, b)
+                continue
+            tol = 1e-4 * max(float(a.abs().max()), 1e-30)
+            assert float((a - b).abs().max()) <= tol, (name, k)

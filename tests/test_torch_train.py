@@ -136,19 +136,6 @@ def test_plan_from_flags_same_strategy_and_reasons(flags, backend):
 def test_unported_routes_raise_naming_roadmap():
     cfg = get_config("qwen2-0.5b").reduced(compute_dtype="float32")
     model = get_model(cfg)
-    for rbd, kw, item in [
-        (RBDConfig(total_dim=64, backend="cuda", basis="trajectory_pca"),
-         {}, "Queue A 15"),
-        (RBDConfig(total_dim=64, backend="cuda"), {"coord_clip_norm": 1.0},
-         "Queue A 15"),
-        (RBDConfig(total_dim=64, backend="cuda"), {"optimizer": "lbfgs"},
-         "Queue A 15"),
-    ]:
-        tcfg = TrainConfig(model=cfg, rbd=rbd,
-                           coord_clip_norm=kw.pop("coord_clip_norm", 0.0),
-                           optimizer=kw.pop("optimizer", "sgd"))
-        with pytest.raises(NotImplementedError, match=item):
-            steplib.make_train_step(model, tcfg, device="cpu", **kw)
     # pjit-style parameter sharding plans fused_per_leaf, which the port
     # runs unsharded only: refused, naming the pjit-style sharding item
     # (the packed slabs of a declared model axis are ported)
