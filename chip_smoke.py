@@ -200,9 +200,35 @@ result line:
                order reported; gradient_informed + momentum, 8 steps,
                refresh every 3: the basis changed, same shape,
                orthonormal within 1e-4;
+20. zoo      -- the decoder-only model zoo at full width, one drive at a
+               time, each freed before the next (ZOO_DRIVES): mixtral-8x7b
+               at depth 2, gemma3-4b at depth 6 (5 local layers, window
+               1,024, 1 global; the tied 262,144 vocabulary), rwkv6-1.6b
+               and zamba2-2.7b at full depth, llava-next-mistral-7b at
+               depth 2 with 576 patches, phi3.5-moe and granite-34b at
+               depth 1.  (a) The packed step (shared basis, Threefry) for
+               3 steps (1 for the depth-1 drives): 2 launches a step after
+               the first, finite losses, theta moved; launch ms, step wall,
+               peak memory.  (b) ``Engine.generate`` on one prompt (512
+               tokens; gemma3 2,048; llava 576 patches + 64) with 16 greedy
+               tokens: the prefill's flash launches one per attention layer
+               and per hybrid group (rwkv6 none), none in decode, ``len``
+               advancing; the last-position logits against forward's in
+               bf16 (within 4%, or twice the plain-version route's reading
+               where a deep stack carries more bf16 noise) and with f32
+               compute (PREFILL_F32_RTOL), and each bf16 route (kernel,
+               forward, plain version) against the f32 forward
+               (ZOO_BF16_F32_RTOL).  (c) The CUDA-core flash kernel
+               at gemma3's heads (8 / 4 of 256, window None and 1,024) and
+               zamba2's (32 / 32 of 80), bf16, at 2,048 and 8,192 tokens:
+               against its plain version within row 11's gate, reruns
+               bit-identical, timed in turns beside
+               ``scaled_dot_product_attention``;
 then the ``kernels`` line (eleven rows, then the six tile-keyed rows
-``[hw_emulated]``, ``[hw,db]`` and ``[hw]`` of rows 1-2; rows 1-2 count
-phase 19 (a)'s launches too), the card line and the result line.
+``[hw_emulated]``, ``[hw,db]`` and ``[hw]`` of rows 1-2, then the
+CUDA-core flash kernel's rows at head sizes 80 and 256; rows 1-2 count
+phase 19 (a)'s and phase 20's launches too, row 11 phase 20's), the card
+line and the result line.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -323,6 +349,37 @@ RESIDENT_DIM, RESIDENT_STEPS = 14, 3
 GRAM_CHUNK = 1 << 24
 ACCEPT_STEPS, ACCEPT_REFRESH, ACCEPT_TAIL = 40, 8, 5
 GI_STEPS, GI_REFRESH = 8, 3
+# phase 20: each zoo drive (arch, depth cut or None for full, batch, text
+# length, rbd-dim, steps, serving prompt length) at full width; the
+# drives' learning rate, theta's sample stride, the new tokens served; the
+# flash kernel at gemma3's (8 / 4 heads of 256) and zamba2's (32 / 32 of
+# 80) heads with their windows, at these lengths
+ZOO_DRIVES = (
+    ("mixtral-8x7b", 2, 4, 128, 256, 3, 512),
+    ("gemma3-4b", 6, 1, 2048, 256, 3, 2048),
+    ("rwkv6-1.6b", None, 8, 128, 1024, 3, 512),
+    ("zamba2-2.7b", None, 2, 128, 1024, 3, 512),
+    ("llava-next-mistral-7b", 2, 2, 64, 1024, 3, 64),
+    ("phi3.5-moe-42b-a6.6b", 1, 4, 128, 256, 1, 512),
+    ("granite-34b", 1, 4, 128, 256, 1, 512),
+)
+ZOO_LR, ZOO_THETA_STRIDE, ZOO_NEW = 0.1, 997, 16
+# The bf16 prefill's last-position logits against forward's: within 4% of
+# max|logits| (phase 16's limit for qwen2-0.5b's 24 layers), or twice what
+# the second sound route (the same layers through the plain version) reads
+# against forward, where a deeper stack carries more bf16 noise (zamba2's
+# 54 layers); the f32-compute check at PREFILL_F32_RTOL is the tight one.
+# Each of the three bf16 routes (kernel prefill, forward, plain version)
+# is also held against the f32 forward, which shares no bf16 cast with
+# them, within the drive's ZOO_BF16_F32_RTOL of its max|logits|: about
+# 1.5x the largest of the three read on the H100 at 700 W for the deep
+# recurrent stacks (rwkv6 33.8% on all three routes, zamba2 19.7-20.7%:
+# bf16 drift at full depth), 2% for the attention drives (0.19-0.70%)
+ZOO_SOUND_FACTOR = 2.0
+ZOO_BF16_F32_RTOL = {arch: 0.02 for arch, *_ in ZOO_DRIVES}
+ZOO_BF16_F32_RTOL.update({"rwkv6-1.6b": 0.5, "zamba2-2.7b": 0.32})
+ZOO_FLASH_HEADS = ((8, 4, 256, (None, 1024)), (32, 32, 80, (None,)))
+ZOO_FLASH_LENGTHS = (2048, 8192)
 # Peak rates of an H100 SM (sm_90) in lanes a clock, the bound's table:
 # 4 schedulers issue one warp instruction a clock each (128); the integer
 # ALU 64 (LOP3, shifts, compares, selects, I2FP); the FP32 "heavy" pipe 64,
@@ -2805,8 +2862,8 @@ def _prefill_run(cfg, model, torch):
         want = full[0, -1].float()
         del full
         got = logits[0, 0].float()
-        xp, _ = transformer._run_prompt(cfg, cp, prompt,
-                                        flash.flash_attention_plain)
+        xp = transformer._run_prompt(cfg, cp, prompt,
+                                     flash.flash_attention_plain)[0]
         sound = transformer._logits(cfg, cp, xp[:, -1:])[0, 0].float()
         del xp
         scale = float(want.abs().max())
@@ -4202,6 +4259,359 @@ def phase_basis(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the decoder-only model zoo through the packed step, the serving
+# engine and the flash kernel at head sizes 80 and 256
+# ---------------------------------------------------------------------------
+
+
+def _zoo_config(arch, depth):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return cfg if depth is None else dataclasses.replace(cfg, n_layers=depth)
+
+
+def _zoo_attention_launches(cfg) -> int:
+    """Flash launches of one prefill: one per attention layer, one per
+    hybrid group."""
+    from repro_torch.models import transformer
+
+    return ((cfg.n_layers if cfg.block_kind == "attn" else 0)
+            + transformer.n_groups(cfg))
+
+
+def _zoo_train(cfg, model, b, s, rbd_dim, steps, smi):
+    """The packed step (shared basis, Threefry) for ``steps`` steps, the
+    launches counted over the steps after the first (over the one step
+    when ``steps`` is 1).  Returns (state, optimizer, launches of rows
+    1-2, a log line)."""
+    import torch
+    from repro_torch.configs.base import InputShape, RBDConfig, TrainConfig
+    from repro_torch.kernels import rbd_step
+    from repro_torch.train import step as steplib
+
+    tcfg = TrainConfig(model=cfg, rbd=RBDConfig(total_dim=rbd_dim,
+                                                backend="cuda"),
+                       learning_rate=ZOO_LR, steps=steps, batch_size=b,
+                       seq_len=s)
+    init_state, train_step, sub = steplib.make_train_step(
+        model, tcfg, device="cuda", return_optimizer=True)
+    eplan = sub.plan_execution()
+    check(eplan.strategy == "fused_packed" and eplan.prng_impl == "threefry",
+          f"{cfg.name}: plans {eplan.strategy} / {eplan.prng_impl}")
+    shape = InputShape("zoo", s + cfg.n_patches, b, "train")
+    batches = [model.make_batch(shape, seed=i, device="cuda")
+               for i in range(steps)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    state = init_state(0)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t
+    sample = state.params[::ZOO_THETA_STRIDE].clone()
+    losses, walls, launches, kms = [], [], {}, {}
+    for i, batch in enumerate(batches):
+        if i == min(1, steps - 1):
+            rbd_step.reset_counts()
+            rbd_step.set_timing(True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = train_step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        losses.append(float(metrics["loss"]))
+    kms = rbd_step.kernel_times_ms()
+    rbd_step.set_timing(False)
+    launches = {k: rbd_step.LAUNCHES[k] for k in ("project_packed",
+                                                   "reconstruct_apply_packed")}
+    counted = steps - 1 if steps > 1 else 1
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    moved = float((state.params[::ZOO_THETA_STRIDE] - sample).abs().max())
+    check(all(math.isfinite(x) for x in losses),
+          f"{cfg.name}: losses {losses}")
+    check(launches == {"project_packed": counted,
+                       "reconstruct_apply_packed": counted}
+          and sum(rbd_step.LAUNCHES.values()) == 2 * counted,
+          f"{cfg.name}: expected 2 launches a step over {counted}, got "
+          f"{dict(rbd_step.LAUNCHES)}")
+    check(moved > 0, f"{cfg.name}: theta did not move")
+    lay = sub.transform.plan.packed()
+    ms = "; ".join(f"{k} {[round(x, 2) for x in v]}"
+                   for k, v in kms.items() if v)
+    line = (f"q_packed {lay.q_packed:,} total_dim {lay.d_packed}; init "
+            f"{t_init:.2f} s; losses {[round(x, 4) for x in losses]}; step "
+            f"wall {[round(x, 3) for x in walls]} s; launch ms {ms}; "
+            f"peak {peak:.2f} GiB; theta moved (max|d| {moved:.3g} on a "
+            f"1/{ZOO_THETA_STRIDE} sample) [{smi}]")
+    del sample, batches
+    return state, sub, launches, line
+
+
+def _zoo_serve(cfg, model, params, prompt_len, smi):
+    """Engine.generate on one prompt (after the VLM's patches) with
+    ZOO_NEW greedy tokens: the prefill's flash launches, its last-position
+    logits against forward's, the cache's len.  Returns the prefill's
+    launches by kernel and a log line."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import rbd_step
+    from repro_torch.models import frontends, transformer
+    from repro_torch.serve.engine import Engine
+
+    n_extra = cfg.n_patches
+    eng = Engine(model, params, max_len=n_extra + prompt_len + ZOO_NEW)
+    caches = []
+
+    def decode_step(p, cache, token):
+        out = model.decode_step(p, cache, token)
+        caches[:] = [out[1]]
+        return out
+
+    eng.model = dataclasses.replace(model, decode_step=decode_step)
+    tokens = np.random.default_rng(20).integers(0, cfg.vocab,
+                                                (1, prompt_len))
+    prompt = torch.from_numpy(tokens).cuda()
+    patches = (frontends.vision_patches(cfg, 1, device="cuda")
+               if n_extra else None)
+    want_flash = _zoo_attention_launches(cfg)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rbd_step.reset_counts()
+        t = time.perf_counter()
+        logits, cache = transformer.prefill(cfg, eng._cparams, prompt,
+                                            eng.max_len, extra_embeds=patches)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t
+        variants = dict(rbd_step.VARIANT_LAUNCHES)
+        n_flash = rbd_step.LAUNCHES["flash_attention"]
+        check(n_flash == want_flash,
+              f"{cfg.name}: the prefill made {n_flash} flash launches, "
+              f"expected {want_flash}")
+        check(int(cache["len"]) == n_extra + prompt_len,
+              f"{cfg.name}: prefill len {int(cache['len'])}")
+        del cache
+        full, _ = transformer.forward(cfg, params, prompt,
+                                      extra_embeds=patches)
+        want = full[0, -1].float()
+        del full
+        # a second sound route: the same layers with the attention through
+        # the plain version; its distance to forward is the bf16 noise of
+        # this depth
+        xp = transformer._run_prompt(
+            cfg, eng._cparams, prompt, flash.flash_attention_plain,
+            extra_embeds=patches)[0]
+        sound = transformer._logits(cfg, eng._cparams, xp[:, -1:])[0, 0]
+        del xp
+        scale = float(want.abs().max())
+        d = float((logits[0, 0].float() - want).abs().max())
+        d_sound = float((sound.float() - want).abs().max())
+        top2 = torch.topk(want, 2).values
+        margin = float(top2[0] - top2[1])
+        tol = max(PREFILL_LOGIT_RTOL * scale, ZOO_SOUND_FACTOR * d_sound)
+        check(d <= tol,
+              f"{cfg.name}: prefill logits off forward's by {d:.4g} "
+              f"({d / scale:.3%} of max|logits|; the plain route "
+              f"{d_sound / scale:.3%})")
+        # f32 compute: the two routes differ by f32 rounding only
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        l32, cache32 = transformer.prefill(cfg32, params, prompt,
+                                           eng.max_len, extra_embeds=patches)
+        del cache32
+        full, _ = transformer.forward(cfg32, params, prompt,
+                                      extra_embeds=patches)
+        want32 = full[0, -1]
+        del full
+        scale32 = float(want32.abs().max())
+        d32 = float((l32[0, 0] - want32).abs().max())
+        check(d32 <= PREFILL_F32_RTOL * scale32,
+              f"{cfg.name}: f32 prefill logits off forward's by {d32:.4g} "
+              f"({d32 / scale32:.3g} of max|logits|)")
+        # the witness that shares no bf16 step: each bf16 route against
+        # the f32 forward
+        off32 = {name: float((x.float() - want32).abs().max()) / scale32
+                 for name, x in (("kernel", logits[0, 0]), ("forward", want),
+                                 ("plain", sound))}
+        lim32 = ZOO_BF16_F32_RTOL[cfg.name]
+        check(max(off32.values()) <= lim32,
+              f"{cfg.name}: bf16 logits off the f32 forward's by "
+              f"{off32} of max|logits| > {lim32:g}")
+        rbd_step.reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = eng.generate(prompt, ZOO_NEW, extra_embeds=patches).cpu()
+        t_gen = time.perf_counter() - t
+        gen_flash = rbd_step.LAUNCHES["flash_attention"]
+        check(gen_flash == want_flash,
+              f"{cfg.name}: generate made {gen_flash} flash launches, "
+              f"{gen_flash - want_flash} in decode (expected 0)")
+        check(tuple(out.shape) == (1, ZOO_NEW), f"{tuple(out.shape)}")
+        n_len = int(caches[0]["len"])
+        check(n_len == n_extra + prompt_len + ZOO_NEW - 1,
+              f"{cfg.name}: len {n_len} after {ZOO_NEW - 1} decode steps")
+        first = int(torch.argmax(want))
+        if margin > tol:
+            check(int(out[0, 0]) == first,
+                  f"{cfg.name}: first token {int(out[0, 0])} != forward's "
+                  f"argmax {first}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    decode_ms = 1e3 * (t_gen - t_prefill) / (ZOO_NEW - 1)
+    line = (f"prompt {n_extra} + {prompt_len}: prefill {1e3 * t_prefill:.1f}"
+            f" ms, {n_flash} flash launches {variants}; last-position logits"
+            f" vs forward max|d| {d:.4g} of {scale:.4g} ({d / scale:.3%}; "
+            f"tolerance {tol / scale:.3%}), the plain route "
+            f"{d_sound / scale:.3%}, f32 compute {d32 / scale32:.3g}; "
+            f"bf16 vs the f32 forward: kernel {off32['kernel']:.3%}, forward "
+            f"{off32['forward']:.3%}, plain {off32['plain']:.3%} (limit "
+            f"{lim32:.1%}); "
+            f"top-1/top-2 margin {margin:.4g}; generate {ZOO_NEW} tokens {t_gen:.2f} s (~"
+            f"{decode_ms:.1f} ms a decode step), len {n_len}; peak "
+            f"{peak:.2f} GiB [{smi}]")
+    del eng
+    return variants, line
+
+
+def _zoo_flash(smi) -> tuple[dict, list]:
+    """The CUDA-core kernel at gemma3's heads (8 / 4 of 256, window None
+    and 1,024) and zamba2's (32 / 32 of 80), bf16, causal, B = 1, at each
+    of ZOO_FLASH_LENGTHS: against its plain version within row 11's gate,
+    reruns bit-identical, timed in turns beside
+    ``scaled_dot_product_attention`` (a band mask where windowed), the
+    plain version timed at the longest length.  Returns the worst
+    max|kernel - plain| by head size and one row a head size (8,192,
+    window None)."""
+    import torch
+    from repro_torch.kernels import flash_attention as flash
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    worst, rows = {}, {}
+    with torch.no_grad():
+        for h, kv, hd, windows in ZOO_FLASH_HEADS:
+            for s in ZOO_FLASH_LENGTHS:
+                for window in windows:
+                    q, k, v = _flash_inputs(torch, 1, s, s, h, kv, hd,
+                                            torch.bfloat16, s + hd)
+                    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+                    check(flash.kernel_for(q.dtype, hd) == "fma",
+                          f"hd {hd} does not take the CUDA-core kernel")
+                    out = flash.flash_attention(q, k, v, window=window)
+                    again = flash.flash_attention(q, k, v, window=window)
+                    ref = flash.flash_attention_plain(q, k, v, window=window)
+                    torch.cuda.synchronize()
+                    check(torch.equal(out, again),
+                          f"flash [fma] hd {hd} rerun differs (S={s})")
+                    d, ratio, rel = _flash_err(torch, out, ref, v)
+                    worst[hd] = max(worst.get(hd, 0.0), d)
+                    del out, again, ref
+                    if window is None:
+                        def lib():
+                            return sdpa(qt, kt, vt, is_causal=True,
+                                        enable_gqa=True)
+                    else:
+                        pos = torch.arange(s, device="cuda")
+                        band = ((pos[None, :] <= pos[:, None])
+                                & (pos[None, :] > pos[:, None] - window))
+
+                        def lib():
+                            return sdpa(qt, kt, vt, attn_mask=band,
+                                        enable_gqa=True)
+
+                    runs = {"fma": lambda: flash.flash_attention(
+                        q, k, v, window=window), "library": lib}
+                    times = {name: [] for name in runs}
+                    for name in ("fma", "library", "library", "fma"):
+                        runs[name]()
+                        times[name].append(sorted(cuda_ms(runs[name],
+                                                          repeat=3))[1])
+                    ms = {n: sum(t) / len(t) for n, t in times.items()}
+                    b_ms, by = flash_bound_ms(1, s, s, h, kv, hd, "bfloat16",
+                                              window=window)
+                    f32_ms, _ = flash_bound_ms(1, s, s, h, kv, hd, "float32",
+                                               window=window)
+                    plain_ms = None
+                    if s == max(ZOO_FLASH_LENGTHS):
+                        plain_ms = cuda_ms(lambda: flash.flash_attention_plain(
+                            q, k, v, window=window))[0]
+                    log(f"  (c) flash [fma] hd {hd} heads {h}/{kv} S={s} "
+                        f"window {window}: {ms['fma']:.4f} ms (turns "
+                        f"{[round(t, 4) for t in times['fma']]}), sdpa "
+                        f"{ms['library']:.4f} ms (turns "
+                        f"{[round(t, 4) for t in times['library']]}), bound "
+                        f"{b_ms:.4f} ({by}, bf16 tensor cores; {f32_ms:.4f} "
+                        f"on the f32 CUDA cores), {b_ms / ms['fma']:.2%} of "
+                        f"bound ({f32_ms / ms['fma']:.2%} of the f32 one); "
+                        f"vs plain max|d| {d:.3g} ({ratio:.3g} of the "
+                        f"tolerance, relative L2 {rel:.3g}), rerun "
+                        f"bit-identical"
+                        + (f"; plain {plain_ms:.1f} ms" if plain_ms else "")
+                        + f" [{smi}]")
+                    if plain_ms is not None and window is None:
+                        rows[hd] = {"ms": ms["fma"], "plain_ms": plain_ms,
+                                    "bound_ms": b_ms, "bound_by": by,
+                                    "library_ms": ms["library"]}
+                    del q, k, v, qt, kt, vt, runs
+    return worst, rows
+
+
+def phase_zoo(dev) -> tuple[dict, list]:
+    """Returns the zoo's launches by kernel row (rows 1-2, row 11's
+    tensor-core kernel, the CUDA-core kernel by head size) and the
+    CUDA-core kernel's rows at head sizes 80 and 256."""
+    import gc
+
+    import torch
+    from repro_torch.models.registry import get_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    smi = dev["smi"]
+    log("== phase 20: the decoder-only model zoo (full width; packed "
+        "step, serving, the flash kernel at head sizes 80 and 256)")
+    totals = {"project_packed": 0, "reconstruct_apply_packed": 0,
+              "flash_attention": 0, "flash_attention[fma] hd80": 0,
+              "flash_attention[fma] hd256": 0}
+    for arch, depth, b, s, rbd_dim, steps, prompt_len in ZOO_DRIVES:
+        t = time.perf_counter()
+        cfg = _zoo_config(arch, depth)
+        model = get_model(cfg)
+        state, sub, launches, line = _zoo_train(cfg, model, b, s, rbd_dim,
+                                                steps, smi)
+        log(f"  (a) {arch} depth {cfg.n_layers}, batch {b} x "
+            f"({cfg.n_patches} + {s}), rbd-dim {rbd_dim}, {steps} steps: "
+            + line)
+        for k, n in launches.items():
+            totals[k] += n
+        params = sub.materialize_params(state.params)
+        variants, line = _zoo_serve(cfg, model, params, prompt_len, smi)
+        log(f"  (b) {arch}: " + line)
+        totals["flash_attention"] += variants.get("flash_attention[wgmma]",
+                                                  0)
+        if cfg.d_head in (80, 256):
+            totals[f"flash_attention[fma] hd{cfg.d_head}"] += variants.get(
+                "flash_attention[fma]", 0)
+        del state, sub, params, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"  {arch}: {time.perf_counter() - t:.1f} s")
+    worst, rows = _zoo_flash(smi)
+    out = []
+    for hd in (80, 256):
+        name = f"flash_attention[fma] hd{hd}"
+        check(totals[name] > 0, f"{name} did not launch in phase 20")
+        out.append({"name": name, "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/"
+                              "flash_attention.cu",
+                    "replaces": REPLACES["flash_attention"],
+                    "launches": totals[name], "max_abs_err": worst[hd],
+                    **rows[hd]})
+    log(f"  zoo launches {totals}")
+    log(f"  phase 20 took {time.perf_counter() - t0:.1f} s")
+    return totals, out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4279,6 +4689,10 @@ def main(argv=None) -> int:
         for row in rows:
             if row["name"] == name:
                 row["launches"] += n
+    zoo, zoo_rows = phase_zoo(dev)
+    for row in rows:
+        row["launches"] += zoo.get(row["name"], 0)
+    rows.extend(zoo_rows)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(dev["smi"], flush=True)

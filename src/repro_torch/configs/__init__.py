@@ -1,31 +1,36 @@
 """Config registry: ``--arch <id>`` -> ModelConfig.
 
-The reference registers ten architectures; the port carries the two
-dense decoders of its first slice.  The others are listed in ROADMAP.md
-(Queue A, "the rest of the model zoo") and raise until they are ported.
+The reference registers ten architectures; the port carries the nine
+decoder-only ones.  The encoder-decoder (whisper-tiny) is listed in
+ROADMAP.md (Queue A 22) and raises until it is ported.
 """
 
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, RBDConfig, TrainConfig
+from repro_torch.configs.base import (INPUT_SHAPES, InputShape, ModelConfig,
+                                      RBDConfig, TrainConfig)
 
 ARCH_IDS = {
+    "gemma3-4b": "gemma3_4b",
+    "mixtral-8x7b": "mixtral_8x7b",
     "qwen2-0.5b": "qwen2_05b",
+    "phi3.5-moe-42b-a6.6b": "phi35_moe",
+    "rwkv6-1.6b": "rwkv6_16b",
     "tinyllama-1.1b": "tinyllama_11b",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
+    "zamba2-2.7b": "zamba2_27b",
+    "granite-34b": "granite_34b",
 }
-UNPORTED_ARCH_IDS = (
-    "gemma3-4b", "mixtral-8x7b", "phi3.5-moe-42b-a6.6b", "whisper-tiny",
-    "rwkv6-1.6b", "llava-next-mistral-7b", "zamba2-2.7b", "granite-34b",
-)
+UNPORTED_ARCH_IDS = ("whisper-tiny",)
 
 
 def get_config(arch_id: str) -> ModelConfig:
     if arch_id in UNPORTED_ARCH_IDS:
         raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet (ROADMAP.md Queue A 18: "
-            "the rest of the model zoo)")
+            f"arch {arch_id!r} is not ported yet (ROADMAP.md Queue A 22: "
+            "the encoder-decoder and the image models)")
     if arch_id not in ARCH_IDS:
         raise KeyError(
             f"unknown arch {arch_id!r}; known: {sorted(ARCH_IDS)}")
@@ -33,5 +38,5 @@ def get_config(arch_id: str) -> ModelConfig:
     return mod.get_config()
 
 
-__all__ = ["ARCH_IDS", "ModelConfig", "RBDConfig", "TrainConfig",
-           "get_config"]
+__all__ = ["ARCH_IDS", "INPUT_SHAPES", "InputShape", "ModelConfig",
+           "RBDConfig", "TrainConfig", "get_config"]

@@ -76,6 +76,16 @@ class ModelConfig:
     def is_moe(self) -> bool:
         return self.n_experts > 0
 
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic (or windowed) sequence mixing -> eligible for the
+        long_500k decode shape."""
+        return (
+            self.block_kind in ("rwkv", "mamba")
+            or self.window is not None
+            or self.hybrid_attn_every > 0
+        )
+
     def reduced(self, **overrides) -> "ModelConfig":
         """Smoke-test variant of the same family: <=2 layers, d_model 128,
         <=4 experts, vocab 512 -- the same cut as the reference."""
@@ -102,6 +112,22 @@ class ModelConfig:
         )
         small.update(overrides)
         return dataclasses.replace(self, **small)
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)

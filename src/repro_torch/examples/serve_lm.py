@@ -14,9 +14,11 @@ Part 2 is the adapter subsystem end to end:
   the LRU cache, and a second round of requests hits the cache instead
   of regenerating.
 
-Run (on the card; ``--device cpu`` runs the kernels' plain versions):
+Run (on the card; ``--device cpu`` runs the kernels' plain versions;
+``--arch`` any ported decoder family, at its reduced size):
 
-    PYTHONPATH=src python -m repro_torch.examples.serve_lm [--device cpu]
+    PYTHONPATH=src python -m repro_torch.examples.serve_lm [--device cpu] \
+        [--arch tinyllama-1.1b]
 """
 
 from __future__ import annotations
@@ -130,8 +132,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--arch", default="tinyllama-1.1b",
+                    help="a ported decoder family (served at its reduced "
+                         "size)")
     args = ap.parse_args(argv)
-    cfg = get_config("tinyllama-1.1b").reduced(compute_dtype="float32")
+    cfg = get_config(args.arch).reduced(compute_dtype="float32")
     model = get_model(cfg)
     params = model.init(0, device=args.device)
     device = next(iter(params.values())).device

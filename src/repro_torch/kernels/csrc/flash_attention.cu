@@ -3,9 +3,12 @@
 // kernels chosen by the wrapper from (dtype, head size) alone:
 //
 //   flash_attention_forward_wgmma   bf16, head size 64 or 128 (every config
-//                                   of the port): flash_wgmma.cuh
+//                                   but zamba2's and gemma3's):
+//                                   flash_wgmma.cuh
 //   flash_attention_forward         f32 (TF32 is not allowed), and bf16 at
-//                                   head size 16 or 32: flash_fwd_kernel
+//                                   head size 16, 32, 80 or 256:
+//                                   flash_fwd_kernel (zamba2's heads are
+//                                   80, gemma3's 256)
 //
 // Both replace repro/kernels/flash_attention.py: flash_attention ->
 // _flash_kernel.
@@ -84,7 +87,11 @@
 //
 // Bound: 4 hd flops per live pair at 67 TFLOP/s on the f32 CUDA cores (f32
 // inputs; bf16 at hd 16 / 32 reads too few columns a row to feed wgmma's
-// 64-column swizzle rows, and takes this kernel).
+// 64-column swizzle rows, and takes this kernel; bf16 at hd 80 / 256 takes
+// it too until the tensor-core kernel has instances there).  Head sizes
+// 16, 32, 64, 80, 128, 256: hd / 8 output columns a thread (10 at hd 80,
+// read as float2), shared memory 4 ((64 + 2 64) (hd + 4) + 64 68) bytes,
+// 212 KB at hd 256 (sm_90 gives one block up to 227 KB).
 //
 // What this design does about it (a first, simple kernel): one CTA of 128
 // threads per (batch x head, block of 64 query rows), heaviest query blocks
@@ -403,8 +410,14 @@ cudaError_t dispatch(int hd, const void* q, const void* k, const void* v,
     case 64:
       return launch<T, 64>(q, k, v, o, batch, sq, sk, n_heads, n_kv, causal,
                            window, sk_pad, scale, stream);
+    case 80:
+      return launch<T, 80>(q, k, v, o, batch, sq, sk, n_heads, n_kv, causal,
+                           window, sk_pad, scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, batch, sq, sk, n_heads, n_kv,
+                            causal, window, sk_pad, scale, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, o, batch, sq, sk, n_heads, n_kv,
                             causal, window, sk_pad, scale, stream);
     default:
       return cudaErrorInvalidValue;

@@ -11,8 +11,8 @@ Two kernels of ``csrc/flash_attention.cu`` compute it, chosen by
 :func:`kernel_for` from (dtype, head size) alone, before any launch:
 ``"wgmma"`` (``flash_attention_forward_wgmma``: bf16 at head size 64 or
 128, on the tensor cores, P rounded to bf16 for P V) and ``"fma"``
-(``flash_attention_forward``: f32, and bf16 at head size 16 or 32, on the
-CUDA cores, P in f32).  The wrapper takes the chosen kernel's plain
+(``flash_attention_forward``: f32, and bf16 at head size 16, 32, 80 or
+256, on the CUDA cores, P in f32).  The wrapper takes the chosen kernel's plain
 version for tensors on the CPU, and only then; for CUDA tensors it
 launches the chosen kernel or raises.  Like the reference's kernel it is
 forward only: it raises when grad mode is on and an input requires grad,
@@ -36,7 +36,7 @@ from repro_torch.kernels import rbd_step
 NEG_INF = -1e30
 Q_BLOCK = 128
 KV_BLOCK = 128
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 # rows of a K/V tile of the CUDA-core kernel: the padded K/V length that a
 # row with no live key averages over must be a whole number of tiles
 KERNEL_TILE = 64

@@ -10,7 +10,7 @@ from typing import Callable, Mapping
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.models import transformer
 
 
@@ -52,16 +52,53 @@ class Model:
         gen = torch.Generator(device=device).manual_seed(seed)
         return transformer.init_params(self.cfg, gen, device)
 
+    # ---------------- input construction -------------------------------
+    def batch_specs(self, shape: InputShape) -> dict:
+        """Name -> (shape, dtype) of a batch of ``shape``, the reference's:
+        decode takes ``token`` (B, 1); the VLM takes ``patches`` (B,
+        n_patches, D) and S - n_patches text ``tokens``; a train batch has
+        ``labels`` over the full length S."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":
+            return {"token": ((b, 1), torch.int64)}
+        if cfg.n_patches > 0:
+            specs = {"tokens": ((b, s - cfg.n_patches), torch.int64),
+                     "patches": ((b, cfg.n_patches, cfg.d_model),
+                                 torch.float32)}
+        else:
+            specs = {"tokens": ((b, s), torch.int64)}
+        if shape.kind == "train":
+            specs["labels"] = ((b, s), torch.int64)
+        return specs
+
+    def make_batch(self, shape: InputShape, seed: int = 0, *,
+                   device="cuda") -> dict:
+        """A synthetic batch of :meth:`batch_specs`: integers uniform in
+        the vocabulary, floats N(0, 1) * 0.02, drawn from a
+        ``torch.Generator`` seeded with ``seed`` on ``device``."""
+        device = resolve_device(device)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        out = {}
+        for name, (dims, dtype) in self.batch_specs(shape).items():
+            if dtype.is_floating_point:
+                out[name] = torch.randn(dims, generator=gen,
+                                        device=device) * 0.02
+            else:
+                out[name] = torch.randint(0, self.cfg.vocab, dims,
+                                          generator=gen, device=device)
+        return out
+
 
 def get_model(cfg: ModelConfig) -> Model:
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
             "encoder-decoder models are not ported yet (ROADMAP.md Queue "
-            "A 18)")
+            "A 22)")
     return Model(
         cfg=cfg,
         forward=lambda params, batch: transformer.forward(
-            cfg, params, batch["tokens"]),
+            cfg, params, batch["tokens"], extra_embeds=batch.get("patches")),
         init_cache=lambda batch, max_len, *, device="cuda": (
             transformer.init_cache(cfg, batch, max_len,
                                    device=resolve_device(device))),

@@ -75,8 +75,10 @@ class Engine:
 
     def generate(self, prompts, n_tokens: int, *, temperature: float = 0.0,
                  seed: int = 0, eos_id: int | None = None,
-                 pad_id: int = 0) -> torch.Tensor:
+                 pad_id: int = 0, extra_embeds=None) -> torch.Tensor:
         """prompts: (B, S) integer -> (B, n_tokens) int32 continuations.
+        ``extra_embeds``: (B, P, D) embeddings prefilled before the prompt
+        (the VLM's patches), or None.
 
         The first token is sampled from the prefill logits through the
         same temperature path as every later token.  With ``eos_id`` set,
@@ -86,10 +88,15 @@ class Engine:
         if not isinstance(prompts, torch.Tensor):
             prompts = torch.from_numpy(np.asarray(prompts))
         prompts = prompts.to(self.device)
-        _check_room(prompts.shape[1], n_tokens, self.max_len)
+        n_extra = 0
+        if extra_embeds is not None:
+            extra_embeds = extra_embeds.to(self.device)
+            n_extra = extra_embeds.shape[1]
+        _check_room(n_extra + prompts.shape[1], n_tokens, self.max_len)
         cfg = self.model.cfg
         logits, cache = transformer.prefill(cfg, self._cparams, prompts,
-                                            self.max_len)
+                                            self.max_len,
+                                            extra_embeds=extra_embeds)
         gen = _generator(self.device, seed)
         token = sample_token(logits[:, -1, :], gen, temperature)
         out = [token]
@@ -130,8 +137,9 @@ class MultiTenantEngine:
 
     Decode is one tick over every decoding slot.  The reference's vmap
     over slots is written out as a loop over the slot axis: each slot
-    has its own parameters, its own (L, 1, max_len, KV, hd) cache and its
-    own cache length, and steps through the B = 1 ``decode_step``, so a
+    has its own parameters, its own B = 1 cache (K/V, recurrent states,
+    the hybrid's shared K/V: whatever the family keeps) and its own cache
+    length, and steps through the B = 1 ``decode_step``, so a
     slot's tokens are bit-identical to :class:`Engine`'s on the same
     parameters and prompt.  Retirement (EOS or token budget) frees the
     slot for the next queued request on the following tick.

@@ -18,7 +18,7 @@ same u/sq tolerances and bit-identical to ``project_packed`` on the same
 seeds (the same grid and sum order); ``reconstruct_flat`` within 2e-5 of
 its largest value; ``reconstruct_apply_flat`` 1e-4 of the update plus 2
 ulp of theta's dtype, bf16 rounded once.  The prefill's flash-attention
-kernels: the CUDA-core one (f32; bf16 at head size 16 / 32) within 1e-5
+kernels: the CUDA-core one (f32; bf16 at head size 16 / 32 / 80 / 256) within 1e-5
 of max|v| of its plain version (f32 sums over another tiling), plus one
 bf16 ulp of the larger value for bf16 outputs; the tensor-core one (bf16
 at head size 64 / 128) against the plain version with p_dtype=bfloat16 (P
@@ -658,6 +658,50 @@ def test_flash_attention_matches_plain(cuda, case, dtype):
         assert _flash_close_p_bf16(out, ref, l, v)
     else:
         assert _flash_close(out, ref, v)
+
+
+# the zoo's head sizes, which only the CUDA-core kernel takes: zamba2's
+# (32 / 32 heads of 80) and gemma3's (8 / 4 heads of 256), causal, with and
+# without a window, ragged lengths; (B, S, H, KV, hd, window)
+ZOO_FLASH_CASES = [
+    (1, 300, 4, 4, 80, None), (2, 200, 4, 4, 80, 64),
+    (1, 300, 8, 4, 256, None), (1, 257, 8, 4, 256, 100),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ZOO_FLASH_CASES,
+                         ids=[str(i) for i in range(len(ZOO_FLASH_CASES))])
+def test_flash_attention_zoo_head_sizes(cuda, case, dtype):
+    """Head sizes 80 and 256 run the CUDA-core kernel, within
+    _flash_close of its plain version, reruns bit-identical."""
+    from repro_torch.kernels import flash_attention as flash
+
+    b, s, h, kv, hd, window = case
+    assert flash.kernel_for(dtype, hd) == "fma"
+    gen = torch.Generator(device=cuda).manual_seed(s + hd)
+    q = torch.randn((b, s, h, hd), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, s, kv, hd), generator=gen, device=cuda)
+            .to(dtype) for _ in range(2))
+    before = rbd_step.VARIANT_LAUNCHES.get("flash_attention[fma]", 0)
+    out = flash.flash_attention(q, k, v, window=window)
+    again = flash.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert rbd_step.VARIANT_LAUNCHES["flash_attention[fma]"] == before + 2
+    assert torch.equal(out, again)
+    assert _flash_close(out, flash.flash_attention_plain(q, k, v,
+                                                         window=window), v)
+
+
+def test_flash_attention_refuses_other_head_sizes_on_the_card(cuda):
+    """A head size the kernel has no instance for raises on a CUDA tensor
+    (no fall back to the plain version)."""
+    from repro_torch.kernels import flash_attention as flash
+
+    for hd in (48, 96, 512):
+        q = torch.randn((1, 64, 2, hd), device=cuda)
+        with pytest.raises(ValueError, match=f"head size {hd}"):
+            flash.flash_attention(q, q, q)
 
 
 def test_cuda_core_kernel_still_takes_bf16_at_64(cuda):
