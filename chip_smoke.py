@@ -2,7 +2,7 @@
 """GPU smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py            # needs one CUDA card, exits 0 if all pass
-    python3 chip_smoke.py --base DIR # A/B of the RBD kernels against DIR
+    python3 chip_smoke.py --base DIR # A/B of the kernels against DIR
 
 ``--base DIR`` (DIR another checkout, e.g. the parent commit unpacked
 with ``git archive`` under ``build/``) runs no phase: it builds this
@@ -11,7 +11,10 @@ runs rows 1-10 at full qwen2-0.5b width under every PRNG impl (and the
 buffered hw instances of rows 1-3 and 5-7) through this tree's wrappers
 on either tree's kernels (``rbd_step.kernels_from``), holds every output
 bit for bit against DIR's, times each in turns (DIR, this, this, DIR)
-and exits non-zero if any output differs.
+and exits non-zero if any output differs; then times gemma3-4b's bf16
+prefill of phase 20 (depth 6, 2,048 tokens) through either tree's flash
+wrapper and kernels in the same turns, logging each tree's flash
+launches by kernel and how far apart their logits are.
 
 Phases, each printing its own lines; any failure exits non-zero before the
 result line:
@@ -112,10 +115,12 @@ result line:
                within tolerance of a ``fused_packed`` step from the same
                state;
 16. prefill -- the two flash-attention kernels: the tensor-core one's
-               SASS (``cuobjdump -sass``: HGMMA and UTMALDG in both
-               instances, registers and spills from ptxas); each case
+               SASS (``cuobjdump -sass``: HGMMA and UTMALDG in each of its
+               four instances, head size 64, 80, 128 and 256, the highest
+               register, no local memory; registers and spills from
+               ptxas, 0 bytes spilled); each case
                through the kernel the wrapper chooses (tensor-core for
-               bf16 at head size 64 / 128, CUDA-core otherwise) against
+               bf16 at its head sizes, CUDA-core otherwise) against
                the plain version with that kernel's p_dtype (f32 and bf16;
                qwen2-0.5b's and tinyllama's heads, Sq = Sk in 1, 127, 200
                and 4,096, window None, 100 and 1,024, one non-causal Sq !=
@@ -218,17 +223,24 @@ result line:
                where a deep stack carries more bf16 noise) and with f32
                compute (PREFILL_F32_RTOL), and each bf16 route (kernel,
                forward, plain version) against the f32 forward
-               (ZOO_BF16_F32_RTOL).  (c) The CUDA-core flash kernel
-               at gemma3's heads (8 / 4 of 256, window None and 1,024) and
-               zamba2's (32 / 32 of 80), bf16, at 2,048 and 8,192 tokens:
-               against its plain version within row 11's gate, reruns
-               bit-identical, timed in turns beside
-               ``scaled_dot_product_attention``;
+               (ZOO_BF16_F32_RTOL); the bf16 prefill launches only the
+               tensor-core flash kernel, the f32 one only the CUDA-core
+               kernel.  (c) Both flash kernels at gemma3's heads (8 / 4 of
+               256, window None and 1,024) and zamba2's (32 / 32 of 80),
+               bf16, at 2,048 and 8,192 tokens: the tensor-core
+               instances' registers and spills; each kernel against the
+               plain version with its p_dtype within row 11's gate, reruns
+               bit-identical, timed in turns with
+               ``scaled_dot_product_attention``, the plain versions timed
+               at 8,192, where the tensor-core kernel's gate must refuse
+               the two planted faults;
 then the ``kernels`` line (eleven rows, then the six tile-keyed rows
 ``[hw_emulated]``, ``[hw,db]`` and ``[hw]`` of rows 1-2, then the
-CUDA-core flash kernel's rows at head sizes 80 and 256; rows 1-2 count
-phase 19 (a)'s and phase 20's launches too, row 11 phase 20's), the card
-line and the result line.
+tensor-core flash kernel's rows at head sizes 80 and 256 (launches: the
+bf16 prefills of phase 20) and the CUDA-core kernel's there (launches:
+the f32 prefills); rows 1-2 count phase 19 (a)'s and phase 20's launches
+too, row 11 phase 20's at head size 128), the card line and the result
+line.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -309,9 +321,9 @@ PREFILL_LEN, PREFILL_NEW = 8192, 32
 # up to sums over another tiling (within 1e-5 of max|v|: the output is a
 # convex combination of v's rows) and, for bf16 outputs, each rounds once
 # (one bf16 ulp of the larger value: |rnd(x) - rnd(y)| <= |x - y| + ulp).
-# The tensor-core kernel (bf16 at head size 64 / 128) rounds P to bf16 for
-# P V, as its plain version with p_dtype=bfloat16 does at the same 128-key
-# tiles; where the two f32 p of a key lie on either side of a rounding
+# The tensor-core kernel (bf16 at head size 64, 80, 128, 256) rounds P to
+# bf16 for P V, as its plain version with p_dtype=bfloat16 does at the
+# same tiles (128 keys, 64 at head size 256); where the two f32 p of a key lie on either side of a rounding
 # midpoint they land one bf16 ulp (<= 2**-7 p) apart and move the row by
 # 2**-7 of that key's weight p / l times its v: allowed once a row, at
 # max|v| and the largest weight a key that can land so may have.  The
@@ -379,7 +391,10 @@ ZOO_SOUND_FACTOR = 2.0
 ZOO_BF16_F32_RTOL = {arch: 0.02 for arch, *_ in ZOO_DRIVES}
 ZOO_BF16_F32_RTOL.update({"rwkv6-1.6b": 0.5, "zamba2-2.7b": 0.32})
 ZOO_FLASH_HEADS = ((8, 4, 256, (None, 1024)), (32, 32, 80, (None,)))
+ZOO_HEAD_SIZES = tuple(sorted(hd for _, _, hd, _ in ZOO_FLASH_HEADS))
 ZOO_FLASH_LENGTHS = (2048, 8192)
+# launches timed back to back between one pair of events, by length
+ZOO_FLASH_BURST = {2048: 4}
 # Peak rates of an H100 SM (sm_90) in lanes a clock, the bound's table:
 # 4 schedulers issue one warp instruction a clock each (128); the integer
 # ALU 64 (LOP3, shifts, compares, selects, I2FP); the FP32 "heavy" pipe 64,
@@ -2743,7 +2758,8 @@ def _flash_err(torch, out, ref, v, kernel="fma", l=None) -> tuple:
 
 def _flash_vs_plain():
     """Each case through the kernel the wrapper chooses (the tensor-core
-    one for bf16 at head size 64 / 128, else the CUDA-core one), against
+    one for bf16 at head size 64 / 128 here, else the CUDA-core one; head
+    sizes 80 / 256 in phase 20), against
     the plain version with that kernel's p_dtype, reruns bit-identical;
     the CUDA-core kernel also on every bf16 case the tensor-core one
     takes, against the f32-P plain version, as before.  Returns the
@@ -3058,36 +3074,73 @@ def _flash_timing():
     return rows, worst
 
 
-def flash_sass(lib_path, log_text):
-    """The tensor-core kernel's SASS (``cuobjdump -sass`` of the flash
-    library): each instance must hold HGMMA (wgmma) and UTMALDG (TMA
-    loads); logs their counts, MUFU.EX2 and local-memory traffic, and the
-    instances' registers and spills from the build's ptxas report."""
+def flash_instances(lib_path, log_text) -> dict:
+    """The tensor-core kernel's instances in the flash library, by head
+    size: their SASS (``cuobjdump -sass``, left in
+    ``build/repro_torch/flash_attention.sass``) counts of HGMMA (wgmma),
+    UTMALDG (TMA loads), MUFU.EX2, BAR.SYNC and local-memory traffic, the
+    highest register the SASS names (the consumers run past the launch
+    bound's count after setmaxnreg), and ptxas's report of the build
+    (registers, spill stores and loads)."""
+    import re
+
     from repro_torch.kernels import build
 
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], check=True,
                           capture_output=True, text=True, timeout=120).stdout
     (build.BUILD_DIR / "flash_attention.sass").write_text(sass)
-    found = 0
+    found = {}
     for fn in sass.split("Function : ")[1:]:
         name = fn.split("\n", 1)[0].strip()
-        if "flash_wgmma_kernel" not in name:
+        hit = re.search(r"flash_wgmma_kernelILi(\d+)E", name)
+        if hit is None:
             continue
-        found += 1
         counts = {op: fn.count(op) for op in
                   ("HGMMA", "UTMALDG", "MUFU.EX2", "BAR.SYNC", "STL", "LDL")}
-        check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
-              f"{name}: no HGMMA or UTMALDG in its SASS ({counts})")
-        log(f"  SASS {name}: {counts}")
-    check(found == 2, f"{found} tensor-core flash instances in the SASS, "
-          "expected 2 (head size 64 and 128)")
+        top = max(int(r) for r in re.findall(r"\bR(\d+)\b", fn))
+        found[int(hit.group(1))] = {"name": name, "sass": counts,
+                                    "max_register": top}
     lines = log_text.splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and "flash_wgmma" in line:
-            report = " ".join(x.split(":", 1)[-1].strip()
-                              for x in lines[i + 2: i + 4])
-            log(f"  ptxas {line.split(chr(39))[1]}: {report}")
+        hit = re.search(r"flash_wgmma_kernelILi(\d+)E", line)
+        if "Compiling entry function" in line and hit:
+            found.setdefault(int(hit.group(1)), {})["ptxas"] = " ".join(
+                x.split(":", 1)[-1].strip() for x in lines[i + 2: i + 4])
+    return found
+
+
+def _log_instance(hd, inst) -> None:
+    """Logs one tensor-core instance (flash_instances) and checks that its
+    SASS holds HGMMA and UTMALDG and that ptxas spilled nothing."""
+    import re
+
+    counts = inst["sass"]
+    check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
+          f"flash_wgmma_kernel<{hd}>: no HGMMA or UTMALDG in its SASS "
+          f"({counts})")
+    # an empty report is a build reused from an earlier run (no ptxas
+    # output); its SASS has no local-memory traffic either way
+    report = inst.get("ptxas", "")
+    check(counts["STL"] == 0 and counts["LDL"] == 0
+          and (not report or re.search(
+              r"(^|[^0-9])0 bytes spill stores, 0 bytes spill loads",
+              report)),
+          f"flash_wgmma_kernel<{hd}> spills: {report} {counts}")
+    log(f"  flash_wgmma_kernel<{hd}>: SASS {counts}, highest register "
+        f"R{inst['max_register']}; ptxas: {report or 'build reused'}")
+
+
+def flash_sass(lib_path, log_text):
+    """The tensor-core kernel's four instances (head size 64, 80, 128 and
+    256): each must hold HGMMA and UTMALDG and spill nothing; logs
+    flash_instances' reading of each."""
+    found = flash_instances(lib_path, log_text)
+    check(sorted(found) == [64, 80, 128, 256],
+          f"tensor-core flash instances at head sizes {sorted(found)}, "
+          "expected 64, 80, 128 and 256")
+    for hd, inst in sorted(found.items()):
+        _log_instance(hd, inst)
 
 
 def phase_prefill():
@@ -3552,6 +3605,9 @@ def phase_prng(full_plan, dev):
 AB_IMPLS = ("threefry", "hw_emulated", "hw")
 AB_K = 2           # workers of row 3 and 7, adapters of row 4
 AB_TURNS = ("base", "this", "this", "base")
+# the prefill timed in both trees: phase 20's gemma3 drive (arch, depth,
+# prompt length)
+AB_PREFILL = ("gemma3-4b", 6, 2048)
 
 
 def _ab_cases(full_plan):
@@ -3633,6 +3689,75 @@ def _ab_cases(full_plan):
     return cases
 
 
+def _ab_prefill(base, csrc, smi) -> dict:
+    """gemma3-4b's bf16 prefill at phase 20's size (AB_PREFILL: depth 6,
+    one 2,048-token prompt, random weights from seed 0) through each
+    tree's flash wrapper (DIR's ``kernels/flash_attention.py``, loaded
+    from its file) and kernels, timed in turns (AB_TURNS, 3 a turn); each
+    tree's flash launches by kernel and the two trees' last-position
+    logits apart are logged (their kernels round P at other points: not
+    bit for bit).  Returns the medians."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import rbd_step
+    from repro_torch.models import layers, transformer
+    from repro_torch.models.registry import get_model
+
+    arch, depth, prompt_len = AB_PREFILL
+    spec = importlib.util.spec_from_file_location(
+        "base_flash_attention", os.path.join(
+            base, "src", "repro_torch", "kernels", "flash_attention.py"))
+    base_flash = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(base_flash)
+    this_flash = transformer.flash
+
+    @contextlib.contextmanager
+    def base_tree():
+        with rbd_step.kernels_from(csrc):
+            transformer.flash = base_flash
+            try:
+                yield
+            finally:
+                transformer.flash = this_flash
+
+    trees = {"this": contextlib.nullcontext, "base": base_tree}
+    cfg = _zoo_config(arch, depth)
+    params = layers.cast_for_compute(get_model(cfg).init(0, device="cuda"),
+                                     layers.dtype_of(cfg.compute_dtype))
+    tokens = np.random.default_rng(20).integers(0, cfg.vocab,
+                                                (1, prompt_len))
+    prompt = torch.from_numpy(tokens).cuda()
+
+    def run():
+        return transformer.prefill(cfg, params, prompt, prompt_len)[0]
+
+    logits, launches, times = {}, {}, {}
+    with torch.no_grad():
+        for tree in ("base", "this"):
+            with trees[tree]():
+                rbd_step.reset_counts()
+                logits[tree] = run()[0, 0].float()
+                torch.cuda.synchronize()
+                launches[tree] = dict(rbd_step.VARIANT_LAUNCHES)
+        for tree in AB_TURNS:
+            with trees[tree]():
+                times.setdefault(tree, []).extend(cuda_ms(run, repeat=3))
+    scale = float(logits["this"].abs().max())
+    d = float((logits["this"] - logits["base"]).abs().max())
+    med = {tree: statistics.median(t) for tree, t in times.items()}
+    log(f"  {arch} depth {depth} bf16 prefill of {prompt_len} tokens: base "
+        f"{med['base']:.3f} ms ({launches['base']}), this {med['this']:.3f} "
+        f"ms ({launches['this']}), this/base "
+        f"{med['this'] / med['base']:.4f} (turns "
+        f"{ {t: [round(x, 3) for x in v] for t, v in times.items()} }); "
+        f"last-position logits apart max|d| {d:.4g} of {scale:.4g} "
+        f"({d / scale:.3%}) [{smi}]")
+    return {"arch": arch, "base_ms": med["base"], "this_ms": med["this"],
+            "ratio": med["this"] / med["base"]}
+
+
 def _tensors(out) -> list:
     if isinstance(out, (list, tuple)):
         return [t for o in out for t in _tensors(o)]
@@ -3701,8 +3826,9 @@ def ab_against(base: str) -> int:
             f"{t / b:.4f} (turns {turns})")
         rows.append({"kernel": name, "impl": impl, "double_buffer": db,
                      "base_ms": b, "this_ms": t, "ratio": t / b})
-    print(json.dumps({"ab": rows, "differ": [list(k) for k in differ]}),
-          flush=True)
+    prefill = _ab_prefill(base, csrc, smi)
+    print(json.dumps({"ab": rows, "differ": [list(k) for k in differ],
+                      "prefill": prefill}), flush=True)
     print(smi, flush=True)
     return 1 if differ else 0
 
@@ -4350,9 +4476,10 @@ def _zoo_train(cfg, model, b, s, rbd_dim, steps, smi):
 
 def _zoo_serve(cfg, model, params, prompt_len, smi):
     """Engine.generate on one prompt (after the VLM's patches) with
-    ZOO_NEW greedy tokens: the prefill's flash launches, its last-position
-    logits against forward's, the cache's len.  Returns the prefill's
-    launches by kernel and a log line."""
+    ZOO_NEW greedy tokens: the prefill's flash launches (bf16: all of the
+    tensor-core kernel; f32 compute: all of the CUDA-core one), its
+    last-position logits against forward's, the cache's len.  Returns the
+    bf16 and the f32 prefill's launches by kernel and a log line."""
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as flash
@@ -4390,6 +4517,11 @@ def _zoo_serve(cfg, model, params, prompt_len, smi):
         check(n_flash == want_flash,
               f"{cfg.name}: the prefill made {n_flash} flash launches, "
               f"expected {want_flash}")
+        want_variants = ({"flash_attention[wgmma]": want_flash}
+                         if want_flash else {})
+        check(variants == want_variants,
+              f"{cfg.name}: the bf16 prefill's launches by kernel "
+              f"{variants}, expected {want_variants}")
         check(int(cache["len"]) == n_extra + prompt_len,
               f"{cfg.name}: prefill len {int(cache['len'])}")
         del cache
@@ -4417,8 +4549,15 @@ def _zoo_serve(cfg, model, params, prompt_len, smi):
               f"{d_sound / scale:.3%})")
         # f32 compute: the two routes differ by f32 rounding only
         cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        rbd_step.reset_counts()
         l32, cache32 = transformer.prefill(cfg32, params, prompt,
                                            eng.max_len, extra_embeds=patches)
+        variants32 = dict(rbd_step.VARIANT_LAUNCHES)
+        want32_variants = ({"flash_attention[fma]": want_flash}
+                           if want_flash else {})
+        check(variants32 == want32_variants,
+              f"{cfg.name}: the f32 prefill's launches by kernel "
+              f"{variants32}, expected {want32_variants}")
         del cache32
         full, _ = transformer.forward(cfg32, params, prompt,
                                       extra_embeds=patches)
@@ -4462,7 +4601,8 @@ def _zoo_serve(cfg, model, params, prompt_len, smi):
             f" ms, {n_flash} flash launches {variants}; last-position logits"
             f" vs forward max|d| {d:.4g} of {scale:.4g} ({d / scale:.3%}; "
             f"tolerance {tol / scale:.3%}), the plain route "
-            f"{d_sound / scale:.3%}, f32 compute {d32 / scale32:.3g}; "
+            f"{d_sound / scale:.3%}, f32 compute {d32 / scale32:.3g} "
+            f"({variants32}); "
             f"bf16 vs the f32 forward: kernel {off32['kernel']:.3%}, forward "
             f"{off32['forward']:.3%}, plain {off32['plain']:.3%} (limit "
             f"{lim32:.1%}); "
@@ -4470,22 +4610,31 @@ def _zoo_serve(cfg, model, params, prompt_len, smi):
             f"{decode_ms:.1f} ms a decode step), len {n_len}; peak "
             f"{peak:.2f} GiB [{smi}]")
     del eng
-    return variants, line
+    return variants, variants32, line
 
 
-def _zoo_flash(smi) -> tuple[dict, list]:
-    """The CUDA-core kernel at gemma3's heads (8 / 4 of 256, window None
-    and 1,024) and zamba2's (32 / 32 of 80), bf16, causal, B = 1, at each
-    of ZOO_FLASH_LENGTHS: against its plain version within row 11's gate,
-    reruns bit-identical, timed in turns beside
-    ``scaled_dot_product_attention`` (a band mask where windowed), the
-    plain version timed at the longest length.  Returns the worst
-    max|kernel - plain| by head size and one row a head size (8,192,
-    window None)."""
+def _zoo_flash(smi) -> tuple[dict, dict]:
+    """Both flash kernels at gemma3's heads (8 / 4 of 256, window None and
+    1,024) and zamba2's (32 / 32 of 80), bf16, causal, B = 1, at each of
+    ZOO_FLASH_LENGTHS: the tensor-core kernel (the wrapper's choice) and
+    the CUDA-core one (named) each against the plain version with its
+    p_dtype within row 11's gate, reruns bit-identical, timed in turns
+    with ``scaled_dot_product_attention`` (a band mask where windowed) as
+    _flash_timing times them; at the longest length the plain versions
+    timed and, without a window, _flash_planted's faults refused by the
+    tensor-core kernel's gate.  Logs the tensor-core instances' registers
+    and spills first.  Returns the worst max|kernel - plain| and the row
+    at the longest length, window None, by (kernel, head size)."""
     import torch
     from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import rbd_step
 
+    built = rbd_step.library(rbd_step.FLASH_SOURCE)
+    found = flash_instances(built.path, built.log)
+    for hd in ZOO_HEAD_SIZES:
+        _log_instance(hd, found[hd])
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    longest = max(ZOO_FLASH_LENGTHS)
     worst, rows = {}, {}
     with torch.no_grad():
         for h, kv, hd, windows in ZOO_FLASH_HEADS:
@@ -4494,17 +4643,9 @@ def _zoo_flash(smi) -> tuple[dict, list]:
                     q, k, v = _flash_inputs(torch, 1, s, s, h, kv, hd,
                                             torch.bfloat16, s + hd)
                     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-                    check(flash.kernel_for(q.dtype, hd) == "fma",
-                          f"hd {hd} does not take the CUDA-core kernel")
-                    out = flash.flash_attention(q, k, v, window=window)
-                    again = flash.flash_attention(q, k, v, window=window)
-                    ref = flash.flash_attention_plain(q, k, v, window=window)
-                    torch.cuda.synchronize()
-                    check(torch.equal(out, again),
-                          f"flash [fma] hd {hd} rerun differs (S={s})")
-                    d, ratio, rel = _flash_err(torch, out, ref, v)
-                    worst[hd] = max(worst.get(hd, 0.0), d)
-                    del out, again, ref
+                    check(flash.kernel_for(q.dtype, hd) == "wgmma",
+                          f"bf16 at hd {hd} does not take the tensor-core "
+                          "kernel")
                     if window is None:
                         def lib():
                             return sdpa(qt, kt, vt, is_causal=True,
@@ -4518,47 +4659,89 @@ def _zoo_flash(smi) -> tuple[dict, list]:
                             return sdpa(qt, kt, vt, attn_mask=band,
                                         enable_gqa=True)
 
-                    runs = {"fma": lambda: flash.flash_attention(
-                        q, k, v, window=window), "library": lib}
+                    runs = {"wgmma": lambda: flash.flash_attention(
+                                q, k, v, window=window),
+                            "fma": lambda: flash._launch_kernel(
+                                q, k, v, kernel="fma", window=window),
+                            "library": lib}
+                    errs, plain_ms = {}, {}
+                    for kernel in ("wgmma", "fma"):
+                        key = f"flash_attention[{kernel}]"
+                        before = rbd_step.VARIANT_LAUNCHES.get(key, 0)
+                        out, again = runs[kernel](), runs[kernel]()
+                        p_dtype = flash.P_DTYPE[kernel]
+                        ref, l = flash.flash_attention_plain(
+                            q, k, v, window=window, p_dtype=p_dtype,
+                            return_l=True)
+                        torch.cuda.synchronize()
+                        check(rbd_step.VARIANT_LAUNCHES.get(key, 0)
+                              == before + 2,
+                              f"hd {hd} S={s}: the {kernel} kernel did not "
+                              "run")
+                        check(torch.equal(out, again),
+                              f"flash [{kernel}] hd {hd} rerun differs "
+                              f"(S={s}, window {window})")
+                        errs[kernel] = _flash_err(
+                            torch, out, ref, v, kernel,
+                            l if kernel == "wgmma" else None)
+                        worst[(kernel, hd)] = max(
+                            worst.get((kernel, hd), 0.0), errs[kernel][0])
+                        if s == longest:
+                            plain_ms[kernel] = cuda_ms(
+                                lambda: flash.flash_attention_plain(
+                                    q, k, v, window=window,
+                                    p_dtype=p_dtype))[0]
+                            if kernel == "wgmma" and window is None:
+                                _flash_planted(torch, flash, q, k, v, ref, l)
+                        del out, again, ref, l
                     times = {name: [] for name in runs}
-                    for name in ("fma", "library", "library", "fma"):
-                        runs[name]()
-                        times[name].append(sorted(cuda_ms(runs[name],
-                                                          repeat=3))[1])
+                    reps = ZOO_FLASH_BURST.get(s, 1)
+                    for name in ("fma", "wgmma", "library", "library",
+                                 "wgmma", "fma"):
+                        runs[name]()                       # warm
+                        burst = cuda_ms(
+                            lambda: [runs[name]() for _ in range(reps)],
+                            repeat=3)
+                        times[name].append(sorted(burst)[1] / reps)
                     ms = {n: sum(t) / len(t) for n, t in times.items()}
                     b_ms, by = flash_bound_ms(1, s, s, h, kv, hd, "bfloat16",
                                               window=window)
                     f32_ms, _ = flash_bound_ms(1, s, s, h, kv, hd, "float32",
                                                window=window)
-                    plain_ms = None
-                    if s == max(ZOO_FLASH_LENGTHS):
-                        plain_ms = cuda_ms(lambda: flash.flash_attention_plain(
-                            q, k, v, window=window))[0]
-                    log(f"  (c) flash [fma] hd {hd} heads {h}/{kv} S={s} "
-                        f"window {window}: {ms['fma']:.4f} ms (turns "
-                        f"{[round(t, 4) for t in times['fma']]}), sdpa "
-                        f"{ms['library']:.4f} ms (turns "
-                        f"{[round(t, 4) for t in times['library']]}), bound "
-                        f"{b_ms:.4f} ({by}, bf16 tensor cores; {f32_ms:.4f} "
-                        f"on the f32 CUDA cores), {b_ms / ms['fma']:.2%} of "
-                        f"bound ({f32_ms / ms['fma']:.2%} of the f32 one); "
-                        f"vs plain max|d| {d:.3g} ({ratio:.3g} of the "
-                        f"tolerance, relative L2 {rel:.3g}), rerun "
-                        f"bit-identical"
-                        + (f"; plain {plain_ms:.1f} ms" if plain_ms else "")
-                        + f" [{smi}]")
-                    if plain_ms is not None and window is None:
-                        rows[hd] = {"ms": ms["fma"], "plain_ms": plain_ms,
-                                    "bound_ms": b_ms, "bound_by": by,
-                                    "library_ms": ms["library"]}
+                    for kernel in ("wgmma", "fma"):
+                        d, ratio, rel = errs[kernel]
+                        extra = (f"; {f32_ms / ms[kernel]:.2%} of the f32 "
+                                 f"CUDA cores' {f32_ms:.4f}"
+                                 if kernel == "fma" else "")
+                        log(f"  (c) flash [{kernel}] hd {hd} heads {h}/{kv} "
+                            f"S={s} window {window}: {ms[kernel]:.4f} ms "
+                            f"(turns {[round(t, 4) for t in times[kernel]]}"
+                            f"), sdpa {ms['library']:.4f} ms (turns "
+                            f"{[round(t, 4) for t in times['library']]}), "
+                            f"bound {b_ms:.4f} ({by}, bf16 tensor cores), "
+                            f"{b_ms / ms[kernel]:.2%} of bound{extra}; vs "
+                            f"plain max|d| {d:.3g} ({ratio:.3g} of the "
+                            f"tolerance, relative L2 {rel:.3g}), rerun "
+                            f"bit-identical"
+                            + (f"; plain {plain_ms[kernel]:.1f} ms"
+                               if kernel in plain_ms else "")
+                            + f" [{smi}]")
+                        if s == longest and window is None:
+                            rows[(kernel, hd)] = {
+                                "ms": ms[kernel],
+                                "plain_ms": plain_ms[kernel],
+                                "bound_ms": b_ms, "bound_by": by,
+                                "library_ms": ms["library"]}
                     del q, k, v, qt, kt, vt, runs
     return worst, rows
 
 
 def phase_zoo(dev) -> tuple[dict, list]:
     """Returns the zoo's launches by kernel row (rows 1-2, row 11's
-    tensor-core kernel, the CUDA-core kernel by head size) and the
-    CUDA-core kernel's rows at head sizes 80 and 256."""
+    tensor-core kernel at head sizes 64 / 128, the tensor-core kernel at
+    head sizes 80 and 256 from the bf16 prefills, the CUDA-core kernel
+    there from the f32 prefills) and the kernels line's rows of both
+    kernels at head sizes 80 and 256."""
     import gc
 
     import torch
@@ -4569,10 +4752,12 @@ def phase_zoo(dev) -> tuple[dict, list]:
     t0 = time.perf_counter()
     smi = dev["smi"]
     log("== phase 20: the decoder-only model zoo (full width; packed "
-        "step, serving, the flash kernel at head sizes 80 and 256)")
+        "step, serving, the flash kernels at head sizes 80 and 256)")
     totals = {"project_packed": 0, "reconstruct_apply_packed": 0,
-              "flash_attention": 0, "flash_attention[fma] hd80": 0,
-              "flash_attention[fma] hd256": 0}
+              "flash_attention": 0}
+    for kernel in ("wgmma", "fma"):
+        for hd in ZOO_HEAD_SIZES:
+            totals[f"flash_attention[{kernel}] hd{hd}"] = 0
     for arch, depth, b, s, rbd_dim, steps, prompt_len in ZOO_DRIVES:
         t = time.perf_counter()
         cfg = _zoo_config(arch, depth)
@@ -4585,28 +4770,33 @@ def phase_zoo(dev) -> tuple[dict, list]:
         for k, n in launches.items():
             totals[k] += n
         params = sub.materialize_params(state.params)
-        variants, line = _zoo_serve(cfg, model, params, prompt_len, smi)
+        variants, variants32, line = _zoo_serve(cfg, model, params,
+                                                prompt_len, smi)
         log(f"  (b) {arch}: " + line)
-        totals["flash_attention"] += variants.get("flash_attention[wgmma]",
-                                                  0)
-        if cfg.d_head in (80, 256):
-            totals[f"flash_attention[fma] hd{cfg.d_head}"] += variants.get(
+        wgmma = variants.get("flash_attention[wgmma]", 0)
+        if cfg.d_head in ZOO_HEAD_SIZES:
+            totals[f"flash_attention[wgmma] hd{cfg.d_head}"] += wgmma
+            totals[f"flash_attention[fma] hd{cfg.d_head}"] += variants32.get(
                 "flash_attention[fma]", 0)
+        else:
+            totals["flash_attention"] += wgmma
         del state, sub, params, model
         gc.collect()
         torch.cuda.empty_cache()
         log(f"  {arch}: {time.perf_counter() - t:.1f} s")
     worst, rows = _zoo_flash(smi)
     out = []
-    for hd in (80, 256):
-        name = f"flash_attention[fma] hd{hd}"
-        check(totals[name] > 0, f"{name} did not launch in phase 20")
-        out.append({"name": name, "route": "cuda",
-                    "source": "src/repro_torch/kernels/csrc/"
-                              "flash_attention.cu",
-                    "replaces": REPLACES["flash_attention"],
-                    "launches": totals[name], "max_abs_err": worst[hd],
-                    **rows[hd]})
+    for kernel, source in (("wgmma", "flash_wgmma.cuh"),
+                           ("fma", "flash_attention.cu")):
+        for hd in ZOO_HEAD_SIZES:
+            name = f"flash_attention[{kernel}] hd{hd}"
+            check(totals[name] > 0, f"{name} did not launch in phase 20")
+            out.append({"name": name, "route": "cuda",
+                        "source": f"src/repro_torch/kernels/csrc/{source}",
+                        "replaces": REPLACES["flash_attention"],
+                        "launches": totals[name],
+                        "max_abs_err": worst[(kernel, hd)],
+                        **rows[(kernel, hd)]})
     log(f"  zoo launches {totals}")
     log(f"  phase 20 took {time.perf_counter() - t0:.1f} s")
     return totals, out

@@ -2,13 +2,11 @@
 // sliding-window GQA attention in one online-softmax pass over K/V, as two
 // kernels chosen by the wrapper from (dtype, head size) alone:
 //
-//   flash_attention_forward_wgmma   bf16, head size 64 or 128 (every config
-//                                   but zamba2's and gemma3's):
-//                                   flash_wgmma.cuh
+//   flash_attention_forward_wgmma   bf16, head size 64, 80, 128 or 256
+//                                   (every config; zamba2's heads are 80,
+//                                   gemma3's 256): flash_wgmma.cuh
 //   flash_attention_forward         f32 (TF32 is not allowed), and bf16 at
-//                                   head size 16, 32, 80 or 256:
-//                                   flash_fwd_kernel (zamba2's heads are
-//                                   80, gemma3's 256)
+//                                   head size 16 or 32: flash_fwd_kernel
 //
 // Both replace repro/kernels/flash_attention.py: flash_attention ->
 // _flash_kernel.
@@ -37,7 +35,7 @@
 // multiple of 64, which the wrapper checks), masking the positions past Sk
 // as the reference does; the wgmma kernel's 128-row tiles set the
 // positions past Sk_pad to -inf (p = 0: the reference has no such
-// position).
+// position; its 64-row tiles at head size 256 end at Sk_pad).
 //
 // -- flash_attention_forward_wgmma (flash_wgmma.cuh) --------------------------
 //
@@ -53,21 +51,39 @@
 // What the design does about it: a CTA of 384 threads owns 128 query rows
 // of one (batch, head), heaviest query blocks first.  One producer warp
 // (its warpgroup gives up registers with setmaxnreg.dec to 24) loads Q once
-// and K/V in 128-row tiles by TMA (4-D tensor maps, so the rows past Sk
-// are zero-filled, 128-byte swizzle) into a 3-stage ring guarded by full /
-// empty mbarriers.  Two consumer warpgroups (setmaxnreg.inc to 240) take 64
-// query rows each: S = Q K^T is hd / 16 wgmma m64n128k16 from shared memory
-// (both operands K-major), masked in registers from positions computed
-// from the accumulator layout (only on tiles that cross a band edge), the
-// online softmax in registers (row max and sum across a quad's 4 lanes,
-// expf of one FFMA s scale - m, no fast-math), then O += P V is 8 wgmma
-// m64n{hd}k16 with P from registers (the S fragment of 16 keys is the A
-// fragment of one step) and V read MN-major from shared memory.  The two
-// consumers take turns on two named barriers (ping-pong): each issues its
-// products (the last tile's P V, this tile's Q K^T) while the other runs
-// its softmax.  O stays in f32 registers and is divided by max(l, 1e-30)
-// and rounded once to bf16 at the end.  Shared memory: 112 KB at hd 64,
-// 224 KB at hd 128; one CTA per SM (registers).
+// and K/V in tiles of 128 rows (64 at head size 256) by TMA (4-D tensor
+// maps, so the rows past Sk are zero-filled, 128-byte swizzle) into a ring
+// of 3 stages (2 at 256) guarded by full / empty mbarriers.  Two consumer
+// warpgroups (setmaxnreg.inc to 240) take 64 query rows each: S = Q K^T is
+// hd / 16 wgmma m64n{tile}k16 from shared memory (both operands K-major),
+// masked in registers from positions computed from the accumulator layout
+// (only on tiles that cross a band edge), the online softmax in registers
+// (row max and sum across a quad's 4 lanes, expf of one FFMA s scale - m,
+// no fast-math), then O += P V is tile / 16 k16 steps with P from
+// registers (the S fragment of 16 keys is the A fragment of one step) and
+// V read MN-major from shared memory: one wgmma m64n{hd}k16 a step at 64,
+// 80 and 128, two m64n128k16 at 256.  The two consumers take turns on two
+// named barriers (ping-pong): each issues its products (the last tile's P
+// V, this tile's Q K^T) while the other runs its softmax.  O stays in f32
+// registers and is divided by max(l, 1e-30) and rounded once to bf16 at
+// the end.  Shared memory: 112 KB at hd 64, 224 KB at hd 80 and 128, 192
+// KB at hd 256 (Q 64 KB + 2 x 64 KB); one CTA per SM.
+//
+// Head size 80: a 160-byte row has no 128-byte swizzle row of its own, so
+// the maps keep dims[0] = 80 and the layout of hd 128: two 64-column boxes
+// a tile, the TMA filling columns 80-127 of the second with zeros (the
+// transaction count is the whole box, as for rows past Sk).  S takes 5
+// k16 steps (the fifth from the second block), P V one m64n80k16 a step,
+// whose MN-major B spans the first block and 16 columns of the second (LBO
+// on), so no tensor work falls on the zero columns; the store writes
+// columns below 80 only.
+//
+// Head size 256: a 128-row K + V stage is 128 KB beside a 64 KB Q tile,
+// so the tiles are 64 rows in 2 stages (192 KB); S is m64n64k16 (32
+// registers, P 16).  The consumers' registers: O 128 + S 32 + P 16 a
+// thread fit the 240 that setmaxnreg gives them: ptxas allocates the
+// consumer path past the launch bound's 168 (the SASS names registers up
+// to R225), with 0 bytes spilled.
 //
 // Where the time goes (PERF.md, the kernel table): the softmax, not the
 // tensor cores -- expf's range reduction is most of its instructions an
@@ -77,18 +93,19 @@
 // operands, so P is rounded to bf16 for P V (l is summed from the f32 p).
 // Each p moves by at most 2^-8 of itself and the weights p / l sum to 1, so
 // an output element moves by at most 2^-8 max|v|; the plain version with
-// p_dtype=bfloat16 rounds at the same points (128-key tiles).
+// p_dtype=bfloat16 rounds at the same points (its tiles: 128 keys, 64 at
+// head size 256).
 //
-// ptxas (-Xptxas -v, CUDA 12.8, sm_90a): flash_wgmma_kernel<64> and <128>
-// 168 registers (the launch bound; ptxas allocates the consumers within it,
-// though setmaxnreg raises them to 240 at run time), 0 bytes spilled.
+// ptxas (-Xptxas -v, sm_90a): flash_wgmma_kernel<64>, <80>, <128> and
+// <256> 168 registers (the launch bound, which the producer keeps; the
+// SASS of the consumers names up to R205, R217, R237 and R225), 0 bytes
+// spilled.
 //
 // -- flash_attention_forward (flash_fwd_kernel, below) ------------------------
 //
 // Bound: 4 hd flops per live pair at 67 TFLOP/s on the f32 CUDA cores (f32
 // inputs; bf16 at hd 16 / 32 reads too few columns a row to feed wgmma's
-// 64-column swizzle rows, and takes this kernel; bf16 at hd 80 / 256 takes
-// it too until the tensor-core kernel has instances there).  Head sizes
+// 64-column swizzle rows, and takes this kernel).  Head sizes
 // 16, 32, 64, 80, 128, 256: hd / 8 output columns a thread (10 at hd 80,
 // read as float2), shared memory 4 ((64 + 2 64) (hd + 4) + 64 68) bytes,
 // 212 KB at hd 256 (sm_90 gives one block up to 227 KB).
@@ -448,7 +465,7 @@ int flash_attention_forward(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// bf16 only; hd 64 or 128; the same arguments otherwise.
+// bf16 only; hd 64, 80, 128 or 256; the same arguments otherwise.
 int flash_attention_forward_wgmma(const void* q, const void* k, const void* v,
                                   void* o, int hd, int batch, int sq, int sk,
                                   int n_heads, int n_kv, int causal,
@@ -459,8 +476,16 @@ int flash_attention_forward_wgmma(const void* q, const void* k, const void* v,
       return static_cast<int>(flash_wgmma::launch<64>(
           q, k, v, o, batch, sq, sk, n_heads, n_kv, causal, window, sk_pad,
           scale, stream));
+    case 80:
+      return static_cast<int>(flash_wgmma::launch<80>(
+          q, k, v, o, batch, sq, sk, n_heads, n_kv, causal, window, sk_pad,
+          scale, stream));
     case 128:
       return static_cast<int>(flash_wgmma::launch<128>(
+          q, k, v, o, batch, sq, sk, n_heads, n_kv, causal, window, sk_pad,
+          scale, stream));
+    case 256:
+      return static_cast<int>(flash_wgmma::launch<256>(
           q, k, v, o, batch, sq, sk, n_heads, n_kv, causal, window, sk_pad,
           scale, stream));
     default:

@@ -13,30 +13,38 @@
 
 namespace flash_wgmma {
 
-constexpr int kBlockQ = 128;          // query rows of a CTA: 2 x 64 (wgmma M)
-constexpr int kBlockK = 128;          // key rows of a K/V tile (wgmma N of S)
-constexpr int kConsumers = 2;         // consumer warpgroups
+constexpr int kConsumers = 2;         // consumer warpgroups, 64 query rows each
+constexpr int kBlockQ = 64 * kConsumers;          // query rows of a CTA
 constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer warpgroup
-constexpr int kStages = 3;            // K/V ring depth
 constexpr int kTurnBar = 1;           // named barriers 1, 2: consumer turns
 constexpr int kColBlock = 64;         // bf16 columns of one 128-byte row
-constexpr int kTileBlockBytes = kBlockK * 128;    // 128 rows x 128 bytes
 constexpr float kNegInf = -1e30f;
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
-static_assert(kBlockQ == 64 * kConsumers, "a consumer takes 64 query rows");
 
-// shared memory: Q, then kStages x (K, V), each a tile of HD / 64 column
-// blocks of 128 rows x 128 bytes (the 128-byte swizzle's atom), then the
-// barriers; 1 KB of slack aligns the tiles to the swizzle's 1 KB period
+// shared memory: Q, then kStages x (K, V), each a tile of ceil(HD / 64)
+// column blocks of 128-byte rows (the 128-byte swizzle's atom: 8 rows, 1
+// KB); at head size 80 the second block's columns 80-127 are the TMA's
+// zeros.  Then the barriers; 1 KB of slack aligns the tiles to the
+// swizzle's 1 KB period.  kBlockK, the key rows of a K/V tile, is wgmma's
+// N of S and where P is rounded to bf16 (kernels/flash_attention.py
+// WGMMA_TILE); head size 256 takes 64-row tiles in 2 stages, since its Q
+// tile is 64 KB and a 128-row K + V stage 128 KB.
 template <int HD>
 struct Layout {
-  static constexpr int kTileBytes = (HD / kColBlock) * kTileBlockBytes;
+  static constexpr int kBlockK = HD == 256 ? 64 : 128;
+  static constexpr int kStages = HD == 256 ? 2 : 3;
+  static constexpr int kColBlocks = (HD + kColBlock - 1) / kColBlock;
+  static constexpr int kQBlockBytes = kBlockQ * 128;   // a column block of Q
+  static constexpr int kKBlockBytes = kBlockK * 128;   // ... of K or V
+  static constexpr int kQBytes = kColBlocks * kQBlockBytes;
+  static constexpr int kTileBytes = kColBlocks * kKBlockBytes;
   static constexpr int kQ = 0;
-  static constexpr int kStage = kTileBytes;              // K at +0, V at +tile
-  static constexpr int kBars = kTileBytes * (1 + 2 * kStages);
+  static constexpr int kStage = kQBytes;                 // K at +0, V at +tile
+  static constexpr int kBars = kQBytes + 2 * kStages * kTileBytes;
   static constexpr int kBytes = kBars + 8 * (2 * kStages + 1) + 1024;
-  static_assert(HD % kColBlock == 0, "HD is a multiple of 64");
+  static_assert(HD % 16 == 0, "S takes 16 columns a step");
+  static_assert(kBlockQ % kBlockK == 0, "Q loads as whole K/V boxes");
   static_assert(kBytes <= 232448, "fits the 227 KB a block may use");
 };
 
@@ -172,6 +180,43 @@ __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64],
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// D (64 x 64, f32) (+)= A (64 x 16, bf16, K-major in shared memory) *
+// B (64 x 16, bf16, K-major in shared memory)^T
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32],
+                                                uint64_t desc_a,
+                                                uint64_t desc_b,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// S = Q K^T of one k16 step over a tile of N keys
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
+                                         uint64_t desc_b, int accumulate) {
+  if constexpr (N == 64) {
+    wgmma_ss_m64n64(d, desc_a, desc_b, accumulate);
+  } else {
+    static_assert(N == 128, "K/V tiles of 64 or 128 rows");
+    wgmma_ss_m64n128(d, desc_a, desc_b, accumulate);
+  }
+}
+
 // D (64 x 64, f32) += A (64 x 16, bf16, registers) * B (16 x 64, bf16,
 // MN-major in shared memory)
 __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], uint32_t a0,
@@ -234,14 +279,54 @@ __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(accumulate));
 }
 
+// D (64 x 80, f32) += A (64 x 16, bf16, registers) * B (16 x 80, bf16,
+// MN-major in shared memory: columns 64-79 from the second 64-column
+// block, LBO on)
+__device__ __forceinline__ void wgmma_rs_m64n80(float (&d)[40], uint32_t a0,
+                                                uint32_t a1, uint32_t a2,
+                                                uint32_t a3, uint64_t desc_b,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(accumulate));
+}
+
+// O += P V of one k16 step (16 keys, V's rows `addr` on, its 64-column
+// blocks `lbo` bytes apart): one wgmma of N = HD, two of N = 128 at 256
 template <int HD>
-__device__ __forceinline__ void wgmma_rs(float (&d)[HD / 2], uint32_t a0,
-                                         uint32_t a1, uint32_t a2, uint32_t a3,
-                                         uint64_t desc_b, int accumulate) {
+__device__ __forceinline__ void pv_step(float (&d)[HD / 2], uint32_t a0,
+                                        uint32_t a1, uint32_t a2, uint32_t a3,
+                                        uint32_t addr, uint32_t lbo) {
+  const uint64_t desc = smem_desc(addr, lbo, 1024);
   if constexpr (HD == 64) {
-    wgmma_rs_m64n64(d, a0, a1, a2, a3, desc_b, accumulate);
+    wgmma_rs_m64n64(d, a0, a1, a2, a3, desc, 1);
+  } else if constexpr (HD == 80) {
+    wgmma_rs_m64n80(d, a0, a1, a2, a3, desc, 1);
+  } else if constexpr (HD == 128) {
+    wgmma_rs_m64n128(d, a0, a1, a2, a3, desc, 1);
   } else {
-    wgmma_rs_m64n128(d, a0, a1, a2, a3, desc_b, accumulate);
+    static_assert(HD == 256, "head size 64, 80, 128 or 256");
+    wgmma_rs_m64n128(*reinterpret_cast<float(*)[64]>(&d[0]), a0, a1, a2, a3,
+                     desc, 1);
+    wgmma_rs_m64n128(*reinterpret_cast<float(*)[64]>(&d[64]), a0, a1, a2, a3,
+                     smem_desc(addr + 2 * lbo, lbo, 1024), 1);
   }
 }
 
@@ -268,9 +353,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // q (B, Sq, H, HD), k and v (B, Sk, KV, HD) arrive through 4-D tensor maps
-// (HD, heads, rows, B) in boxes of 64 columns x 1 head x 128 rows x 1, so a
-// box past the last row is zero-filled by the hardware (a 2-D map would read
-// the next batch's rows there); o (B, Sq, H, HD) is written from registers.
+// (HD, heads, rows, B) in boxes of 64 columns x 1 head x kBlockK rows x 1
+// (Q as kBlockQ / kBlockK boxes a column block), so a box past the last row
+// or column is zero-filled by the hardware (a 2-D map would read the next
+// batch's rows there); o (B, Sq, H, HD) is written from registers.
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -280,7 +366,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    int n_kv, int sq, int sk, int sk_pad, int causal,
                    int window, float scale) {
   using L = Layout<HD>;
-  constexpr int kColBlocks = HD / kColBlock;
+  constexpr int kBlockK = L::kBlockK;
+  constexpr int kStages = L::kStages;
+  constexpr int kColBlocks = L::kColBlocks;
+  constexpr int kS = kBlockK / 2;     // S registers of a thread
+  constexpr int kPSteps = kBlockK / 16;  // k16 steps of P V
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_tile = base + L::kQ;
@@ -330,11 +420,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     // the producer: one thread keeps the ring full
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
     if (threadIdx.x == 128 * kConsumers) {
-      mbar_expect_tx(q_bar, L::kTileBytes);
+      mbar_expect_tx(q_bar, L::kQBytes);
 #pragma unroll
       for (int c = 0; c < kColBlocks; ++c) {
-        tma_load_4d(q_tile + c * kTileBlockBytes, &tm_q, q_bar, c * kColBlock,
-                    h, q0, b);
+#pragma unroll
+        for (int r = 0; r < kBlockQ / kBlockK; ++r) {
+          tma_load_4d(q_tile + c * L::kQBlockBytes + r * L::kKBlockBytes,
+                      &tm_q, q_bar, c * kColBlock, h, q0 + r * kBlockK, b);
+        }
       }
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kStages;
@@ -343,9 +436,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         const int k0 = (t_first + it) * kBlockK;
 #pragma unroll
         for (int c = 0; c < kColBlocks; ++c) {
-          tma_load_4d(k_tile(s) + c * kTileBlockBytes, &tm_k, full_bar(s),
+          tma_load_4d(k_tile(s) + c * L::kKBlockBytes, &tm_k, full_bar(s),
                       c * kColBlock, kvh, k0, b);
-          tma_load_4d(k_tile(s) + L::kTileBytes + c * kTileBlockBytes, &tm_v,
+          tma_load_4d(k_tile(s) + L::kTileBytes + c * L::kKBlockBytes, &tm_v,
                       full_bar(s), c * kColBlock, kvh, k0, b);
         }
       }
@@ -370,19 +463,19 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     float m[2] = {kNegInf, kNegInf};
     float l[2] = {0.f, 0.f};  // this thread's part of each row's sum
 
-    // O += P V of the tile in stage s: 8 steps of 16 keys (two 8-row
-    // groups, 2 KB) with V read MN-major (transposed); then stage s is free
-    uint32_t pa[32];
+    // O += P V of the tile in stage s: kBlockK / 16 steps of 16 keys (two
+    // 8-row groups, 2 KB) with V read MN-major (transposed); then stage s
+    // is free
+    uint32_t pa[kBlockK / 4];
     auto pv_gemm = [&](int s) {
       const uint32_t vt = k_tile(s) + L::kTileBytes;
       fence_regs(acc);
       fence_regs(pa);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        wgmma_rs<HD>(acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
-                     pa[4 * kk + 3],
-                     smem_desc(vt + 2048 * kk, kTileBlockBytes, 1024), 1);
+      for (int kk = 0; kk < kPSteps; ++kk) {
+        pv_step<HD>(acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                    pa[4 * kk + 3], vt + 2048 * kk, L::kKBlockBytes);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -405,13 +498,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       // S = Q K^T: HD / 16 steps of 16 columns, 32 bytes apart within a
       // 128-byte row, the next 64 columns one column block on
       const uint32_t kt = k_tile(s);
-      float sc[64];
+      float sc[kS];
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
-        const uint32_t off = (kk / 4) * kTileBlockBytes + (kk % 4) * 32;
-        wgmma_ss_m64n128(sc, smem_desc(q_wg + off, 16, 1024),
-                         smem_desc(kt + off, 16, 1024), kk > 0);
+        const uint32_t off = (kk % 4) * 32;
+        wgmma_ss<kBlockK>(
+            sc, smem_desc(q_wg + (kk / 4) * L::kQBlockBytes + off, 16, 1024),
+            smem_desc(kt + (kk / 4) * L::kKBlockBytes + off, 16, 1024),
+            kk > 0);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -429,7 +524,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (need_mask) {
         sfac = 1.f;
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < kBlockK / 8; ++j) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int kp = k0 + 8 * j + col0 + (e & 1);
@@ -448,7 +543,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       // p = exp(s sfac - m'), alpha = exp(m - m'), l from the f32 p
       float mx[2] = {kDead, kDead};
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < kBlockK / 8; ++j) {
         mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j], sc[4 * j + 1]));
         mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
       }
@@ -463,7 +558,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         m[r] = mx[r];
       }
 #pragma unroll
-      for (int i = 0; i < 64; ++i) {
+      for (int i = 0; i < kS; ++i) {
         const int r = (i >> 1) & 1;
         sc[i] = exp_shifted(sc[i], sfac, mx[r]);
         sum[r] += sc[i];
@@ -476,7 +571,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       // P in bf16 as wgmma's register A: the S fragment of key columns
       // 16 kk .. 16 kk + 15 is the A fragment of step kk
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
+      for (int kk = 0; kk < kPSteps; ++kk) {
 #pragma unroll
         for (int x = 0; x < 4; ++x) {
           pa[4 * kk + x] =
@@ -540,10 +635,11 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// (B, rows, heads, HD) bf16 as the 4-D map (HD, heads, rows, B), boxes of
-// 64 x 1 x 128 x 1 with the 128-byte swizzle
+// (B, rows, heads, hd) bf16 as the 4-D map (hd, heads, rows, B), boxes of
+// 64 x 1 x box_rows x 1 with the 128-byte swizzle (at hd 80 the second
+// column block's box reaches past the row: its columns 80-127 are zeros)
 inline bool encode_map(EncodeTiled enc, CUtensorMap* map, const void* ptr,
-                       int hd, int heads, int rows, int batch) {
+                       int hd, int heads, int rows, int batch, int box_rows) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(rows),
@@ -551,7 +647,8 @@ inline bool encode_map(EncodeTiled enc, CUtensorMap* map, const void* ptr,
   const cuuint64_t row_bytes = static_cast<cuuint64_t>(hd) * 2;
   const cuuint64_t strides[3] = {row_bytes, row_bytes * heads,
                                  row_bytes * heads * rows};
-  const cuuint32_t box[4] = {kColBlock, 1, kBlockK, 1};
+  const cuuint32_t box[4] = {kColBlock, 1, static_cast<cuuint32_t>(box_rows),
+                             1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -564,13 +661,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int batch, int sq, int sk, int n_heads, int n_kv,
                    int causal, int window, int sk_pad, float scale,
                    cudaStream_t stream) {
-  static_assert(kBlockQ == kBlockK, "one box shape serves Q, K and V");
+  constexpr int kRows = Layout<HD>::kBlockK;  // one box shape: Q, K and V
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!encode_map(enc, &tm_q, q, HD, n_heads, sq, batch) ||
-      !encode_map(enc, &tm_k, k, HD, n_kv, sk, batch) ||
-      !encode_map(enc, &tm_v, v, HD, n_kv, sk, batch)) {
+  if (!encode_map(enc, &tm_q, q, HD, n_heads, sq, batch, kRows) ||
+      !encode_map(enc, &tm_k, k, HD, n_kv, sk, batch, kRows) ||
+      !encode_map(enc, &tm_v, v, HD, n_kv, sk, batch, kRows)) {
     return cudaErrorInvalidValue;
   }
   constexpr int kSmem = Layout<HD>::kBytes;

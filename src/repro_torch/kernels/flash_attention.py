@@ -9,10 +9,10 @@ version.
 
 Two kernels of ``csrc/flash_attention.cu`` compute it, chosen by
 :func:`kernel_for` from (dtype, head size) alone, before any launch:
-``"wgmma"`` (``flash_attention_forward_wgmma``: bf16 at head size 64 or
-128, on the tensor cores, P rounded to bf16 for P V) and ``"fma"``
-(``flash_attention_forward``: f32, and bf16 at head size 16, 32, 80 or
-256, on the CUDA cores, P in f32).  The wrapper takes the chosen kernel's plain
+``"wgmma"`` (``flash_attention_forward_wgmma``: bf16 at head size 64, 80,
+128 or 256, on the tensor cores, P rounded to bf16 for P V) and ``"fma"``
+(``flash_attention_forward``: f32, and bf16 at head size 16 or 32, on
+the CUDA cores, P in f32).  The wrapper takes the chosen kernel's plain
 version for tensors on the CPU, and only then; for CUDA tensors it
 launches the chosen kernel or raises.  Like the reference's kernel it is
 forward only: it raises when grad mode is on and an input requires grad,
@@ -40,10 +40,11 @@ HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 # rows of a K/V tile of the CUDA-core kernel: the padded K/V length that a
 # row with no live key averages over must be a whole number of tiles
 KERNEL_TILE = 64
-# the tensor-core kernel: bf16 at these head sizes, K/V tiles of 128 rows
-# (the points where its P is rounded to bf16)
-WGMMA_HEAD_DIMS = (64, 128)
-WGMMA_TILE = 128
+# the tensor-core kernel: bf16 at these head sizes, with K/V tiles of
+# these rows (the points where its P is rounded to bf16; 64 at head size
+# 256, whose 128-row K and V stages would not fit shared memory)
+WGMMA_TILE = {64: 128, 80: 128, 128: 128, 256: 64}
+WGMMA_HEAD_DIMS = tuple(WGMMA_TILE)
 KERNELS = ("wgmma", "fma")
 # the dtype P is rounded to for P V, by kernel
 P_DTYPE = {"wgmma": torch.bfloat16, "fma": torch.float32}
@@ -52,8 +53,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 def kernel_for(dtype: torch.dtype, hd: int) -> str:
     """The kernel that takes inputs of ``dtype`` and head size ``hd``:
-    ``"wgmma"`` for bf16 at head size 64 or 128, else ``"fma"`` (f32 may
-    not run on the tensor cores: TF32 is not allowed)."""
+    ``"wgmma"`` for bf16 at head size 64, 80, 128 or 256, else ``"fma"``
+    (f32 may not run on the tensor cores: TF32 is not allowed)."""
     if dtype == torch.bfloat16 and int(hd) in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "fma"
@@ -124,7 +125,7 @@ def _launch_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    window: Optional[int] = None, kv_block: int = KV_BLOCK):
     """One launch of the named kernel on CUDA tensors: :func:`kernel_for`'s
     choice from the wrapper; the checks name the ``"fma"`` kernel for bf16
-    at head size 64 / 128 to compare the two."""
+    at the tensor-core kernel's head sizes to compare the two."""
     b, sq, h, hd, sk, kv = _shapes(q, k, v, window, Q_BLOCK, kv_block)
     _check_takes(q, k, v, hd, kv_block)
     if kernel not in KERNELS:
@@ -175,9 +176,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     is the same).
 
     ``p_dtype=torch.bfloat16`` is the tensor-core kernel's function: the
-    kv tiles are its 128 rows, positions past the padded K/V (in the last
-    tile when ``kv_block`` is not a multiple of 128) get p = 0, and p is
-    rounded to bf16 for P V while l sums the f32 p.
+    kv tiles are its rows at head size hd (``WGMMA_TILE``; 128 at a head
+    size it does not take), positions past the padded K/V (in the last
+    tile when ``kv_block`` is not a multiple of the tile) get p = 0, and p
+    is rounded to bf16 for P V while l sums the f32 p.
 
     ``return_l=True`` returns ``(out, l)``: l (B, Sq, H) f32 is each row's
     denominator in units of its largest p, so 1 / l is the row's largest
@@ -191,7 +193,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     scale = 1.0 / math.sqrt(hd)
     sq_p = -(-sq // q_block) * q_block
     sk_p = -(-sk // kv_block) * kv_block
-    tile = kv_block if p_dtype == torch.float32 else WGMMA_TILE
+    tile = kv_block if p_dtype == torch.float32 else WGMMA_TILE.get(hd, 128)
     sk_t = -(-sk_p // tile) * tile
     dev = q.device
     # query head h = kv * G + g reads K/V head kv: (B, KV, G, Sq_p, hd)

@@ -14,7 +14,8 @@ float32 from the same bfloat16 inputs and round once, so a value within a
 few float32 ulp of a rounding boundary may land one bfloat16 ulp apart.
 
 The plain version's ``p_dtype=torch.bfloat16`` form (the tensor-core
-kernel's function: P rounded to bf16 for P V, at 128-key tiles) against
+kernel's function: P rounded to bf16 for P V, at its tiles of 128 keys,
+64 at head size 256) against
 the Pallas kernel: within 2**-8 max|v| + one bfloat16 ulp of the larger
 output + 1e-5 max|v|.  Rounding p to bf16 moves it by at most half a
 bf16 ulp, 2**-8 of itself, and the weights p / l sum to 1, so an output
@@ -215,7 +216,9 @@ def _p_bf16(q, k, v, **kw):
 # five parametrized ones, the non-causal one, the bf16 one, the block
 # invariance one at both block pairs), qwen2-0.5b's heads at a ragged
 # length, and kv_block = 64 with Sk = 150 (Sk_pad 192: the last 128-key
-# tile has 64 positions past it) and rows with no live key
+# tile has 64 positions past it) and rows with no live key; then zamba2's
+# head size (80; 128-key tiles) and gemma3's (256; 64-key tiles), causal,
+# windowed, GQA, bf16 inputs and rows with no live key
 P_BF16_CASES = [
     (2, 256, 256, 4, 4, 16, 260, dict(window=None)),
     (2, 256, 256, 8, 2, 16, 264, dict(window=None)),
@@ -230,6 +233,13 @@ P_BF16_CASES = [
     (1, 400, 150, 2, 1, 64, 11, dict(window=50, kv_block=64)),
     (1, 400, 150, 2, 1, 64, 11, dict(window=50, kv_block=64,
                                      causal=False)),
+    (1, 256, 256, 4, 4, 80, 80, dict(window=None)),
+    (1, 200, 200, 4, 2, 80, 81, dict(window=64)),
+    (1, 128, 128, 4, 4, 80, 82, dict(dtype="bfloat16")),
+    (1, 256, 256, 4, 2, 256, 256, dict(window=None)),
+    (1, 200, 200, 2, 1, 256, 257, dict(window=100)),
+    (1, 128, 128, 4, 2, 256, 258, dict(dtype="bfloat16")),
+    (1, 256, 150, 2, 1, 256, 259, dict(window=50, kv_block=64)),
 ]
 
 
@@ -365,16 +375,20 @@ def test_plain_l_is_the_rows_largest_weight(p_dtype, kw):
 
 
 def test_kernel_choice_is_by_dtype_and_head_size():
-    """Pure Python, on the CPU: bf16 at head size 64 / 128 takes the
-    tensor-core kernel, everything else the CUDA-core one, and the CPU
-    wrapper runs the chosen kernel's plain version."""
+    """Pure Python, on the CPU: bf16 at head size 64, 80, 128 and 256 takes
+    the tensor-core kernel (K/V tiles of 128 rows, 64 at 256), everything
+    else the CUDA-core one, and the CPU wrapper runs the chosen kernel's
+    plain version."""
     for hd in flash.HEAD_DIMS:
         assert flash.kernel_for(torch.float32, hd) == "fma"
         assert flash.kernel_for(torch.bfloat16, hd) == (
-            "wgmma" if hd in (64, 128) else "fma")
+            "wgmma" if hd in (64, 80, 128, 256) else "fma")
+    assert flash.WGMMA_TILE == {64: 128, 80: 128, 128: 128, 256: 64}
     assert flash.P_DTYPE == {"wgmma": torch.bfloat16, "fma": torch.float32}
     for dtype, hd in ((torch.bfloat16, 64), (torch.bfloat16, 128),
-                      (torch.bfloat16, 32), (torch.float32, 64)):
+                      (torch.bfloat16, 80), (torch.bfloat16, 256),
+                      (torch.bfloat16, 32), (torch.float32, 64),
+                      (torch.float32, 256)):
         q, k, v = (torch.from_numpy(x).to(dtype)
                    for x in _qkv(hd, 1, 150, 150, 4, 2, hd))
         with torch.no_grad():

@@ -602,9 +602,9 @@ def _flash_close(out, ref, v):
 
 def _flash_close_p_bf16(out, ref, l, v):
     """The tensor-core kernel against the plain version with
-    p_dtype=bfloat16 (P rounded at the same 128-key tiles; ``l`` its
-    denominators): within _flash_close's tolerance + 2**-7 max|v| min(1 /
-    l, 1 - 1 / l) of the row (where the two f32 p of a key round to
+    p_dtype=bfloat16 (P rounded at the same tiles of 128 keys, 64 at head
+    size 256; ``l`` its denominators): within _flash_close's tolerance +
+    2**-7 max|v| min(1 / l, 1 - 1 / l) of the row (where the two f32 p of a key round to
     neighbouring bf16 values, 2**-7 of its weight p / l at most, allowed
     once a row; the row's largest key has p = 1 on both sides and weight
     1 / l, any other at most min(1 / l, 1 - 1 / l)), and within 2**-10
@@ -625,8 +625,9 @@ def _flash_close_p_bf16(out, ref, l, v):
                          ids=[str(i) for i in range(len(FLASH_CASES))])
 def test_flash_attention_matches_plain(cuda, case, dtype):
     """Each case through the kernel the wrapper chooses: the tensor-core
-    one for bf16 at head size 64 / 128, the CUDA-core one otherwise (f32,
-    and bf16 at 16 / 32, under _flash_close as before); the variant counts
+    one for bf16 at head size 64 / 128 (80 / 256: the zoo's test below),
+    the CUDA-core one otherwise (f32, and bf16 at 16 / 32, under
+    _flash_close as before); the variant counts
     show which ran."""
     from repro_torch.kernels import flash_attention as flash
 
@@ -660,12 +661,17 @@ def test_flash_attention_matches_plain(cuda, case, dtype):
         assert _flash_close(out, ref, v)
 
 
-# the zoo's head sizes, which only the CUDA-core kernel takes: zamba2's
-# (32 / 32 heads of 80) and gemma3's (8 / 4 heads of 256), causal, with and
-# without a window, ragged lengths; (B, S, H, KV, hd, window)
+# the zoo's head sizes: zamba2's (32 / 32 heads of 80) and gemma3's (8 / 4
+# heads of 256), causal, with and without a window, ragged lengths; batch
+# 2 with a ragged Sk at 80 (the second column block's box reaches past
+# column 80 and, in the last tile, past Sk), and at 256 rows with no live
+# key over Sk_pad 256 (tiles 192-255 wholly past Sk = 150: the hardware's
+# zeros), Sq = 1; (B, Sq, Sk, H, KV, hd, window, kv_block)
 ZOO_FLASH_CASES = [
-    (1, 300, 4, 4, 80, None), (2, 200, 4, 4, 80, 64),
-    (1, 300, 8, 4, 256, None), (1, 257, 8, 4, 256, 100),
+    (1, 300, 300, 4, 4, 80, None, 128), (2, 200, 200, 4, 4, 80, 64, 128),
+    (1, 300, 300, 8, 4, 256, None, 128), (1, 257, 257, 8, 4, 256, 100, 128),
+    (2, 300, 170, 4, 4, 80, None, 128), (1, 400, 150, 4, 2, 256, 50, 128),
+    (1, 1, 77, 8, 4, 256, None, 128), (1, 400, 150, 4, 4, 80, 50, 64),
 ]
 
 
@@ -673,24 +679,41 @@ ZOO_FLASH_CASES = [
 @pytest.mark.parametrize("case", ZOO_FLASH_CASES,
                          ids=[str(i) for i in range(len(ZOO_FLASH_CASES))])
 def test_flash_attention_zoo_head_sizes(cuda, case, dtype):
-    """Head sizes 80 and 256 run the CUDA-core kernel, within
-    _flash_close of its plain version, reruns bit-identical."""
+    """Head sizes 80 and 256: bf16 runs the tensor-core kernel, within
+    _flash_close_p_bf16 of its plain version (P rounded at its tiles: 128
+    keys at 80, 64 at 256), f32 the CUDA-core kernel within _flash_close;
+    at bf16 the CUDA-core kernel, named, stays within _flash_close of the
+    f32-P plain version; reruns bit-identical."""
     from repro_torch.kernels import flash_attention as flash
 
-    b, s, h, kv, hd, window = case
-    assert flash.kernel_for(dtype, hd) == "fma"
-    gen = torch.Generator(device=cuda).manual_seed(s + hd)
-    q = torch.randn((b, s, h, hd), generator=gen, device=cuda).to(dtype)
-    k, v = (torch.randn((b, s, kv, hd), generator=gen, device=cuda)
+    b, sq, sk, h, kv, hd, window, kv_block = case
+    kernel = "wgmma" if dtype == torch.bfloat16 else "fma"
+    assert flash.kernel_for(dtype, hd) == kernel
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk + hd)
+    q = torch.randn((b, sq, h, hd), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, sk, kv, hd), generator=gen, device=cuda)
             .to(dtype) for _ in range(2))
-    before = rbd_step.VARIANT_LAUNCHES.get("flash_attention[fma]", 0)
-    out = flash.flash_attention(q, k, v, window=window)
-    again = flash.flash_attention(q, k, v, window=window)
+    kw = dict(window=window, kv_block=kv_block)
+    key = f"flash_attention[{kernel}]"
+    before = dict(rbd_step.VARIANT_LAUNCHES)
+    out = flash.flash_attention(q, k, v, **kw)
+    again = flash.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert rbd_step.VARIANT_LAUNCHES["flash_attention[fma]"] == before + 2
+    after = dict(rbd_step.VARIANT_LAUNCHES)
+    assert after.get(key, 0) == before.get(key, 0) + 2
+    assert sum(after.values()) == sum(before.values()) + 2
     assert torch.equal(out, again)
-    assert _flash_close(out, flash.flash_attention_plain(q, k, v,
-                                                         window=window), v)
+    ref, l = flash.flash_attention_plain(q, k, v, **kw,
+                                         p_dtype=flash.P_DTYPE[kernel],
+                                         return_l=True)
+    if kernel == "wgmma":
+        assert _flash_close_p_bf16(out, ref, l, v)
+        out = flash._launch_kernel(q, k, v, kernel="fma", **kw)
+        again = flash._launch_kernel(q, k, v, kernel="fma", **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+        ref = flash.flash_attention_plain(q, k, v, **kw)
+    assert _flash_close(out, ref, v)
 
 
 def test_flash_attention_refuses_other_head_sizes_on_the_card(cuda):
