@@ -234,13 +234,44 @@ result line:
                ``scaled_dot_product_attention``, the plain versions timed
                at 8,192, where the tensor-core kernel's gate must refuse
                the two planted faults;
+21. encdec / vision -- (a) whisper-tiny at full width and depth (4 + 4
+               layers, 1,500 frames, vocabulary 51,865), bf16, the packed
+               step (shared basis, Threefry, rbd-dim 1024) on batch 8 x
+               (1,500 frames + 128 tokens) through ``train/step.py`` for 3
+               steps: 2 launches a step after the first, finite losses,
+               theta moved; launch ms, step wall, peak memory.  (b)
+               ``encdec.prefill_cross_cache`` on 2 x 1,500 frames and 32
+               greedy ``decode_step``s: exactly 4 flash launches in the
+               prefill, all the tensor-core kernel's, none in decode; the
+               encoder's output through the kernel against the same layers
+               through the blockwise function, and every decoded
+               position's logits against a teacher-forced ``forward`` on
+               the same tokens, in bf16 within 4% of the largest magnitude
+               or twice the plain-version route's reading, with f32
+               compute within PREFILL_F32_RTOL; prefill ms, decode ms a
+               token.  (c) The tensor-core flash kernel alone at the
+               encoder's shape (6 / 6 heads of 64, Sq = Sk = 1,500,
+               non-causal, bf16) within row 11's gate of its plain
+               version, reruns bit-identical, timed in turns with
+               ``scaled_dot_product_attention``.  (d) FC, CNN and ResNet8
+               at 32 x 32 x 3, batch 32, make_plan(params, 250), 5 RBD
+               steps each through ``projector.rbd_gradient`` on the
+               per-leaf kernels: one ``project_flat`` and one
+               ``reconstruct_flat`` launch a leaf a step, the first step's
+               sketch against the torch backend's; the reference's
+               acceptance run (tests/test_system.py:55: FC at 14 x 14 x 1,
+               rbd-dim 128, lr 2.0, 120 steps) with its gate, accuracy >
+               0.5; RBD against FPD (:63: rbd-dim 64, 150 steps, 2 seeds),
+               reported;
 then the ``kernels`` line (eleven rows, then the six tile-keyed rows
 ``[hw_emulated]``, ``[hw,db]`` and ``[hw]`` of rows 1-2, then the
 tensor-core flash kernel's rows at head sizes 80 and 256 (launches: the
 bf16 prefills of phase 20) and the CUDA-core kernel's there (launches:
-the f32 prefills); rows 1-2 count phase 19 (a)'s and phase 20's launches
-too, row 11 phase 20's at head size 128), the card line and the result
-line.
+the f32 prefills), then the tensor-core kernel's at the encoder's
+non-causal 1,500-token shape (launches: phase 21's bf16 prefill); rows
+1-2 count phase 19 (a)'s, phase 20's and phase 21's launches too, rows
+8-9 phase 21's image models', row 11 phase 20's at head size 128 and
+phase 21's encoder), the card line and the result line.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -395,6 +426,26 @@ ZOO_HEAD_SIZES = tuple(sorted(hd for _, _, hd, _ in ZOO_FLASH_HEADS))
 ZOO_FLASH_LENGTHS = (2048, 8192)
 # launches timed back to back between one pair of events, by length
 ZOO_FLASH_BURST = {2048: 4}
+# phase 21: whisper-tiny's packed step at full width and depth (batch,
+# tokens beside its 1,500 frames, rbd-dim, steps); its decode (batch,
+# greedy steps); the flash kernel at the encoder's shape (heads, kv heads,
+# head size, frames) and the launches of one timed burst; the image models
+# at the paper's CIFAR geometry (shape, batch, rbd-dim, steps) and their
+# learning rate; the reference's acceptance run (tests/test_system.py:55:
+# shape, rbd-dim, lr, steps), its RBD-against-FPD run (:63: rbd-dim, steps,
+# seeds) and their evaluation images
+ENC_TRAIN = (8, 128, 1024, 3)
+ENC_DECODE_B, ENC_NEW = 2, 32
+ENC_FLASH = (6, 6, 64, 1500)
+ENC_FLASH_BURST = 16
+# ~2.5 ms of an H100 SM's clock: longer than the host takes to issue a
+# burst, which it queues while the stream sleeps
+ENC_SLEEP_CYCLES = 5_000_000
+VISION_RUN = ((32, 32, 3), 32, 250, 5)
+VISION_LR = 2.0
+VISION_ACCEPT = ((14, 14, 1), 128, 2.0, 120)
+VISION_FPD = (64, 150, 2)
+VISION_EVAL = 512
 # Peak rates of an H100 SM (sm_90) in lanes a clock, the bound's table:
 # 4 schedulers issue one warp instruction a clock each (128); the integer
 # ALU 64 (LOP3, shifts, compares, selects, I2FP); the FP32 "heavy" pipe 64,
@@ -4465,7 +4516,8 @@ def _zoo_train(cfg, model, b, s, rbd_dim, steps, smi):
     lay = sub.transform.plan.packed()
     ms = "; ".join(f"{k} {[round(x, 2) for x in v]}"
                    for k, v in kms.items() if v)
-    line = (f"q_packed {lay.q_packed:,} total_dim {lay.d_packed}; init "
+    line = (f"q_packed {lay.q_packed:,} d_packed {lay.d_packed} (total_dim "
+            f"{sub.transform.plan.total_dim}); init "
             f"{t_init:.2f} s; losses {[round(x, 4) for x in losses]}; step "
             f"wall {[round(x, 3) for x in walls]} s; launch ms {ms}; "
             f"peak {peak:.2f} GiB; theta moved (max|d| {moved:.3g} on a "
@@ -4802,6 +4854,535 @@ def phase_zoo(dev) -> tuple[dict, list]:
     return totals, out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the encoder-decoder (whisper-tiny) and the paper's image models
+# ---------------------------------------------------------------------------
+
+
+def _packed_vs_plain(model, state, sub, batch) -> dict:
+    """Rows 1-2 against their plain versions on the inputs of the packed
+    step that would follow ``state``: the loss gradient of the stored
+    buffer on ``batch``, that step's segment seeds, and the apply's scale
+    (the plain coordinates through the plan's normalization, times the
+    learning rate) on the stored theta; phase 3's gates.  Returns max|err|
+    by kernel."""
+    import torch
+    from repro_torch.core import projector
+    from repro_torch.kernels import rbd_step
+    from repro_torch.train import step as steplib
+
+    t = sub.transform
+    plan = t.plan
+    lay = plan.packed()
+    dist = plan.distribution
+    loss_fn = steplib.make_loss_fn(model, model.cfg.router_aux_coef)
+    stored = state.params.detach().requires_grad_(True)
+    loss, _ = loss_fn(sub.materialize_params(stored), batch)
+    (g,) = torch.autograd.grad(loss, stored)
+    del loss, stored
+    theta = state.params.detach()
+    seeds = projector.segment_seeds(plan, t.step_seed(state.rbd_state.step))
+    tag = f"{model.cfg.name} step {state.step}"
+    with torch.no_grad():
+        u, sq = rbd_step.project_packed(seeds, g, lay, dist)
+        up, sqp = rbd_step.project_packed_plain(seeds, g, lay, dist)
+        errs = {"project_packed": _check_project(tag, u, sq, up, sqp, g,
+                                                 lay)}
+        del u, sq
+        scale = (up * projector.packed_norm_factor(plan, lay, sqp)
+                 * ZOO_LR)
+        out = rbd_step.reconstruct_apply_packed(seeds, scale, theta, lay,
+                                                dist)
+        ref = rbd_step.reconstruct_apply_packed_plain(seeds, scale, theta,
+                                                      lay, dist)
+        errs["reconstruct_apply_packed"] = _check_apply(tag, out, ref,
+                                                        theta)
+    return errs
+
+
+def _checked_flash(errs: dict):
+    """The flash wrapper, each call held against the plain version of the
+    kernel it chose on the same inputs (row 11's gate); the largest
+    |difference| and share of the tolerance go into ``errs``."""
+    import torch
+    from repro_torch.kernels import flash_attention as flash
+
+    def attention(q, k, v, *, causal=True, **kw):
+        out = flash.flash_attention(q, k, v, causal=causal, **kw)
+        kernel = flash.kernel_for(q.dtype, q.shape[-1])
+        ref, l = flash.flash_attention_plain(
+            q, k, v, causal=causal, **kw, p_dtype=flash.P_DTYPE[kernel],
+            return_l=True)
+        d, ratio, _ = _flash_err(torch, out, ref, v, kernel,
+                                 l if kernel == "wgmma" else None)
+        errs[kernel] = max(errs.get(kernel, 0.0), d)
+        errs["ratio"] = max(errs.get("ratio", 0.0), ratio)
+        return out
+
+    return attention
+
+
+def _encdec_decode(cfg, model, params, frames, tokens, attention):
+    """``prefill_cross_cache`` (the encoder through ``attention``), then one
+    decode step per column of ``tokens`` (B, N): teacher-forced, or greedy
+    from the first column when ``tokens`` is (B, 1) -- ENC_NEW steps.
+    Returns (every step's logits (B, N, V) float32, the tokens fed (B, N),
+    the prefill's flash launches by kernel, the prefill's and the decode's
+    seconds, synchronized)."""
+    import torch
+    from repro_torch.kernels import rbd_step
+    from repro_torch.models import encdec
+
+    b = frames.shape[0]
+    n = tokens.shape[1] if tokens.shape[1] > 1 else ENC_NEW
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        rbd_step.reset_counts()
+        t = time.perf_counter()
+        cache = encdec.prefill_cross_cache(
+            cfg, params, model.init_cache(b, n, device="cuda"), frames,
+            attention)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t
+        variants = dict(rbd_step.VARIANT_LAUNCHES)
+        fed, outs = [tokens[:, :1]], []
+        t = time.perf_counter()
+        for i in range(n):
+            logits, cache = model.decode_step(params, cache, fed[-1])
+            outs.append(logits[:, 0])
+            if i + 1 < n:
+                fed.append(tokens[:, i + 1:i + 2] if tokens.shape[1] > 1
+                           else logits[:, 0].argmax(-1, keepdim=True))
+        torch.cuda.synchronize()
+        t_decode = time.perf_counter() - t
+        check(int(cache["len"]) == n,
+              f"{cfg.name}: len {int(cache['len'])} after {n} steps")
+        check(dict(rbd_step.VARIANT_LAUNCHES) == variants,
+              f"{cfg.name}: decode launched the flash kernel "
+              f"({dict(rbd_step.VARIANT_LAUNCHES)}; prefill {variants})")
+    return (torch.stack(outs, 1).float(), torch.cat(fed, 1), variants,
+            t_prefill, t_decode)
+
+
+def _encdec_serve(cfg, model, params, smi):
+    """Phase 21 (b): ``prefill_cross_cache`` on ``cfg.enc_seq`` frames at
+    batch ENC_DECODE_B and ENC_NEW greedy decode steps.  The encoder's
+    output through the flash kernel against the same layers through the
+    blockwise function, and every decoded position's logits against a
+    teacher-forced ``forward`` on the fed tokens: in bf16 within
+    PREFILL_LOGIT_RTOL of the largest magnitude, or twice what the route
+    through the plain version reads (phase 20's rule); with f32 compute
+    within PREFILL_F32_RTOL.  The prefill launches the flash kernel once a
+    layer (bf16: all the tensor-core kernel's; f32: the CUDA-core one's),
+    decode never.  Each layer's flash launch at this shape is held against
+    its plain version on the same inputs (``_checked_flash``: in the
+    kernel's encoder run, bf16, and in the f32 prefill).  Returns the bf16
+    prefill's launches by kernel, the flash checks' largest |difference|
+    by kernel and a log line."""
+    import torch
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.models import attention as attn
+    from repro_torch.models import encdec, frontends
+    from repro_torch.models import layers as L
+    from repro_torch.models.registry import get_model
+
+    frames = frontends.audio_frames(cfg, ENC_DECODE_B, seed=21)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    first = torch.randint(0, cfg.vocab, (ENC_DECODE_B, 1), generator=gen,
+                          device="cuda")
+    cparams = L.cast_for_compute(params, L.dtype_of(cfg.compute_dtype))
+    n_enc = cfg.n_enc_layers
+    flash_errs = {}
+    checked = _checked_flash(flash_errs)
+    with torch.no_grad():
+        enc = {name: encdec.encode(cfg, cparams, frames, fn).float()
+               for name, fn in (("kernel", checked),
+                                ("plain", flash.flash_attention_plain),
+                                ("blockwise", attn.flash_attention))}
+        e_scale = float(enc["blockwise"].abs().max())
+        e_d = float((enc["kernel"] - enc["blockwise"]).abs().max())
+        e_sound = float((enc["plain"] - enc["blockwise"]).abs().max())
+        e_plain = float((enc["kernel"] - enc["plain"]).abs().max())
+        e_tol = max(PREFILL_LOGIT_RTOL * e_scale, ZOO_SOUND_FACTOR * e_sound)
+        del enc
+        check(e_d <= e_tol, f"{cfg.name}: the encoder's output through the "
+              f"kernel off the blockwise function's by {e_d:.4g} > "
+              f"{e_tol:.4g}")
+        # the main path: the encoder through the kernel, greedy decode
+        logits, fed, variants, t_prefill, t_decode = _encdec_decode(
+            cfg, model, params, frames, first, flash.flash_attention)
+        want = {"flash_attention[wgmma]": n_enc}
+        check(variants == want, f"{cfg.name}: the bf16 prefill's flash "
+              f"launches {variants}, expected {want}")
+        full, _ = model.forward(params, {"tokens": fed, "frames": frames})
+        scale = float(full.abs().max())
+        d = float((logits - full).abs().max())
+        # the second sound route: the encoder through the plain version,
+        # teacher-forced on the same tokens
+        sound = _encdec_decode(cfg, model, params, frames, fed,
+                               flash.flash_attention_plain)[0]
+        d_sound = float((sound - full).abs().max())
+        tol = max(PREFILL_LOGIT_RTOL * scale, ZOO_SOUND_FACTOR * d_sound)
+        check(d <= tol, f"{cfg.name}: decoded logits off forward's by "
+              f"{d:.4g} > {tol:.4g} ({d / scale:.3%} of max|logits|)")
+        agree = float((full.argmax(-1)[:, :-1] == fed[:, 1:]).float().mean())
+        del full, sound
+        # f32 compute: the two routes differ by f32 rounding only
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        model32 = get_model(cfg32)
+        l32, _, variants32, _, _ = _encdec_decode(
+            cfg32, model32, params, frames, fed, checked)
+        check(variants32 == {"flash_attention[fma]": n_enc},
+              f"{cfg.name}: the f32 prefill's flash launches {variants32}")
+        full32, _ = model32.forward(params, {"tokens": fed,
+                                             "frames": frames})
+        scale32 = float(full32.abs().max())
+        d32 = float((l32 - full32).abs().max())
+        del l32, full32
+        n_new = fed.shape[1]
+        check(d32 <= PREFILL_F32_RTOL * scale32,
+              f"{cfg.name}: f32 decoded logits off forward's by {d32:.4g} "
+              f"({d32 / scale32:.3g} of max|logits|)")
+    line = (f"encoder output (batch {ENC_DECODE_B} x {frames.shape[1]} "
+            f"frames) through the kernel vs the blockwise function max|d| "
+            f"{e_d:.4g} of {e_scale:.4g} ({e_d / e_scale:.3%}; the plain "
+            f"version {e_sound / e_scale:.3%}, kernel vs plain "
+            f"{e_plain / e_scale:.3%}; tolerance {e_tol / e_scale:.3%}); "
+            f"each layer's flash launch vs its plain version on the same "
+            f"inputs max|d| wgmma {flash_errs['wgmma']:.3g}, fma "
+            f"{flash_errs['fma']:.3g}, at most {flash_errs['ratio']:.3g} "
+            f"of row 11's tolerance; "
+            f"prefill_cross_cache {1e3 * t_prefill:.1f} ms, {variants}; "
+            f"{n_new} greedy decode steps {1e3 * t_decode / n_new:.2f} ms "
+            f"a token, none launching flash; every "
+            f"position's logits vs teacher-forced forward max|d| {d:.4g} "
+            f"of {scale:.4g} ({d / scale:.3%}; the plain route "
+            f"{d_sound / scale:.3%}; tolerance {tol / scale:.3%}); "
+            f"forward's argmax is the next greedy token at {agree:.1%} of "
+            f"positions; f32 compute {d32 / scale32:.3g} of max|logits| "
+            f"(tolerance {PREFILL_F32_RTOL:g}; {variants32}) [{smi}]")
+    return variants, flash_errs, line
+
+
+def _queued_ms(torch, fn, reps: int) -> float:
+    """Device ms of one of ``reps`` calls of ``fn`` queued back to back
+    behind ENC_SLEEP_CYCLES of ``torch.cuda._sleep``: the host issues the
+    calls while the stream sleeps, so the events bracket the device's work
+    alone (as long as the sleep outlasts the issue)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(ENC_SLEEP_CYCLES)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def _encoder_flash(dev) -> dict:
+    """Phase 21 (c): the tensor-core flash kernel alone at the encoder's
+    shape (ENC_FLASH: B = 1, 6 / 6 heads of 64, Sq = Sk = 1,500,
+    non-causal, bf16) against the plain version with P rounded to bf16
+    within row 11's gate, reruns bit-identical, timed in turns with
+    ``scaled_dot_product_attention`` (bursts of ENC_FLASH_BURST: queued
+    behind a sleep for the device's time, issued back to back for the
+    host's pace), the plain version once.  Returns the kernels line's
+    numbers."""
+    import torch
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import rbd_step
+
+    h, kv, hd, s = ENC_FLASH
+    smi = dev["smi"]
+    key = "flash_attention[wgmma]"
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.no_grad():
+        q, k, v = _flash_inputs(torch, 1, s, s, h, kv, hd, torch.bfloat16,
+                                s + hd)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        check(flash.kernel_for(q.dtype, hd) == "wgmma",
+              f"bf16 at hd {hd} does not take the tensor-core kernel")
+        runs = {"wgmma": lambda: flash.flash_attention(q, k, v,
+                                                       causal=False),
+                "library": lambda: sdpa(qt, kt, vt)}
+        before = rbd_step.VARIANT_LAUNCHES.get(key, 0)
+        out, again = runs["wgmma"](), runs["wgmma"]()
+        ref, l = flash.flash_attention_plain(q, k, v, causal=False,
+                                             p_dtype=torch.bfloat16,
+                                             return_l=True)
+        torch.cuda.synchronize()
+        check(rbd_step.VARIANT_LAUNCHES.get(key, 0) == before + 2,
+              "the encoder-shape flash case did not run the tensor-core "
+              "kernel")
+        check(torch.equal(out, again), "encoder-shape flash rerun differs")
+        d, ratio, rel = _flash_err(torch, out, ref, v, "wgmma", l)
+        lib_d = float((runs["library"]().transpose(1, 2).float()
+                       - ref.float()).abs().max())
+        plain_ms = cuda_ms(lambda: flash.flash_attention_plain(
+            q, k, v, causal=False, p_dtype=torch.bfloat16))[0]
+        # a launch here is shorter than the host's time to issue one, so
+        # a burst issued back to back measures the host; the device's
+        # time is read with the burst queued behind a sleep of the stream
+        times = {name: [] for name in runs}
+        issued = {name: [] for name in runs}
+        for name in ("wgmma", "library", "library", "wgmma"):
+            runs[name]()                                   # warm
+            queued = [_queued_ms(torch, runs[name], ENC_FLASH_BURST)
+                      for _ in range(3)]
+            times[name].append(sorted(queued)[1])
+            burst = cuda_ms(lambda: [runs[name]()
+                                     for _ in range(ENC_FLASH_BURST)],
+                            repeat=3)
+            issued[name].append(sorted(burst)[1] / ENC_FLASH_BURST)
+        ms = {name: sum(t) / len(t) for name, t in times.items()}
+        ms_issued = {name: sum(t) / len(t) for name, t in issued.items()}
+        b_ms, by = flash_bound_ms(1, s, s, h, kv, hd, "bfloat16",
+                                  causal=False)
+        ctas = -(-s // flash.Q_BLOCK) * h
+        log(f"  (c) flash [wgmma] encoder shape, heads {h}/{kv} x {hd}, "
+            f"Sq = Sk = {s}, non-causal, bf16: {ms['wgmma']:.4f} ms on the "
+            f"device (turns {[round(t, 4) for t in times['wgmma']]}; "
+            f"issued back to back {ms_issued['wgmma']:.4f}), sdpa "
+            f"{ms['library']:.4f} ms (turns "
+            f"{[round(t, 4) for t in times['library']]}; issued back to "
+            f"back {ms_issued['library']:.4f}), bound "
+            f"{b_ms:.4f} ({by}), {b_ms / ms['wgmma']:.2%} of bound; "
+            f"{ctas} CTAs ({-(-s // flash.Q_BLOCK)} query blocks x {h} "
+            f"heads) for {dev['sms']} SMs; vs plain max|d| {d:.3g} "
+            f"({ratio:.3g} of the tolerance, relative L2 {rel:.3g}), rerun "
+            f"bit-identical; plain {plain_ms:.2f} ms; sdpa vs the plain "
+            f"version max|d| {lib_d:.3g} [{smi}]")
+        del q, k, v, qt, kt, vt, out, again, ref, l, runs
+    return {"max_abs_err": d, "ms": ms["wgmma"], "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": ms["library"]}
+
+
+def _vision_step(apply, params, x, y, transform, step, lr):
+    """One step of the reference's acceptance loop (tests/test_system.py:
+    _train): the loss gradient, its RBD sketch (``rbd_gradient``, one
+    ``project_flat`` and one ``reconstruct_flat`` launch a leaf on the
+    cuda backend), theta - lr * sketch.  Returns (params, loss, grads,
+    sketch)."""
+    import torch
+    from repro_torch.core import projector
+
+    p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    loss = torch.nn.functional.cross_entropy(apply(p, x), y)
+    grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+    sketch = projector.rbd_gradient(grads, transform.plan,
+                                    transform.step_seed(step),
+                                    backend=transform.backend)
+    with torch.no_grad():
+        new = {k: v.detach() - lr * sketch[k] for k, v in p.items()}
+    return new, loss.detach(), grads, sketch
+
+
+def _vision_train(name, shape, dim, lr, steps, *, seed=0, redraw=True,
+                  batch=32, noise=1.0, after_step=None):
+    """``steps`` RBD (or FPD: ``redraw=False``) steps of image model
+    ``name`` (parameters of seed 0, the data and the basis of ``seed``) on
+    the per-leaf kernels; ``after_step(step, transform, grads, sketch)``
+    runs after each step, outside its wall.  Returns (apply, params,
+    transform, losses, step walls)."""
+    import torch
+    from repro_torch.core import compartments
+    from repro_torch.core.rbd import RandomBasesTransform
+    from repro_torch.data import synthetic
+    from repro_torch.models import vision
+
+    init, apply = vision.get_vision_model(name)
+    params = init(0, shape)
+    plan = compartments.make_plan(params, dim)
+    t = RandomBasesTransform(plan, seed, redraw=redraw, backend="cuda")
+    data = synthetic.mixture_dataset(seed, batch, shape=shape, noise=noise,
+                                     device="cuda")
+    losses, walls = [], []
+    for step in range(steps):
+        x, y = next(data)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, loss, grads, sketch = _vision_step(apply, params, x, y, t,
+                                                   step, lr)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(loss)
+        if after_step is not None:
+            after_step(step, t, grads, sketch)
+    return apply, params, t, [float(x) for x in losses], walls
+
+
+def _accuracy(apply, params, shape) -> float:
+    """On the 512 images of the reference's evaluation set (noise 0.8),
+    drawn here from the generator seeded 99."""
+    import torch
+    from repro_torch.data import synthetic
+
+    x, y = synthetic.mixture_images(torch.Generator().manual_seed(99),
+                                    VISION_EVAL, shape=shape, noise=0.8,
+                                    device="cuda")
+    with torch.no_grad():
+        return float((apply(params, x).argmax(-1) == y).float().mean())
+
+
+def _vision_runs(smi) -> dict:
+    """Phase 21 (d): FC, CNN and ResNet8 at VISION_RUN's geometry through
+    the per-leaf kernels, the first step's sketch against the torch
+    backend's, launches one a leaf a step; the reference's acceptance run
+    (gate: accuracy > 0.5); RBD against FPD (reported).  Returns the
+    launches of ``project_flat`` and ``reconstruct_flat``."""
+    from repro_torch.core import projector
+    from repro_torch.kernels import rbd_step
+    from repro_torch.models import vision
+
+    totals = {"project_flat": 0, "reconstruct_flat": 0}
+    shape, batch, dim, steps = VISION_RUN
+    for name in sorted(vision.MODELS):
+        worst = [0.0]
+
+        def after_step(step, t, grads, sketch, name=name, worst=worst):
+            n = len(t.plan.leaves) * (step + 1)
+            want = {"project_flat": n, "reconstruct_flat": n}
+            got = {k: v for k, v in rbd_step.LAUNCHES.items() if v}
+            check(got == want, f"{name}: launches {got} after step {step}, "
+                  f"expected {want}")
+            if step:
+                return
+            # the kernels' sketch against the torch backend's on the same
+            # gradient, leaf by leaf at phase 12's reconstruct tolerance
+            # (the coordinates' error, U_RTOL, is below it)
+            plain = projector.rbd_gradient(grads, t.plan, t.step_seed(0),
+                                           backend="torch")
+            for k in plain:
+                dd = float((sketch[k] - plain[k]).abs().max())
+                lim = THETA_RTOL * float(plain[k].abs().max())
+                check(dd <= lim, f"{name}/{k}: the kernels' sketch off "
+                      f"the torch backend's by {dd:.3g} > {lim:.3g}")
+                worst[0] = max(worst[0], dd / max(lim, 1e-30))
+
+        rbd_step.reset_counts()
+        _, params, t, losses, walls = _vision_train(
+            name, shape, dim, VISION_LR, steps, batch=batch,
+            after_step=after_step)
+        check(all(math.isfinite(x) for x in losses),
+              f"{name}: losses {losses}")
+        for k in totals:
+            totals[k] += rbd_step.LAUNCHES[k]
+        # the host's share: the step seed and every leaf's compartment
+        # seeds, folded by Threefry in torch ops on the host, which
+        # rbd_gradient does twice a step (projection, reconstruction)
+        seed = t.step_seed(steps)
+        t0 = time.perf_counter()
+        for lp in t.plan.leaves:
+            projector._leaf_seeds(seed, lp)
+        seeds_ms = 1e3 * (time.perf_counter() - t0)
+        log(f"  (d) {name} at {shape}, batch {batch}, make_plan(params, "
+            f"{dim}): {vision.count_params(params):,} parameters, "
+            f"{len(t.plan.leaves)} leaves, total_dim {t.plan.total_dim}; "
+            f"{steps} steps, {rbd_step.LAUNCHES['project_flat']} "
+            f"project_flat + {rbd_step.LAUNCHES['reconstruct_flat']} "
+            f"reconstruct_flat launches (one a leaf a step); first sketch "
+            f"vs the torch backend at most {worst[0]:.3g} of the "
+            f"tolerance; losses {[round(x, 4) for x in losses]}; step wall "
+            f"{[round(1e3 * w, 2) for w in walls]} ms, of which the host "
+            f"folds the seeds twice: {seeds_ms:.2f} ms a pass over the "
+            f"leaves [{smi}]")
+    # the reference's acceptance run (tests/test_system.py:55)
+    shape, dim, lr, steps = VISION_ACCEPT
+    rbd_step.reset_counts()
+    apply, params, t, losses, walls = _vision_train(
+        "fc", shape, dim, lr, steps, noise=0.8)
+    acc = _accuracy(apply, params, shape)
+    for k in totals:
+        check(rbd_step.LAUNCHES[k] == len(t.plan.leaves) * steps,
+              f"acceptance run: {rbd_step.LAUNCHES[k]} {k} launches")
+        totals[k] += rbd_step.LAUNCHES[k]
+    check(acc > 0.5, f"RBD failed to learn: accuracy {acc}")
+    log(f"  (d) acceptance (FC at {shape}, make_plan(params, {dim}), lr "
+        f"{lr}, {steps} steps of 32 at noise 0.8): accuracy {acc:.4f} on "
+        f"{VISION_EVAL} images (gate > 0.5); last loss {losses[-1]:.4f}; "
+        f"median step {1e3 * statistics.median(walls):.2f} ms [{smi}]")
+    # RBD against FPD at equal dimension (tests/test_system.py:63)
+    dim, steps, seeds = VISION_FPD
+    accs, last = {}, {}
+    rbd_step.reset_counts()
+    for mode, redraw in (("rbd", True), ("fpd", False)):
+        for s in range(seeds):
+            apply, params, _, losses, _ = _vision_train(
+                "fc", shape, dim, lr, steps, seed=s, redraw=redraw,
+                noise=0.8)
+            accs.setdefault(mode, []).append(
+                round(_accuracy(apply, params, shape), 4))
+            last.setdefault(mode, []).append(round(losses[-1], 4))
+    for k in totals:
+        totals[k] += rbd_step.LAUNCHES[k]
+    mean = {m: sum(a) / len(a) for m, a in accs.items()}
+    log(f"  (d) RBD vs FPD (FC, make_plan(params, {dim}), {steps} steps, "
+        f"seeds {list(range(seeds))}): accuracy rbd {accs['rbd']} (mean "
+        f"{mean['rbd']:.4f}), fpd {accs['fpd']} (mean {mean['fpd']:.4f}); "
+        f"last losses rbd {last['rbd']}, fpd {last['fpd']}; RBD "
+        f"{'above' if mean['rbd'] > mean['fpd'] else 'NOT above'} FPD "
+        f"(reported, not gated: the port's data are torch draws) [{smi}]")
+    return totals
+
+
+def phase_encdec_vision(dev) -> tuple[dict, dict, dict]:
+    """Returns the phase's launches by kernel row (rows 1-2: whisper's
+    packed steps; 8-9: the image models' steps; 11: the bf16 prefill's
+    encoder), the kernels line's row of the flash kernel at the encoder's
+    shape and rows 1-2's largest |difference| from their plain versions
+    at whisper's layout."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.models.registry import get_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    smi = dev["smi"]
+    log("== phase 21: the encoder-decoder (whisper-tiny at full width and "
+        "depth) and the paper's image models")
+    cfg = get_config("whisper-tiny")
+    model = get_model(cfg)
+    b, s, rbd_dim, steps = ENC_TRAIN
+    state, sub, launches, line = _zoo_train(cfg, model, b, s, rbd_dim,
+                                            steps, smi)
+    log(f"  (a) {cfg.name} {cfg.n_enc_layers} + {cfg.n_layers} layers, "
+        f"batch {b} x ({cfg.enc_seq} frames + {s} tokens), rbd-dim "
+        f"{rbd_dim}, {steps} steps: " + line)
+    t1 = time.perf_counter()
+    errs = _packed_vs_plain(model, state, sub, model.make_batch(
+        InputShape("zoo", s, b, "train"), seed=steps, device="cuda"))
+    log(f"  (a) {cfg.name}: rows 1-2 vs their plain versions on step "
+        f"{state.step}'s gradient, seeds and theta at the packed layout "
+        f"{errs} ({time.perf_counter() - t1:.1f} s) [{smi}]")
+    params = sub.materialize_params(state.params)
+    del state, sub
+    variants, flash_errs, line = _encdec_serve(cfg, model, params, smi)
+    log(f"  (b) {cfg.name}: " + line)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = _encoder_flash(dev)
+    row["max_abs_err"] = max(row["max_abs_err"], flash_errs["wgmma"])
+    totals = dict(launches)
+    totals["flash_attention"] = variants["flash_attention[wgmma]"]
+    totals.update(_vision_runs(smi))
+    h, kv, hd, s = ENC_FLASH
+    row = {"name": f"flash_attention[wgmma] non-causal S{s}",
+           "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_wgmma.cuh",
+           "replaces": REPLACES["flash_attention"],
+           "launches": totals["flash_attention"],
+           **row}
+    log(f"  encdec / vision launches {totals}")
+    log(f"  phase 21 took {time.perf_counter() - t0:.1f} s")
+    return totals, row, errs
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4883,6 +5464,12 @@ def main(argv=None) -> int:
     for row in rows:
         row["launches"] += zoo.get(row["name"], 0)
     rows.extend(zoo_rows)
+    encdec, enc_row, enc_errs = phase_encdec_vision(dev)
+    for row in rows:
+        row["launches"] += encdec.get(row["name"], 0)
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 enc_errs.get(row["name"], 0.0))
+    rows.append(enc_row)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(dev["smi"], flush=True)

@@ -1,8 +1,7 @@
 """Config registry: ``--arch <id>`` -> ModelConfig.
 
-The reference registers ten architectures; the port carries the nine
-decoder-only ones.  The encoder-decoder (whisper-tiny) is listed in
-ROADMAP.md (Queue A 22) and raises until it is ported.
+The reference's ten architectures: nine decoder-only ones and the
+encoder-decoder whisper-tiny (``models/encdec.py``).
 """
 
 from __future__ import annotations
@@ -22,15 +21,11 @@ ARCH_IDS = {
     "llava-next-mistral-7b": "llava_next_mistral_7b",
     "zamba2-2.7b": "zamba2_27b",
     "granite-34b": "granite_34b",
+    "whisper-tiny": "whisper_tiny",
 }
-UNPORTED_ARCH_IDS = ("whisper-tiny",)
 
 
 def get_config(arch_id: str) -> ModelConfig:
-    if arch_id in UNPORTED_ARCH_IDS:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet (ROADMAP.md Queue A 22: "
-            "the encoder-decoder and the image models)")
     if arch_id not in ARCH_IDS:
         raise KeyError(
             f"unknown arch {arch_id!r}; known: {sorted(ARCH_IDS)}")

@@ -1,8 +1,14 @@
-"""Synthetic LM data (port of ``lm_batches`` of ``repro.data.synthetic``).
+"""Synthetic datasets (port of ``repro.data.synthetic``).
 
-A Zipf-distributed sparse Markov chain, so the loss is learnable.  The
-transition table is the reference's (the same numpy construction gives
-the same table); the start tokens and branch choices are drawn from a
+* ``mixture_images`` -- Gaussian-mixture image classification standing in
+  for (F)MNIST / CIFAR-10 in the paper's experiments: each class is a
+  smoothed random template plus noise, at the paper's input shapes.
+* ``lm_batches`` -- a Zipf-distributed sparse Markov chain, so the loss
+  is learnable.
+
+The class templates and the transition table are the reference's (the
+same numpy construction gives the same arrays, bit for bit); the labels,
+noise, start tokens and branch choices are drawn from a CPU
 ``torch.Generator`` seeded per batch from ``(seed, step)``, so the
 batches differ from the reference's ``jax.random`` draws.  Parity tests
 feed both packages the reference's batches.
@@ -45,6 +51,57 @@ class CounterStream:
 
 
 @functools.lru_cache(maxsize=8)
+def _class_templates(seed: int, n_classes: int,
+                     shape: tuple[int, ...]) -> np.ndarray:
+    """(n_classes, *shape) float32 templates, spatially smoothed, unit std
+    per class (the reference's)."""
+    gen = np.random.default_rng(seed)
+    t = gen.normal(size=(n_classes,) + shape).astype(np.float32)
+    # smooth spatially so classes have coherent low-frequency structure
+    for _ in range(3):
+        t = (t + np.roll(t, 1, axis=1) + np.roll(t, -1, axis=1)
+             + np.roll(t, 1, axis=2) + np.roll(t, -1, axis=2)) / 5.0
+    t /= t.std(axis=(1, 2, 3), keepdims=True)
+    return t
+
+
+def _batch_generator(seed: int, step: int) -> torch.Generator:
+    """The CPU generator of batch ``step`` of a stream seeded ``seed``."""
+    key = int(rng.to_uint32(rng.fold_seed(seed, step)))
+    return torch.Generator().manual_seed(key)
+
+
+def mixture_images(gen: torch.Generator, batch: int, *, shape=(28, 28, 1),
+                   n_classes: int = 10, noise: float = 1.0, seed: int = 0,
+                   device="cuda"):
+    """(x (B, *shape) float32, y (B,) int64) on ``device``: class ``y``'s
+    template (templates of ``seed``) plus ``noise`` times N(0, 1), drawn
+    from the CPU generator ``gen``."""
+    from repro_torch.models.registry import resolve_device
+
+    device = resolve_device(device)
+    shape = tuple(shape)
+    templates = torch.from_numpy(_class_templates(seed, n_classes, shape))
+    y = torch.randint(0, n_classes, (batch,), generator=gen)
+    x = templates[y] + noise * torch.randn((batch,) + shape, generator=gen)
+    return x.to(device), y.to(device)
+
+
+def mixture_dataset(seed: int, batch: int, *, shape=(28, 28, 1),
+                    n_classes: int = 10, noise: float = 1.0,
+                    device="cuda") -> Iterator:
+    """Infinite iterator of (x, y) batches on ``device`` (O(1)
+    ``skip``)."""
+
+    def make(step):
+        return mixture_images(_batch_generator(seed, step), batch,
+                              shape=shape, n_classes=n_classes, noise=noise,
+                              seed=seed, device=device)
+
+    return CounterStream(make)
+
+
+@functools.lru_cache(maxsize=8)
 def _markov_table(seed: int, vocab: int, branch: int = 4) -> np.ndarray:
     """Each token has ``branch`` likely successors drawn from a Zipf
     prior (the reference's table)."""
@@ -76,9 +133,8 @@ def lm_batches(seed: int, batch: int, seq_len: int, vocab: int, *,
     device = resolve_device(device)
 
     def make(step):
-        key = int(rng.to_uint32(rng.fold_seed(seed, step)))
-        toks = token_stream(torch.Generator().manual_seed(key), batch,
-                            seq_len, vocab, seed=seed).to(device)
+        toks = token_stream(_batch_generator(seed, step), batch, seq_len,
+                            vocab, seed=seed).to(device)
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
     return CounterStream(make)

@@ -51,7 +51,9 @@ gradient averaged over the data group (one all-reduce per step, also on
 one rank: the port always runs the data group), a full-space optimizer.
 ``--data`` must equal the world size ``torchrun`` gives; ``--data 1``
 runs a one-rank group without ``torchrun``.  ``--mode pjit`` raises,
-naming its ROADMAP item.  Runs on the GPU (NCCL) unless ``--device cpu``
+naming its ROADMAP item, and so does ``--arch whisper-tiny``: the
+launcher feeds token batches and the encoder-decoder also needs frames
+(the reference's launcher fails on the missing ``frames`` key).  Runs on the GPU (NCCL) unless ``--device cpu``
 (gloo).  The resilience flags (``--guard``, ``--resilience-dir``,
 ``--snapshot-every``, ``--sentinel-every``, ``--on-divergence``,
 ``--resume``) and ``--checkpoint-dir`` are the reference's; they need the
@@ -264,6 +266,12 @@ def run_training(cfg, *, mode="sharedseed", rbd_mode="shared_basis", data=1,
     from repro_torch.launch import mesh as meshlib
     from repro_torch.models.registry import resolve_device
 
+    if cfg.is_encoder_decoder:
+        raise ValueError(
+            f"{cfg.name}: the launcher feeds token batches only "
+            "(data.synthetic.lm_batches) and the encoder-decoder also needs "
+            "frames; train it through train.step.make_train_step with "
+            "model.make_batch (ROADMAP.md Queue C 18)")
     if mode == "pjit":
         raise NotImplementedError(
             "--mode pjit (pjit-style parameter sharding) is not ported yet "

@@ -4,6 +4,8 @@ take an explicit ``torch.Generator``."""
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -38,6 +40,15 @@ def rms_norm(x, weight, eps: float = 1e-6):
     return (x * (1.0 + weight.to(torch.float32))).to(dtype)
 
 
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, correction=0)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * weight + bias).to(dtype)
+
+
 def mlp(p_up, p_gate, p_down, x, act: str = "silu"):
     """SwiGLU (act='silu') or GELU MLP; the down projection returns the
     activation dtype."""
@@ -57,3 +68,24 @@ def unembed(table_or_head, x, *, tied: bool):
     if tied:
         return x @ table_or_head.T
     return x @ table_or_head
+
+
+def from_float64(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """A float64 numpy array in ``dtype`` with the reference's bits:
+    ``jnp.asarray(a, dtype)`` rounds to float32 first, then to a narrower
+    type (so bf16 is rounded twice)."""
+    return torch.from_numpy(np.asarray(a, np.float64)).to(
+        torch.float32).to(dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def sinusoidal_positions(seq: int, d_model: int, dtype=torch.float32,
+                         device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal position embeddings (seq, d_model),
+    computed in float64 on the host as the reference does and copied to
+    ``device`` once per (seq, d_model, dtype, device)."""
+    pos = np.arange(seq)[:, None]
+    dim = np.arange(d_model // 2)[None, :]
+    angle = pos / np.power(10000.0, 2 * dim / d_model)
+    out = np.concatenate([np.sin(angle), np.cos(angle)], axis=-1)
+    return from_float64(out, dtype).to(device)

@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import InputShape, ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 
 def resolve_device(device) -> torch.device:
@@ -25,6 +25,12 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def _family(cfg: ModelConfig):
+    """The module that builds ``cfg``'s model: ``encdec`` for the
+    encoder-decoder, else ``transformer``."""
+    return encdec if cfg.is_encoder_decoder else transformer
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
@@ -36,8 +42,12 @@ class Model:
     def is_stacked(self, leaf_name: str) -> bool:
         return leaf_name.startswith(self.stacked_prefixes)
 
+    @property
+    def family(self):
+        return _family(self.cfg)
+
     def param_shapes(self) -> dict[str, tuple[int, ...]]:
-        return transformer.param_shapes(self.cfg)
+        return self.family.param_shapes(self.cfg)
 
     def param_template(self) -> dict[str, torch.Tensor]:
         """Leaf name -> meta tensor of the leaf's shape and dtype."""
@@ -50,19 +60,24 @@ class Model:
     def init(self, seed: int = 0, *, device="cuda") -> dict:
         device = resolve_device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
-        return transformer.init_params(self.cfg, gen, device)
+        return self.family.init_params(self.cfg, gen, device)
 
     # ---------------- input construction -------------------------------
     def batch_specs(self, shape: InputShape) -> dict:
         """Name -> (shape, dtype) of a batch of ``shape``, the reference's:
-        decode takes ``token`` (B, 1); the VLM takes ``patches`` (B,
+        decode takes ``token`` (B, 1); the encoder-decoder takes ``frames``
+        (B, enc_seq, D) beside S ``tokens``; the VLM takes ``patches`` (B,
         n_patches, D) and S - n_patches text ``tokens``; a train batch has
         ``labels`` over the full length S."""
         cfg = self.cfg
         b, s = shape.global_batch, shape.seq_len
         if shape.kind == "decode":
             return {"token": ((b, 1), torch.int64)}
-        if cfg.n_patches > 0:
+        if cfg.is_encoder_decoder:
+            specs = {"tokens": ((b, s), torch.int64),
+                     "frames": ((b, cfg.enc_seq, cfg.d_model),
+                                torch.float32)}
+        elif cfg.n_patches > 0:
             specs = {"tokens": ((b, s - cfg.n_patches), torch.int64),
                      "patches": ((b, cfg.n_patches, cfg.d_model),
                                  torch.float32)}
@@ -91,20 +106,25 @@ class Model:
 
 
 def get_model(cfg: ModelConfig) -> Model:
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            "encoder-decoder models are not ported yet (ROADMAP.md Queue "
-            "A 22)")
+    family = _family(cfg)
+    if family is encdec:
+        def forward(params, batch):
+            return encdec.forward(cfg, params, batch["tokens"],
+                                  batch["frames"])
+    else:
+        def forward(params, batch):
+            return transformer.forward(cfg, params, batch["tokens"],
+                                       extra_embeds=batch.get("patches"))
+
     return Model(
         cfg=cfg,
-        forward=lambda params, batch: transformer.forward(
-            cfg, params, batch["tokens"], extra_embeds=batch.get("patches")),
+        forward=forward,
         init_cache=lambda batch, max_len, *, device="cuda": (
-            transformer.init_cache(cfg, batch, max_len,
-                                   device=resolve_device(device))),
-        decode_step=lambda params, cache, token: transformer.decode_step(
+            family.init_cache(cfg, batch, max_len,
+                              device=resolve_device(device))),
+        decode_step=lambda params, cache, token: family.decode_step(
             cfg, params, cache, token),
-        stacked_prefixes=transformer.STACKED_PREFIXES,
+        stacked_prefixes=family.STACKED_PREFIXES,
     )
 
 

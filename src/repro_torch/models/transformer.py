@@ -29,8 +29,8 @@ reference), ``rwkv`` (L, B, H, hd, hd) float32 and ``shift1``/``shift2``
 d_inner), ``shared_k``/``shared_v`` (groups, B, max_len, KV, hd), ``len``
 an int32 scalar -- and ``decode_step`` appends one token.  Unlike the
 reference, ``decode_step`` writes into the cache IN PLACE and returns
-the same dict (no per-token copy of the cache).  The encoder-decoder is
-not ported yet (ROADMAP.md Queue A 22).
+the same dict (no per-token copy of the cache).  The encoder-decoder
+(whisper) is ``models/encdec.py``.
 
 Attention over the prompt runs through one of two functions of the same
 value.  ``prefill`` calls the flash kernel
@@ -66,9 +66,9 @@ BLOCK_KINDS = ("attn", "rwkv", "mamba")
 
 def _check_supported(cfg: ModelConfig) -> None:
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder is not ported yet (ROADMAP.md "
-            "Queue A 22)")
+        raise ValueError(
+            f"{cfg.name}: an encoder-decoder config; it runs through "
+            "models.encdec")
     if cfg.block_kind not in BLOCK_KINDS:
         raise ValueError(f"{cfg.name}: unknown block_kind "
                          f"{cfg.block_kind!r}; expected one of {BLOCK_KINDS}")

@@ -44,7 +44,7 @@ from repro_torch.serve.adapters import AdapterCache, AdapterSpec
 
 
 def specs_to_batch(specs: Sequence[AdapterSpec], plan: Plan, layout,
-                   device="cpu"):
+                   device="cuda"):
     """Stack adapter payloads into the (seeds, coords[, row_sq]) batch the
     fused apply consumes: (B,) uint32 numpy seeds, (B, d_packed) float32
     coordinates (and row norms) on ``device``.  Under 'exact'
@@ -52,6 +52,7 @@ def specs_to_batch(specs: Sequence[AdapterSpec], plan: Plan, layout,
     static-factor norms row_sq is ignored."""
     if not specs:
         raise ValueError("specs_to_batch needs at least one adapter")
+    device = resolve_device(device)
     seeds = np.asarray([s.base_seed for s in specs], np.uint32)
     coords = torch.from_numpy(np.stack([s.coords for s in specs])).to(
         device=device, dtype=torch.float32)

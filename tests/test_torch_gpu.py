@@ -1427,3 +1427,104 @@ def test_second_order_on_the_card_matches_the_cpu(cuda, name):
                 continue
             tol = 1e-4 * max(float(a.abs().max()), 1e-30)
             assert float((a - b).abs().max()) <= tol, (name, k)
+
+
+# -- the encoder-decoder and the paper's image models -----------------------
+
+# whisper's encoder (6 / 6 heads of 64 over 1,500 frames: the last 128-row
+# query and key tiles ragged), batch 2, and the cross-attention's shape (a
+# few decoder positions on the 1,500 encoder keys); non-causal, (B, Sq, Sk)
+ENC_FLASH_CASES = [(1, 1500, 1500), (2, 1500, 1500), (2, 40, 1500)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ENC_FLASH_CASES,
+                         ids=[f"{b}x{sq}x{sk}" for b, sq, sk in
+                              ENC_FLASH_CASES])
+def test_flash_attention_encoder_shape(cuda, case, dtype):
+    """Non-causal at the encoder's heads: bf16 through the tensor-core
+    kernel within _flash_close_p_bf16 of its plain version, f32 through
+    the CUDA-core one within _flash_close; reruns bit-identical."""
+    from repro_torch.kernels import flash_attention as flash
+
+    b, sq, sk = case
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk)
+    q = torch.randn((b, sq, 6, 64), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, sk, 6, 64), generator=gen, device=cuda)
+            .to(dtype) for _ in range(2))
+    kernel = flash.kernel_for(dtype, 64)
+    key = f"flash_attention[{kernel}]"
+    before = rbd_step.VARIANT_LAUNCHES.get(key, 0)
+    out = flash.flash_attention(q, k, v, causal=False)
+    again = flash.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert rbd_step.VARIANT_LAUNCHES.get(key, 0) == before + 2
+    assert torch.equal(out, again)
+    ref, l = flash.flash_attention_plain(q, k, v, causal=False,
+                                         p_dtype=flash.P_DTYPE[kernel],
+                                         return_l=True)
+    if kernel == "wgmma":
+        assert _flash_close_p_bf16(out, ref, l, v)
+    else:
+        assert _flash_close(out, ref, v)
+
+
+@pytest.mark.parametrize("name,shape", [("fc", (14, 14, 1)),
+                                        ("cnn", (32, 32, 3)),
+                                        ("resnet8", (32, 32, 3))])
+def test_rbd_gradient_on_the_kernels_matches_torch(cuda, name, shape):
+    """The image models' RBD sketch (``rbd_gradient``, make_plan(params,
+    128)) through the per-leaf kernels against the torch backend on the
+    same gradient: each leaf within 1e-4 of its largest value (phase 12's
+    reconstruct tolerance; the coordinates' 2e-5 is below it), one
+    ``project_flat`` and one ``reconstruct_flat`` launch a leaf."""
+    from repro_torch.data import synthetic
+    from repro_torch.models import vision
+
+    init, apply = vision.get_vision_model(name)
+    params = {k: v.requires_grad_(True)
+              for k, v in init(0, shape, device=cuda).items()}
+    plan = compartments.make_plan(params, 128)
+    x, y = next(synthetic.mixture_dataset(0, 16, shape=shape, device=cuda))
+    loss = torch.nn.functional.cross_entropy(apply(params, x), y)
+    grads = dict(zip(params, torch.autograd.grad(loss,
+                                                 list(params.values()))))
+    seed = rng.fold_seed(0, 0)
+    before = dict(rbd_step.LAUNCHES)
+    got = projector.rbd_gradient(grads, plan, seed, backend="cuda")
+    torch.cuda.synchronize()
+    n = len(plan.leaves)
+    for k in ("project_flat", "reconstruct_flat"):
+        assert rbd_step.LAUNCHES[k] == before.get(k, 0) + n
+    want = projector.rbd_gradient(grads, plan, seed, backend="torch")
+    for k, w in want.items():
+        tol = 1e-4 * float(w.abs().max())
+        assert float((got[k] - w).abs().max()) <= tol, k
+
+
+def test_encdec_on_the_card_matches_the_cpu(cuda):
+    """whisper-tiny at the reduced size, f32 compute: the encoder through
+    the flash kernel (CUDA-core at head size 32), the cross cache and 4
+    decode steps on the card against the same on the CPU (the plain
+    versions), within 1e-4 of the largest magnitude."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec, frontends
+    from repro_torch.models.registry import get_model
+
+    cfg = get_config("whisper-tiny").reduced(compute_dtype="float32")
+    model = get_model(cfg)
+    params = model.init(0, device="cpu")
+    frames = frontends.audio_frames(cfg, 2, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 4)))
+    outs = {}
+    for dev in ("cpu", cuda):
+        p = {k: v.to(dev) for k, v in params.items()}
+        with torch.no_grad():
+            cache = encdec.prefill_cross_cache(
+                cfg, p, model.init_cache(2, 4, device=dev), frames.to(dev))
+            logits = [model.decode_step(p, cache, toks[:, i:i + 1].to(dev))[0]
+                      for i in range(4)]
+        outs[str(dev)] = [cache["xk"].cpu(), torch.cat(logits, 1).cpu()]
+    for a, b in zip(outs["cpu"], outs[str(cuda)]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(a.abs().max())

@@ -93,7 +93,8 @@ def _assert_rows_close(got, want, theta):
 def test_adapter_apply_matches_reference_oracle(small, n_adapters):
     rplan, rl, plan, lay, theta = small
     specs = _mk_specs(lay, n_adapters)
-    seeds, coords, _ = serve_apply.specs_to_batch(specs, plan, lay)
+    seeds, coords, _ = serve_apply.specs_to_batch(specs, plan, lay,
+                                                   device="cpu")
     rseeds, rcoords, _ = ref_apply.specs_to_batch(_ref_specs(specs), rplan,
                                                  rl)
     aseg = projector.adapter_segment_seeds(plan, seeds)
@@ -144,7 +145,8 @@ def test_adapter_apply_matches_interpret_mode_pallas(small):
 def test_adapter_apply_unpacked_params_gain_an_adapter_axis(small):
     rplan, rl, plan, lay, theta = small
     specs = _mk_specs(lay, 2)
-    seeds, coords, _ = serve_apply.specs_to_batch(specs, plan, lay)
+    seeds, coords, _ = serve_apply.specs_to_batch(specs, plan, lay,
+                                                   device="cpu")
     params = projector.unpack_tree(theta, plan, lay, {
         "w1": torch.empty(40, 33), "w2": torch.empty(57),
         "w3": torch.empty(9, 21)})
@@ -167,7 +169,8 @@ def test_exact_normalization_needs_row_sq_and_matches_reference(small):
     specs = _mk_specs(lay, 2)
     with pytest.raises(ValueError, match="row norms"):
         serve_apply.apply_adapters_fused(theta, specs, plan_x, lay)
-    seeds, coords, _ = serve_apply.specs_to_batch(specs, plan, lay)
+    seeds, coords, _ = serve_apply.specs_to_batch(specs, plan, lay,
+                                                   device="cpu")
     with pytest.raises(ValueError, match="row_sq"):
         projector.reconstruct_apply_packed_adapters(
             coords, plan_x, seeds, theta, layout=lay, prepacked=True)
@@ -185,7 +188,7 @@ def test_orthonormal_is_refused(small):
     _, _, plan, lay, theta = small
     plan_o = dataclasses.replace(plan, normalization="orthonormal")
     seeds, coords, _ = serve_apply.specs_to_batch(_mk_specs(lay, 1), plan,
-                                                  lay)
+                                                  lay, device="cpu")
     with pytest.raises(ValueError, match="not supported"):
         projector.reconstruct_apply_packed_adapters(
             coords, plan_o, seeds, theta, layout=lay, prepacked=True)

@@ -30,7 +30,7 @@ from repro.kernels import flash_attention as ref_kernel
 from repro.models import moe as ref_moe
 from repro.models import rwkv as ref_rwkv
 from repro.models import ssm as ref_ssm
-from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels import rbd_step
 from repro_torch.models import frontends, moe, rwkv, ssm, transformer
@@ -38,7 +38,7 @@ from repro_torch.models.registry import get_model
 from repro_torch.core import compartments
 from repro_torch.serve.adapters import AdapterRegistry
 from repro_torch.serve.engine import Engine, MultiTenantEngine
-from test_torch_zoo_model import (FORWARD_CASES, check_forward,
+from test_torch_zoo_model import (DECODERS, FORWARD_CASES, check_forward,
                                   check_init_scales, check_packed_step,
                                   routing_margin)
 
@@ -218,7 +218,7 @@ def _decode_cfg(arch):
     return cfg
 
 
-@pytest.mark.parametrize("arch", sorted(ARCH_IDS))
+@pytest.mark.parametrize("arch", DECODERS)
 def test_decode_matches_forward(arch):
     """Token by token through decode_step, and prefill of 5 then decode of
     3, against the teacher-forced forward (the VLM: text only); the
@@ -263,7 +263,7 @@ def test_engine_prefills_patches_then_decodes():
         compute_dtype="float32")
     model = get_model(cfg)
     params = model.init(0, device="cpu")
-    patches = frontends.vision_patches(cfg, 2)
+    patches = frontends.vision_patches(cfg, 2, device="cpu")
     assert tuple(patches.shape) == (2, cfg.n_patches, cfg.d_model)
     toks = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab, (2, 6)))

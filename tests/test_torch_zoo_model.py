@@ -43,8 +43,7 @@ from repro.models import frontends as ref_frontends
 from repro.models import get_model as ref_model
 from repro.models import transformer as ref_transformer
 from repro.train import step as ref_step
-from repro_torch.configs import (ARCH_IDS, INPUT_SHAPES, UNPORTED_ARCH_IDS,
-                                 get_config)
+from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, get_config
 from repro_torch.configs.base import RBDConfig, TrainConfig
 from repro_torch.core import compartments
 from repro_torch.models import layers as L
@@ -62,7 +61,9 @@ THETA_OF_UPDATE = 1e-3   # of max|theta_1 - theta_0|, plus 4 ulp of theta
 EPS32 = 2.0 ** -23
 ROUTE_MARGIN = 1e-4    # least top-k / top-(k+1) router probability gap
 
-DECODERS = sorted(ARCH_IDS)
+# the decoder-only IDs (whisper-tiny is tests/test_torch_encdec.py's)
+DECODERS = sorted(a for a in ARCH_IDS
+                  if not get_config(a).is_encoder_decoder)
 # (arch, overrides of reduced(), sequence length): the nine reduced
 # configs, gemma3 with one global layer in six and the window of 64
 # biting, zamba2 with two hybrid groups
@@ -138,8 +139,8 @@ def assert_routing_margins(port, params, batch):
 
 
 def test_configs_match_reference():
-    assert set(ARCH_IDS) | set(UNPORTED_ARCH_IDS) == set(REF_ARCH_IDS)
-    assert UNPORTED_ARCH_IDS == ("whisper-tiny",)
+    assert set(ARCH_IDS) == set(REF_ARCH_IDS)
+    assert sorted(set(ARCH_IDS) - set(DECODERS)) == ["whisper-tiny"]
     for arch in ARCH_IDS:
         ours, ref = get_config(arch), ref_config(arch)
         assert dataclasses.asdict(ours) == dataclasses.asdict(ref), arch
@@ -148,14 +149,11 @@ def test_configs_match_reference():
                 == dataclasses.asdict(ref.reduced()))
     assert {k: dataclasses.asdict(v) for k, v in INPUT_SHAPES.items()} == {
         k: dataclasses.asdict(v) for k, v in REF_INPUT_SHAPES.items()}
-    with pytest.raises(NotImplementedError, match="Queue A 22"):
-        get_config("whisper-tiny")
-    enc = dataclasses.replace(get_config("qwen2-0.5b"),
-                              is_encoder_decoder=True)
-    with pytest.raises(NotImplementedError, match="Queue A 22"):
-        get_model(enc)
-    with pytest.raises(NotImplementedError, match="Queue A 22"):
-        transformer.param_shapes(enc)
+    whisper = get_config("whisper-tiny")
+    assert whisper.is_encoder_decoder and whisper.enc_seq == 1500
+    assert get_model(whisper).family.__name__ == "repro_torch.models.encdec"
+    with pytest.raises(ValueError, match="models.encdec"):
+        transformer.param_shapes(whisper)
 
 
 @pytest.mark.parametrize("arch", DECODERS)
