@@ -263,15 +263,42 @@ result line:
                rbd-dim 128, lr 2.0, 120 steps) with its gate, accuracy >
                0.5; RBD against FPD (:63: rbd-dim 64, 150 steps, 2 seeds),
                reported;
+22. tools    -- (a) ``examples.quickstart`` at its own settings (FC at 28
+               x 28 x 1, a global 'exact' plan of d 250, lr 2.0, batch 32,
+               300 steps): ``fused_per_leaf``, one ``project_flat`` and
+               one ``reconstruct_flat`` a step (a flattened plan
+               reconstructs, then subtracts, as the reference's
+               ``reconstruct_apply`` does), its first 5 losses against
+               the same steps on the plain backend on the card, accuracy
+               > 0.5 at step 299, ms a step; (b) ``core.nes.nes_gradient``
+               on that plan (sigma 0.02, one batch): one ``project_flat``
+               (the 'exact' norm pass) and one ``reconstruct_flat``,
+               cosine > 0.99 with the RBD sketch at the same seed, the
+               kernels' delta against the plain version on the same
+               coordinates, ms of its 500 forward passes; (c)
+               ``examples.train_lm --workers 1`` (qwen2-100m, rbd-dim
+               4,096, batch 16 x 256): the step count from the plan's
+               live basis values at phase 4's rate of rows 1-2, 2 launches
+               a step, finite losses, the preamble's D, d, reduction and
+               traffic those of ``make_plan`` / ``grad_comm_bytes``,
+               launch ms, step wall, peak memory; (d) ``train.loop.train``
+               on qwen2-0.5b at full width and depth with phase 4's
+               arguments, the guard on, an evaluation every 2 steps and a
+               checkpoint every 3: its losses phase 4's bit for bit, each
+               step's synchronizing operations (``set_sync_debug_mode``,
+               by ``train_step``, evaluation, checkpoint and the loop's
+               own) and step 1's no more than the launcher's guarded
+               step, no deferred observe off a log boundary;
 then the ``kernels`` line (eleven rows, then the six tile-keyed rows
 ``[hw_emulated]``, ``[hw,db]`` and ``[hw]`` of rows 1-2, then the
 tensor-core flash kernel's rows at head sizes 80 and 256 (launches: the
 bf16 prefills of phase 20) and the CUDA-core kernel's there (launches:
 the f32 prefills), then the tensor-core kernel's at the encoder's
 non-causal 1,500-token shape (launches: phase 21's bf16 prefill); rows
-1-2 count phase 19 (a)'s, phase 20's and phase 21's launches too, rows
-8-9 phase 21's image models', row 11 phase 20's at head size 128 and
-phase 21's encoder), the card line and the result line.
+1-2 count phase 19 (a)'s, phase 20's, phase 21's and phase 22's
+launches too, rows 8-9 phase 21's image models' and phase 22's, row 11
+phase 20's at head size 128 and phase 21's encoder), the card line and
+the result line.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -3884,11 +3911,24 @@ def ab_against(base: str) -> int:
     return 1 if differ else 0
 
 
+MARK = "chip_smoke mark:"   # _sync_timeline's marks (phase 22)
+
+
 def _sync_warnings(torch, fn) -> dict:
     """The synchronizing CUDA operations ``fn`` runs, counted under
     ``torch.cuda.set_sync_debug_mode("warn")``, by the Python line that
     issued each."""
     import collections
+
+    return dict(collections.Counter(
+        what for kind, what in _sync_timeline(torch, fn) if kind == "sync"))
+
+
+def _sync_timeline(torch, fn) -> list:
+    """``fn()`` under ``set_sync_debug_mode("warn")``: the synchronizing
+    CUDA operations it runs, in order, as ``("sync", "file:line")``,
+    between the ``("mark", text)`` entries that ``warnings.warn(MARK +
+    text)`` calls made inside ``fn`` leave."""
     import warnings
 
     torch.cuda.synchronize()
@@ -3900,9 +3940,15 @@ def _sync_warnings(torch, fn) -> dict:
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    return dict(collections.Counter(
-        f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
-        if "synchroniz" in str(w.message)))
+    out = []
+    for w in caught:
+        text = str(w.message)
+        if text.startswith(MARK):
+            out.append(("mark", text[len(MARK):]))
+        elif "synchroniz" in text:
+            out.append(("sync", f"{os.path.relpath(w.filename, ROOT)}:"
+                                f"{w.lineno}"))
+    return out
 
 
 def _guard_vs_unguarded(cfg, smi):
@@ -4859,12 +4905,12 @@ def phase_zoo(dev) -> tuple[dict, list]:
 # ---------------------------------------------------------------------------
 
 
-def _packed_vs_plain(model, state, sub, batch) -> dict:
+def _packed_vs_plain(model, state, sub, batch, lr=ZOO_LR) -> dict:
     """Rows 1-2 against their plain versions on the inputs of the packed
     step that would follow ``state``: the loss gradient of the stored
     buffer on ``batch``, that step's segment seeds, and the apply's scale
     (the plain coordinates through the plan's normalization, times the
-    learning rate) on the stored theta; phase 3's gates.  Returns max|err|
+    learning rate ``lr``) on the stored theta; phase 3's gates.  Returns max|err|
     by kernel."""
     import torch
     from repro_torch.core import projector
@@ -4889,8 +4935,7 @@ def _packed_vs_plain(model, state, sub, batch) -> dict:
         errs = {"project_packed": _check_project(tag, u, sq, up, sqp, g,
                                                  lay)}
         del u, sq
-        scale = (up * projector.packed_norm_factor(plan, lay, sqp)
-                 * ZOO_LR)
+        scale = up * projector.packed_norm_factor(plan, lay, sqp) * lr
         out = rbd_step.reconstruct_apply_packed(seeds, scale, theta, lay,
                                                 dist)
         ref = rbd_step.reconstruct_apply_packed_plain(seeds, scale, theta,
@@ -5383,6 +5428,472 @@ def phase_encdec_vision(dev) -> tuple[dict, dict, dict]:
     return totals, row, errs
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the tools -- the quickstart, NES, train_lm, loop.train
+# ---------------------------------------------------------------------------
+
+QUICK_PLAIN_STEPS = 5      # (a) steps held against the plain backend
+QUICK_LOSS_RTOL = 1e-6     # (a) kernels vs plain versions, relative
+QUICK_ACCEPT = 0.5         # (a) the reference's gate for RBD on FC
+NES_RUN = (250, 0.02)      # (b) d, sigma (the quickstart's plan)
+NES_COSINE = 0.99          # (b) the reference's collinearity gate
+LM_BUDGET_S = 12.0         # (c) the train_lm run's share of the phase
+LM_STEPS = (2, 3)          # (c) fewest and most steps
+LOOP_STEPS = 3             # (d) phase 4's steps
+LOOP_EVAL_EVERY = 2
+LOOP_CKPT_EVERY = 3
+LOOP_LOG_EVERY = 2         # step 1 is not a log boundary
+PHASE4 = {}                # phase 4's losses and rows 1-2's ms per value
+
+
+@contextlib.contextmanager
+def _marked_steps(losses: list):
+    """Every ``train_step`` that ``train.step.make_train_step`` builds
+    while this is open (the launcher's and ``train.loop``'s) leaves a
+    "step begin" and a "step end" mark for :func:`_sync_timeline` and
+    appends its loss (a device tensor: no read) to ``losses``.  A caller
+    that bound the name some other way leaves no marks, and its check of
+    the number of marked steps fails."""
+    from repro_torch.train import loop
+    from repro_torch.train import step as steplib
+
+    make = steplib.make_train_step
+
+    def marked(*args, **kw):
+        init_state, train_step, *rest = make(*args, **kw)
+
+        def step(state, batch):
+            _mark("step begin")
+            state, metrics = train_step(state, batch)
+            losses.append(metrics["loss"])
+            _mark("step end")
+            return state, metrics
+
+        return (init_state, step, *rest)
+
+    steplib.make_train_step = loop.make_train_step = marked
+    try:
+        yield
+    finally:
+        steplib.make_train_step = loop.make_train_step = make
+
+
+def _mark(text: str) -> None:
+    import warnings
+
+    warnings.warn(MARK + text, stacklevel=2)
+
+
+def _by_step(timeline) -> list[dict]:
+    """A marked timeline cut into steps (each from its "step begin" to the
+    next), each step's synchronizing operations by where they ran:
+    ``step`` (inside train_step), ``eval`` (inside the evaluation),
+    ``ckpt`` (the checkpoint's copies) and ``loop`` (the rest: the next
+    batch's host-to-device copy, reads of the metrics, observes)."""
+    steps, where = [], None
+    for kind, what in timeline:
+        if kind == "mark":
+            if what == "step begin":
+                steps.append({"step": [], "eval": [], "ckpt": [],
+                              "loop": []})
+            where = {"step begin": "step", "eval begin": "eval"}.get(
+                what, "loop")
+        elif steps:
+            part = ("ckpt" if where == "loop" and "checkpoint/" in what
+                    else where)
+            steps[-1][part].append(what)
+    return steps
+
+
+def _launcher_guarded_syncs(cfg) -> dict:
+    """The synchronizing operations of the launcher's guarded step
+    (``run_training`` with ``--guard``, phase 4's arguments, 3 steps):
+    step 1's, the first after the one-time uploads, inside train_step
+    and in the launcher's loop (its per-step loss read and observe, the
+    next batch's copy)."""
+    import torch
+    from repro_torch.core import resilience as res
+    from repro_torch.launch import train as launcher
+
+    losses = []
+    with _marked_steps(losses):
+        steps = _by_step(_sync_timeline(torch, lambda: launcher.run_training(
+            cfg, mode="sharedseed", data=1, steps=LOOP_STEPS, batch=8,
+            seq=128, rbd_dim=1024, rbd_backend="cuda", device="cuda",
+            resilience=res.ResilienceConfig(guard=res.GuardConfig()))))
+    check(len(steps) == LOOP_STEPS, f"{len(steps)} marked launcher steps")
+    return {k: len(v) for k, v in steps[1].items()}
+
+
+def _quickstart_step0(plan) -> dict:
+    """(a) The quickstart's two kernels at its plan against their plain
+    versions on the inputs of its step 0: the loss gradient of its
+    initial parameters on its first batch and that step's compartment
+    seeds (``project_flat``: u and the row norms), and the update's scale
+    (the plain coordinates through 'exact', twice, times the learning
+    rate: ``reconstruct_flat``); phase 12's gates.  Returns max|err| by
+    kernel."""
+    import torch
+    from repro_torch.core import projector
+    from repro_torch.core.rbd import RandomBasesTransform
+    from repro_torch.data import synthetic
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import rbd_project, rbd_reconstruct
+    from repro_torch.models import vision
+
+    init, apply = vision.get_vision_model("fc")
+    params = {k: v.requires_grad_(True) for k, v in
+              init(0, quickstart.SHAPE, device="cuda").items()}
+    x, y = next(synthetic.mixture_dataset(0, quickstart.BATCH,
+                                          shape=quickstart.SHAPE,
+                                          noise=quickstart.NOISE,
+                                          device="cuda"))
+    loss = quickstart.cross_entropy(apply, params, x, y)
+    grads = dict(zip(params, torch.autograd.grad(loss,
+                                                 list(params.values()))))
+    (lp,) = plan.leaves
+    seeds = projector._leaf_seeds(
+        RandomBasesTransform(plan, base_seed=0).step_seed(0), lp)
+    g = projector._ravel_tree(grads, plan)          # (n_stack, Q)
+    q, dist, case = lp.size, plan.distribution, "(a) quickstart step 0"
+    with torch.no_grad():
+        u, sq = rbd_project.project_flat(seeds, g, lp.dim, dist)
+        up, sqp = rbd_project.project_flat_plain(seeds, g, lp.dim, dist)
+        errs = {"project_flat": _check_flat_project(case, u, sq, up, sqp,
+                                                    g)}
+        scale = quickstart.LR * projector._recon_scale(
+            plan, lp, seeds, projector._norm_scales(plan, lp, up, sqp),
+            None, sqp)
+        errs["reconstruct_flat"] = _check_delta(
+            case, rbd_reconstruct.reconstruct_flat(seeds, scale, q, dist),
+            rbd_reconstruct.reconstruct_flat_plain(seeds, scale, q, dist))
+    return errs
+
+
+def _quickstart_run(smi) -> dict:
+    """(a) The quickstart at its own settings on the card, one
+    ``project_flat`` and one ``reconstruct_flat`` a step (a flattened
+    plan reconstructs, then subtracts: the reference's
+    ``reconstruct_apply``), its first steps against the plain backend's,
+    its step 0's kernels against their plain versions."""
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import rbd_step
+
+    rbd_step.reset_counts()
+    out = quickstart.main([])
+    launches = {k: v for k, v in rbd_step.LAUNCHES.items() if v}
+    steps = quickstart.STEPS
+    check(out["eplan"].strategy == "fused_per_leaf",
+          f"(a) plans {out['eplan'].strategy}")
+    check(launches == {"project_flat": steps, "reconstruct_flat": steps},
+          f"(a) expected one project_flat and one reconstruct_flat a step "
+          f"over {steps} steps, got {launches}")
+    acc = out["accuracy"][steps - 1]
+    check(all(math.isfinite(x) for x in out["losses"]),
+          "(a) non-finite losses")
+    check(acc > QUICK_ACCEPT, f"(a) accuracy {acc} at step {steps - 1}, "
+          f"gate > {QUICK_ACCEPT}")
+    rbd_step.reset_counts()
+    plain = quickstart.main(["--steps", str(QUICK_PLAIN_STEPS)],
+                            backend="torch")
+    check(sum(rbd_step.LAUNCHES.values()) == 0,
+          f"the plain backend launched {dict(rbd_step.LAUNCHES)}")
+    head = out["losses"][:QUICK_PLAIN_STEPS]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(head, plain["losses"]))
+    check(rel <= QUICK_LOSS_RTOL, f"(a) first {QUICK_PLAIN_STEPS} losses "
+          f"{head} vs the plain backend's {plain['losses']}: {rel:.3g} > "
+          f"{QUICK_LOSS_RTOL}")
+    errs = _quickstart_step0(out["plan"])
+    ms = 1e3 * out["wall"] / steps
+    log(f"  (a) quickstart (FC at 28 x 28 x 1, D 101,770, global exact d "
+        f"250, lr 2.0, batch 32, {steps} steps): launches {launches}; "
+        f"accuracy {[(s, round(a, 4)) for s, a in out['accuracy'].items()]}"
+        f" (gate > {QUICK_ACCEPT} at step {steps - 1}); first "
+        f"{QUICK_PLAIN_STEPS} losses {[round(x, 6) for x in head]}, the "
+        f"plain backend's within {rel:.3g} relative (tol "
+        f"{QUICK_LOSS_RTOL}); step 0's kernels vs their plain versions "
+        f"max|err| {errs}; {ms:.3f} ms a step over {out['wall']:.2f} s "
+        f"with 7 evaluations of 2,048 images [{smi}]")
+    return {"launches": launches, "acc": acc, "ms": ms, "errs": errs}
+
+
+def _nes_run(smi) -> dict:
+    """(b) NES at the quickstart's width: one batch, its reconstruction
+    launches counted, its cosine with the RBD sketch at the same seed,
+    the kernel's delta against the plain version on the same
+    coordinates."""
+    import torch
+    from repro_torch.core import compartments, nes, projector, rng
+    from repro_torch.data import synthetic
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import rbd_step
+    from repro_torch.models import vision
+
+    init, apply = vision.get_vision_model("fc")
+    params = init(0, quickstart.SHAPE, device="cuda")
+    x, y = next(synthetic.mixture_dataset(0, quickstart.BATCH,
+                                          shape=quickstart.SHAPE,
+                                          noise=quickstart.NOISE,
+                                          device="cuda"))
+    dim, sigma = NES_RUN
+    plan = compartments.make_plan(params, dim, granularity="global",
+                                  normalization="exact")
+    seed = rng.fold_seed(1)
+
+    def loss(p):
+        return quickstart.cross_entropy(apply, p, x, y)
+
+    nes.nes_gradient(loss, params, plan, seed, sigma=sigma)   # warm-up
+    rbd_step.reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    est = nes.nes_gradient(loss, params, plan, seed, sigma=sigma)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {k: v for k, v in rbd_step.LAUNCHES.items() if v}
+    check(launches == {"project_flat": 1, "reconstruct_flat": 1},
+          f"(b) expected one norm pass and one reconstruction, {launches}")
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    grads = dict(zip(leaves, torch.autograd.grad(loss(leaves),
+                                                 list(leaves.values()))))
+    sketch = projector.rbd_gradient(grads, plan, seed, backend="cuda")
+    a = torch.cat([est[k].reshape(-1) for k in params]).double()
+    b = torch.cat([sketch[k].reshape(-1) for k in params]).double()
+    cos = float(a @ b / (a.norm() * b.norm()))
+    check(cos > NES_COSINE, f"(b) NES vs the RBD sketch: cosine {cos}")
+    coords = nes.nes_coordinates(loss, params, plan, seed, sigma=sigma)
+    kern = projector.reconstruct(coords, plan, seed, params, backend="cuda")
+    plain = projector.reconstruct(coords, plan, seed, params,
+                                  backend="torch")
+    err, worst = 0.0, 0.0
+    for k in plain:
+        d = float((kern[k] - plain[k]).abs().max())
+        lim = THETA_RTOL * float(plain[k].abs().max())
+        check(d <= lim, f"(b) {k}: the kernels' delta off the plain "
+              f"version's by {d:.3g} > {lim:.3g}")
+        err, worst = max(err, d), max(worst, d / max(lim, 1e-30))
+    log(f"  (b) NES (FC at 28 x 28 x 1, global exact d {dim}, sigma "
+        f"{sigma}, one batch of {quickstart.BATCH}): {2 * dim} forward "
+        f"passes in {1e3 * wall:.1f} ms, launches {launches}; cosine with "
+        f"the RBD sketch at the same seed {cos:.6f} (gate > {NES_COSINE}); "
+        f"the kernels' delta vs the plain version on the same coordinates "
+        f"max|d| {err:.3g}, {worst:.3g} of the tolerance [{smi}]")
+    return {"launches": launches, "errs": {"reconstruct_flat": err},
+            "ms": 1e3 * wall, "cos": cos}
+
+
+def _train_lm_run(smi) -> dict:
+    """(c) ``examples.train_lm`` at its own config on one card: the step
+    count from the plan's live basis values at rows 1-2's measured rate,
+    2 launches a step, finite losses, the preamble's numbers those of
+    ``make_plan`` / ``grad_comm_bytes``; rows 1-2 against their plain
+    versions at its layout on the next step's inputs."""
+    import torch
+    from repro_torch.configs.base import RBDConfig
+    from repro_torch.core import distributed
+    from repro_torch.data import synthetic
+    from repro_torch.examples import train_lm
+    from repro_torch.kernels import rbd_step
+    from repro_torch.models.registry import get_model
+    from repro_torch.train import step as steplib
+
+    cfg = train_lm.qwen2_100m()
+    rbd_dim = 4096
+    plan = steplib.make_plan(get_model(cfg), RBDConfig(total_dim=rbd_dim))
+    lay = plan.packed()
+    live = int((lay.seg_dim * lay.seg_size).sum())
+    # rows 1-2 at qwen2-0.5b (phase 4; PERF.md's 221.6 + 235.4 ms for
+    # 4.130e10 live values when phase 4 did not run)
+    rate = PHASE4.get("ms_per_value", (221.6 + 235.4) / 4.130e10)
+    est = live * rate / 1e3
+    steps = max(LM_STEPS[0], min(LM_STEPS[1], int(LM_BUDGET_S / est) - 1))
+    log(f"  (c) train_lm: {live:,} live basis values a pass (q_packed "
+        f"{lay.q_packed:,}, d_packed {lay.d_packed}); at rows 1-2's "
+        f"{rate * 1e9:.3f} ms per 1e9 values a step's launches take ~"
+        f"{1e3 * est:.0f} ms: {steps} steps")
+    rbd_step.reset_counts()
+    rbd_step.set_timing(True)
+    out = train_lm.main(["--workers", "1", "--steps", str(steps),
+                         "--rbd-dim", str(rbd_dim)])
+    kms = rbd_step.kernel_times_ms()
+    rbd_step.set_timing(False)
+    res = out["result"]
+    launches = {k: v for k, v in rbd_step.LAUNCHES.items() if v}
+    check(launches == {"project_packed": steps,
+                       "reconstruct_apply_packed": steps},
+          f"(c) expected 2 launches a step, got {launches}")
+    check(all(math.isfinite(x) for x in res.losses), f"(c) {res.losses}")
+    check(res.sub_opt.plan_execution().strategy == "fused_packed",
+          "(c) not the packed step")
+    n_params = sum(int(math.prod(s)) for s in
+                   get_model(cfg).param_shapes().values())
+    check(out["n_params"] == n_params == plan.total_params
+          and out["plan"].total_dim == plan.total_dim
+          == res.sub_opt.transform.plan.total_dim
+          and out["plan"].reduction_factor == plan.reduction_factor,
+          f"(c) preamble D / d / reduction {out['n_params']} "
+          f"{out['plan'].total_dim} {out['plan'].reduction_factor}")
+    for m, c in out["comm"].items():
+        check(c == distributed.grad_comm_bytes(plan, n_params, 1, m),
+              f"(c) preamble traffic {m}: {c}")
+    # the launcher's stream (seed 0) past the run's batches
+    t1 = time.perf_counter()
+    batch = next(synthetic.lm_batches(0, train_lm.BATCH, train_lm.SEQ,
+                                      cfg.vocab, device="cuda").skip(steps))
+    errs = _packed_vs_plain(get_model(cfg), res.state, res.sub_opt, batch,
+                            lr=train_lm.LR)
+    log(f"  (c) train_lm: rows 1-2 vs their plain versions on step "
+        f"{res.state.step}'s gradient, seeds and theta at the packed layout "
+        f"{errs} ({time.perf_counter() - t1:.1f} s) [{smi}]")
+    del batch
+    walls = res.step_seconds
+    ms = {k: [round(x, 2) for x in v] for k, v in kms.items() if v}
+    log(f"  (c) train_lm --workers 1 (qwen2-100m: D {n_params:,}, d "
+        f"{plan.total_dim}, {plan.reduction_factor:.0f}x; batch 16 x 256, "
+        f"lr 0.5): losses {[round(x, 4) for x in res.losses]}; step wall "
+        f"{[round(x, 3) for x in walls]} s; launch ms {ms}; peak "
+        f"{res.peak_bytes / 2**30:.2f} GiB; preamble {out['lines']} "
+        f"[{smi}]")
+    med = statistics.median(walls[1:] or walls)
+    del out, res
+    torch.cuda.empty_cache()
+    return {"launches": launches, "steps": steps, "step_s": med,
+            "errs": errs}
+
+
+def _loop_run(smi, phase4_losses) -> dict:
+    """(d) ``train.loop.train`` on qwen2-0.5b at full width and depth with
+    phase 4's arguments, an evaluation every 2 steps, a checkpoint every
+    3, the guard on: its losses against phase 4's; the synchronizing
+    operations of each step (train_step, the evaluation, the checkpoint
+    and the loop's own) against the launcher's guarded step."""
+    import shutil
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RBDConfig, TrainConfig
+    from repro_torch.core import resilience as res
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import rbd_step
+    from repro_torch.models.registry import get_model
+    from repro_torch.train import loop
+    from repro_torch.train import step as steplib
+
+    cfg = get_config("qwen2-0.5b")
+    launcher_step = _launcher_guarded_syncs(cfg)
+    model = get_model(cfg)
+    # phase 4's run: the launcher's defaults at rbd-dim 1024, 8 x 128
+    tcfg = TrainConfig(model=cfg, rbd=RBDConfig(total_dim=1024,
+                                                backend="cuda"),
+                       learning_rate=0.125, steps=LOOP_STEPS, batch_size=8,
+                       seq_len=128)
+    held = next(synthetic.lm_batches(1, 8, 128, cfg.vocab, device="cuda"))
+    loss_fn = steplib.make_loss_fn(model, cfg.router_aux_coef)
+
+    def eval_fn(params):
+        _mark("eval begin")
+        with torch.no_grad():
+            out = loss_fn(params, held)[0]
+        _mark("eval end")
+        return out
+
+    directory = os.path.join(ROOT, "build", "loop_smoke")
+    shutil.rmtree(directory, ignore_errors=True)
+    result, step_losses = {}, []
+    rbd_step.reset_counts()
+    try:
+        t = time.perf_counter()
+        with _marked_steps(step_losses):
+            timeline = _sync_timeline(torch, lambda: result.update(
+                out=loop.train(
+                    model, tcfg, synthetic.lm_batches(0, 8, 128, cfg.vocab,
+                                                      device="cuda"),
+                    eval_fn=eval_fn, eval_every=LOOP_EVAL_EVERY,
+                    log_every=LOOP_LOG_EVERY, checkpoint_dir=directory,
+                    checkpoint_every=LOOP_CKPT_EVERY,
+                    resilience=res.ResilienceConfig(
+                        guard=res.GuardConfig()))))
+        wall = time.perf_counter() - t
+        state, hist, monitor = result["out"]
+        launches = {k: v for k, v in rbd_step.LAUNCHES.items() if v}
+        ckpts = sorted(os.listdir(directory))
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    losses = [float(x) for x in step_losses]
+    check(launches == {"project_packed": LOOP_STEPS,
+                       "reconstruct_apply_packed": LOOP_STEPS},
+          f"(d) expected 2 launches a step, got {launches}")
+    check(state.step == LOOP_STEPS and len(losses) == LOOP_STEPS,
+          f"(d) {state.step} steps, losses {losses}")
+    logged = {h["step"]: h["loss"] for h in hist if "loss" in h}
+    check(logged == {s: losses[s] for s in (0, LOOP_STEPS - 1)},
+          f"(d) history {hist}, losses {losses}")
+    evals = {h["step"]: h["eval"] for h in hist if "eval" in h}
+    check(sorted(evals) == [1] and all(map(math.isfinite, evals.values())),
+          f"(d) evaluations {evals}")
+    check(ckpts == ["ckpt_00000002.json", "ckpt_00000002.npz"],
+          f"(d) checkpoint files {ckpts}")
+    check(monitor.events == [], f"(d) recovery events {monitor.events}")
+    same = losses == list(phase4_losses)
+    if phase4_losses:
+        check(same, f"(d) losses {losses} differ from phase 4's "
+              f"{list(phase4_losses)}")
+    steps = _by_step(timeline)
+    check(len(steps) == LOOP_STEPS, f"(d) {len(steps)} marked steps")
+    counts = [{k: len(v) for k, v in s.items()} for s in steps]
+    # step 1: after the one-time uploads, not a log boundary
+    ours = counts[1]["step"] + counts[1]["loop"]
+    theirs = launcher_step["step"] + launcher_step["loop"]
+    check(ours <= theirs, f"(d) step 1 of the loop synchronizes {ours} "
+          f"times (evaluation apart), the launcher's guarded step {theirs}")
+    deferred = [w for w in steps[1]["loop"] if "core/resilience" in w]
+    check(not deferred, f"(d) the guard-only monitor observed at step 1, "
+          f"not a log boundary: {deferred}")
+    log(f"  (d) loop.train on qwen2-0.5b at full width and depth (phase "
+        f"4's arguments, guard on, eval every {LOOP_EVAL_EVERY}, log every "
+        f"{LOOP_LOG_EVERY}, checkpoint every {LOOP_CKPT_EVERY}): "
+        f"{wall:.1f} s; launches {launches}; losses {losses} "
+        f"{'==' if same else '!='} phase 4's {list(phase4_losses)} (bit for "
+        f"bit); logged {logged}; eval {evals}; checkpoint {ckpts}; "
+        f"synchronizing operations by step {counts}, step 1 {ours} (train_"
+        f"step {counts[1]['step']} + the loop's own {counts[1]['loop']}: "
+        f"{sorted(set(steps[1]['loop']))}) against the launcher's guarded "
+        f"step {theirs} ({launcher_step}) [{smi}]")
+    del state, result
+    torch.cuda.empty_cache()
+    return {"launches": launches, "syncs": counts, "launcher": theirs,
+            "ours": ours}
+
+
+def phase_tools(dev) -> tuple[dict, dict]:
+    """Phase 22: the quickstart, NES, train_lm and loop.train on the card
+    (the loop's losses held against phase 4's when it ran).  Returns the
+    phase's launches by kernel row and, by kernel, the largest
+    |difference| from its plain version at the shapes of (a)-(c)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    smi = dev["smi"]
+    log("== phase 22: tools -- the quickstart, NES, train_lm and loop.train")
+    totals, errs = {}, {}
+    quick = _quickstart_run(smi)
+    nes_out = _nes_run(smi)
+    lm = _train_lm_run(smi)
+    lp = _loop_run(smi, PHASE4.get("losses", ()))
+    for part in (quick, nes_out, lm, lp):
+        for k, v in part["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+        for k, v in part.get("errs", {}).items():
+            errs[k] = max(errs.get(k, 0.0), v)
+    log(f"  tools launches {totals}; vs the plain versions max|err| {errs}")
+    log(f"  phase 22 took {time.perf_counter() - t0:.1f} s")
+    return totals, errs
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5424,6 +5935,9 @@ def main(argv=None) -> int:
     res, launches = phase_training()
     phase_loss()
     rows = phase_timing(full_plan, res, launches, errs, dev)
+    PHASE4.update(losses=list(res.losses), ms_per_value=(
+        (rows[0]["ms"] + rows[1]["ms"]) / int((lay.seg_dim
+                                               * lay.seg_size).sum())))
     del res
     workers_err = phase_workers(full_plan, dev)
     row = phase_k_workers(full_plan, dev)
@@ -5470,6 +5984,11 @@ def main(argv=None) -> int:
         row["max_abs_err"] = max(row["max_abs_err"],
                                  enc_errs.get(row["name"], 0.0))
     rows.append(enc_row)
+    tools, tool_errs = phase_tools(dev)
+    for row in rows:
+        row["launches"] += tools.get(row["name"], 0)
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 tool_errs.get(row["name"], 0.0))
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(dev["smi"], flush=True)

@@ -56,9 +56,34 @@ class Plan:
     flatten: bool = False
     pad: int = 0
 
+    @property
+    def reduction_factor(self) -> float:
+        return self.total_params / max(self.total_dim, 1)
+
+    @property
+    def packable(self) -> bool:
+        """True when the packed two-launch step supports this plan."""
+        return self.normalization in PACKABLE_NORMALIZATIONS
+
     def packed(self, pos_block: int = 512,
                dir_block: int = 8) -> "PackedLayout":
         return packed_layout(self, pos_block, dir_block)
+
+    def describe(self) -> str:
+        """The reference's one-line-per-leaf summary, character for
+        character."""
+        lines = [
+            f"Plan: D={self.total_params:,} -> d={self.total_dim:,} "
+            f"({self.reduction_factor:.1f}x reduction), "
+            f"dist={self.distribution}, norm={self.normalization}"
+        ]
+        for lp in self.leaves:
+            lines.append(
+                f"  {lp.name}: shape={lp.shape} "
+                f"{'stacked L=' + str(lp.n_stack) if lp.stacked else 'single'}"
+                f" Q={lp.size:,} d_k={lp.dim}"
+            )
+        return "\n".join(lines)
 
 
 def leaf_order(names) -> list[str]:
@@ -163,6 +188,26 @@ def make_plan(
         distribution=distribution,
         normalization=normalization,
     )
+
+
+def make_even_plan(n_params: int, n_compartments: int, total_dim: int, *,
+                   distribution: str = "normal",
+                   normalization: str = "rsqrt_dim") -> Plan:
+    """Plan for K even compartments over one flattened vector (paper Fig.
+    4): a single ``"flat"`` leaf of shape (K, n_params / K) whose stack
+    axis is the compartment axis.  The caller flattens the parameters."""
+    if n_params % n_compartments != 0:
+        raise ValueError(
+            f"even plan requires K | D (got D={n_params}, K={n_compartments}); "
+            "pad the flattened vector first"
+        )
+    size = n_params // n_compartments
+    dim = max(1, total_dim // n_compartments)
+    lp = LeafPlan(name="flat", leaf_idx=0, shape=(n_compartments, size),
+                  stacked=True, n_stack=n_compartments, size=size,
+                  dim=min(dim, size), seed_tag=0)
+    return Plan(leaves=(lp,), total_dim=lp.n_coeffs, total_params=n_params,
+                distribution=distribution, normalization=normalization)
 
 
 # ---------------------------------------------------------------------------

@@ -244,6 +244,17 @@ def generate_rows_nd(seed, row_offset, n_rows: int,
     return sample_from_counter(seed, c, r, distribution)
 
 
+def generate_vector(seed, offset, n: int,
+                    distribution: Distribution = "normal",
+                    dtype=torch.float32, device=None) -> torch.Tensor:
+    """``n`` consecutive row-0 samples of the virtual basis starting at
+    column ``offset`` (taken mod 2**32, so the counters wrap as uint32)."""
+    if isinstance(seed, torch.Tensor) and device is None:
+        device = seed.device
+    ctr = torch.arange(n, dtype=torch.int32, device=device) + _operand(offset)
+    return sample_from_counter(seed, ctr, 0, distribution).to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # tile-keyed generators (hw_emulated, hw) and PRNG impls (PrngSpec)
 # ---------------------------------------------------------------------------

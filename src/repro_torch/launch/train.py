@@ -85,6 +85,7 @@ class RunResult(NamedTuple):
     recovery: Any = None       # --resume: recover()'s info, plus the kernel
                                # launches of the restore and replay
     collector: Any = None      # the BasisCollector (materialized --basis)
+    step_seconds: Any = None   # host wall of each step, the loss read back
 
 
 def main(argv=None) -> RunResult:
@@ -432,10 +433,11 @@ def _run(cfg, *, mode, rbd_mode, data, model, mesh, steps, batch, seq,
     if kernel_times:
         rbd_step.set_timing(True)
     distributed.reset_counts()
-    losses = []
+    losses, step_seconds = [], []
     t0 = time.time()
     try:
         for i in range(start, steps):
+            t_step = time.perf_counter()
             if monitor is not None and monitor.should_kill(i):
                 raise res_lib.SimulatedWorkerKill(f"fault plan kills step {i}")
             before = dict(rbd_step.VARIANT_LAUNCHES)
@@ -447,6 +449,7 @@ def _run(cfg, *, mode, rbd_mode, data, model, mesh, steps, batch, seq,
                     say(f"basis refresh {collector.refreshes} after step {i} "
                         f"({collector.spec})")
             losses.append(float(metrics["loss"]))
+            step_seconds.append(time.perf_counter() - t_step)
             if i == start and rbd_cfg.enabled:
                 # the kernel variants (PRNG impl, double buffer) step 0 ran
                 took = [k for k, n in rbd_step.VARIANT_LAUNCHES.items()
@@ -501,7 +504,8 @@ def _run(cfg, *, mode, rbd_mode, data, model, mesh, steps, batch, seq,
             steps)
         say(f"checkpoint saved to {checkpoint_dir}")
     return RunResult(state, losses, theta_init_sum, sub_opt, peak,
-                     kernel_ms, collectives, monitor, recovery, collector)
+                     kernel_ms, collectives, monitor, recovery, collector,
+                     step_seconds)
 
 
 def nest_params(params: dict) -> dict:
