@@ -39,7 +39,10 @@ result line:
                every distribution, samples bit-exact except normal (held
                to a stated tolerance); the hw paths' normal transform
                (``hw_logf``, ``hw_sqrtf``, ``hw_cosf``) bit for bit the
-               CUDA library's on all 2**24 inputs of each;
+               CUDA library's on all 2**24 inputs of each; the plain
+               generator's card form (fused passes, column chunks replayed
+               as CUDA graphs) bit for bit its stepwise form
+               (``rng.stepwise_form``), every impl and distribution;
 3. kernels  -- ``project_packed`` and ``reconstruct_apply_packed`` against
                their plain versions on full-width qwen2-0.5b slices (one
                layer's 12 segments plus ``final_norm``; one dir-block of
@@ -289,16 +292,37 @@ result line:
                by ``train_step``, evaluation, checkpoint and the loop's
                own) and step 1's no more than the launcher's guarded
                step, no deferred observe off a log boundary;
+23. pjit     -- pjit-style parameter sharding.  (a) The launcher's
+               ``--mode pjit --data 1 --model 1`` on qwen2-0.5b at full
+               width and depth (pure data parallel: nothing cut), 8 x 128,
+               3 steps: ``fused_per_leaf`` with the reference's reason, 14
+               + 14 launches a step (rows 8 and 10), the losses phase 13's
+               per-leaf route's bit for bit; collectives a step, step
+               wall.  (b) rwkv6-1.6b at full width and depth on the
+               megatron layout of a model group of 4 (embed cut on 0,
+               the in-projections on -1, the out-projections on -2), run
+               one shard after the other on one step's gradient: the
+               projector on each rank's leaf shards (rows 8-10's shard
+               instances, counted and timed per shard), every shard's
+               reconstruct and apply bit for bit the unsharded kernels'
+               slices, the partials summed in shard order within
+               PROJ_ULPS of the unsharded projection; each shard
+               instance against its plain version on a window (layer 0 of
+               ``cmix/wk`` and ``cmix/wv`` on every shard, embed's first
+               2**20 local positions on shard 1), the plain versions
+               timed there; the bound of the group's shard work;
 then the ``kernels`` line (eleven rows, then the six tile-keyed rows
 ``[hw_emulated]``, ``[hw,db]`` and ``[hw]`` of rows 1-2, then the
 tensor-core flash kernel's rows at head sizes 80 and 256 (launches: the
 bf16 prefills of phase 20) and the CUDA-core kernel's there (launches:
 the f32 prefills), then the tensor-core kernel's at the encoder's
-non-causal 1,500-token shape (launches: phase 21's bf16 prefill); rows
+non-causal 1,500-token shape (launches: phase 21's bf16 prefill), then
+the three shard instances of rows 8-10 (launches: phase 23 (b)'s path,
+ms its per-step sum over the 4 shards, plain ms on its window); rows
 1-2 count phase 19 (a)'s, phase 20's, phase 21's and phase 22's
-launches too, rows 8-9 phase 21's image models' and phase 22's, row 11
-phase 20's at head size 128 and phase 21's encoder), the card line and
-the result line.
+launches too, rows 8-9 phase 21's image models' and phase 22's, rows 8
+and 10 phase 23 (a)'s, row 11 phase 20's at head size 128 and phase
+21's encoder), the card line and the result line.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -1235,6 +1259,27 @@ def phase_generator():
                 log(f"  {impl:11s} {dist:10s} tile ({row0},{col0}): bits "
                     f"exact on cuda and cpu, samples max|d|="
                     f"{float(diff.max()):.3g}")
+    # the plain generator's card form (five passes a Threefry round,
+    # in-place sample mapping, column chunks replayed as CUDA graphs)
+    # against its stepwise form: every impl and distribution, blocks of
+    # several chunks and a ragged one, bit for bit
+    shape = (1024, 3 * 2048 + 1536)
+    for impl in rng.PRNG_IMPLS:
+        for dist in ("normal", "uniform", "bernoulli", "rademacher",
+                     "sparse"):
+            for col0 in (0, 2**31 - 4096):
+                got = rng.generate_tiled_block(impl, seed, col0, shape, dist,
+                                               device="cuda")
+                with rng.stepwise_form():
+                    want = rng.generate_tiled_block(impl, seed, col0, shape,
+                                                    dist, device="cuda")
+                check(torch.equal(got.view(torch.int32),
+                                  want.view(torch.int32)),
+                      f"plain generator {impl}/{dist} at column {col0}: the "
+                      "card form differs from the stepwise form")
+        log(f"  plain generator {impl}: card form (chunks of "
+            f"{rng.GEN_CHUNK[impl]} values) bit for bit the stepwise form "
+            f"on {shape} blocks, every distribution")
 
 
 def _sub_plans(full_plan):
@@ -2345,6 +2390,8 @@ def _per_leaf_launcher_runs(n_leaves):
                     f"{[round(x, 2) for x in sums]} ms; embed launch "
                     f"{[round(x, 2) for x in embed]} ms")
         runs[label] = (launches, res.kernel_ms)
+        if label == "fused_per_leaf":
+            PHASE13["losses"] = list(res.losses)
         del res
         gc.collect()
         torch.cuda.empty_cache()
@@ -5444,6 +5491,7 @@ LOOP_EVAL_EVERY = 2
 LOOP_CKPT_EVERY = 3
 LOOP_LOG_EVERY = 2         # step 1 is not a log boundary
 PHASE4 = {}                # phase 4's losses and rows 1-2's ms per value
+PHASE13 = {}               # phase 13's fused_per_leaf losses
 
 
 @contextlib.contextmanager
@@ -5894,6 +5942,310 @@ def phase_tools(dev) -> tuple[dict, dict]:
     return totals, errs
 
 
+# phase 23: (b)'s model (arch, batch, text length, rbd-dim), its model
+# group run in turn, the local positions of embed's window held to the
+# plain versions, and the summed projections' tolerance against the
+# unsharded kernel's: PROJ_ULPS * sqrt(n_chunk) f32 ulps of S -- S =
+# ||g_s|| sqrt(sq) for u (the Cauchy-Schwarz bound on sum |g b|, whose
+# ulp sets the rounding of the same terms summed in another order), S =
+# sq for sq (a sum of squares) -- n_chunk the unsharded kernel's chunk
+# partials of the compartment, summed one after the other (their
+# rounding grows as a random walk)
+PJIT_DRIVE = ("rwkv6-1.6b", 8, 128, 1024)
+PJIT_M = 4
+PJIT_WINDOW = 1 << 20
+PROJ_ULPS = 8
+SHARD_KERNELS = {"project_flat_shard": "project_flat",
+                 "reconstruct_flat_shard": "reconstruct_flat",
+                 "reconstruct_apply_flat_shard": "reconstruct_apply_flat"}
+
+
+def phase_pjit(dev) -> tuple[dict, list]:
+    """Phase 23, pjit-style parameter sharding.  (a) The launcher's
+    ``--mode pjit --data 1 --model 1`` on qwen2-0.5b at full width and
+    depth (pure data parallel: nothing cut): its losses are phase 13's
+    per-leaf route's bit for bit.  (b) rwkv6-1.6b at full width and depth
+    on the megatron layout of a model group of PJIT_M ranks, run one
+    shard after the other: one step's gradient, then the projector on
+    each rank's leaf shards (rows 8-10's shard instances), the partials
+    summed in shard order -- against the unsharded per-leaf kernels (the
+    applies and reconstructions bit for bit, the sums within PROJ_ULPS)
+    and, on a window, against the shard instances' plain versions.
+    Returns ({kernel: launches of (a)}, the shard instances' rows)."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RBDConfig
+    from repro_torch.core import projector, rng
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import rbd_project, rbd_reconstruct, rbd_step
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import registry
+    from repro_torch.sharding import rules
+    from repro_torch.train import step as steplib
+
+    t0 = time.perf_counter()
+    log("== phase 23: pjit-style parameter sharding: the launcher's --mode "
+        f"pjit on qwen2-0.5b, then rows 8-10's shard instances on "
+        f"{PJIT_DRIVE[0]}'s leaf shards, m = {PJIT_M} in turn")
+    # (a) the route through the launcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = ARCH_ARGS + ["--mode", "pjit", "--data", "1", "--model", "1"]
+    log("  (a) python -m repro_torch.launch.train " + " ".join(args))
+    rbd_step.reset_counts()
+    res = launcher.main(args)
+    launches = {k: v for k, v in rbd_step.LAUNCHES.items() if v}
+    eplan = res.sub_opt.plan_execution()
+    n_leaves = len(res.sub_opt.transform.plan.leaves)
+    log(f"  (a) update path: {eplan.strategy} -- {eplan.reason}")
+    check(eplan.strategy == "fused_per_leaf",
+          f"(a): --mode pjit planned {eplan.strategy}")
+    want = {"project_flat": n_leaves * STEPS,
+            "reconstruct_apply_flat": n_leaves * STEPS}
+    check(launches == want, f"(a): launches {launches}, expected {want}")
+    check(res.losses == PHASE13["losses"],
+          f"(a): losses {res.losses} are not phase 13's per-leaf route's "
+          f"{PHASE13['losses']} bit for bit")
+    per_step = {k: v / STEPS for k, v in res.collectives.items() if v}
+    log(f"  (a) losses {res.losses}: phase 13's fused_per_leaf run's bit "
+        f"for bit; launches {launches}; collectives a step {per_step} (one "
+        "data rank: no coordinate exchange, no dense mean); step wall "
+        f"{[round(x, 3) for x in res.step_seconds]} s; peak "
+        f"{res.peak_bytes / 2**30:.2f} GiB")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the shard instances at full width on a megatron layout
+    arch, batch, seq, dim = PJIT_DRIVE
+    cfg = get_config(arch)
+    model = registry.get_model(cfg)
+    plan = steplib.make_plan(model, RBDConfig(total_dim=dim))
+    dist = plan.distribution
+    shapes = model.param_shapes()
+    layout = rules.layout_policy(shapes, cfg)
+    shards = registry.leaf_shards(model, PJIT_M)
+    check(layout == "megatron", f"(b): {arch} planned {layout}")
+    # the cut dimension as the rules name it: embed's 0, the stacked
+    # leaves' -1 and -2 counted from the right
+    by_dim = {}
+    for k, d in shards.dims.items():
+        by_dim.setdefault(d if k == "embed" else d - len(shapes[k]),
+                          []).append(k)
+    log(f"  (b) {arch}: {sum(math.prod(x) for x in shapes.values()):,} "
+        f"parameters, layout {layout}; leaves cut by dimension: "
+        + "; ".join(f"{d}: {', '.join(v)}" for d, v in sorted(by_dim.items()))
+        + f"; replicated: {len(shapes) - len(shards.dims)} leaves")
+    check({0, -1, -2} == set(by_dim) and by_dim[0] == ["embed"],
+          f"(b): expected embed cut on 0 and the rest on -1 / -2, got "
+          f"{by_dim}")
+    params = model.init(0, device="cuda")
+    data = next(synthetic.lm_batches(0, batch, seq, cfg.vocab,
+                                     device="cuda"))
+    loss_fn = steplib.make_loss_fn(model, cfg.router_aux_coef)
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    loss, _ = loss_fn(leaves, data)
+    grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    del leaves, loss
+    torch.cuda.synchronize()
+    log(f"  (b) one gradient at batch {batch} x {seq}: "
+        f"{time.perf_counter() - t0:.1f} s into the phase")
+    seed = rng.fold_seed(0, 0)
+    eta = 0.125
+    rows = {lp.name: lp for lp in plan.leaves}
+
+    def rows_of(x, lp):
+        return x.reshape(lp.n_stack, -1).contiguous()
+
+    # the unsharded per-leaf kernels on the whole leaves (comparison only;
+    # each launch timed with CUDA events, as the shards' are below)
+    whole_u, whole_sq, whole_d, whole_a = {}, {}, {}, {}
+    rbd_step.set_timing(True)
+    for lp in plan.leaves:
+        whole_u[lp.name], whole_sq[lp.name] = rbd_project.project_flat(
+            projector._leaf_seeds(seed, lp), rows_of(grads[lp.name], lp),
+            lp.dim, dist)
+    coords = [projector._norm_scales(plan, lp, whole_u[lp.name], None)
+              for lp in plan.leaves]
+    for i, lp in enumerate(plan.leaves):
+        seeds = projector._leaf_seeds(seed, lp)
+        scale = projector._recon_scale(plan, lp, seeds, coords[i], None)
+        whole_d[lp.name] = rbd_reconstruct.reconstruct_flat(
+            seeds, scale, lp.size, dist)
+        whole_a[lp.name] = rbd_reconstruct.reconstruct_apply_flat(
+            seeds, scale, rows_of(params[lp.name], lp), eta, dist)
+    t_whole = {k: sum(v) for k, v in rbd_step.kernel_times_ms().items()
+               if v}
+    rbd_step.set_timing(False)
+    log("  (b) the unsharded per-leaf kernels over the whole leaves, ms "
+        "(launches summed): " + ", ".join(f"{k} {v:.2f}"
+                                          for k, v in t_whole.items()))
+
+    # the path: each rank's leaf shards in turn, counted and timed; each
+    # shard's reconstruct and apply held to the unsharded kernels' slices
+    # bit for bit as soon as they are made
+    rbd_step.reset_counts()
+    parts, times = [], []
+    for r in range(PJIT_M):
+        sh = shards.with_rank(r)
+        rbd_step.set_timing(True)
+        parts.append(projector.project_partials(
+            registry.shard_params(grads, sh), plan, seed, backend="cuda",
+            shards=sh))
+        local = registry.shard_params(params, sh)
+        out = {"reconstruct": projector.reconstruct(
+            coords, plan, seed, local, backend="cuda", shards=sh),
+            "apply": projector.reconstruct_apply(
+                coords, plan, seed, local, eta, backend="cuda", shards=sh)}
+        times.append({k: sum(v) for k, v in rbd_step.kernel_times_ms().items()
+                      if v})
+        rbd_step.set_timing(False)
+        for lp in plan.leaves:
+            for what, whole in (("reconstruct", whole_d), ("apply", whole_a)):
+                want = sh.cut(lp.name, whole[lp.name].reshape(lp.shape))
+                check(torch.equal(out[what][lp.name].reshape(want.shape),
+                                  want),
+                      f"(b) {lp.name} shard {r}: the {what} is not the "
+                      "unsharded kernel's slice bit for bit")
+        del local, out
+    path = {k: v for k, v in rbd_step.LAUNCHES.items() if v}
+    n_cut = len(shards.dims)
+    for k in SHARD_KERNELS:
+        check(path.get(k, 0) == PJIT_M * n_cut,
+              f"(b): {k} launched {path.get(k, 0)} times, expected "
+              f"{PJIT_M} x {n_cut}")
+    log(f"  (b) launches over the {PJIT_M} shards: {path}; every shard's "
+        "reconstruct and apply bit-identical to the unsharded kernels' "
+        "slices")
+    for r, t in enumerate(times):
+        log(f"    shard {r}: ms " + ", ".join(f"{k} {v:.2f}"
+                                             for k, v in sorted(t.items())))
+    sums = {k: sum(t.get(k, 0.0) for t in times) for k in SHARD_KERNELS}
+    log("  (b) shard instances summed over the shards, ms: " + ", ".join(
+        f"{k} {v:.2f} ({v / t_whole[b]:.3f} x the unsharded kernel's)"
+        for k, b in SHARD_KERNELS.items() for v in [sums[k]]))
+
+    # the summed partials against the unsharded kernel: within PROJ_ULPS
+    worst_u = worst_sq = 0.0
+    for i, lp in enumerate(plan.leaves):
+        u = sum(p[0][i] for p in parts)
+        sq = sum(p[1][i] for p in parts)
+        g = rows_of(grads[lp.name], lp)
+        wu, wsq = whole_u[lp.name], whole_sq[lp.name]
+        n_chunk = -(-lp.size // (rbd_project.POS_CHUNK
+                                 * rbd_project.POS_BLOCK))
+        ulps = PROJ_ULPS * math.sqrt(n_chunk) * 2.0**-23
+        tol_u = (ulps * g.norm(dim=1, keepdim=True)
+                 * wsq.sqrt()).clamp(min=1e-30)
+        tol_sq = (ulps * wsq).clamp(min=1e-30)
+        ru = float(((u - wu).abs() / tol_u).max())
+        rsq = float(((sq - wsq).abs() / tol_sq).max())
+        check(ru <= 1.0 and rsq <= 1.0,
+              f"(b) {lp.name}: summed shard projections off the unsharded "
+              f"kernel's by {ru:.3g} (u) / {rsq:.3g} (sq) of the tolerance")
+        worst_u, worst_sq = max(worst_u, ru), max(worst_sq, rsq)
+    log(f"  (b) the summed projections within {worst_u:.3g} (u) and "
+        f"{worst_sq:.3g} (sq) of the tolerance ({PROJ_ULPS} sqrt(n_chunk) "
+        "ulps)")
+    del whole_d, whole_a, parts
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a window against the plain versions: layer 0 of cmix/wk (-1) and
+    # cmix/wv (-2) on every shard, embed's (0) first PJIT_WINDOW local
+    # positions on shard 1
+    errs = dict.fromkeys(SHARD_KERNELS, 0.0)
+    plain_ms = dict.fromkeys(SHARD_KERNELS, 0.0)
+    window_ms = dict.fromkeys(SHARD_KERNELS, 0.0)
+    cases = [(name, r) for name in ("layers/cmix/wk", "layers/cmix/wv")
+             for r in range(PJIT_M)] + [("embed", 1)]
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    for name, r in cases:
+        lp = rows[name]
+        sh = shards.with_rank(r)
+        cm = sh.colmap(name, lp.stacked)
+        seeds = projector._leaf_seeds(seed, lp)[:1]
+        g = rows_of(sh.cut(name, grads[name]), lp)[:1]
+        th = rows_of(sh.cut(name, params[name]), lp)[:1]
+        if name == "embed":
+            cm = (PJIT_WINDOW, cm[1], cm[2])
+            g, th = g[:, :PJIT_WINDOW], th[:, :PJIT_WINDOW]
+        g, th = g.contiguous(), th.contiguous()
+        scale = torch.randn((1, lp.dim), generator=gen, device="cuda") * 1e-3
+        q = g.shape[1]
+        res = {}
+        window_ms["project_flat_shard"] += cuda_ms(lambda: res.update(
+            p=rbd_project.project_flat_shard(seeds, g, lp.dim, dist,
+                                             colmap=cm)))[0]
+        window_ms["reconstruct_flat_shard"] += cuda_ms(lambda: res.update(
+            d=rbd_reconstruct.reconstruct_flat_shard(seeds, scale, q, dist,
+                                                     colmap=cm)))[0]
+        window_ms["reconstruct_apply_flat_shard"] += cuda_ms(
+            lambda: res.update(a=rbd_reconstruct.reconstruct_apply_flat_shard(
+                seeds, scale, th, eta, dist, colmap=cm)))[0]
+        plain = {}
+        plain_ms["project_flat_shard"] += cuda_ms(lambda: plain.update(
+            p=rbd_project.project_flat_shard_plain(seeds, g, lp.dim, dist,
+                                                   colmap=cm)))[0]
+        plain_ms["reconstruct_flat_shard"] += cuda_ms(lambda: plain.update(
+            d=rbd_reconstruct.reconstruct_flat_shard_plain(
+                seeds, scale, q, dist, colmap=cm)))[0]
+        plain_ms["reconstruct_apply_flat_shard"] += cuda_ms(
+            lambda: plain.update(
+                a=rbd_reconstruct.reconstruct_apply_flat_shard_plain(
+                    seeds, scale, th, eta, dist, colmap=cm)))[0]
+        case = f"(b) window {name} shard {r}"
+        errs["project_flat_shard"] = max(
+            errs["project_flat_shard"],
+            _check_flat_project(case, *res["p"], *plain["p"], g))
+        errs["reconstruct_flat_shard"] = max(
+            errs["reconstruct_flat_shard"],
+            _check_delta(case, res["d"], plain["d"]))
+        errs["reconstruct_apply_flat_shard"] = max(
+            errs["reconstruct_apply_flat_shard"],
+            _check_apply(case, res["a"], plain["a"], th))
+    log("  (b) window, kernel ms " + ", ".join(
+        f"{k} {v:.2f}" for k, v in window_ms.items()) + "; plain ms "
+        + ", ".join(f"{k} {v:.1f}" for k, v in plain_ms.items()))
+
+    # rows: the bound of the whole model group's shard work (every cut
+    # leaf's live values once), against its ms summed over the shards
+    cut = [lp for lp in plan.leaves if lp.name in shards.dims]
+    values = sum(lp.n_stack * lp.dim * lp.size for lp in cut)
+    q_cut = sum(lp.n_stack * lp.size for lp in cut)
+    d_cut = sum(lp.n_stack * lp.dim for lp in cut)
+    n_seeds = PJIT_M * sum(lp.n_stack for lp in cut)
+    nbytes = {"project_flat_shard": 4 * q_cut + 8 * PJIT_M * d_cut
+              + 4 * n_seeds,
+              "reconstruct_flat_shard": 4 * q_cut + 4 * PJIT_M * d_cut
+              + 4 * n_seeds,
+              "reconstruct_apply_flat_shard": 8 * q_cut + 4 * PJIT_M * d_cut
+              + 4 * n_seeds}
+    out_rows = []
+    for k, base in SHARD_KERNELS.items():
+        b_ms, by, note = ops_bound(values, nbytes[k],
+                                   value_counts(base, "threefry", dist), dev)
+        log(f"  bound {k} ({PJIT_M} shards, {len(cut)} cut leaves, "
+            f"{values:,} live values): {b_ms:.3f} ms -- {note}")
+        log(f"  {k}: ms {sums[k]:.3f} summed over the shards, bound "
+            f"{b_ms:.3f} ({by}), {b_ms / sums[k]:.1%} of bound; plain "
+            f"{plain_ms[k]:.1f} on the window (the kernel "
+            f"{window_ms[k]:.2f} there)")
+        out_rows.append({
+            "name": k, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rbd_flat.cu",
+            "replaces": REPLACES[base], "launches": path[k],
+            "max_abs_err": errs[k], "ms": sums[k], "plain_ms": plain_ms[k],
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None})
+    del params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 23: {time.perf_counter() - t0:.1f} s")
+    return {k: launches.get(k, 0) for k in FLAT_KERNELS}, out_rows
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5989,6 +6341,10 @@ def main(argv=None) -> int:
         row["launches"] += tools.get(row["name"], 0)
         row["max_abs_err"] = max(row["max_abs_err"],
                                  tool_errs.get(row["name"], 0.0))
+    pjit, shard_rows = phase_pjit(dev)
+    for row in rows:
+        row["launches"] += pjit.get(row["name"], 0)
+    rows.extend(shard_rows)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(dev["smi"], flush=True)

@@ -63,11 +63,16 @@ from repro_torch.core import projector, rng
 # resilience repair's broadcasts from rank 0 (resilience.
 # resync_from_worker0: one per state buffer, only after a detection) and
 # the packed-gradient mean the gradient_informed basis collector reads
-# (basis_grad_mean: on the metrics path, outside the update)
+# (basis_grad_mean: on the metrics path, outside the update); under
+# pjit-style parameter sharding, the forward's all-gathers of the leaf
+# shards over the model group (models.registry.LeafShards.gather, one a
+# sharded leaf a layer, again in the recompute) and the update norm's
+# scalar sum over the model group (model_sum_scalar, metrics path)
 COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "scalar": 0,
                "grad_all_reduce": 0, "model_all_reduce": 0,
                "model_all_gather": 0, "resync": 0,
-               "basis_grad_all_reduce": 0}
+               "basis_grad_all_reduce": 0, "leaf_all_gather": 0,
+               "model_scalar": 0}
 
 
 def reset_counts() -> None:
@@ -153,6 +158,17 @@ def complete_model_partials(u_partial, sq_partial, model_axis):
     if not widened:
         return buf, None
     return split_coord_buffer(buf, u_partial.shape[-1])
+
+
+def model_sum_scalar(x: torch.Tensor, model_axis) -> torch.Tensor:
+    """Sum of a scalar over the model group (the update norm's squared
+    sum over leaf shards): one all-reduce of one element, counted as
+    ``model_scalar``."""
+    buf = x.detach().to(torch.float32, copy=True).reshape(1)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM,
+                    group=process_group(model_axis))
+    COLLECTIVES["model_scalar"] += 1
+    return buf[0]
 
 
 def all_gather_slabs(out: torch.Tensor, slab: torch.Tensor,
@@ -303,29 +319,33 @@ def _exchange_leaf_coords(coords: list, axis_name, kind: str) -> list:
     return out
 
 
-def shared_basis_coords(transform, local_grads: dict, state, axis_name):
+def shared_basis_coords(transform, local_grads: dict, state, axis_name, *,
+                        shards=None):
     """The per-leaf shared-basis exchange: project the local gradient map
     on the step's basis, average the coordinates of all leaves with one
     all-reduce.  Returns ``(coords, row_sq)`` in the ``projector.project``
-    convention (the norms are the same on every worker: one basis)."""
+    convention (the norms are the same on every worker: one basis).  On
+    leaf ``shards`` the projection is first completed over the model
+    group (``projector.project``)."""
     seed = transform.step_seed(state.step)
     coords, norms = projector.project(
         local_grads, transform.plan, seed, backend=transform.backend,
-        return_norms=True)
+        return_norms=True, shards=shards)
     return _exchange_leaf_coords(coords, axis_name, "pmean"), norms
 
 
-def shared_basis_update(transform, local_grads: dict, state, axis_name):
+def shared_basis_update(transform, local_grads: dict, state, axis_name, *,
+                        shards=None):
     """All workers, one basis: average the coordinates, reconstruct
     locally.  Returns ``(update map, new RBDState)``; the full-space
     strategy (weight decay) runs its optimizer on the update."""
     from repro_torch.core.rbd import RBDState
 
     coords, norms = shared_basis_coords(transform, local_grads, state,
-                                        axis_name)
+                                        axis_name, shards=shards)
     update = projector.reconstruct(
         coords, transform.plan, transform.step_seed(state.step),
-        local_grads, backend=transform.backend, row_sq=norms)
+        local_grads, backend=transform.backend, row_sq=norms, shards=shards)
     return update, RBDState(step=state.step + 1)
 
 
@@ -363,19 +383,20 @@ def independent_bases_coords(transform, local_grads, state, axis_name, *,
 
 
 def independent_bases_update(transform, local_grads: dict, state,
-                             axis_name):
+                             axis_name, *, shards=None):
     """Paper Algorithm 1 on the per-leaf path: project on this worker's
     own basis, all-gather every leaf's coordinates in one collective, then
     regenerate each worker's basis in turn (K reconstructions, one launch
     per leaf each; 'exact' regenerates each worker's row norms with one
-    more projection per leaf) and average the K updates.  Returns
-    ``(update map, new RBDState)``."""
+    more projection per leaf, completed over the model group on leaf
+    ``shards``) and average the K updates.  Returns ``(update map, new
+    RBDState)``."""
     from repro_torch.core.rbd import RBDState
 
     plan, backend = transform.plan, transform.backend
     coords = projector.project(local_grads, plan,
                                worker_seed(transform, state, axis_name),
-                               backend=backend)
+                               backend=backend, shards=shards)
     gathered = _exchange_leaf_coords(coords, axis_name, "all_gather")
     k_workers = int(gathered[0].shape[0])
     base_seeds = projector.worker_base_seeds(
@@ -384,7 +405,7 @@ def independent_bases_update(transform, local_grads: dict, state,
     for k in range(k_workers):
         upd = projector.reconstruct([g[k] for g in gathered], plan,
                                     base_seeds[k], local_grads,
-                                    backend=backend)
+                                    backend=backend, shards=shards)
         total = upd if total is None else {n: total[n] + upd[n]
                                            for n in total}
     update = {n: x / k_workers for n, x in total.items()}

@@ -36,6 +36,25 @@ stacked compartments (:func:`project`, :func:`reconstruct`,
 ``{leaf name: tensor}``; the ``orthonormal`` normalization materializes a
 QR-orthonormalized basis per compartment (:func:`_ortho_basis`).
 
+Leaf shards (pjit-style parameter sharding, ``shards=`` a
+``models.registry.LeafShards``): a rank holds each sharded leaf's part,
+cut along one dimension of the compartment's tail.  A compartment's shard
+projects locally onto the basis columns at the shard's GLOBAL positions
+(the per-leaf kernels' shard instances, ``kernels.rbd_project.
+shard_columns``); a replicated leaf is projected by one rank of the
+group (leaf i by rank ``i % m``), the others adding zeros.  Every leaf's
+raw ``(u, sq)`` partials are completed by ONE all-reduce over the model
+group for the whole step -- the (sum of dims,) buffer, widened to twice
+that under 'exact' (:func:`complete_partials`) -- and then normalized,
+``rsqrt_dim`` still by the whole compartment's size.  The
+reconstructions write only this rank's part of a sharded leaf and the
+whole of a replicated one.  ``orthonormal`` builds each compartment's QR
+basis whole from its seed on every rank and keeps the shard's columns, so
+no basis value crosses ranks.  A shard never holds whole compartments: no
+config's specs cut a stacked leaf on its layer axis (checked by
+``tests/test_torch_sharding_rules.py``; :meth:`LeafShards.colmap`
+raises).  Flattened plans take no shards.
+
 Backends: ``"torch"`` runs plain PyTorch on the tensors' device -- the
 packed kernels' plain versions, and for the per-leaf path the reference's
 tensor-shaped generation (:func:`_project_flat`, :func:`_reconstruct_flat`);
@@ -47,7 +66,7 @@ for CPU tensors, as the tests do).
 from __future__ import annotations
 
 import functools
-from typing import Mapping
+from typing import Any, Mapping, NamedTuple
 
 import numpy as np
 import torch
@@ -595,12 +614,23 @@ def _leaf_backend(plan: Plan, backend: str):
 
 
 def project(grads, plan: Plan, seed, *, backend: str = "torch",
-            return_norms: bool = False):
+            return_norms: bool = False, shards=None):
     """Project a gradient map onto the plan's random bases: a list (one
     entry per LeafPlan) of normalized ``(n_stack, dim)`` coordinates, one
     projection launch per leaf on the cuda backend.  ``return_norms``
     also returns the squared row norms (same shapes), which a colocated
-    reconstruction reuses under 'exact' normalization."""
+    reconstruction reuses under 'exact' normalization.  With leaf
+    ``shards`` (module docstring) the partials are completed over the
+    model group first; the norms are then returned completed under
+    'exact' and as None otherwise (no reconstruction reads them)."""
+    if _sharded(shards):
+        exact = plan.normalization == "exact"
+        u, sq = project_partials(grads, plan, seed, backend=backend,
+                                 shards=shards)
+        u, sq = complete_partials(u, sq if exact else None, shards.group)
+        coords = [_norm_scales(plan, lp, u[i], sq[i] if exact else None)
+                  for i, lp in enumerate(plan.leaves)]
+        return (coords, sq) if return_norms else coords
     proj_flat, _ = _leaf_backend(plan, backend)
     sources = ({"<flat>": _ravel_tree(grads, plan)} if plan.flatten
                else grads)
@@ -614,6 +644,142 @@ def project(grads, plan: Plan, seed, *, backend: str = "torch",
     if return_norms:
         return coords, norms
     return coords
+
+
+def _sharded(shards) -> bool:
+    return shards is not None and shards.m > 1
+
+
+def project_partials(grads, plan: Plan, seed, *, backend: str = "torch",
+                     shards) -> tuple[list, list]:
+    """The raw ``(u, sq)`` partials, each a list of ``(n_stack, dim)``
+    float32 blocks, of this rank's leaf shards (module docstring): the
+    shard instances for a sharded leaf, the whole projection of a
+    replicated leaf on its rank (``i % m``) and zeros elsewhere.  Their
+    sums over the group's ranks are the unsharded ``(u, sq)``."""
+    _check_shardable(plan)
+    fns = _shard_backend(plan, backend)
+    us, sqs = [], []
+    for i, lp in enumerate(plan.leaves):
+        seeds = _leaf_seeds(seed, lp)
+        g = grads[lp.name]
+        cm = shards.colmap(lp.name, lp.stacked)
+        if cm is not None:
+            u, sq = fns.project(seeds, g.reshape(lp.n_stack, -1), lp,
+                                plan.distribution, cm, shards)
+        elif i % shards.m == shards.r:
+            u, sq = fns.project_whole(
+                seeds, g.reshape((lp.n_stack,) + _leaf_tail(lp)), lp.dim,
+                plan.distribution)
+        else:
+            u = torch.zeros((lp.n_stack, lp.dim), dtype=torch.float32,
+                            device=g.device)
+            sq = torch.zeros_like(u)
+        us.append(u.to(torch.float32))
+        sqs.append(sq.to(torch.float32))
+    return us, sqs
+
+
+def complete_partials(u: list, sq, group):
+    """Sum per-leaf partials over the model ``group`` with ONE all-reduce
+    of their concatenation -- ``u`` alone, or ``u`` and ``sq`` widened
+    when ``sq`` is given ('exact') -- and split them back (``sq`` None
+    stays None).  Shards run in turn on one device have no group: their
+    caller sums :func:`project_partials` itself."""
+    if group is None:
+        raise ValueError(
+            "leaf shards without a model group: run the shards in turn "
+            "with project_partials and sum the partials in shard order")
+    from repro_torch.core import distributed
+
+    flat_u = torch.cat([x.reshape(-1) for x in u])
+    flat_sq = None if sq is None else torch.cat([x.reshape(-1) for x in sq])
+    flat_u, flat_sq = distributed.complete_model_partials(flat_u, flat_sq,
+                                                          group)
+    return _split_like(flat_u, u), (None if sq is None
+                                    else _split_like(flat_sq, sq))
+
+
+def _split_like(flat: torch.Tensor, like: list) -> list:
+    out, off = [], 0
+    for x in like:
+        out.append(flat[off: off + x.numel()].reshape(x.shape))
+        off += x.numel()
+    return out
+
+
+def _check_shardable(plan: Plan) -> None:
+    if plan.flatten:
+        raise ValueError("a flattened plan (granularity global / even) "
+                         "takes no leaf shards: its one virtual leaf spans "
+                         "every parameter")
+
+
+class _ShardFns(NamedTuple):
+    """A backend's per-leaf functions on leaf shards: ``project(seeds,
+    rows, lp, dist, colmap, shards)`` -> partial (u, sq); ``reconstruct(
+    seeds, scale, lp, q_local, dist, colmap, shards)`` -> (n_stack,
+    q_local) float32; ``project_whole`` the unsharded projection (a
+    replicated leaf)."""
+
+    project: Any
+    reconstruct: Any
+    project_whole: Any
+
+
+def _shard_backend(plan: Plan, backend: str) -> _ShardFns:
+    from repro_torch.kernels import rbd_project, rbd_reconstruct
+
+    proj_whole, _ = _leaf_backend(plan, backend)
+    if plan.normalization == "orthonormal":
+        return _ShardFns(_project_ortho_shard, _reconstruct_ortho_shard,
+                         proj_whole)
+    if backend == "cuda":
+        proj, recon = (rbd_project.project_flat_shard,
+                       rbd_reconstruct.reconstruct_flat_shard)
+    elif backend == "torch":
+        proj, recon = (rbd_project.project_flat_shard_plain,
+                       rbd_reconstruct.reconstruct_flat_shard_plain)
+    else:
+        raise ValueError(f"unknown projector backend {backend!r}")
+
+    def project_shard(seeds, rows, lp, dist, cm, shards):
+        return proj(seeds, rows.to(torch.float32).contiguous(), lp.dim,
+                    dist, colmap=cm)
+
+    def reconstruct_shard(seeds, scale, lp, q_local, dist, cm, shards):
+        return recon(seeds, scale.to(torch.float32), q_local, dist,
+                     colmap=cm)
+
+    return _ShardFns(project_shard, reconstruct_shard, proj_whole)
+
+
+def _ortho_shard_basis(seed, lp: LeafPlan, cm, shards, distribution,
+                       device) -> torch.Tensor:
+    """One compartment's whole QR basis, built from its seed (as on every
+    rank), cut to the shard's columns: ``(dim, q_local)``."""
+    from repro_torch.kernels.rbd_project import shard_columns
+
+    tail = tuple(shards.shapes[lp.name])[1 if lp.stacked else 0:]
+    cols = rng.to_uint32(shard_columns(cm, 0, lp.size // shards.m, "cpu"))
+    idx = torch.from_numpy(cols.astype(np.int64)).to(device)
+    return _ortho_basis(seed, lp.dim, tail, distribution, device)[:, idx]
+
+
+def _project_ortho_shard(seeds, rows, lp, distribution, cm, shards):
+    u = torch.stack([
+        _ortho_shard_basis(seeds[s], lp, cm, shards, distribution,
+                           rows.device) @ rows[s].to(torch.float32)
+        for s in range(lp.n_stack)])
+    return u, torch.ones_like(u)
+
+
+def _reconstruct_ortho_shard(seeds, scale, lp, q_local, distribution, cm,
+                             shards):
+    return torch.stack([
+        scale[s].to(torch.float32) @ _ortho_shard_basis(
+            seeds[s], lp, cm, shards, distribution, scale.device)
+        for s in range(lp.n_stack)])
 
 
 def _recon_scale(plan: Plan, lp: LeafPlan, seeds, coords, proj_flat,
@@ -633,20 +799,35 @@ def _recon_scale(plan: Plan, lp: LeafPlan, seeds, coords, proj_flat,
 
 
 def reconstruct(coords: list, plan: Plan, seed, params_like, *,
-                backend: str = "torch", row_sq: list | None = None) -> dict:
+                backend: str = "torch", row_sq: list | None = None,
+                shards=None) -> dict:
     """Map per-leaf coordinates back to a full-space update map shaped and
     typed like ``params_like``: ``sum_i c_i phi_hat_i`` per compartment,
     one reconstruction launch per leaf on the cuda backend.  ``row_sq``
     (from ``project(..., return_norms=True)``) saves the 'exact'
     normalization a regeneration pass; a worker that only received
-    coordinates passes None."""
+    coordinates passes None.  With leaf ``shards`` ``params_like`` is this
+    rank's shard map and so is the update (module docstring); 'exact'
+    without ``row_sq`` regenerates the norms' partials and completes them
+    over the model group."""
     proj_flat, recon_flat = _leaf_backend(plan, backend)
+    sharded = _sharded(shards)
+    if sharded:
+        _check_shardable(plan)
+        row_sq = _shard_row_sq(plan, seed, params_like, backend, shards,
+                               row_sq)
+        fns = _shard_backend(plan, backend)
 
     def one_leaf(i, lp):
         seeds = _leaf_seeds(seed, lp)
         sq = row_sq[i] if row_sq is not None else None
         scale = _recon_scale(plan, lp, seeds, coords[i].to(torch.float32),
                              proj_flat, sq)
+        cm = shards.colmap(lp.name, lp.stacked) if sharded else None
+        if cm is not None:
+            return fns.reconstruct(seeds, scale, lp, lp.size // shards.m,
+                                   plan.distribution, cm, shards).reshape(
+                shards.local_shape(lp.name))
         delta = recon_flat(seeds, scale, _leaf_tail(lp), plan.distribution)
         return delta.reshape(lp.shape)
 
@@ -660,22 +841,45 @@ def reconstruct(coords: list, plan: Plan, seed, params_like, *,
             for name, ref in params_like.items()}
 
 
+def _shard_row_sq(plan: Plan, seed, params_like, backend, shards, row_sq):
+    """'exact' row norms of a sharded reconstruction: ``row_sq`` as given,
+    else regenerated from a projection of zeros on the shards and
+    completed over the model group (one all-reduce); None for the other
+    normalizations."""
+    if plan.normalization != "exact" or row_sq is not None:
+        return row_sq
+    zeros = {lp.name: torch.zeros(params_like[lp.name].shape,
+                                  dtype=torch.float32,
+                                  device=params_like[lp.name].device)
+             for lp in plan.leaves}
+    _, sq = project_partials(zeros, plan, seed, backend=backend,
+                             shards=shards)
+    sq, _ = complete_partials(sq, None, shards.group)
+    return sq
+
+
 def reconstruct_apply(coords: list, plan: Plan, seed, params, eta, *,
-                      backend: str = "torch", row_sq: list | None = None
-                      ) -> dict:
+                      backend: str = "torch", row_sq: list | None = None,
+                      shards=None) -> dict:
     """Per-leaf fused apply ``theta' = theta - eta * (c_hat @ P)``: one
-    ``reconstruct_apply_flat`` launch per leaf on the cuda backend, the
-    delta never in memory, theta rounded once into its dtype.  The torch
-    backend, 'orthonormal' and flatten plans reconstruct, then subtract
-    (the reference's fallback)."""
+    ``reconstruct_apply_flat`` launch per leaf on the cuda backend (its
+    shard instance on a sharded leaf), the delta never in memory, theta
+    rounded once into its dtype.  The torch backend, 'orthonormal' and
+    flatten plans reconstruct, then subtract (the reference's
+    fallback)."""
     if backend != "cuda" or plan.normalization == "orthonormal" \
             or plan.flatten:
         delta = reconstruct(coords, plan, seed, params, backend=backend,
-                            row_sq=row_sq)
+                            row_sq=row_sq, shards=shards)
         return {k: (p.to(torch.float32)
                     - eta * delta[k].to(torch.float32)).to(p.dtype)
                 for k, p in params.items()}
+    from repro_torch.kernels import rbd_reconstruct
+
     be = _get_backend(backend)
+    sharded = _sharded(shards)
+    if sharded:
+        row_sq = _shard_row_sq(plan, seed, params, backend, shards, row_sq)
     out = dict(params)
     for i, lp in enumerate(plan.leaves):
         seeds = _leaf_seeds(seed, lp)
@@ -683,20 +887,27 @@ def reconstruct_apply(coords: list, plan: Plan, seed, params, eta, *,
         scale = _recon_scale(plan, lp, seeds, coords[i].to(torch.float32),
                              be.project_flat, sq)
         theta = params[lp.name]
-        new = be.reconstruct_apply_flat(
-            seeds, scale, theta.reshape(lp.n_stack, lp.size).contiguous(),
-            eta, plan.distribution)
+        rows = theta.reshape(lp.n_stack, -1).contiguous()
+        cm = shards.colmap(lp.name, lp.stacked) if sharded else None
+        if cm is None:
+            new = be.reconstruct_apply_flat(seeds, scale, rows, eta,
+                                            plan.distribution)
+        else:
+            new = rbd_reconstruct.reconstruct_apply_flat_shard(
+                seeds, scale, rows, eta, plan.distribution, colmap=cm)
         out[lp.name] = new.reshape(theta.shape)
     return out
 
 
-def rbd_gradient(grads, plan: Plan, seed, *, backend: str = "torch") -> dict:
+def rbd_gradient(grads, plan: Plan, seed, *, backend: str = "torch",
+                 shards=None) -> dict:
     """The RBD low-rank gradient sketch ``P_hat^T P_hat g`` (the paper's
-    g^RBD): projection, then reconstruction reusing its row norms."""
+    g^RBD): projection, then reconstruction reusing its row norms (on
+    leaf ``shards``: this rank's part of it)."""
     coords, norms = project(grads, plan, seed, backend=backend,
-                            return_norms=True)
+                            return_norms=True, shards=shards)
     return reconstruct(coords, plan, seed, grads, backend=backend,
-                       row_sq=norms)
+                       row_sq=norms, shards=shards)
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,7 @@ uint32.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Literal
@@ -92,8 +93,46 @@ def _rotl32(x: torch.Tensor, r: int) -> torch.Tensor:
 def threefry2x32(key0, key1, ctr0, ctr1):
     """Threefry-2x32, 20 rounds: 2x32-bit key, 2x32-bit counter -> 2x32
     bits.  Arguments are int32 tensors of uint32 bits or Python ints and
-    broadcast against each other; the rounds run in place on two fresh
-    buffers."""
+    broadcast against each other; returns two fresh tensors.
+
+    The rounds run in place on two buffers and one scratch buffer, five
+    elementwise passes a round: a rotation's two halves occupy disjoint
+    bits, so ``rotl(x, r) = lshr(x, 32 - r) + x * 2**r`` (int32 wraps as
+    uint32 does), the product riding the add's ``alpha``; a key injection
+    is one add, and a full-size counter sum is not copied again.
+    :func:`threefry2x32_stepwise` is the plain form this one is held
+    against, bit for bit."""
+    k0, k1 = _operand(key0), _operand(key1)
+    k2 = k0 ^ k1 ^ _i32(_KS_PARITY)
+    c0 = ctr0 if isinstance(ctr0, torch.Tensor) else as_u32(ctr0)
+    c1 = ctr1 if isinstance(ctr1, torch.Tensor) else as_u32(ctr1)
+    x0, x1 = c0 + k0, c1 + k1
+    shape = torch.broadcast_shapes(x0.shape, x1.shape)
+    # each sum is a fresh tensor; only a broadcast one is widened
+    x0 = x0 if x0.shape == shape else x0.expand(shape).contiguous()
+    x1 = x1 if x1.shape == shape else x1.expand(shape).contiguous()
+    tmp = torch.empty_like(x1)
+    ks = (k0, k1, k2)
+    for group in range(5):
+        for i in range(4):
+            r = _ROTATIONS[(4 * group + i) % 8]
+            x0.add_(x1)
+            torch.bitwise_right_shift(x1, 32 - r, out=tmp)
+            tmp.bitwise_and_((1 << r) - 1).add_(x1, alpha=1 << r)
+            x1, tmp = tmp.bitwise_xor_(x0), x1
+        # key injection every 4 rounds
+        inj = group + 1
+        x0.add_(ks[inj % 3])
+        k = ks[(inj + 1) % 3]
+        x1.add_(_i32(k + inj) if isinstance(k, int) else k + inj)
+    return x0, x1
+
+
+def threefry2x32_stepwise(key0, key1, ctr0, ctr1):
+    """The plain form of :func:`threefry2x32`: every rotation as shifts
+    and a mask, each injection as two adds, the broadcast counters
+    copied.  Kept as the form the faster one is held against (the CPU
+    tests and ``chip_smoke.py`` phase 2 on the card)."""
     k0, k1 = _operand(key0), _operand(key1)
     k2 = k0 ^ k1 ^ _i32(_KS_PARITY)
     c0 = ctr0 if isinstance(ctr0, torch.Tensor) else as_u32(ctr0)
@@ -109,7 +148,6 @@ def threefry2x32(key0, key1, ctr0, ctr1):
             torch.bitwise_left_shift(x1, r, out=tmp)
             x1.bitwise_right_shift_(32 - r).bitwise_and_((1 << r) - 1)
             x1.bitwise_or_(tmp).bitwise_xor_(x0)
-        # key injection every 4 rounds
         inj = group + 1
         x0.add_(ks[inj % 3])
         x1.add_(ks[(inj + 1) % 3]).add_(inj)
@@ -183,11 +221,52 @@ def bits_to_sample(distribution: Distribution, b0, b1=None):
     raise ValueError(f"unknown distribution {distribution!r}")
 
 
+def _uniform01_(bits: torch.Tensor) -> torch.Tensor:
+    """:func:`_uniform01` of a fresh bit buffer, which it consumes: the
+    same float32 operations, in place where torch allows."""
+    f = bits.bitwise_right_shift_(8).bitwise_and_(0xFFFFFF).to(
+        torch.float32)
+    return f.mul_(1.0 / (1 << 24)).add_(0.5 / (1 << 24))
+
+
+def _bits_to_sample_(distribution: Distribution, b0, b1=None):
+    """:func:`bits_to_sample` of fresh bit buffers, which it consumes:
+    the same float32 operations in the same order, in place, so the
+    samples are the same bits with fewer temporaries."""
+    if distribution == "normal":
+        r = _uniform01_(b0).log_().mul_(-2.0).sqrt_()
+        return r.mul_(_uniform01_(b1).mul_(TWO_PI_F32).cos_())
+    if distribution == "uniform":
+        return _uniform01_(b0).mul_(2.0).sub_(1.0)
+    return bits_to_sample(distribution, b0, b1)
+
+
 def sample_from_counter(seed, ctr0, ctr1=0,
                         distribution: Distribution = "normal"):
     b0, b1 = _bits_for_counters(seed, ctr0, ctr1)
-    return bits_to_sample(distribution, b0,
-                          b1 if N_BIT_STREAMS[distribution] == 2 else None)
+    return _bits_to_sample_(distribution, b0,
+                            b1 if N_BIT_STREAMS[distribution] == 2 else None)
+
+
+@contextlib.contextmanager
+def stepwise_form():
+    """Inside the block the plain generator runs the plain form that its
+    faster one is held against: :func:`threefry2x32_stepwise`,
+    :func:`philox4x32_stepwise`, the out-of-place :func:`bits_to_sample`,
+    whole blocks on a CUDA device
+    (no chunks, no CUDA graphs).  The bits must not change (the CPU
+    tests; ``chip_smoke.py`` phase 2 on the card)."""
+    g = globals()
+    saved = ({k: g[k] for k in ("threefry2x32", "philox4x32",
+                                "_bits_to_sample_")}, dict(GEN_CHUNK))
+    g.update(threefry2x32=threefry2x32_stepwise,
+             philox4x32=philox4x32_stepwise, _bits_to_sample_=bits_to_sample)
+    GEN_CHUNK.update(dict.fromkeys(GEN_CHUNK))
+    try:
+        yield
+    finally:
+        g.update(saved[0])
+        GEN_CHUNK.update(saved[1])
 
 
 def tile_counters(row_offset, col_offset, shape, device=None):
@@ -323,7 +402,37 @@ def _mulhilo(m: int, x64):
 def philox4x32(ctr, key, rounds: int = PHILOX_ROUNDS):
     """Philox4x32 (Random123): four uint32 counter words and two key words
     -> four uint32 words.  Arguments are int32 tensors of uint32 bits or
-    ints and broadcast; results are int32 tensors of uint32 bits."""
+    ints and broadcast; results are int32 tensors of uint32 bits.
+
+    The words ride int64 with their high halves left dirty between rounds:
+    a round reads a word's low half only (an XOR, or the operand of a
+    product, which is masked first), so only the multipliers' operands and
+    the results are masked -- two passes a round fewer than
+    :func:`philox4x32_stepwise`, the same bits."""
+    c = [_word(x) for x in ctr]
+    k0, k1 = (_word(x) for x in key)
+    for _ in range(rounds):
+        p0, p1 = _low_product(PHILOX_M[0], c[0]), _low_product(PHILOX_M[1],
+                                                               c[2])
+        c = [(p1 >> 32) ^ c[1] ^ k0, p1, (p0 >> 32) ^ c[3] ^ k1, p0]
+        k0 = (k0 + PHILOX_W[0]) & 0xFFFFFFFF
+        k1 = (k1 + PHILOX_W[1]) & 0xFFFFFFFF
+    c = [w if isinstance(w, torch.Tensor) else torch.tensor(w & 0xFFFFFFFF)
+         for w in c]
+    return tuple(_i32_tensor(w, None) for w in torch.broadcast_tensors(*c))
+
+
+def _low_product(m: int, x):
+    """The 64-bit product of ``m`` and the low 32 bits of ``x`` (wrapping
+    modulo 2^64 in int64, in place on the masked copy)."""
+    if isinstance(x, torch.Tensor):
+        return (x & 0xFFFFFFFF).mul_(m)
+    return (x & 0xFFFFFFFF) * m
+
+
+def philox4x32_stepwise(ctr, key, rounds: int = PHILOX_ROUNDS):
+    """The plain form of :func:`philox4x32`: every word masked to 32 bits
+    after every round (see :func:`stepwise_form`)."""
     c = [_word(x) for x in ctr]
     k0, k1 = (_word(x) for x in key)
     for _ in range(rounds):
@@ -386,14 +495,107 @@ def generate_tiled_block(impl: str, seed, col0: int, shape,
     is keyed by its own identity (``col0`` must be a multiple of
     ``pos_block``; a ragged last tile is generated as far as ``cols``
     reaches, keyed by the full tile width); for ``threefry`` this is
-    :func:`generate_block`."""
+    :func:`generate_block`.
+
+    On a CUDA device a block wider than ``GEN_CHUNK[impl]`` values is
+    made in column chunks of that many values (whole tiles for a
+    tile-keyed ``impl``), each chunk one replay of a CUDA graph of its
+    elementwise passes (:func:`_chunk_graph`) written into the block: the
+    passes run in the card's L2 cache, and the host's cost per operation
+    does not pace them.  Every value is a pure function of its key and
+    counters, and an elementwise CUDA kernel computes each element alike
+    wherever it lies, so the bits are those of the whole block."""
+    if isinstance(seed, torch.Tensor) and device is None:
+        device = seed.device
+    rows, cols = shape
+    dev = torch.device(device) if device is not None else torch.device("cpu")
+    chunk = GEN_CHUNK.get(impl) if dev.type == "cuda" else None
+    if chunk is None or rows * cols <= chunk:
+        return _generate_tiled_block(impl, seed, col0, shape, distribution,
+                                     dir_block=dir_block,
+                                     pos_block=pos_block, device=device)
+    sub = max(1, chunk // rows)
+    if impl != "threefry":
+        sub = max(pos_block, sub // pos_block * pos_block)
+    out = torch.empty((rows, cols), dtype=torch.float32, device=dev)
+    for c in range(0, cols, sub):
+        n = min(sub, cols - c)
+        if n == sub:
+            out[:, c: c + n] = _graphed_chunk(
+                impl, seed, col0 + c, (rows, n), distribution, dir_block,
+                pos_block, dev)
+        else:
+            out[:, c: c + n] = _generate_tiled_block(
+                impl, seed, col0 + c, (rows, n), distribution,
+                dir_block=dir_block, pos_block=pos_block, device=dev)
+    return out
+
+
+# values a chunk of generate_tiled_block holds on a CUDA device, by PRNG
+# impl (None: the whole block at once); a dict so that a measurement can
+# compare sizes -- the bits do not depend on them
+GEN_CHUNK = {"threefry": 1 << 21, "hw_emulated": 1 << 21, "hw": None}
+
+
+def _graphed_chunk(impl, seed, col0: int, shape, distribution, dir_block,
+                   pos_block, device) -> torch.Tensor:
+    """One chunk of :func:`generate_tiled_block` through its CUDA graph:
+    the seed and first column are written into the graph's device
+    scalars, then it replays.  Returns the graph's output buffer, which
+    the next replay overwrites."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    graph, gseed, gcol, gout = _chunk_graph(
+        impl, int(shape[0]), int(shape[1]), distribution, dir_block,
+        pos_block, index)
+    if isinstance(seed, torch.Tensor):
+        gseed.copy_(as_u32(seed).reshape(()))
+    else:
+        gseed.fill_(_i32(int(seed)))
+    gcol.fill_(_i32(int(col0)))
+    graph.replay()
+    return gout
+
+
+@functools.lru_cache(maxsize=8)
+def _chunk_graph(impl: str, rows: int, cols: int, distribution: str,
+                 dir_block: int, pos_block: int, index: int):
+    """A CUDA graph of :func:`_generate_tiled_block` at ``(rows, cols)``,
+    its seed and first column read from two int32 device scalars.
+    Returns ``(graph, seed, col0, out)``."""
+    device = torch.device("cuda", index)
+    seed = torch.zeros((), dtype=torch.int32, device=device)
+    col0 = torch.zeros((), dtype=torch.int32, device=device)
+
+    def gen():
+        return _generate_tiled_block(impl, seed, col0, (rows, cols),
+                                     distribution, dir_block=dir_block,
+                                     pos_block=pos_block, device=device)
+
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):  # warm-up outside the capture
+        gen()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = gen()
+    return graph, seed, col0, out
+
+
+def _generate_tiled_block(impl: str, seed, col0: int, shape,
+                          distribution: Distribution = "normal", *,
+                          dir_block: int = 8, pos_block: int = 512,
+                          device=None) -> torch.Tensor:
+    """One chunk of :func:`generate_tiled_block`."""
     if isinstance(seed, torch.Tensor) and device is None:
         device = seed.device
     rows, cols = shape
     if impl == "threefry":
         return generate_block(seed, 0, col0, shape, distribution,
                               device=device)
-    if col0 % pos_block or rows % dir_block:
+    misaligned = (not isinstance(col0, torch.Tensor)) and col0 % pos_block
+    if misaligned or rows % dir_block:
         raise ValueError(f"tile-keyed block at column {col0} with {rows} "
                          f"rows is not aligned to ({dir_block}, "
                          f"{pos_block}) tiles")
@@ -417,7 +619,7 @@ def generate_tiled_block(impl: str, seed, col0: int, shape,
         b0, b1 = (torch.stack([w[a], w[a + 2]], 2)
                   .reshape(rows, n_tc * pos_block)[:, :cols]
                   for a in (0, 1))
-        return bits_to_sample(distribution, b0, b1)
+        return _bits_to_sample_(distribution, b0, b1)
     c = torch.arange(cols, dtype=torch.int32, device=device)
     r = torch.arange(rows, dtype=torch.int32, device=device)
     ek = keys[(r // dir_block).reshape(rows, 1),
@@ -425,7 +627,7 @@ def generate_tiled_block(impl: str, seed, col0: int, shape,
     b0, b1 = tile_keyed_bits(impl, ek, (r % dir_block).reshape(rows, 1),
                              (c % pos_block).reshape(1, cols), pos_block,
                              N_BIT_STREAMS[distribution])
-    return bits_to_sample(distribution, b0, b1)
+    return _bits_to_sample_(distribution, b0, b1)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -10,6 +10,13 @@
   theta's dtype (float32 or bfloat16), the delta never in memory
   (replaces ``reconstruct_apply_flat -> _recon_apply_kernel``).
 
+* :func:`reconstruct_flat_shard` and :func:`reconstruct_apply_flat_shard`
+  -- their shard instances (template flag ``SHARD``; Threefry only): the
+  same on the ``(n_stack, q_local)`` rows of a leaf shard under
+  pjit-style parameter sharding, every value generated at its global
+  column (``rbd_project.shard_columns``), so a shard's output is the
+  unsharded output at the same positions, bit for bit.
+
 Both take the reference's ``prng`` (tile-keyed impls keyed by the
 (8, 512) tile at (dir-block, pos-block) of the compartment; the
 reference's resolver routes every per-leaf strategy to Threefry, so only
@@ -28,8 +35,9 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import rbd_step
-from repro_torch.kernels.rbd_project import (DIR_BLOCK, check_flat,
-                                             flat_blocks, padded_dim)
+from repro_torch.kernels.rbd_project import (DIR_BLOCK, check_colmap,
+                                             check_flat, flat_blocks,
+                                             padded_dim, shard_blocks)
 
 _THETA_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -78,11 +86,18 @@ def reconstruct_flat_plain(seeds, scale: torch.Tensor, q: int,
     """Plain PyTorch version of :func:`reconstruct_flat`: per block of
     positions each dir-block's part is added in dir-block order."""
     n_stack, dim = (int(x) for x in scale.shape)
+    return _reconstruct_plain(flat_blocks(
+        seeds, n_stack, q, dim, distribution, scale.device, keep=False,
+        prng=prng), scale, q)
+
+
+def _reconstruct_plain(blocks, scale: torch.Tensor, q: int):
+    """The plain reconstruction over ``blocks`` (``(s, c0, block)``)."""
+    n_stack, dim = (int(x) for x in scale.shape)
     sc = _padded_scale(scale.to(torch.float32), n_stack, dim)
     out = torch.zeros((n_stack, q), dtype=torch.float32,
                       device=scale.device)
-    for s, c0, blk, parts in _parts(seeds, sc, n_stack, q, dim,
-                                    distribution, scale.device, prng):
+    for s, c0, blk, parts in _parts(blocks, sc):
         o = out[s, c0: c0 + blk.shape[1]]
         for part in parts:
             o += part
@@ -129,12 +144,20 @@ def reconstruct_apply_flat_plain(seeds, scale: torch.Tensor,
     copy of theta, each dir-block's ``eta * part`` subtracted in order,
     one cast back to theta's dtype."""
     n_stack, q = (int(x) for x in theta.shape)
-    dim = int(scale.shape[-1])
-    sc = _padded_scale(scale.to(torch.float32), n_stack, dim)
+    return _apply_plain(flat_blocks(
+        seeds, n_stack, q, int(scale.shape[-1]), distribution, theta.device,
+        keep=False, prng=prng), scale, theta, eta, out)
+
+
+def _apply_plain(blocks, scale: torch.Tensor, theta: torch.Tensor, eta,
+                 out):
+    """The plain fused apply over ``blocks`` (``(s, c0, block)``)."""
+    n_stack = int(theta.shape[0])
+    sc = _padded_scale(scale.to(torch.float32), n_stack,
+                       int(scale.shape[-1]))
     eta = float(np.float32(eta))
     acc = theta.to(torch.float32, copy=True)
-    for s, c0, blk, parts in _parts(seeds, sc, n_stack, q, dim,
-                                    distribution, theta.device, prng):
+    for s, c0, blk, parts in _parts(blocks, sc):
         o = acc[s, c0: c0 + blk.shape[1]]
         for part in parts:
             o -= eta * part
@@ -144,12 +167,99 @@ def reconstruct_apply_flat_plain(seeds, scale: torch.Tensor,
     return out
 
 
-def _parts(seeds, sc, n_stack, q, dim, distribution, device, prng):
+def _parts(blocks, sc):
     """Yield ``(s, c0, block, parts)``: ``parts[b]`` is dir-block b's
-    ``sum_{r<8} sc_r P_r`` over the block's columns."""
-    for s, c0, blk in flat_blocks(seeds, n_stack, q, dim, distribution,
-                                  device, keep=False, prng=prng):
+    ``sum_{r<8} sc_r P_r`` over the block's columns, summed in row order
+    (the kernels' order), so a column's part does not depend on the
+    block it lies in."""
+    for s, c0, blk in blocks:
         pdim, nc = blk.shape
-        parts = (sc[s].reshape(pdim, 1) * blk).reshape(
-            pdim // DIR_BLOCK, DIR_BLOCK, nc).sum(1)
+        t = (sc[s].reshape(pdim, 1) * blk).reshape(
+            pdim // DIR_BLOCK, DIR_BLOCK, nc)
+        parts = t[:, 0].clone()
+        for r in range(1, DIR_BLOCK):
+            parts += t[:, r]
         yield s, c0, blk, parts
+
+
+def reconstruct_flat_shard(seeds, scale: torch.Tensor, q: int,
+                           distribution: str = "normal", *, colmap,
+                           prng="threefry") -> torch.Tensor:
+    """The shard instance of :func:`reconstruct_flat`: ``(n_stack,
+    q_local)`` float32 ``scale @ P`` at the global columns ``colmap =
+    (w, W, off)`` gives the local positions (module docstring)."""
+    rbd_step.CALLS["reconstruct_flat_shard"] += 1
+    colmap = check_colmap(colmap, q, prng)
+    if scale.device.type == "cpu":
+        return reconstruct_flat_shard_plain(seeds, scale, q, distribution,
+                                            colmap=colmap)
+    n_stack, dim = (int(x) for x in scale.shape)
+    if distribution not in rbd_step._DIST_CODE:
+        raise ValueError(f"unknown distribution {distribution!r}")
+    dev = scale.device
+    sc = _padded_scale(scale, n_stack, dim)
+    seeds = rbd_step._seeds_on(seeds, n_stack, dev)
+    out = torch.empty((n_stack, q), dtype=torch.float32, device=dev)
+    rbd_step._launch(
+        "reconstruct_flat_shard",
+        rbd_step.library(rbd_step.FLAT_SOURCE).lib.rbd_reconstruct_flat_shard,
+        sc.data_ptr(), seeds.data_ptr(), n_stack, q,
+        sc.shape[1] // DIR_BLOCK, rbd_step._DIST_CODE[distribution],
+        *colmap, out.data_ptr())
+    return out
+
+
+def reconstruct_flat_shard_plain(seeds, scale: torch.Tensor, q: int,
+                                 distribution: str = "normal", *, colmap,
+                                 prng="threefry") -> torch.Tensor:
+    """Plain PyTorch version of :func:`reconstruct_flat_shard`."""
+    colmap = check_colmap(colmap, q, prng)
+    n_stack, dim = (int(x) for x in scale.shape)
+    return _reconstruct_plain(shard_blocks(
+        seeds, n_stack, q, dim, distribution, scale.device, colmap),
+        scale, q)
+
+
+def reconstruct_apply_flat_shard(seeds, scale: torch.Tensor,
+                                 theta: torch.Tensor, eta,
+                                 distribution: str = "normal", *, colmap,
+                                 out=None, prng="threefry"):
+    """The shard instance of :func:`reconstruct_apply_flat`: ``theta -
+    eta * (scale @ P)`` on the ``(n_stack, q_local)`` rows of a leaf
+    shard, at the global columns of ``colmap = (w, W, off)``."""
+    rbd_step.CALLS["reconstruct_apply_flat_shard"] += 1
+    n_stack, q = (int(x) for x in theta.shape)
+    colmap = check_colmap(colmap, q, prng)
+    if theta.device.type == "cpu":
+        return reconstruct_apply_flat_shard_plain(
+            seeds, scale, theta, eta, distribution, colmap=colmap, out=out)
+    check_flat("theta", theta, n_stack, q, _THETA_DTYPES)
+    if distribution not in rbd_step._DIST_CODE:
+        raise ValueError(f"unknown distribution {distribution!r}")
+    dev = theta.device
+    if out is None:
+        out = torch.empty_like(theta)
+    check_flat("out", out, n_stack, q, (theta.dtype,))
+    sc = _padded_scale(scale, n_stack, int(scale.shape[-1]))
+    seeds = rbd_step._seeds_on(seeds, n_stack, dev)
+    rbd_step._launch(
+        "reconstruct_apply_flat_shard",
+        rbd_step.library(
+            rbd_step.FLAT_SOURCE).lib.rbd_reconstruct_apply_flat_shard,
+        sc.data_ptr(), theta.data_ptr(), out.data_ptr(),
+        float(np.float32(eta)), seeds.data_ptr(), n_stack, q,
+        sc.shape[1] // DIR_BLOCK, rbd_step._DIST_CODE[distribution],
+        int(theta.dtype == torch.bfloat16), *colmap)
+    return out
+
+
+def reconstruct_apply_flat_shard_plain(seeds, scale: torch.Tensor,
+                                       theta: torch.Tensor, eta,
+                                       distribution: str = "normal", *,
+                                       colmap, out=None, prng="threefry"):
+    """Plain PyTorch version of :func:`reconstruct_apply_flat_shard`."""
+    n_stack, q = (int(x) for x in theta.shape)
+    colmap = check_colmap(colmap, q, prng)
+    return _apply_plain(shard_blocks(
+        seeds, n_stack, q, int(scale.shape[-1]), distribution, theta.device,
+        colmap), scale, theta, eta, out)

@@ -69,7 +69,9 @@ KERNELS = ("project_packed", "reconstruct_apply_packed",
            "reconstruct_apply_packed_adapters", "generate_tile",
            "project_flat", "reconstruct_flat", "reconstruct_apply_flat",
            "project_packed_sharded", "reconstruct_apply_packed_sharded",
-           "reconstruct_apply_packed_workers_sharded", "flash_attention")
+           "reconstruct_apply_packed_workers_sharded", "flash_attention",
+           "project_flat_shard", "reconstruct_flat_shard",
+           "reconstruct_apply_flat_shard")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 CALLS = dict.fromkeys(KERNELS, 0)
 # launches by variant name (:func:`variant_name`), counted with LAUNCHES
@@ -159,6 +161,12 @@ _FLAT_SIGNATURES = {
     "rbd_reconstruct_flat": [_P, _P, _I, _I64, _I, _I, _I, _P, _P],
     "rbd_reconstruct_apply_flat": [_P, _P, _P, _F32, _P, _I, _I64, _I, _I,
                                    _I, _I, _P],
+    "rbd_project_flat_shard": [_P, _P, _I, _I64, _I, _I, _I64, _I, _U32,
+                               _U32, _U32, _P, _P, _P, _P, _P],
+    "rbd_reconstruct_flat_shard": [_P, _P, _I, _I64, _I, _I, _U32, _U32,
+                                   _U32, _P, _P],
+    "rbd_reconstruct_apply_flat_shard": [_P, _P, _P, _F32, _P, _I, _I64, _I,
+                                         _I, _I, _U32, _U32, _U32, _P],
 }
 _FLASH_SIGNATURES = {
     "flash_attention_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -29,6 +29,9 @@ class Mesh(NamedTuple):
     model_index: int       # position on the model axis (the slab index)
     data_group: Any        # this rank's data group ("data": the world)
     model_group: Any       # this rank's model group (None when model == 1)
+    data_size: int = 1     # ranks on the data axis
+    model_size: int = 1    # ranks on the model axis (sharding.rules reads
+                           # both as the mesh's shape)
 
 
 def init_mesh(data: int, model: int, device) -> Mesh:
@@ -66,14 +69,14 @@ def init_mesh(data: int, model: int, device) -> Mesh:
         created = True
     d_idx, m_idx = divmod(dist.get_rank(), model)
     if model == 1:
-        return Mesh(device, created, d_idx, m_idx, "data", None)
+        return Mesh(device, created, d_idx, m_idx, "data", None, data, model)
     # every rank creates every group, in the same order
     model_groups = [dist.new_group(list(range(d * model, (d + 1) * model)))
                     for d in range(data)]
     data_groups = [dist.new_group(list(range(m, n, model)))
                    for m in range(model)]
     return Mesh(device, created, d_idx, m_idx, data_groups[m_idx],
-                model_groups[d_idx])
+                model_groups[d_idx], data, model)
 
 
 def destroy_mesh(mesh: Mesh) -> None:

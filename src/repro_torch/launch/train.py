@@ -16,6 +16,14 @@
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
         --arch qwen2-0.5b --reduced --device cpu --model 2 --rbd-backend cuda
 
+    # pjit-style parameter sharding: leaf shards over a model group of 2
+    # (the megatron layout above 1.2e9 parameters; a reduced config is
+    # pure data parallel, nothing cut), the per-leaf strategies on them
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch qwen2-0.5b --reduced --device cpu --mode pjit --model 2
+    # ... and under --mode sharedseed with a plan that cannot stay packed
+    ... --mode sharedseed --model 2 --rbd-backend cuda --packed off
+
     # the per-leaf strategies: packing off (one launch per leaf), weight
     # decay (full_space), the paper's SGD baseline (RBD off)
     ... --rbd-backend cuda --packed off
@@ -49,15 +57,25 @@ cuda``, where the reference says ``pallas``) or, with ``--packed off``,
 strategies.  ``--mode sgd`` is the paper's baseline: RBD off, the full-D
 gradient averaged over the data group (one all-reduce per step, also on
 one rank: the port always runs the data group), a full-space optimizer.
-``--data`` must equal the world size ``torchrun`` gives; ``--data 1``
-runs a one-rank group without ``torchrun``.  ``--mode pjit`` raises,
-naming its ROADMAP item, and so does ``--arch whisper-tiny``: the
-launcher feeds token batches and the encoder-decoder also needs frames
-(the reference's launcher fails on the missing ``frames`` key).  Runs on the GPU (NCCL) unless ``--device cpu``
+``--data`` x ``--model`` must equal the world size ``torchrun`` gives;
+``--data 1`` runs a one-rank group without ``torchrun``.  ``--mode pjit``
+is the reference's pjit-style parameter sharding: the parameters are cut
+over the model group by ``sharding.rules.param_specs`` (leaf shards,
+``models.registry.LeafShards``), no coordinate exchange runs over data,
+each data rank takes its slice of the global batch and the dense
+gradient is averaged over the data group (``distributed.grad_mean``, the
+collective XLA inserts), and the update runs the per-leaf strategies on
+the shards; ``--mode sharedseed --model M`` with a plan that cannot stay
+packed (packing off, ``orthonormal``, weight decay, independent bases
+unpacked) takes the same leaf shards under the per-leaf coordinate
+exchange over data.  ``--arch whisper-tiny`` raises: the launcher feeds
+token batches and the encoder-decoder also needs frames (the reference's
+launcher fails on the missing ``frames`` key).  Runs on the GPU (NCCL) unless ``--device cpu``
 (gloo).  The resilience flags (``--guard``, ``--resilience-dir``,
 ``--snapshot-every``, ``--sentinel-every``, ``--on-divergence``,
-``--resume``) and ``--checkpoint-dir`` are the reference's; they need the
-packed step.  ``--basis trajectory_pca | gradient_informed`` plans the
+``--resume``) are the reference's; they need the packed step.
+``--checkpoint-dir`` saves the parameter map whole (gathered over the
+model group first).  ``--basis trajectory_pca | gradient_informed`` plans the
 materialized basis (``materialized_packed``: two matmuls a step, no kernel
 launch) where a resident basis can exist, refreshed by
 ``train.loop.BasisCollector`` every ``--basis-refresh-every`` steps;
@@ -103,8 +121,9 @@ def main(argv=None) -> RunResult:
                          "with the packed step this shards the packed "
                          "theta buffer into per-device slabs (the step "
                          "stays two launches, coordinates gain one "
-                         "d-sized psum over 'model'); under --mode pjit "
-                         "it is the classic tensor-parallel axis")
+                         "d-sized psum over 'model'); under --mode pjit, "
+                         "or with a plan that cannot stay packed, it cuts "
+                         "the parameter leaves by sharding.rules")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--batch", type=int, default=8,
                     help="global batch, split over the --data ranks")
@@ -273,11 +292,6 @@ def run_training(cfg, *, mode="sharedseed", rbd_mode="shared_basis", data=1,
             "(data.synthetic.lm_batches) and the encoder-decoder also needs "
             "frames; train it through train.step.make_train_step with "
             "model.make_batch (ROADMAP.md Queue C 18)")
-    if mode == "pjit":
-        raise NotImplementedError(
-            "--mode pjit (pjit-style parameter sharding) is not ported yet "
-            "(ROADMAP.md Queue A 20); use --mode sharedseed --model M for "
-            "the model-sharded packed slabs")
     mesh = meshlib.init_mesh(data, model, resolve_device(device))
     try:
         return _run(cfg, mode=mode, rbd_mode=rbd_mode, data=data,
@@ -311,6 +325,7 @@ def _run(cfg, *, mode, rbd_mode, data, model, mesh, steps, batch, seq,
     from repro_torch.data import synthetic
     from repro_torch.kernels import rbd_step
     from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import registry
     from repro_torch.models.registry import get_model
     from repro_torch.train import step as steplib
     from repro_torch.train.loop import BasisCollector
@@ -337,10 +352,11 @@ def _run(cfg, *, mode, rbd_mode, data, model, mesh, steps, batch, seq,
                                                      and data > 1)
                  else None)
     k_workers = data if axis_name is not None else 1
+    # --mode pjit, or a model axis: parameters sharded over the model group
+    model_sharded = mode == "pjit" or model > 1
     # sharedseed + --model M > 1: probe whether the plan stays
     # packed-resident with a declared model axis (slab-sharded packed
-    # theta); if it cannot, the parameters would need pjit-style
-    # sharding, which the optimizer refuses
+    # theta); if it cannot, keep the pjit-style declaration: leaf shards
     model_axis = None
     if model > 1 and mode == "sharedseed":
         probe = steplib.make_subspace_optimizer(
@@ -349,12 +365,21 @@ def _run(cfg, *, mode, rbd_mode, data, model, mesh, steps, batch, seq,
             device=device, resilience=resilience)
         if probe.plan_execution().packed_resident:
             model_axis = mesh.model_group
-            if axis_name is not None:
-                axis_name = mesh.data_group
+    if axis_name is not None:
+        axis_name = mesh.data_group
+    leaf_shards = None
+    if model > 1 and model_axis is None:
+        leaf_shards = registry.leaf_shards(net, model, mesh.model_index,
+                                           mesh.model_group)
+    # pjit over several data ranks: the dense gradient's mean over data
+    dense_grad_axis = (mesh.data_group if mode == "pjit" and data > 1
+                       else None)
     init_state, train_step, sub_opt = steplib.make_train_step(
         net, tcfg, transform, axis_name=axis_name, k_workers=k_workers,
-        model_sharded=model > 1, model_axis=model_axis, model_shards=model,
-        device=device, return_optimizer=True, resilience=resilience)
+        model_sharded=model_sharded, model_axis=model_axis,
+        model_shards=model, leaf_shards=leaf_shards,
+        dense_grad_axis=dense_grad_axis, device=device,
+        return_optimizer=True, resilience=resilience)
     eplan = sub_opt.plan_execution()
     n_accum = max(1, int(grad_accum_steps))
 
@@ -377,6 +402,15 @@ def _run(cfg, *, mode, rbd_mode, data, model, mesh, steps, batch, seq,
             f"{slayout.q_slab:,} (q_padded {slayout.q_padded:,}, q_packed "
             f"{slayout.base.q_packed:,}); this rank's slab "
             f"{mesh.model_index}")
+    if leaf_shards is not None:
+        from repro_torch.sharding import rules
+
+        cut = ", ".join(f"{k} on {d}" for k, d in leaf_shards.dims.items())
+        say(f"model-sharded leaves: "
+            f"{rules.layout_policy(net.param_shapes(), cfg)} layout, "
+            f"{len(leaf_shards.dims)} of {len(leaf_shards.shapes)} leaves "
+            f"cut over a model group of {model} ({cut or 'none'}); this "
+            f"rank's part {mesh.model_index}")
     resilient = resilience is not None and resilience.any_enabled
     if resilient:
         say("resilience: "
@@ -388,7 +422,9 @@ def _run(cfg, *, mode, rbd_mode, data, model, mesh, steps, batch, seq,
 
     cuda = device.type == "cuda"
     state = init_state(tcfg.seed)
-    theta_init_sum = params_sum(state.params)
+    theta_init_sum = params_sum(
+        state.params if leaf_shards is None
+        else registry.gather_params(state.params, leaf_shards))
     monitor = recovery = None
     start = 0
     if resilient:
@@ -494,15 +530,19 @@ def _run(cfg, *, mode, rbd_mode, data, model, mesh, steps, batch, seq,
                 say(f"kernel {name}: launches={len(times)} "
                     f"median_ms={med:.3f}")
         say(f"peak device memory: {peak / 2**30:.2f} GiB")
-    if checkpoint_dir and rank == 0:
+    if checkpoint_dir:
         from repro_torch.checkpoint import io as ckpt
 
         # the parameters as a map (nested at "/": the reference's tree and
-        # keys), whatever the stored representation
-        ckpt.save(checkpoint_dir, state._replace(
-            params=nest_params(sub_opt.materialize_params(state.params))),
-            steps)
-        say(f"checkpoint saved to {checkpoint_dir}")
+        # keys), whatever the stored representation; leaf shards are
+        # gathered first, by every rank of the model group
+        params = sub_opt.materialize_params(state.params)
+        if leaf_shards is not None:
+            params = registry.gather_params(params, leaf_shards)
+        if rank == 0:
+            ckpt.save(checkpoint_dir, state._replace(
+                params=nest_params(params)), steps)
+            say(f"checkpoint saved to {checkpoint_dir}")
     return RunResult(state, losses, theta_init_sum, sub_opt, peak,
                      kernel_ms, collectives, monitor, recovery, collector,
                      step_seconds)

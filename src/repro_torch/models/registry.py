@@ -1,11 +1,13 @@
 """Uniform model API (port of ``repro.models.registry``), plus the bridge
 that carries the reference's parameters and optimizer state into the
-port."""
+port, and the leaf shards of pjit-style parameter sharding
+(:class:`LeafShards`, :func:`leaf_shards`, :func:`shard_params`,
+:func:`gather_params`)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Mapping
+from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
@@ -34,7 +36,8 @@ def _family(cfg: ModelConfig):
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
-    forward: Callable            # (params, batch) -> (logits, aux)
+    forward: Callable            # (params, batch, shards=None)
+                                 #   -> (logits, aux)
     init_cache: Callable         # (batch, max_len, *, device) -> cache
     decode_step: Callable        # (params, cache, token) -> (logits, cache)
     stacked_prefixes: tuple[str, ...]
@@ -58,6 +61,8 @@ class Model:
                 for k, s in self.param_shapes().items()}
 
     def init(self, seed: int = 0, *, device="cuda") -> dict:
+        """A random parameter map, the same on every rank for one
+        ``seed`` (a model group cuts it with :func:`shard_params`)."""
         device = resolve_device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
         return self.family.init_params(self.cfg, gen, device)
@@ -108,13 +113,18 @@ class Model:
 def get_model(cfg: ModelConfig) -> Model:
     family = _family(cfg)
     if family is encdec:
-        def forward(params, batch):
+        def forward(params, batch, shards=None):
+            if shards is not None:
+                raise ValueError(
+                    f"{cfg.name}: the encoder-decoder takes no leaf shards "
+                    "(the launcher refuses it, ROADMAP.md Queue C 18)")
             return encdec.forward(cfg, params, batch["tokens"],
                                   batch["frames"])
     else:
-        def forward(params, batch):
+        def forward(params, batch, shards=None):
             return transformer.forward(cfg, params, batch["tokens"],
-                                       extra_embeds=batch.get("patches"))
+                                       extra_embeds=batch.get("patches"),
+                                       shards=shards)
 
     return Model(
         cfg=cfg,
@@ -193,3 +203,136 @@ def opt_state_from_reference(state, *, device="cuda"):
         return torch.from_numpy(np.array(x)).to(device)
 
     return convert(state)
+
+
+# ---------------------------------------------------------------------------
+# pjit-style parameter sharding: leaf shards over a model group
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class LeafShards:
+    """How a parameter map is cut over a model group of ``m`` ranks, as
+    ``sharding.rules.param_specs`` says: leaf ``name`` in ``dims`` is cut
+    into ``m`` equal parts along dimension ``dims[name]``, rank ``r``
+    holding the contiguous index range ``r`` of it (GSPMD's layout of a
+    divisible dimension); every other leaf is replicated.  ``shapes``
+    are the whole leaves'.  ``group`` is the model process group; None
+    when ``m`` is 1, or when the caller runs the shards one after the
+    other itself (and sums their partials)."""
+
+    shapes: Mapping[str, tuple]
+    dims: Mapping[str, int]
+    m: int
+    r: int
+    group: Any = None
+
+    def sharded(self, name: str) -> bool:
+        return self.m > 1 and name in self.dims
+
+    def local_shape(self, name: str) -> tuple:
+        shape = tuple(self.shapes[name])
+        if not self.sharded(name):
+            return shape
+        d = self.dims[name]
+        return shape[:d] + (shape[d] // self.m,) + shape[d + 1:]
+
+    def cut(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """This rank's part of the whole leaf ``x`` (a copy)."""
+        if not self.sharded(name):
+            return x
+        d = self.dims[name]
+        n = x.shape[d] // self.m
+        return x.narrow(d, self.r * n, n).contiguous()
+
+    def with_rank(self, r: int) -> "LeafShards":
+        """The same layout seen from rank ``r``, with no group (a model
+        group run in turn on one device)."""
+        return dataclasses.replace(self, r=int(r), group=None)
+
+    def colmap(self, name: str, stacked: bool):
+        """``(w, W, off)`` of the leaf's compartments: local position j of
+        a compartment's shard is column ``(j // w) * W + off + j % w`` of
+        the whole compartment (``kernels.rbd_project.shard_columns``), or
+        None for a replicated leaf.  Raises when the cut falls on a
+        stacked leaf's leading (layer) axis: no config's specs do that
+        (``tests/test_torch_sharding_rules.py``)."""
+        if not self.sharded(name):
+            return None
+        d = self.dims[name]
+        if stacked and d == 0:
+            raise ValueError(f"{name}: sharded on its stacked (layer) axis, "
+                             "which would give a shard whole compartments")
+        tail = tuple(self.shapes[name])[1 if stacked else 0:]
+        td = d - (1 if stacked else 0)
+        b = int(np.prod(tail[td + 1:], dtype=np.int64))
+        n_k = tail[td]
+        w = (n_k // self.m) * b
+        return w, n_k * b, self.r * w
+
+    def gather(self, name: str, x: torch.Tensor, lead: int = 0
+               ) -> torch.Tensor:
+        """The whole leaf from this rank's part ``x``, all-gathered over
+        the model group, differentiably: the backward pass returns this
+        rank's slice of the whole leaf's gradient.  ``lead``: leading
+        axes ``x`` lacks against the stored leaf (1 for one layer of a
+        stacked leaf).  A replicated leaf comes back as it is."""
+        if not self.sharded(name):
+            return x
+        return _GatherLeaf.apply(x, self.dims[name] - lead, self.m, self.r,
+                                 self.group)
+
+
+class _GatherLeaf(torch.autograd.Function):
+    """All-gather of a leaf's parts along one dimension over the model
+    group.  Every rank of the group runs the same batch, so every rank
+    holds the same whole gradient; its slice is what the reference's
+    reduce-scatter of the m identical cotangents, then ``/ m``, gives
+    (``src/repro/train/step.py:205-210``)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, m, r, group):
+        import torch.distributed as dist
+
+        from repro_torch.core import distributed
+
+        parts = [torch.empty_like(x) for _ in range(m)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        distributed.COLLECTIVES["leaf_all_gather"] += 1
+        ctx.dim, ctx.r, ctx.n = dim, r, x.shape[dim]
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad.narrow(ctx.dim, ctx.r * ctx.n, ctx.n), None, None, None,
+                None)
+
+
+def leaf_shards(model: Model, model_size: int, rank: int = 0,
+                group=None) -> LeafShards:
+    """The :class:`LeafShards` of ``model``'s parameters over a model
+    group of ``model_size`` ranks, seen from its rank ``rank`` (``group``
+    the process group), by ``sharding.rules.param_specs`` (the pure_dp
+    layout below ``PURE_DP_MAX_PARAMS`` parameters: nothing sharded)."""
+    from repro_torch.sharding import rules
+
+    shapes = model.param_shapes()
+    specs = rules.param_specs(shapes, {"model": model_size}, model.cfg)
+    dims = {k: rules.sharded_dim(spec) for k, spec in specs.items()
+            if rules.sharded_dim(spec) is not None}
+    return LeafShards(shapes, dims, int(model_size), int(rank), group)
+
+
+def shard_params(params: Mapping[str, torch.Tensor],
+                 shards: LeafShards) -> dict[str, torch.Tensor]:
+    """A whole parameter map -> this rank's shards (names, order and
+    dtypes unchanged; a replicated leaf as it is)."""
+    return {k: shards.cut(k, v) for k, v in params.items()}
+
+
+def gather_params(params: Mapping[str, torch.Tensor],
+                  shards: LeafShards) -> dict[str, torch.Tensor]:
+    """This rank's shards -> the whole parameter map, all-gathered over
+    the model group (every rank of the group calls it)."""
+    with torch.no_grad():
+        return {k: shards.gather(k, v) for k, v in params.items()}

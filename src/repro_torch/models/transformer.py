@@ -304,12 +304,15 @@ def _logits(cfg: ModelConfig, params: dict, x):
 
 
 def _run_prompt(cfg: ModelConfig, params: dict, tokens, attention, *,
-                extra_embeds=None, remat: bool = False):
+                extra_embeds=None, remat: bool = False, shards=None):
     """Embed (patches first) and run every layer over the prompt,
     attention through ``attention``, each layer recomputed in the
     backward pass when ``remat`` and grad is on.  Returns the final normed
     hidden state, the summed aux (None for no MoE layer), each layer's
-    cache entries and each group's shared (k, v)."""
+    cache entries and each group's shared (k, v).  ``shards``
+    (``registry.LeafShards``): the stacked leaves are this rank's shards,
+    and each layer gathers its slices inside the layer (so inside the
+    recompute too), one layer's whole leaves live at a time."""
     x = _embed(cfg, params, tokens)
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
@@ -325,6 +328,9 @@ def _run_prompt(cfg: ModelConfig, params: dict, tokens, attention, *,
         lp = _layer(params, i)
 
         def run(x, lp=lp, window=windows[i]):
+            if shards is not None:
+                lp = {k: shards.gather("layers/" + k, v, lead=1)
+                      for k, v in lp.items()}
             return _layer_forward(cfg, lp, x, positions, window, attention)
 
         if remat:
@@ -348,14 +354,27 @@ def _run_prompt(cfg: ModelConfig, params: dict, tokens, attention, *,
             shared_kv)
 
 
-def forward(cfg: ModelConfig, params: dict, tokens, *, extra_embeds=None):
+def forward(cfg: ModelConfig, params: dict, tokens, *, extra_embeds=None,
+            shards=None):
     """tokens: (B, S) integer, ``extra_embeds`` (B, P, D) or None ->
     (logits (B, P + S, V) float32, aux loss float32 summed over layers);
-    each layer is recomputed in the backward pass when grad is on."""
+    each layer is recomputed in the backward pass when grad is on.
+
+    ``shards`` (``registry.LeafShards``): ``params`` holds this rank's
+    leaf shards under pjit-style parameter sharding.  Each is gathered
+    over the model group right before its use -- ``embed``, ``lm_head``,
+    ``final_norm`` and ``shared_attn/*`` once a forward, a stacked leaf
+    one layer at a time -- and the backward pass keeps this rank's slice
+    of each gradient.  Every rank computes the whole forward and
+    backward (ROADMAP.md Queue C 24)."""
     _check_supported(cfg)
     params = L.cast_for_compute(params, L.dtype_of(cfg.compute_dtype))
+    if shards is not None:
+        params = {k: v if k.startswith("layers/") else shards.gather(k, v)
+                  for k, v in params.items()}
     x, aux, _, _ = _run_prompt(cfg, params, tokens, attn.flash_attention,
-                               extra_embeds=extra_embeds, remat=True)
+                               extra_embeds=extra_embeds, remat=True,
+                               shards=shards)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _logits(cfg, params, x), aux

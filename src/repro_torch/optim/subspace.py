@@ -67,9 +67,17 @@ and the decision stays on the device: no host synchronization is added
 to the step.  :meth:`SubspaceOptimizer.apply_exchanged` is the
 post-exchange half both the live step and the coordinate replay run.
 
-Pjit-style parameter sharding (ROADMAP.md Queue A 20) and resilience on
-the model-sharded slabs (21) raise ``NotImplementedError`` naming their
-item.
+Pjit-style parameter sharding (``model_sharded`` without ``model_axis``):
+the parameter map holds this rank's leaf shards (``leaf_shards``, a
+``models.registry.LeafShards`` of the model group), and
+``fused_per_leaf``, ``coord_unfused`` and ``full_space`` run on them --
+the per-leaf kernels' shard instances, one all-reduce over the model group
+completing every leaf's projection partials (``core.projector``), the
+(d,)-sized coordinate state replicated, a full-space state that mirrors
+the parameters (momentum's ``m``, adam's ``mu`` and ``nu``) sharded like
+them.  The update norm of the metrics sums its squares over the group
+(one scalar all-reduce).  Resilience on the model-sharded slabs raises
+``NotImplementedError`` naming ROADMAP.md Queue A 21.
 """
 
 from __future__ import annotations
@@ -438,6 +446,9 @@ class SubspaceOptimizer:
     model_sharded: bool = False
     model_axis: Any = None
     model_shards: int = 1
+    leaf_shards: Any = None           # models.registry.LeafShards of the
+                                      # pjit-style route (None: whole
+                                      # leaves, a model group of one)
     overlap: str = "auto"
     switch_policy: str = "reset"
     coord_clip_norm: float = 0.0      # >0: clip the (d,) coordinate
@@ -465,7 +476,7 @@ class SubspaceOptimizer:
     def from_config(cls, tcfg, transform=None, axis_name=None,
                     model_sharded=False, params_template=None,
                     k_workers: int = 1, model_axis=None,
-                    model_shards: int = 1,
+                    model_shards: int = 1, leaf_shards=None,
                     device=None) -> "SubspaceOptimizer":
         return cls(
             transform=transform,
@@ -484,6 +495,7 @@ class SubspaceOptimizer:
             model_sharded=model_sharded,
             model_axis=model_axis,
             model_shards=model_shards,
+            leaf_shards=leaf_shards,
             switch_policy=tcfg.rbd.switch_policy,
             coord_clip_norm=tcfg.coord_clip_norm,
             lr_schedule=tcfg.lr_schedule,
@@ -539,14 +551,17 @@ class SubspaceOptimizer:
         """The execution plan, or ``NotImplementedError`` naming the
         ROADMAP item of a route this slice does not run."""
         eplan = self.plan_execution()
-        if self.model_axis is None and self.model_sharded \
-                or self.model_axis is not None \
-                and eplan.strategy != "fused_packed":
-            raise NotImplementedError(
-                "pjit-style parameter sharding (model-sharded parameters "
-                "outside the packed slabs) is not ported yet (ROADMAP.md "
-                "Queue A 20); the slabs need the packed step (the cuda "
-                f"backend, or packed='on'): {eplan.reason}")
+        if self.model_axis is not None and eplan.strategy != "fused_packed":
+            raise ValueError(
+                "a declared model_axis shards the packed buffer into slabs, "
+                "which needs the packed step (the cuda backend, or "
+                "packed='on'); pjit-style sharding declares model_sharded "
+                f"with leaf_shards instead: {eplan.reason}")
+        if self.leaf_shards is not None and (
+                eplan.packed_resident or not self.model_sharded):
+            raise ValueError(
+                "leaf_shards are the pjit-style route's (model_sharded "
+                f"without model_axis), not {eplan.strategy!r}'s")
         if self.model_axis is not None and self.joint_subspace \
                 and self.axis_name is None:
             raise ValueError(
@@ -1149,24 +1164,27 @@ class SubspaceOptimizer:
         coordinate optimizer on the per-leaf list, then the fused per-leaf
         apply or reconstruct-then-apply."""
         t = self.transform
+        shards = self.leaf_shards
         seed = t.step_seed(rbd_state.step)
         if self.axis_name is not None:
             coords, norms = distributed.shared_basis_coords(
-                t, grads, rbd_state, self.axis_name)
+                t, grads, rbd_state, self.axis_name, shards=shards)
         else:
             coords, norms = projector.project(
-                grads, t.plan, seed, backend=t.backend, return_norms=True)
+                grads, t.plan, seed, backend=t.backend, return_norms=True,
+                shards=shards)
         opt_state = self._switch_opt_state(opt_state, rbd_state.step)
         coords, opt_state = self._optimizer().update(coords, opt_state)
         new_rbd = RBDState(step=rbd_state.step + 1)
         if fused:
             new_params = projector.reconstruct_apply(
                 coords, t.plan, seed, params, self.learning_rate,
-                backend=t.backend, row_sq=norms)
+                backend=t.backend, row_sq=norms, shards=shards)
             return (new_params, new_rbd, opt_state,
                     self._delta_aux(params, new_params, False))
         updates = projector.reconstruct(coords, t.plan, seed, params,
-                                        backend=t.backend, row_sq=norms)
+                                        backend=t.backend, row_sq=norms,
+                                        shards=shards)
         new_params = opt.apply_updates(params, updates, self.learning_rate)
         return new_params, new_rbd, opt_state, self._norm_aux(updates)
 
@@ -1184,13 +1202,15 @@ class SubspaceOptimizer:
         elif self.axis_name is None:
             seed = t.step_seed(rbd_state.step)
             updates = projector.rbd_gradient(grads, t.plan, seed,
-                                             backend=t.backend)
+                                             backend=t.backend,
+                                             shards=self.leaf_shards)
             new_rbd = RBDState(step=rbd_state.step + 1)
         else:
             fn = (distributed.shared_basis_update
                   if self.mode == "shared_basis"
                   else distributed.independent_bases_update)
-            updates, new_rbd = fn(t, grads, rbd_state, self.axis_name)
+            updates, new_rbd = fn(t, grads, rbd_state, self.axis_name,
+                                  shards=self.leaf_shards)
         if self.weight_decay:
             updates = {k: u + self.weight_decay * params[k]
                        for k, u in updates.items()}
@@ -1201,7 +1221,26 @@ class SubspaceOptimizer:
     def _norm_aux(self, updates) -> _Aux:
         if not self.log_update_norm:
             return _Aux(torch.zeros(()))
-        return _Aux(opt.global_norm(updates))
+        return _Aux(self._global_norm(updates))
+
+    def _global_norm(self, tree) -> torch.Tensor:
+        """``opt.global_norm`` of a parameter-shaped map; on leaf shards
+        the sharded leaves' squares are summed over the model group (one
+        scalar all-reduce) and a replicated leaf counts once."""
+        shards = self.leaf_shards
+        if shards is None or shards.m == 1:
+            return opt.global_norm(tree)
+        part = [torch.sum(torch.square(x.to(torch.float32)))
+                for k, x in tree.items() if shards.sharded(k)]
+        whole = [torch.sum(torch.square(x.to(torch.float32)))
+                 for k, x in tree.items() if not shards.sharded(k)]
+        sq = sum(whole) if whole else torch.zeros(())
+        if part:
+            local = sum(part)
+            sq = sq + (local if shards.group is None
+                       else distributed.model_sum_scalar(local,
+                                                         shards.group))
+        return torch.sqrt(sq)
 
     def _switch_opt_state(self, opt_state, step: int):
         """FPD -> RBD state policy: ``reset`` re-zeroes the coordinate
@@ -1217,7 +1256,7 @@ class SubspaceOptimizer:
         from the parameter delta (one read of both buffers or maps)."""
         if in_place or not (self.log_update_norm and self.learning_rate):
             return _Aux(torch.zeros((), device=opt.leaves(new)[0].device))
-        n = opt.global_norm(opt._map(
+        n = self._global_norm(opt._map(
             lambda a, b: a.to(torch.float32) - b.to(torch.float32), old,
             new))
         return _Aux(n / self.learning_rate)

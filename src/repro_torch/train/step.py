@@ -17,7 +17,13 @@ the paper's shared-seed coordinate exchange: one collective per
 optimizer step, whatever ``grad_accum_steps`` is.  With ``model_axis``
 declared as well, ``TrainState.params`` is this rank's slab of the
 model-sharded packed buffer: the step all-gathers the slabs for the
-forward pass and keeps its own slab of the gradient.
+forward pass and keeps its own slab of the gradient.  Under pjit-style
+parameter sharding (``model_sharded`` with ``leaf_shards``) it is this
+rank's map of leaf shards: the forward pass gathers each leaf over the
+model group right before its use, and the backward pass keeps this
+rank's slice of its gradient; ``dense_grad_axis`` (``--mode pjit`` over
+several data ranks) averages that gradient over the data group, the
+collective XLA inserts under pjit.
 
 On the materialized ``gradient_informed`` basis the metrics carry
 ``basis_grad``, the packed gradient (averaged over the data group) that
@@ -93,8 +99,8 @@ def make_subspace_optimizer(
         model: Model, tcfg: TrainConfig,
         transform: Optional[rbd_lib.RandomBasesTransform] = None,
         axis_name=None, *, k_workers: int = 1, model_sharded: bool = False,
-        model_axis=None, model_shards: int = 1, device=None,
-        resilience=None) -> subspace.SubspaceOptimizer:
+        model_axis=None, model_shards: int = 1, leaf_shards=None,
+        device=None, resilience=None) -> subspace.SubspaceOptimizer:
     """The one update-path object for a (model, TrainConfig) pair;
     ``device`` is where its step's tensors live.  ``resilience``: an
     optional ``ResilienceConfig``; it turns on the non-finite step guard,
@@ -106,7 +112,8 @@ def make_subspace_optimizer(
         tcfg, transform=transform, axis_name=axis_name,
         k_workers=k_workers, model_sharded=model_sharded,
         model_axis=model_axis, model_shards=model_shards,
-        params_template=model.param_template(), device=device)
+        leaf_shards=leaf_shards, params_template=model.param_template(),
+        device=device)
     if resilience is not None and resilience.any_enabled:
         sub_opt = dataclasses.replace(
             sub_opt, guard=resilience.guard,
@@ -116,9 +123,11 @@ def make_subspace_optimizer(
     return sub_opt
 
 
-def make_loss_fn(model: Model, aux_coef: float = 0.01):
+def make_loss_fn(model: Model, aux_coef: float = 0.01, shards=None):
+    """``loss_fn(params, batch)``; with leaf ``shards`` ``params`` holds
+    this rank's shards (``registry.LeafShards``)."""
     def loss_fn(params, batch):
-        logits, aux = model.forward(params, batch)
+        logits, aux = model.forward(params, batch, shards=shards)
         ce = softmax_cross_entropy(logits, batch["labels"])
         return ce + aux_coef * aux, {"ce": ce, "aux": aux}
 
@@ -136,7 +145,8 @@ def make_train_step(model: Model, tcfg: TrainConfig,
                     transform: Optional[rbd_lib.RandomBasesTransform] = None,
                     axis_name: Optional[str] = None, *,
                     k_workers: int = 1, model_sharded: bool = False,
-                    model_axis=None, model_shards: int = 1, device="cuda",
+                    model_axis=None, model_shards: int = 1, leaf_shards=None,
+                    dense_grad_axis=None, device="cuda",
                     return_optimizer: bool = False, resilience=None):
     """Returns ``(init_state, train_step)`` -- plus the
     :class:`SubspaceOptimizer` when ``return_optimizer`` is set.
@@ -157,7 +167,13 @@ def make_train_step(model: Model, tcfg: TrainConfig,
     group, as ``launch.mesh`` builds it) and ``model_shards`` the state
     holds this rank's slab of the packed buffer, and the batch (sharded
     over data) is the same on every rank of the model group; without
-    ``model_axis`` the sharding is pjit-style, which the port refuses.
+    ``model_axis`` the sharding is pjit-style: ``leaf_shards`` (a
+    ``registry.LeafShards`` of the model group; None on a group of one)
+    cuts the parameter map, the per-leaf strategies run on the shards,
+    and ``init_state`` cuts the map it stores.  ``dense_grad_axis``: the
+    data group whose mean of the dense gradient ``--mode pjit`` takes
+    (``distributed.grad_mean``; None: no mean), with the loss averaged
+    over it too.
     With ``tcfg.grad_accum_steps == N > 1`` every batch tensor carries a
     leading (N,) microbatch axis
     (:func:`stack_microbatches`): the gradients accumulate in the packed
@@ -173,13 +189,14 @@ def make_train_step(model: Model, tcfg: TrainConfig,
     n_accum = int(tcfg.grad_accum_steps)
     if n_accum < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got {n_accum}")
-    loss_fn = make_loss_fn(model, model.cfg.router_aux_coef)
+    loss_fn = make_loss_fn(model, model.cfg.router_aux_coef, leaf_shards)
     sub_opt = make_subspace_optimizer(
         model, tcfg, transform, axis_name, k_workers=k_workers,
-        model_sharded=model_sharded or model_axis is not None,
+        model_sharded=(model_sharded or model_axis is not None
+                       or leaf_shards is not None),
         model_axis=model_axis,
         model_shards=model_shards if model_axis is not None else 1,
-        device=device, resilience=resilience)
+        leaf_shards=leaf_shards, device=device, resilience=resilience)
     eplan = sub_opt.check_supported()
     split = eplan.strategy == "fused_packed"
     emit_basis_grad = eplan.materialized and eplan.basis == "gradient_informed"
@@ -191,6 +208,10 @@ def make_train_step(model: Model, tcfg: TrainConfig,
             params = model.init(tcfg.seed if seed is None else seed,
                                 device=device)
         params = {k: v.to(device) for k, v in params.items()}
+        if leaf_shards is not None:
+            from repro_torch.models.registry import shard_params
+
+            params = shard_params(params, leaf_shards)
         return TrainState(
             params=sub_opt.prepare_params(params),
             rbd_state=sub_opt.init_rbd_state(params),
@@ -244,6 +265,10 @@ def make_train_step(model: Model, tcfg: TrainConfig,
             loss = sum(losses) / n_accum
             metrics = {k: sum(m[k] for m in parts) / n_accum
                        for k in parts[0]}
+        if dense_grad_axis is not None:
+            # pjit over several data ranks: the dense gradient's mean over
+            # the data group (the D-sized collective XLA inserts)
+            grads = distributed.grad_mean(grads, dense_grad_axis)
         if sub_opt.fault_plan is not None:
             grads = res_lib.inject_grad_faults(
                 sub_opt.fault_plan, state.rbd_state.step, grads,
@@ -254,10 +279,12 @@ def make_train_step(model: Model, tcfg: TrainConfig,
             if split:
                 ticket = sub_opt.step_sketch(params, grads, state.rbd_state,
                                              state.opt_state)
-            if axis_name is not None:
+            if axis_name is not None or dense_grad_axis is not None:
                 # overlap window: the coordinate collective is in flight
                 # under the issue_early schedule while the loss is averaged
-                loss = distributed.mean_scalar(loss, axis_name)
+                loss = distributed.mean_scalar(
+                    loss, axis_name if axis_name is not None
+                    else dense_grad_axis)
             if split:
                 params, rbd_state, opt_state, aux = sub_opt.step_finish(
                     params, ticket, state.rbd_state, state.opt_state,

@@ -69,7 +69,8 @@ EPS32 = 2.0 ** -23
 NO_COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "scalar": 0,
                   "grad_all_reduce": 0, "model_all_reduce": 0,
                   "model_all_gather": 0, "resync": 0,
-                  "basis_grad_all_reduce": 0}
+                  "basis_grad_all_reduce": 0, "leaf_all_gather": 0,
+                  "model_scalar": 0}
 # per-leaf scenarios: (name, mode, optimizer, normalization, weight
 # decay, RBD on); a plain leaf, a stacked leaf and a scalar compartment
 LEAF_SHAPES = {"w": (64, 32), "layers/k": (3, 40, 10), "s": ()}

@@ -17,7 +17,10 @@ single-tenant kernel's).  The per-leaf kernels: ``project_flat`` to the
 same u/sq tolerances and bit-identical to ``project_packed`` on the same
 seeds (the same grid and sum order); ``reconstruct_flat`` within 2e-5 of
 its largest value; ``reconstruct_apply_flat`` 1e-4 of the update plus 2
-ulp of theta's dtype, bf16 rounded once.  The prefill's flash-attention
+ulp of theta's dtype, bf16 rounded once; their shard instances to the
+same tolerances against their plain versions, and against the
+unsharded kernels bit for bit (reconstructions) or within 8 ulps of sum
+|g b| (the summed projections).  The prefill's flash-attention
 kernels: the CUDA-core one (f32; bf16 at head size 16 / 32 / 80 / 256) within 1e-5
 of max|v| of its plain version (f32 sums over another tiling), plus one
 bf16 ulp of the larger value for bf16 outputs; the tensor-core one (bf16
@@ -402,6 +405,114 @@ def test_reconstruct_apply_flat_bf16_rounds_once(cuda):
     out32 = rbd_reconstruct.reconstruct_apply_flat(seeds, scale,
                                                    theta16.float(), 0.1)
     assert torch.equal(out16, out32.to(torch.bfloat16))
+
+
+# leaf shards of pjit-style sharding: (name, whole shape, sharded dim,
+# stacked, m) -- embed-like on 0, a head on -1, stacked row-parallel on
+# -2 across several projection chunks, MoE experts on -3
+SHARD_CASES = [("embed", (96, 700), 0, False, 4),
+               ("lm_head", (33, 4096), 1, False, 4),
+               ("layers/mlp/w_down", (2, 70_000, 3), 1, True, 2),
+               ("layers/moe/w_up", (2, 4, 24, 40), 1, True, 4)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SHARD_CASES, ids=[c[0] for c in SHARD_CASES])
+@pytest.mark.parametrize("dist", DISTS)
+def test_shard_instances_match_plain_and_unsharded_slices(cuda, dist, case,
+                                                          dtype):
+    """Rows 8-10's shard instances on every shard: against their plain
+    versions (the per-leaf tolerances), and against the unsharded
+    kernels -- reconstruct and apply the same positions bit for bit, the
+    projections summed over the shards within PROJ_ULPS ulps of sum |g b|
+    (another summation order)."""
+    from repro_torch.models.registry import LeafShards
+
+    name, shape, dim, stacked, m = case
+    n = shape[0] if stacked else 1
+    d = 13
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    seeds = rng.fold_seed(rng.fold_seed(11, 3),
+                          torch.arange(n, dtype=torch.int32))
+    g = torch.randn(shape, generator=gen, device=cuda)
+    th = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    sc = torch.randn((n, d), generator=gen, device=cuda) * 1e-2
+
+    def rows(x):
+        return x.reshape(n, -1).contiguous()
+
+    q = rows(g).shape[1]
+    u, sq = rbd_project.project_flat(seeds, rows(g), d, dist)
+    delta = rbd_reconstruct.reconstruct_flat(seeds, sc, q, dist)
+    out = rbd_reconstruct.reconstruct_apply_flat(seeds, sc, rows(th), 0.5,
+                                                 dist)
+    shards = LeafShards({name: shape}, {name: dim}, m, 0)
+    us, sqs = torch.zeros_like(u), torch.zeros_like(sq)
+    ulp = 2.0**-23 if dtype == torch.float32 else 2.0**-7
+    for r in range(m):
+        sh = shards.with_rank(r)
+        cm = sh.colmap(name, stacked)
+        gl, tl = rows(sh.cut(name, g)), rows(sh.cut(name, th))
+        before = rbd_step.LAUNCHES["project_flat_shard"]
+        ul, sql = rbd_project.project_flat_shard(seeds, gl, d, dist,
+                                                 colmap=cm)
+        assert rbd_step.LAUNCHES["project_flat_shard"] == before + 1
+        up, sqp = rbd_project.project_flat_shard_plain(seeds, gl, d, dist,
+                                                       colmap=cm)
+        scale = gl.norm(dim=1, keepdim=True) * torch.sqrt(sqp / gl.shape[1])
+        assert bool(((ul - up).abs() <= 2e-5 * scale).all())
+        assert bool(((sql - sqp).abs() <= 2e-5 * sqp).all())
+        us += ul
+        sqs += sql
+        dl = rbd_reconstruct.reconstruct_flat_shard(seeds, sc, gl.shape[1],
+                                                    dist, colmap=cm)
+        assert torch.equal(dl.reshape(sh.local_shape(name)),
+                           sh.cut(name, delta.reshape(shape)))
+        ref = rbd_reconstruct.reconstruct_flat_shard_plain(
+            seeds, sc, gl.shape[1], dist, colmap=cm)
+        assert float((dl - ref).abs().max()) <= 2e-5 * float(
+            ref.abs().max())
+        ol = rbd_reconstruct.reconstruct_apply_flat_shard(seeds, sc, tl, 0.5,
+                                                          dist, colmap=cm)
+        assert ol.dtype == dtype
+        assert torch.equal(ol.reshape(sh.local_shape(name)),
+                           sh.cut(name, out.reshape(shape)))
+        ref = rbd_reconstruct.reconstruct_apply_flat_shard_plain(
+            seeds, sc, tl, 0.5, dist, colmap=cm)
+        tol = (1e-4 * float((ref.float() - tl.float()).abs().max())
+               + 2 * ulp * float(tl.float().abs().max()))
+        assert float((ol.float() - ref.float()).abs().max()) <= tol
+    for s in range(n):
+        tail = shape[1:] if stacked else shape
+        b = rng.generate_block(int(rng.as_u32(seeds[s].cpu())), 0, 0,
+                               (d, int(np.prod(tail))), dist,
+                               device=cuda).abs()
+        gb = b @ rows(g)[s].abs()
+        assert bool(((us[s] - u[s]).abs() <= 8 * 2.0**-23 * gb).all())
+        bb = (b * b).sum(1)
+        assert bool(((sqs[s] - sq[s]).abs() <= 8 * 2.0**-23 * bb).all())
+
+
+def test_shard_instances_refuse_tile_keyed_impls(cuda):
+    seeds = torch.zeros(1, dtype=torch.int32)
+    g = torch.zeros((1, 512), device=cuda)
+    with pytest.raises(ValueError, match="threefry"):
+        rbd_project.project_flat_shard(seeds, g, 8, colmap=(256, 512, 0),
+                                       prng="hw")
+
+
+@pytest.mark.parametrize("impl", ["threefry", "hw_emulated", "hw"])
+def test_plain_generator_new_form_is_the_stepwise_one(cuda, impl):
+    """The plain generator's card path (fused passes, column chunks
+    replayed as CUDA graphs) against its stepwise form, bit for bit."""
+    shape = (16, (1 << 18) + 512)   # several chunks and a ragged one
+    for dist in DISTS + ["bernoulli"]:
+        got = rng.generate_tiled_block(impl, 0x2468ACE, 512, shape, dist,
+                                       device=cuda)
+        with rng.stepwise_form():
+            want = rng.generate_tiled_block(impl, 0x2468ACE, 512, shape,
+                                            dist, device=cuda)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def test_per_leaf_train_steps_launch_per_leaf(cuda):

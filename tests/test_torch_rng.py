@@ -131,3 +131,28 @@ def test_tile_keyed_impls_not_ported():
     got = rng.PrngSpec("hw_emulated").generate_tile(
         rng.fold_seed(3), 8, 512, (8, 8), "uniform")
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("impl", rng.PRNG_IMPLS)
+@pytest.mark.parametrize("dist", rng.DISTRIBUTIONS)
+def test_fast_form_is_the_stepwise_form(impl, dist):
+    """The plain generator's faster form (five passes a Threefry round,
+    in-place sample mapping) against its stepwise form, bit for bit, on a
+    grid of seeds, columns and shapes: the bits of every distribution and
+    impl, the packed blocks, the tensor-shaped rows and the folds."""
+    for seed in (0, 1, 0x7FFFFFFF, 0x80000000, 0xDEADBEEF):
+        for col0, shape in ((0, (8, 700)), (1536, (16, 1029)),
+                            (2 ** 31 - 512, (8, 1024))):
+            got = rng.generate_tiled_block(impl, seed, col0, shape, dist)
+            with rng.stepwise_form():
+                want = rng.generate_tiled_block(impl, seed, col0, shape,
+                                                dist)
+            assert torch.equal(got.view(torch.int32),
+                               want.view(torch.int32)), (seed, col0, shape)
+    got = rng.generate_rows_nd(7, 3, 9, (5, 11), dist)
+    with rng.stepwise_form():
+        want = rng.generate_rows_nd(7, 3, 9, (5, 11), dist)
+        folded = rng.fold_seed(3, torch.arange(40, dtype=torch.int32))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(rng.fold_seed(3, torch.arange(40, dtype=torch.int32)),
+                       folded)

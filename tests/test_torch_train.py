@@ -136,16 +136,21 @@ def test_plan_from_flags_same_strategy_and_reasons(flags, backend):
 def test_unported_routes_raise_naming_roadmap():
     cfg = get_config("qwen2-0.5b").reduced(compute_dtype="float32")
     model = get_model(cfg)
-    # pjit-style parameter sharding plans fused_per_leaf, which the port
-    # runs unsharded only: refused, naming the pjit-style sharding item
-    # (the packed slabs of a declared model axis are ported)
+    # pjit-style parameter sharding (model-sharded parameters without a
+    # declared model axis) plans the reference's fused_per_leaf with its
+    # reason, and runs: the optimizer and the launcher's --mode pjit
     sub = steplib.make_subspace_optimizer(model, TrainConfig(
         model=cfg, rbd=RBDConfig(total_dim=64, backend="cuda")))
-    with pytest.raises(NotImplementedError, match="Queue A 20"):
-        dataclasses.replace(sub, model_sharded=True).check_supported()
-    with pytest.raises(NotImplementedError, match="Queue A 20"):
-        launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--mode",
-                       "pjit", "--device", "cpu", "--rbd-backend", "cuda"])
+    eplan = dataclasses.replace(sub, model_sharded=True).check_supported()
+    want = ref_subspace.plan_from_flags(use_packed=True, backend="pallas",
+                                        model_sharded=True)
+    assert (eplan.strategy, eplan.reason) == ("fused_per_leaf", want.reason)
+    res = launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--mode",
+                         "pjit", "--device", "cpu", "--rbd-backend", "cuda",
+                         "--rbd-dim", "32", "--batch", "2", "--seq", "8",
+                         "--steps", "1"])
+    assert res.sub_opt.plan_execution()[:3] == want[:3]
+    assert len(res.losses) == 1 and np.isfinite(res.losses[0])
     # several ranks come from torchrun, which sets the world size
     with pytest.raises(ValueError, match="world size"):
         launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--data", "2",
