@@ -311,6 +311,20 @@ result line:
                ``cmix/wk`` and ``cmix/wv`` on every shard, embed's first
                2**20 local positions on shard 1), the plain versions
                timed there; the bound of the group's shard work;
+24. dryrun   -- the dry run (``launch.dryrun``) against the card.  (a)
+               phase 4's step traced on meta tensors in a fake world of
+               one rank, its prediction logged before the same step runs
+               on the card: kernel calls equal to LAUNCHES, collective
+               sites to COLLECTIVES, flops to FlopCounterMode's on the
+               real step; the predicted temp memory within DRY_MEM_RTOL
+               + DRY_MEM_ATOL of max_memory_allocated over the step; the
+               roofline's max(t_compute, t_memory) beside the step wall
+               (reported); (b) host microseconds a call through each
+               kernel op against the launch function called directly
+               (the path before the ops), for rows 1-2 at phase 4's
+               shapes and rows 8-9 at the FC image model's largest leaf,
+               the wrappers' whole calls and FC's ``rbd_gradient``; (c)
+               ``dryrun --all`` runs on the CPU outside the phase;
 then the ``kernels`` line (eleven rows, then the six tile-keyed rows
 ``[hw_emulated]``, ``[hw,db]`` and ``[hw]`` of rows 1-2, then the
 tensor-core flash kernel's rows at head sizes 80 and 256 (launches: the
@@ -321,8 +335,8 @@ the three shard instances of rows 8-10 (launches: phase 23 (b)'s path,
 ms its per-step sum over the 4 shards, plain ms on its window); rows
 1-2 count phase 19 (a)'s, phase 20's, phase 21's and phase 22's
 launches too, rows 8-9 phase 21's image models' and phase 22's, rows 8
-and 10 phase 23 (a)'s, row 11 phase 20's at head size 128 and phase
-21's encoder), the card line and the result line.
+and 10 phase 23 (a)'s, rows 1-2 phase 24's, row 11 phase 20's at head
+size 128 and phase 21's encoder), the card line and the result line.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -6246,6 +6260,261 @@ def phase_pjit(dev) -> tuple[dict, list]:
     return {k: launches.get(k, 0) for k in FLAT_KERNELS}, out_rows
 
 
+# phase 24: the dry run's prediction of phase 4's step against the card.
+# Its peak (arguments + temp) is held to the step's measured
+# max_memory_allocated over what was allocated before it within
+# DRY_MEM_RTOL of the prediction plus DRY_MEM_ATOL bytes (the caching
+# allocator rounds each block up to 512 bytes; the kernels' scratch --
+# partial sums and arrival counters, allocated inside the launch -- is
+# outside the trace).
+DRY_MEM_RTOL = 0.10
+DRY_MEM_ATOL = 64 << 20
+DRY_HOST_REPS = 50       # calls a host-cost reading averages
+DRY_HOST_REPS_FULL = 5   # the same at phase 4's full width (each launch
+                         # queues ~0.22 s of device work)
+
+
+def _dry_step(device, mesh):
+    """Phase 4's step (the launcher's ARCH_ARGS: qwen2-0.5b, sharedseed
+    over a data group of one, rbd-dim 1024, the packed kernels, sgd at lr
+    0.125) placed on ``mesh`` as the launcher places it."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RBDConfig, TrainConfig
+    from repro_torch.launch.train import step_route
+    from repro_torch.models.registry import get_model
+    from repro_torch.train import step as steplib
+
+    cfg = get_config("qwen2-0.5b")
+    net = get_model(cfg)
+    tcfg = TrainConfig(model=cfg, rbd=RBDConfig(total_dim=1024,
+                                                backend="cuda"),
+                       learning_rate=0.125, batch_size=8, seq_len=128)
+    transform = steplib.make_transform(net, tcfg.rbd)
+    route = step_route(net, tcfg, transform, mode="sharedseed", mesh=mesh,
+                       device=device)
+    init, step, sub = steplib.make_train_step(
+        net, tcfg, transform, model_shards=1, device=device,
+        return_optimizer=True, **route)
+    return net, init, step, sub
+
+
+def _dry_prediction() -> dict:
+    """Phase 24 (a)'s prediction: the step traced on meta tensors in a
+    fake one-rank world (launch.dryrun's machinery), on this host's CPU."""
+    import torch
+    from repro_torch.launch import dryrun, hlo_analysis
+    from repro_torch.launch import mesh as meshlib
+
+    t0 = time.perf_counter()
+    mesh = meshlib.init_fake_mesh(1, 1)
+    try:
+        net, init, step, sub = _dry_step("meta", mesh)
+        state = init(params=net.param_template())
+        batch = {k: torch.empty((8, 128), dtype=torch.int64, device="meta")
+                 for k in ("tokens", "labels")}
+        tr = hlo_analysis.trace(step, state, batch)
+    finally:
+        meshlib.destroy_mesh(mesh)
+    terms = dryrun.roofline(tr)
+    return {"trace": tr, "terms": terms, "seconds":
+            time.perf_counter() - t0,
+            "d": sub.transform.plan.packed().d_packed}
+
+
+def _host_us(torch, fn, reps: int = DRY_HOST_REPS) -> float:
+    """Host microseconds a call of ``fn``, issued behind a stalled stream
+    (``torch.cuda._sleep``) so the device's work does not hold the host."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(ENC_SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
+
+
+def _op_host_cost(torch, net, state, sub) -> dict:
+    """Phase 24 (b): host microseconds of a kernel's call through its op
+    (``torch.ops.repro_torch.<name>``, the wrappers' path) and of the same
+    launch function called directly (the path before the ops), on phase
+    4's packed step's two kernels and on an image model's per-leaf
+    kernels (FC, phase 21's host-bound step), plus the wrapper's whole
+    call and the image model's ``rbd_gradient``."""
+    from repro_torch.core import compartments, projector, rng
+    from repro_torch.core.rbd import RandomBasesTransform
+    from repro_torch.kernels import rbd_project, rbd_reconstruct, rbd_step
+    from repro_torch.models import vision
+
+    out = {}
+    lay = sub.transform.plan.packed()
+    seeds = projector.segment_seeds(sub.transform.plan, rng.fold_seed(3))
+    t = rbd_step._device_tables(lay, state.params.device)
+    dseeds = rbd_step._seeds_on(seeds, lay.n_segments, state.params.device)
+    g = torch.zeros_like(state.params)
+    scale = torch.zeros((lay.d_packed,), device=g.device)
+    pargs = (g, dseeds, t["size"], t["param_off"], t["coord_off"],
+             t["n_chunk"], t["proj_blocks"], lay.n_segments,
+             t["n_proj_blocks"], lay.pos_block, lay.d_packed, 0, 0, 0)
+    full = DRY_HOST_REPS_FULL
+    out["project_packed"] = (
+        _host_us(torch, lambda: torch.ops.repro_torch.project_packed(
+            *pargs), full),
+        _host_us(torch, lambda: rbd_step.LAUNCH_FNS["project_packed"](
+            *pargs), full),
+        _host_us(torch, lambda: rbd_step.project_packed(seeds, g, lay),
+                 full))
+    theta = state.params
+    aargs = (scale, theta, theta, dseeds, t["size"], t["pdim"],
+             t["param_off"], t["coord_off"], t["recon_blocks"],
+             lay.n_segments, t["n_recon_blocks"], lay.pos_block,
+             t["max_ndb"], 0, 0, 0)
+    out["reconstruct_apply_packed"] = (
+        _host_us(torch, lambda: torch.ops.repro_torch.
+                 reconstruct_apply_packed(*aargs), full),
+        _host_us(torch, lambda: rbd_step.LAUNCH_FNS[
+            "reconstruct_apply_packed"](*aargs), full),
+        _host_us(torch, lambda: rbd_step.reconstruct_apply_packed(
+            seeds, scale, theta, lay, out=theta), full))
+    # the image model's per-leaf kernels: FC's largest leaf
+    init, _ = vision.get_vision_model("fc")
+    params = init(0, (28, 28, 1))
+    plan = compartments.make_plan(params, 128)
+    tr = RandomBasesTransform(plan, 0, backend="cuda")
+    grads = {k: torch.zeros_like(v) for k, v in params.items()}
+    lp = max(plan.leaves, key=lambda x: x.size)
+    fseeds = projector._leaf_seeds(tr.step_seed(0), lp)
+    dfs = rbd_step._seeds_on(fseeds, lp.n_stack, "cuda")
+    fg = torch.zeros((lp.n_stack, lp.size), device="cuda")
+    n_db = rbd_project.padded_dim(lp.dim) // rbd_project.DIR_BLOCK
+    cc = rbd_project.POS_CHUNK * rbd_project.POS_BLOCK
+    fargs = (fg, dfs, n_db, max(1, -(-lp.size // cc)), cc, 0, 0)
+    out["project_flat"] = (
+        _host_us(torch, lambda: torch.ops.repro_torch.project_flat(*fargs)),
+        _host_us(torch, lambda: rbd_step.LAUNCH_FNS["project_flat"](
+            *fargs)),
+        _host_us(torch, lambda: rbd_project.project_flat(fseeds, fg,
+                                                         lp.dim)))
+    sc = torch.zeros((lp.n_stack, n_db * rbd_project.DIR_BLOCK),
+                     device="cuda")
+    rargs = (sc, dfs, lp.size, 0, 0)
+    out["reconstruct_flat"] = (
+        _host_us(torch, lambda: torch.ops.repro_torch.reconstruct_flat(
+            *rargs)),
+        _host_us(torch, lambda: rbd_step.LAUNCH_FNS["reconstruct_flat"](
+            *rargs)),
+        _host_us(torch, lambda: rbd_reconstruct.reconstruct_flat(
+            fseeds, sc[:, :lp.dim], lp.size)))
+    out["fc rbd_gradient"] = (_host_us(
+        torch, lambda: projector.rbd_gradient(grads, plan, tr.step_seed(0),
+                                              backend="cuda"), reps=10),)
+    return out
+
+
+def phase_dryrun(dev) -> dict:
+    """Phase 24: the dry run (``launch.dryrun``) against the card.  (a)
+    phase 4's step traced on meta tensors in a fake world of one rank --
+    the prediction logged before the real step runs -- then the same step
+    on the card: kernel calls against LAUNCHES, collective sites against
+    COLLECTIVES and flops against FlopCounterMode's count of the real
+    step, all equal; the predicted peak against max_memory_allocated
+    within DRY_MEM_RTOL + DRY_MEM_ATOL; the roofline's max(t_compute,
+    t_memory) beside the measured step wall (reported).  (b) the kernel
+    ops' host cost.  (c) ``dryrun --all`` is a CPU tool of minutes a
+    combination set: it runs outside this phase (PERF.md)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.core import distributed
+    from repro_torch.kernels import rbd_step
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as meshlib
+
+    log("== phase 24: the dry run's prediction of phase 4's step against "
+        "the card")
+    pred = _dry_prediction()
+    tr, terms = pred["trace"], pred["terms"]
+    kinds: dict = {}
+    for c in tr.collectives:
+        key = "scalar" if c.elements == 1 else c.primitive
+        kinds[key] = kinds.get(key, 0) + 1
+    p_peak = tr.argument_bytes + tr.temp_bytes
+    log(f"  prediction (meta trace, {pred['seconds']:.1f} s on the host): "
+        f"kernel calls {tr.kernel_calls}; collective sites "
+        f"{[(c.primitive, c.elements) for c in tr.collectives]}; flops "
+        f"{tr.flops:,}; bytes {tr.bytes_accessed:,}; arguments "
+        f"{tr.argument_bytes:,} B, temp {tr.temp_bytes:,} B, peak "
+        f"{p_peak:,} B; t_compute {terms['t_compute'] * 1e3:.3f} ms, "
+        f"t_memory {terms['t_memory'] * 1e3:.3f} ms "
+        f"({dryrun.HARDWARE})")
+    mesh = meshlib.init_mesh(1, 1, "cuda")
+    try:
+        net, init, step, sub = _dry_step(mesh.device, mesh)
+        state = init()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        batch = {k: torch.randint(0, net.cfg.vocab, (8, 128), generator=gen,
+                                  device="cuda")
+                 for k in ("tokens", "labels")}
+        state, _ = step(state, batch)           # warm-up: cuBLAS, tables
+        torch.cuda.synchronize()
+        rbd_step.reset_counts()
+        distributed.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        new, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: v for k, v in rbd_step.LAUNCHES.items() if v}
+        colls = {k: v for k, v in distributed.COLLECTIVES.items() if v}
+        state = new
+        del new
+        with FlopCounterMode(display=False) as fc:
+            state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        real_flops = fc.get_total_flops()
+        check(math.isfinite(float(metrics["loss"])), "phase 24 loss")
+        host = _op_host_cost(torch, net, state, sub)
+    finally:
+        meshlib.destroy_mesh(mesh)
+    want = {}
+    for k in tr.kernel_calls:
+        want[k] = want.get(k, 0) + 1
+    log(f"  card: launches {launches}, collectives {colls}, flops "
+        f"{real_flops:,}, memory before the step {before:,} B, peak "
+        f"{peak:,} B, step wall {wall * 1e3:.3f} ms")
+    check(launches == want, f"kernel calls {want} != launches {launches}")
+    check(kinds == {"psum": 1, "scalar": 1}
+          and colls == {"all_reduce": 1, "scalar": 1},
+          f"collective sites {kinds} != COLLECTIVES {colls}")
+    check(real_flops == tr.flops,
+          f"flops: predicted {tr.flops:,}, FlopCounterMode {real_flops:,}")
+    m_temp = peak - before
+    err = m_temp - tr.temp_bytes
+    log(f"  memory: predicted temp {tr.temp_bytes:,} B, measured "
+        f"{m_temp:,} B ({err:+,} B, {err / tr.temp_bytes:+.2%}); predicted "
+        f"arguments {tr.argument_bytes:,} B beside {before:,} B allocated "
+        f"before the step")
+    check(abs(err) <= DRY_MEM_RTOL * tr.temp_bytes + DRY_MEM_ATOL,
+          f"predicted temp {tr.temp_bytes:,} B, measured {m_temp:,} B")
+    roof = max(terms["t_compute"], terms["t_memory"])
+    log(f"  roofline max(t_compute, t_memory) {roof * 1e3:.3f} ms beside "
+        f"the measured step wall {wall * 1e3:.3f} ms "
+        f"({roof / wall:.1%}; reported, not gated)")
+    for name, us in host.items():
+        if len(us) == 3:
+            log(f"  host us a call [{name}]: op {us[0]:.1f}, the launch "
+                f"function direct {us[1]:.1f} (the op adds "
+                f"{us[0] - us[1]:.1f}), the wrapper {us[2]:.1f}")
+        else:
+            log(f"  host us a call [{name}]: {us[0]:.1f}")
+    log("  dryrun --all: run on the CPU outside this phase (a combination "
+        "set takes minutes there; PERF.md has its table)")
+    return {"launches": launches, "host_us": host, "wall": wall,
+            "peak": peak}
+
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -6345,6 +6614,9 @@ def main(argv=None) -> int:
     for row in rows:
         row["launches"] += pjit.get(row["name"], 0)
     rows.extend(shard_rows)
+    dry = phase_dryrun(dev)
+    for row in rows:
+        row["launches"] += dry["launches"].get(row["name"], 0)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(dev["smi"], flush=True)

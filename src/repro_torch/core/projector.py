@@ -938,7 +938,8 @@ def materialize_random_basis(plan: Plan, layout, seed, *, device,
     if q < d:
         raise ValueError(
             f"materialized basis needs q_packed >= d ({q} < {d})")
-    if generator is None:
+    if generator is None and torch.device(device).type != "meta":
+        # (a meta tensor -- the dry run's -- holds no values to draw)
         generator = torch.Generator(device=device).manual_seed(
             int(seed) & 0x7FFFFFFF)
     a = torch.randn((q, d), generator=generator, dtype=torch.float32,

@@ -13,10 +13,13 @@ Two kernels of ``csrc/flash_attention.cu`` compute it, chosen by
 128 or 256, on the tensor cores, P rounded to bf16 for P V) and ``"fma"``
 (``flash_attention_forward``: f32, and bf16 at head size 16 or 32, on
 the CUDA cores, P in f32).  The wrapper takes the chosen kernel's plain
-version for tensors on the CPU, and only then; for CUDA tensors it
-launches the chosen kernel or raises.  Like the reference's kernel it is
-forward only: it raises when grad mode is on and an input requires grad,
-rather than hand back a result that gradients cannot flow through.
+version for tensors on the CPU, and only then; for CUDA tensors it calls
+the op ``torch.ops.repro_torch.flash_attention``, which launches the
+chosen kernel or raises (a meta tensor reaches the op's fake
+implementation, see :mod:`repro_torch.kernels.rbd_step`).  Like the
+reference's kernel it is forward only: it raises when grad mode is on
+and an input requires grad, rather than hand back a result that
+gradients cannot flow through.
 Launches, calls and CUDA-event times are counted in
 :mod:`repro_torch.kernels.rbd_step`'s ``LAUNCHES``/``CALLS`` under
 ``"flash_attention"``, launches by kernel in ``VARIANT_LAUNCHES`` under
@@ -134,10 +137,27 @@ def _launch_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("the wgmma kernel takes bfloat16 at head size "
                          f"{WGMMA_HEAD_DIMS}, got {q.dtype} at {hd}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda" or t.device != q.device:
+        if (t.device.type not in rbd_step.KERNEL_DEVICES
+                or t.device != q.device):
             raise ValueError(f"{name} must be a CUDA tensor on {q.device}, "
                              f"got {t.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    return _flash_attention_op(q, k, v, KERNELS.index(kernel), bool(causal),
+                               0 if window is None else int(window),
+                               kv_block)
+
+
+@rbd_step.kernel_op("flash_attention")
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        kernel: int, causal: bool, window: int,
+                        kv_block: int) -> torch.Tensor:
+    """``kernel``: the index of the kernel in :data:`KERNELS`; ``window``
+    0 for none."""
+    b, sq, h, hd = (int(x) for x in q.shape)
+    sk, kv = int(k.shape[1]), int(k.shape[2])
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     out = torch.empty_like(q)
     if sq == 0 or b == 0:
@@ -145,11 +165,10 @@ def _launch_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sk_pad = -(-sk // kv_block) * kv_block
     lib = rbd_step.library(rbd_step.FLASH_SOURCE).lib
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-    shape = (hd, b, sq, sk, h, kv, int(bool(causal)),
-             0 if window is None else int(window), sk_pad,
+    shape = (hd, b, sq, sk, h, kv, int(causal), window, sk_pad,
              1.0 / math.sqrt(hd))
     with torch.cuda.device(q.device):
-        if kernel == "wgmma":
+        if KERNELS[kernel] == "wgmma":
             rbd_step._launch("flash_attention",
                              lib.flash_attention_forward_wgmma, *args,
                              *shape, key="flash_attention[wgmma]")
@@ -158,6 +177,11 @@ def _launch_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              *args, _DTYPE_CODE[q.dtype], *shape,
                              key="flash_attention[fma]")
     return out
+
+
+@_flash_attention_op.register_fake
+def _(q, k, v, kernel, causal, window, kv_block):
+    return torch.empty_like(q)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,

@@ -15,14 +15,18 @@ Compartment s generates its basis from ``seeds[s]`` (``fold_seed(
 leaf_seed, s)`` for a stacked leaf, the leaf seed for an unstacked one)
 over its unpadded ``(q,)`` row of the ``(n_stack, q)`` gradient.  The
 wrapper takes its plain version for a tensor on the CPU, and only then;
-for a CUDA tensor it launches ``rbd_project_flat`` of ``csrc/rbd_flat.cu``
-or raises.  Launches, calls and CUDA-event times are counted in
+for a CUDA tensor it calls its op (``torch.ops.repro_torch.project_flat``
+and ``.project_flat_shard``), which launches ``rbd_project_flat`` of
+``csrc/rbd_flat.cu`` or raises (a meta tensor reaches the op's fake
+implementation, see :mod:`repro_torch.kernels.rbd_step`).  Launches,
+calls and CUDA-event times are counted in
 :mod:`repro_torch.kernels.rbd_step`'s ``LAUNCHES``/``CALLS``.
 """
 
 from __future__ import annotations
 
 import torch
+from torch import Tensor
 
 from repro_torch.core import rng
 from repro_torch.kernels import rbd_step
@@ -40,7 +44,7 @@ def padded_dim(dim: int) -> int:
 
 def check_flat(name: str, t: torch.Tensor, n_stack: int, q: int,
                dtypes=(torch.float32,)) -> None:
-    if t.device.type != "cuda":
+    if t.device.type not in rbd_step.KERNEL_DEVICES:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype not in dtypes or tuple(t.shape) != (n_stack, q):
         raise ValueError(f"{name} must be one of {dtypes} of shape "
@@ -71,21 +75,44 @@ def project_flat(seeds, g: torch.Tensor, dim: int,
     # chunk meets: whole pos-blocks, at most 64 (csrc/rbd_flat.cu)
     assert chunk_cols % POS_BLOCK == 0 and chunk_cols <= 64 * POS_BLOCK
     n_chunk = max(1, -(-q // chunk_cols))
+    u, sq = _project_flat_op(g, seeds, n_db, n_chunk, chunk_cols,
+                             rbd_step._DIST_CODE[distribution],
+                             rbd_step.impl_code(prng))
+    return u[:, :dim], sq[:, :dim]
+
+
+def _flat_buffers(g: Tensor, n_db: int, n_chunk: int):
+    """The projection kernels' scratch (partials, arrival counters) and
+    their padded ``(n_stack, n_db * 8)`` outputs ``u`` and ``sq``."""
+    n_stack, dev = int(g.shape[0]), g.device
     partial = torch.empty((n_stack * n_db * n_chunk * 2 * DIR_BLOCK,),
                           dtype=torch.float32, device=dev)
     arrived = torch.zeros((n_stack * n_db,), dtype=torch.int32, device=dev)
     u = torch.empty((n_stack, n_db * DIR_BLOCK), dtype=torch.float32,
                     device=dev)
-    sq = torch.empty_like(u)
+    return partial, arrived, u, torch.empty_like(u)
+
+
+@rbd_step.kernel_op("project_flat")
+def _project_flat_op(g: Tensor, seeds: Tensor, n_db: int, n_chunk: int,
+                     chunk_cols: int, dist: int,
+                     impl: int) -> tuple[Tensor, Tensor]:
+    n_stack, q = (int(x) for x in g.shape)
+    partial, arrived, u, sq = _flat_buffers(g, n_db, n_chunk)
     rbd_step._launch(
         "project_flat",
         rbd_step.library(rbd_step.FLAT_SOURCE).lib.rbd_project_flat,
         g.data_ptr(), seeds.data_ptr(), n_stack, q, n_db, n_chunk,
-        chunk_cols, rbd_step._DIST_CODE[distribution],
-        rbd_step.impl_code(prng), partial.data_ptr(), arrived.data_ptr(),
+        chunk_cols, dist, impl, partial.data_ptr(), arrived.data_ptr(),
         u.data_ptr(), sq.data_ptr(),
-        variant=(prng, False))
-    return u[:, :dim], sq[:, :dim]
+        variant=(rbd_step._IMPL_NAME[impl], False))
+    return u, sq
+
+
+@_project_flat_op.register_fake
+def _(g, seeds, n_db, n_chunk, chunk_cols, dist, impl):
+    u = g.new_empty((int(g.shape[0]), n_db * DIR_BLOCK), dtype=torch.float32)
+    return u, torch.empty_like(u)
 
 
 def check_colmap(colmap, q_local: int, prng) -> tuple[int, int, int]:
@@ -188,19 +215,31 @@ def project_flat_shard(seeds, g: torch.Tensor, dim: int,
     n_db = padded_dim(dim) // DIR_BLOCK
     chunk_cols = POS_CHUNK * POS_BLOCK
     n_chunk = max(1, -(-q // chunk_cols))
-    partial = torch.empty((n_stack * n_db * n_chunk * 2 * DIR_BLOCK,),
-                          dtype=torch.float32, device=dev)
-    arrived = torch.zeros((n_stack * n_db,), dtype=torch.int32, device=dev)
-    u = torch.empty((n_stack, n_db * DIR_BLOCK), dtype=torch.float32,
-                    device=dev)
-    sq = torch.empty_like(u)
+    u, sq = _project_flat_shard_op(g, seeds, n_db, n_chunk, chunk_cols,
+                                   rbd_step._DIST_CODE[distribution],
+                                   *colmap)
+    return u[:, :dim], sq[:, :dim]
+
+
+@rbd_step.kernel_op("project_flat_shard")
+def _project_flat_shard_op(g: Tensor, seeds: Tensor, n_db: int,
+                           n_chunk: int, chunk_cols: int, dist: int, w: int,
+                           big_w: int, off: int) -> tuple[Tensor, Tensor]:
+    n_stack, q = (int(x) for x in g.shape)
+    partial, arrived, u, sq = _flat_buffers(g, n_db, n_chunk)
     rbd_step._launch(
         "project_flat_shard",
         rbd_step.library(rbd_step.FLAT_SOURCE).lib.rbd_project_flat_shard,
         g.data_ptr(), seeds.data_ptr(), n_stack, q, n_db, n_chunk,
-        chunk_cols, rbd_step._DIST_CODE[distribution], *colmap,
-        partial.data_ptr(), arrived.data_ptr(), u.data_ptr(), sq.data_ptr())
-    return u[:, :dim], sq[:, :dim]
+        chunk_cols, dist, w, big_w, off, partial.data_ptr(),
+        arrived.data_ptr(), u.data_ptr(), sq.data_ptr())
+    return u, sq
+
+
+@_project_flat_shard_op.register_fake
+def _(g, seeds, n_db, n_chunk, chunk_cols, dist, w, big_w, off):
+    u = g.new_empty((int(g.shape[0]), n_db * DIR_BLOCK), dtype=torch.float32)
+    return u, torch.empty_like(u)
 
 
 def project_flat_shard_plain(seeds, g: torch.Tensor, dim: int,

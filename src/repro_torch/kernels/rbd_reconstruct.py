@@ -24,7 +24,10 @@ callers that ask get them).  Per position both visit the dir-blocks in
 order, forming each block's part ``sum_{r<8} s_r P_r`` first (the
 reference's association).  The
 wrappers take their plain versions for CPU tensors, and only then; for a
-CUDA tensor they launch the kernels of ``csrc/rbd_flat.cu`` or raise.
+CUDA tensor they call their ops (``torch.ops.repro_torch.<name>``), which
+launch the kernels of ``csrc/rbd_flat.cu`` or raise (a meta tensor
+reaches an op's fake implementation, see
+:mod:`repro_torch.kernels.rbd_step`).
 Launches, calls and CUDA-event times are counted in
 :mod:`repro_torch.kernels.rbd_step`'s ``LAUNCHES``/``CALLS``.
 """
@@ -33,6 +36,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import Tensor
 
 from repro_torch.kernels import rbd_step
 from repro_torch.kernels.rbd_project import (DIR_BLOCK, check_colmap,
@@ -70,14 +74,28 @@ def reconstruct_flat(seeds, scale: torch.Tensor, q: int,
     dev = scale.device
     sc = _padded_scale(scale, n_stack, dim)
     seeds = rbd_step._seeds_on(seeds, n_stack, dev)
-    out = torch.empty((n_stack, q), dtype=torch.float32, device=dev)
+    return _reconstruct_flat_op(sc, seeds, q,
+                                rbd_step._DIST_CODE[distribution],
+                                rbd_step.impl_code(prng))
+
+
+@rbd_step.kernel_op("reconstruct_flat")
+def _reconstruct_flat_op(sc: Tensor, seeds: Tensor, q: int, dist: int,
+                         impl: int) -> Tensor:
+    n_stack = int(sc.shape[0])
+    out = torch.empty((n_stack, q), dtype=torch.float32, device=sc.device)
     rbd_step._launch(
         "reconstruct_flat",
         rbd_step.library(rbd_step.FLAT_SOURCE).lib.rbd_reconstruct_flat,
         sc.data_ptr(), seeds.data_ptr(), n_stack, q,
-        sc.shape[1] // DIR_BLOCK, rbd_step._DIST_CODE[distribution],
-        rbd_step.impl_code(prng), out.data_ptr(), variant=(prng, False))
+        sc.shape[1] // DIR_BLOCK, dist, impl, out.data_ptr(),
+        variant=(rbd_step._IMPL_NAME[impl], False))
     return out
+
+
+@_reconstruct_flat_op.register_fake
+def _(sc, seeds, q, dist, impl):
+    return sc.new_empty((int(sc.shape[0]), q), dtype=torch.float32)
 
 
 def reconstruct_flat_plain(seeds, scale: torch.Tensor, q: int,
@@ -125,15 +143,29 @@ def reconstruct_apply_flat(seeds, scale: torch.Tensor, theta: torch.Tensor,
     check_flat("out", out, n_stack, q, (theta.dtype,))
     sc = _padded_scale(scale, n_stack, int(scale.shape[-1]))
     seeds = rbd_step._seeds_on(seeds, n_stack, dev)
+    _reconstruct_apply_flat_op(sc, theta, out, float(np.float32(eta)), seeds,
+                               rbd_step._DIST_CODE[distribution],
+                               rbd_step.impl_code(prng))
+    return out
+
+
+@rbd_step.kernel_op("reconstruct_apply_flat", mutates=("out",))
+def _reconstruct_apply_flat_op(sc: Tensor, theta: Tensor, out: Tensor,
+                               eta: float, seeds: Tensor, dist: int,
+                               impl: int) -> None:
+    n_stack, q = (int(x) for x in theta.shape)
     rbd_step._launch(
         "reconstruct_apply_flat",
         rbd_step.library(rbd_step.FLAT_SOURCE).lib.rbd_reconstruct_apply_flat,
-        sc.data_ptr(), theta.data_ptr(), out.data_ptr(),
-        float(np.float32(eta)), seeds.data_ptr(), n_stack, q,
-        sc.shape[1] // DIR_BLOCK, rbd_step._DIST_CODE[distribution],
-        rbd_step.impl_code(prng), int(theta.dtype == torch.bfloat16),
-        variant=(prng, False))
-    return out
+        sc.data_ptr(), theta.data_ptr(), out.data_ptr(), eta,
+        seeds.data_ptr(), n_stack, q, sc.shape[1] // DIR_BLOCK, dist, impl,
+        int(theta.dtype == torch.bfloat16),
+        variant=(rbd_step._IMPL_NAME[impl], False))
+
+
+@_reconstruct_apply_flat_op.register_fake
+def _(sc, theta, out, eta, seeds, dist, impl):
+    return None
 
 
 def reconstruct_apply_flat_plain(seeds, scale: torch.Tensor,
@@ -199,14 +231,27 @@ def reconstruct_flat_shard(seeds, scale: torch.Tensor, q: int,
     dev = scale.device
     sc = _padded_scale(scale, n_stack, dim)
     seeds = rbd_step._seeds_on(seeds, n_stack, dev)
-    out = torch.empty((n_stack, q), dtype=torch.float32, device=dev)
+    return _reconstruct_flat_shard_op(sc, seeds, q,
+                                      rbd_step._DIST_CODE[distribution],
+                                      *colmap)
+
+
+@rbd_step.kernel_op("reconstruct_flat_shard")
+def _reconstruct_flat_shard_op(sc: Tensor, seeds: Tensor, q: int, dist: int,
+                               w: int, big_w: int, off: int) -> Tensor:
+    n_stack = int(sc.shape[0])
+    out = torch.empty((n_stack, q), dtype=torch.float32, device=sc.device)
     rbd_step._launch(
         "reconstruct_flat_shard",
         rbd_step.library(rbd_step.FLAT_SOURCE).lib.rbd_reconstruct_flat_shard,
         sc.data_ptr(), seeds.data_ptr(), n_stack, q,
-        sc.shape[1] // DIR_BLOCK, rbd_step._DIST_CODE[distribution],
-        *colmap, out.data_ptr())
+        sc.shape[1] // DIR_BLOCK, dist, w, big_w, off, out.data_ptr())
     return out
+
+
+@_reconstruct_flat_shard_op.register_fake
+def _(sc, seeds, q, dist, w, big_w, off):
+    return sc.new_empty((int(sc.shape[0]), q), dtype=torch.float32)
 
 
 def reconstruct_flat_shard_plain(seeds, scale: torch.Tensor, q: int,
@@ -242,15 +287,29 @@ def reconstruct_apply_flat_shard(seeds, scale: torch.Tensor,
     check_flat("out", out, n_stack, q, (theta.dtype,))
     sc = _padded_scale(scale, n_stack, int(scale.shape[-1]))
     seeds = rbd_step._seeds_on(seeds, n_stack, dev)
+    _reconstruct_apply_flat_shard_op(sc, theta, out, float(np.float32(eta)),
+                                     seeds, rbd_step._DIST_CODE[distribution],
+                                     *colmap)
+    return out
+
+
+@rbd_step.kernel_op("reconstruct_apply_flat_shard", mutates=("out",))
+def _reconstruct_apply_flat_shard_op(sc: Tensor, theta: Tensor, out: Tensor,
+                                     eta: float, seeds: Tensor, dist: int,
+                                     w: int, big_w: int, off: int) -> None:
+    n_stack, q = (int(x) for x in theta.shape)
     rbd_step._launch(
         "reconstruct_apply_flat_shard",
         rbd_step.library(
             rbd_step.FLAT_SOURCE).lib.rbd_reconstruct_apply_flat_shard,
-        sc.data_ptr(), theta.data_ptr(), out.data_ptr(),
-        float(np.float32(eta)), seeds.data_ptr(), n_stack, q,
-        sc.shape[1] // DIR_BLOCK, rbd_step._DIST_CODE[distribution],
-        int(theta.dtype == torch.bfloat16), *colmap)
-    return out
+        sc.data_ptr(), theta.data_ptr(), out.data_ptr(), eta,
+        seeds.data_ptr(), n_stack, q, sc.shape[1] // DIR_BLOCK, dist,
+        int(theta.dtype == torch.bfloat16), w, big_w, off)
+
+
+@_reconstruct_apply_flat_shard_op.register_fake
+def _(sc, theta, out, eta, seeds, dist, w, big_w, off):
+    return None
 
 
 def reconstruct_apply_flat_shard_plain(seeds, scale: torch.Tensor,

@@ -36,11 +36,18 @@ instance on a CUDA device, the reference's rule elsewhere,
 The kernels take the impl as a template argument, chosen at launch.
 
 Each wrapper takes its plain version for a tensor on the CPU, and only
-then.  For a CUDA tensor it launches the hand-written kernel of
-``csrc/rbd_step.cu`` (built by :mod:`repro_torch.kernels.build` at first
-use) or raises; nothing falls back.  ``LAUNCHES[name]`` counts kernel
-launches and is incremented right after a launch succeeds and nowhere
-else; ``CALLS[name]`` counts wrapper calls on any device.
+then.  For a CUDA tensor it calls the kernel's op,
+``torch.ops.repro_torch.<name>``, whose CUDA implementation launches the
+hand-written kernel of ``csrc/rbd_step.cu`` (built by
+:mod:`repro_torch.kernels.build` at first use) or raises; nothing falls
+back.  An op's signature is the kernel's own: tensors (the input, the
+seeds, the segment tables) and ints; its fake implementation gives the
+outputs' shapes, dtypes and device and mutates nothing, so a ``meta``
+tensor (the dry run's, :mod:`repro_torch.launch.dryrun`) takes the same
+wrapper code and reaches the op as one node, with no kernel and no data.
+``LAUNCHES[name]`` counts kernel launches and is incremented right after
+a launch succeeds and nowhere else; ``CALLS[name]`` counts wrapper calls
+on any device.
 
 This module also keeps the counts, the timing and the built libraries of
 the per-leaf kernels of :mod:`repro_torch.kernels.rbd_project` and
@@ -58,6 +65,7 @@ import ctypes
 import functools
 
 import torch
+from torch import Tensor
 
 from repro_torch.core import rng
 from repro_torch.core.compartments import (PackedLayout, ShardedPackedLayout,
@@ -176,6 +184,12 @@ _FLASH_SIGNATURES = {
 }
 # csrc/rbd_common.cuh's Impl codes, passed beside the distribution's
 _IMPL_CODE = {"threefry": 0, "hw_emulated": 1, "hw": 2}
+_IMPL_NAME = {v: k for k, v in _IMPL_CODE.items()}
+# devices whose tensors a wrapper hands to its op: CUDA (the kernel) and
+# meta (the op's fake implementation: shapes only, the dry run)
+KERNEL_DEVICES = ("cuda", "meta")
+# the namespace of the kernels' ops, torch.ops.repro_torch
+OP_NAMESPACE = "repro_torch"
 
 
 @functools.cache
@@ -286,8 +300,27 @@ def _launch(name: str, fn, *args, variant=("threefry", False),
     VARIANT_LAUNCHES[key] = VARIANT_LAUNCHES.get(key, 0) + 1
 
 
+# op name -> its CUDA implementation as a plain function (the launch
+# without the dispatcher: the op's host cost is the difference)
+LAUNCH_FNS: dict = {}
+
+
+def kernel_op(name: str, mutates=()):
+    """Declare ``torch.ops.repro_torch.<name>`` with the decorated function
+    as its CUDA implementation (the kernel's launch); the caller registers
+    the fake implementation with ``.register_fake``.  ``mutates``: the
+    arguments the kernel writes in place."""
+    def register(fn):
+        LAUNCH_FNS[name] = fn
+        return torch.library.custom_op(f"{OP_NAMESPACE}::{name}",
+                                       mutates_args=tuple(mutates),
+                                       device_types="cuda")(fn)
+
+    return register
+
+
 def _check(t: torch.Tensor, name: str, shape, dtype=torch.float32) -> None:
-    if t.device.type != "cuda":
+    if t.device.type not in KERNEL_DEVICES:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype or tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must be {dtype} of shape {tuple(shape)}, "
@@ -344,22 +377,40 @@ def project_packed(seg_seeds, g_packed: torch.Tensor, layout: PackedLayout,
     dev = g_packed.device
     t = _device_tables(layout, dev)
     seeds = _seeds_on(seg_seeds, layout.n_segments, dev)
-    n_blocks = t["n_proj_blocks"]
-    partial = torch.empty((n_blocks * 16,), dtype=torch.float32, device=dev)
-    arrived = torch.zeros((layout.d_packed // 8,), dtype=torch.int32,
-                          device=dev)
-    u = torch.empty((layout.d_packed,), dtype=torch.float32, device=dev)
-    sq = torch.empty_like(u)
     db = resolve_double_buffer(double_buffer, prng, dev)
+    return _project_packed_op(
+        g_packed, seeds, t["size"], t["param_off"], t["coord_off"],
+        t["n_chunk"], t["proj_blocks"], layout.n_segments,
+        t["n_proj_blocks"], layout.pos_block, layout.d_packed,
+        _DIST_CODE[distribution], impl_code(prng), int(db))
+
+
+@kernel_op("project_packed")
+def _project_packed_op(g: Tensor, seeds: Tensor, size: Tensor,
+                       param_off: Tensor, coord_off: Tensor, n_chunk: Tensor,
+                       proj_blocks: Tensor, n_segments: int, n_blocks: int,
+                       pos_block: int, d_packed: int, dist: int, impl: int,
+                       db: int) -> tuple[Tensor, Tensor]:
+    dev = g.device
+    partial = torch.empty((n_blocks * 16,), dtype=torch.float32, device=dev)
+    arrived = torch.zeros((d_packed // 8,), dtype=torch.int32, device=dev)
+    u = torch.empty((d_packed,), dtype=torch.float32, device=dev)
+    sq = torch.empty_like(u)
     _launch("project_packed", library().lib.rbd_project_packed,
-            g_packed.data_ptr(), seeds.data_ptr(), t["size"].data_ptr(),
-            t["param_off"].data_ptr(), t["coord_off"].data_ptr(),
-            t["n_chunk"].data_ptr(), t["proj_blocks"].data_ptr(),
-            layout.n_segments, n_blocks, layout.pos_block,
-            PROJECT_POS_CHUNK, _DIST_CODE[distribution], impl_code(prng),
-            int(db), partial.data_ptr(), arrived.data_ptr(), u.data_ptr(),
-            sq.data_ptr(), variant=(prng, db))
+            g.data_ptr(), seeds.data_ptr(), size.data_ptr(),
+            param_off.data_ptr(), coord_off.data_ptr(), n_chunk.data_ptr(),
+            proj_blocks.data_ptr(), n_segments, n_blocks, pos_block,
+            PROJECT_POS_CHUNK, dist, impl, db, partial.data_ptr(),
+            arrived.data_ptr(), u.data_ptr(), sq.data_ptr(),
+            variant=(_IMPL_NAME[impl], bool(db)))
     return u, sq
+
+
+@_project_packed_op.register_fake
+def _(g, seeds, size, param_off, coord_off, n_chunk, proj_blocks, n_segments,
+      n_blocks, pos_block, d_packed, dist, impl, db):
+    u = g.new_empty((d_packed,), dtype=torch.float32)
+    return u, torch.empty_like(u)
 
 
 def _plain_blocks(seg_seeds, sizes, pdims, distribution: str,
@@ -480,16 +531,34 @@ def reconstruct_apply_packed(seg_seeds, scale_packed: torch.Tensor,
     t = _device_tables(layout, dev)
     seeds = _seeds_on(seg_seeds, layout.n_segments, dev)
     db = resolve_double_buffer(double_buffer, prng, dev)
+    _reconstruct_apply_packed_op(
+        scale_packed, theta_packed, out, seeds, t["size"], t["pdim"],
+        t["param_off"], t["coord_off"], t["recon_blocks"], layout.n_segments,
+        t["n_recon_blocks"], layout.pos_block, t["max_ndb"],
+        _DIST_CODE[distribution], impl_code(prng), int(db))
+    return out
+
+
+@kernel_op("reconstruct_apply_packed", mutates=("out",))
+def _reconstruct_apply_packed_op(
+        scale: Tensor, theta: Tensor, out: Tensor, seeds: Tensor,
+        size: Tensor, pdim: Tensor, param_off: Tensor, coord_off: Tensor,
+        recon_blocks: Tensor, n_segments: int, n_blocks: int, pos_block: int,
+        max_ndb: int, dist: int, impl: int, db: int) -> None:
     _launch("reconstruct_apply_packed",
             library().lib.rbd_reconstruct_apply_packed,
-            scale_packed.data_ptr(), theta_packed.data_ptr(), out.data_ptr(),
-            seeds.data_ptr(), t["size"].data_ptr(), t["pdim"].data_ptr(),
-            t["param_off"].data_ptr(), t["coord_off"].data_ptr(),
-            t["recon_blocks"].data_ptr(), layout.n_segments,
-            t["n_recon_blocks"], layout.pos_block, t["max_ndb"],
-            _DIST_CODE[distribution], impl_code(prng),
-            int(db), variant=(prng, db))
-    return out
+            scale.data_ptr(), theta.data_ptr(), out.data_ptr(),
+            seeds.data_ptr(), size.data_ptr(), pdim.data_ptr(),
+            param_off.data_ptr(), coord_off.data_ptr(),
+            recon_blocks.data_ptr(), n_segments, n_blocks, pos_block,
+            max_ndb, dist, impl, db, variant=(_IMPL_NAME[impl], bool(db)))
+
+
+@_reconstruct_apply_packed_op.register_fake
+def _(scale, theta, out, seeds, size, pdim, param_off, coord_off,
+      recon_blocks, n_segments, n_blocks, pos_block, max_ndb, dist, impl,
+      db):
+    return None
 
 
 def reconstruct_apply_packed_plain(seg_seeds, scale_packed: torch.Tensor,
@@ -557,17 +626,36 @@ def reconstruct_apply_packed_workers(wseg_seeds, scale_gathered: torch.Tensor,
     t = _device_tables(layout, dev)
     seeds = _seeds_on(wseg_seeds, k_workers * layout.n_segments, dev)
     db = resolve_double_buffer(double_buffer, prng, dev)
+    _reconstruct_apply_packed_workers_op(
+        scale_gathered, theta_packed, out, seeds, t["size"], t["pdim"],
+        t["param_off"], t["coord_off"], t["recon_blocks"], layout.n_segments,
+        t["n_recon_blocks"], layout.pos_block, k_workers, layout.d_packed,
+        t["max_ndb"], _DIST_CODE[distribution], impl_code(prng), int(db))
+    return out
+
+
+@kernel_op("reconstruct_apply_packed_workers", mutates=("out",))
+def _reconstruct_apply_packed_workers_op(
+        scale: Tensor, theta: Tensor, out: Tensor, seeds: Tensor,
+        size: Tensor, pdim: Tensor, param_off: Tensor, coord_off: Tensor,
+        recon_blocks: Tensor, n_segments: int, n_blocks: int, pos_block: int,
+        k_workers: int, d_packed: int, max_ndb: int, dist: int, impl: int,
+        db: int) -> None:
     _launch("reconstruct_apply_packed_workers",
             library().lib.rbd_reconstruct_apply_packed_workers,
-            scale_gathered.data_ptr(), theta_packed.data_ptr(),
-            out.data_ptr(), seeds.data_ptr(), t["size"].data_ptr(),
-            t["pdim"].data_ptr(), t["param_off"].data_ptr(),
-            t["coord_off"].data_ptr(), t["recon_blocks"].data_ptr(),
-            layout.n_segments, t["n_recon_blocks"], layout.pos_block,
-            k_workers, layout.d_packed, t["max_ndb"],
-            _DIST_CODE[distribution], impl_code(prng),
-            int(db), variant=(prng, db))
-    return out
+            scale.data_ptr(), theta.data_ptr(), out.data_ptr(),
+            seeds.data_ptr(), size.data_ptr(), pdim.data_ptr(),
+            param_off.data_ptr(), coord_off.data_ptr(),
+            recon_blocks.data_ptr(), n_segments, n_blocks, pos_block,
+            k_workers, d_packed, max_ndb, dist, impl, db,
+            variant=(_IMPL_NAME[impl], bool(db)))
+
+
+@_reconstruct_apply_packed_workers_op.register_fake
+def _(scale, theta, out, seeds, size, pdim, param_off, coord_off,
+      recon_blocks, n_segments, n_blocks, pos_block, k_workers, d_packed,
+      max_ndb, dist, impl, db):
+    return None
 
 
 def reconstruct_apply_packed_workers_plain(wseg_seeds,
@@ -625,21 +713,41 @@ def reconstruct_apply_packed_adapters(aseg_seeds, scale_batch: torch.Tensor,
         raise ValueError("reconstruct_apply_packed_adapters needs at least "
                          "one adapter")
     dev = theta_packed.device
-    out = torch.empty((n_adapters, layout.q_packed), dtype=torch.float32,
-                      device=dev)
     t = _device_tables(layout, dev)
     seeds = _seeds_on(aseg_seeds, n_adapters * layout.n_segments, dev)
+    return _reconstruct_apply_packed_adapters_op(
+        scale_batch, theta_packed, seeds, t["size"], t["pdim"],
+        t["param_off"], t["coord_off"], t["recon_blocks"], layout.n_segments,
+        t["n_recon_blocks"], layout.pos_block, n_adapters, layout.d_packed,
+        layout.q_packed, t["max_ndb"], _DIST_CODE[distribution],
+        impl_code(prng))
+
+
+@kernel_op("reconstruct_apply_packed_adapters")
+def _reconstruct_apply_packed_adapters_op(
+        scale: Tensor, theta: Tensor, seeds: Tensor, size: Tensor,
+        pdim: Tensor, param_off: Tensor, coord_off: Tensor,
+        recon_blocks: Tensor, n_segments: int, n_blocks: int, pos_block: int,
+        n_adapters: int, d_packed: int, q_packed: int, max_ndb: int,
+        dist: int, impl: int) -> Tensor:
+    out = torch.empty((n_adapters, q_packed), dtype=torch.float32,
+                      device=theta.device)
     _launch("reconstruct_apply_packed_adapters",
             library().lib.rbd_reconstruct_apply_packed_adapters,
-            scale_batch.data_ptr(), theta_packed.data_ptr(), out.data_ptr(),
-            seeds.data_ptr(), t["size"].data_ptr(), t["pdim"].data_ptr(),
-            t["param_off"].data_ptr(), t["coord_off"].data_ptr(),
-            t["recon_blocks"].data_ptr(), layout.n_segments,
-            t["n_recon_blocks"], layout.pos_block, n_adapters,
-            layout.d_packed, layout.q_packed, t["max_ndb"],
-            _DIST_CODE[distribution], impl_code(prng),
-            variant=(prng, False))
+            scale.data_ptr(), theta.data_ptr(), out.data_ptr(),
+            seeds.data_ptr(), size.data_ptr(), pdim.data_ptr(),
+            param_off.data_ptr(), coord_off.data_ptr(),
+            recon_blocks.data_ptr(), n_segments, n_blocks, pos_block,
+            n_adapters, d_packed, q_packed, max_ndb, dist, impl,
+            variant=(_IMPL_NAME[impl], False))
     return out
+
+
+@_reconstruct_apply_packed_adapters_op.register_fake
+def _(scale, theta, seeds, size, pdim, param_off, coord_off, recon_blocks,
+      n_segments, n_blocks, pos_block, n_adapters, d_packed, q_packed,
+      max_ndb, dist, impl):
+    return theta.new_empty((n_adapters, q_packed), dtype=torch.float32)
 
 
 def reconstruct_apply_packed_adapters_plain(aseg_seeds,
@@ -704,24 +812,45 @@ def project_packed_sharded(seg_seeds, g_slab: torch.Tensor,
     t = _device_tables(base, dev)
     w = _sharded_device_tables(slayout, int(shard), dev)
     seeds = _seeds_on(seg_seeds, base.n_segments, dev)
-    n_blocks = w["n_proj_blocks"]
-    partial = torch.empty((n_blocks * 16,), dtype=torch.float32, device=dev)
-    arrived = torch.zeros((base.d_packed // 8,), dtype=torch.int32,
-                          device=dev)
-    u = torch.empty((base.d_packed,), dtype=torch.float32, device=dev)
-    sq = torch.empty_like(u)
     db = resolve_double_buffer(double_buffer, prng, dev)
+    return _project_packed_sharded_op(
+        g_slab, seeds, t["param_off"], t["coord_off"], w["col_lo"],
+        w["col_hi"], w["chunk_lo"], w["n_chunk"], w["proj_blocks"],
+        base.n_segments, w["n_proj_blocks"],
+        slayout.slab_range(int(shard))[0], base.pos_block, base.d_packed,
+        _DIST_CODE[distribution], impl_code(prng), int(db))
+
+
+@kernel_op("project_packed_sharded")
+def _project_packed_sharded_op(
+        g: Tensor, seeds: Tensor, param_off: Tensor, coord_off: Tensor,
+        col_lo: Tensor, col_hi: Tensor, chunk_lo: Tensor, n_chunk: Tensor,
+        proj_blocks: Tensor, n_segments: int, n_blocks: int, slab_start: int,
+        pos_block: int, d_packed: int, dist: int, impl: int,
+        db: int) -> tuple[Tensor, Tensor]:
+    dev = g.device
+    partial = torch.empty((n_blocks * 16,), dtype=torch.float32, device=dev)
+    arrived = torch.zeros((d_packed // 8,), dtype=torch.int32, device=dev)
+    u = torch.empty((d_packed,), dtype=torch.float32, device=dev)
+    sq = torch.empty_like(u)
     _launch("project_packed_sharded",
             library().lib.rbd_project_packed_sharded,
-            g_slab.data_ptr(), seeds.data_ptr(), t["param_off"].data_ptr(),
-            t["coord_off"].data_ptr(), w["col_lo"].data_ptr(),
-            w["col_hi"].data_ptr(), w["chunk_lo"].data_ptr(),
-            w["n_chunk"].data_ptr(), w["proj_blocks"].data_ptr(),
-            base.n_segments, n_blocks, slayout.slab_range(int(shard))[0],
-            base.pos_block, PROJECT_POS_CHUNK, _DIST_CODE[distribution],
-            impl_code(prng), int(db), partial.data_ptr(), arrived.data_ptr(),
-            u.data_ptr(), sq.data_ptr(), variant=(prng, db))
+            g.data_ptr(), seeds.data_ptr(), param_off.data_ptr(),
+            coord_off.data_ptr(), col_lo.data_ptr(), col_hi.data_ptr(),
+            chunk_lo.data_ptr(), n_chunk.data_ptr(), proj_blocks.data_ptr(),
+            n_segments, n_blocks, slab_start, pos_block, PROJECT_POS_CHUNK,
+            dist, impl, db, partial.data_ptr(), arrived.data_ptr(),
+            u.data_ptr(), sq.data_ptr(),
+            variant=(_IMPL_NAME[impl], bool(db)))
     return u, sq
+
+
+@_project_packed_sharded_op.register_fake
+def _(g, seeds, param_off, coord_off, col_lo, col_hi, chunk_lo, n_chunk,
+      proj_blocks, n_segments, n_blocks, slab_start, pos_block, d_packed,
+      dist, impl, db):
+    u = g.new_empty((d_packed,), dtype=torch.float32)
+    return u, torch.empty_like(u)
 
 
 def project_packed_sharded_plain(seg_seeds, g_slab: torch.Tensor,
@@ -779,17 +908,37 @@ def reconstruct_apply_packed_sharded(seg_seeds, scale_packed: torch.Tensor,
     t = _device_tables(base, dev)
     seeds = _seeds_on(seg_seeds, base.n_segments, dev)
     db = resolve_double_buffer(double_buffer, prng, dev)
+    _reconstruct_apply_packed_sharded_op(
+        scale_packed, theta_slab, out, seeds, t["size"], t["pdim"],
+        t["param_off"], t["coord_off"], t["recon_blocks"], base.n_segments,
+        slayout.blocks_per_shard, int(shard) * slayout.blocks_per_shard,
+        base.pos_block, t["max_ndb"], _DIST_CODE[distribution],
+        impl_code(prng), int(db))
+    return out
+
+
+@kernel_op("reconstruct_apply_packed_sharded", mutates=("out",))
+def _reconstruct_apply_packed_sharded_op(
+        scale: Tensor, theta: Tensor, out: Tensor, seeds: Tensor,
+        size: Tensor, pdim: Tensor, param_off: Tensor, coord_off: Tensor,
+        recon_blocks: Tensor, n_segments: int, blocks_per_shard: int,
+        block0: int, pos_block: int, max_ndb: int, dist: int, impl: int,
+        db: int) -> None:
     _launch("reconstruct_apply_packed_sharded",
             library().lib.rbd_reconstruct_apply_packed_sharded,
-            scale_packed.data_ptr(), theta_slab.data_ptr(), out.data_ptr(),
-            seeds.data_ptr(), t["size"].data_ptr(), t["pdim"].data_ptr(),
-            t["param_off"].data_ptr(), t["coord_off"].data_ptr(),
-            t["recon_blocks"].data_ptr(), base.n_segments,
-            slayout.blocks_per_shard,
-            int(shard) * slayout.blocks_per_shard, base.pos_block,
-            t["max_ndb"], _DIST_CODE[distribution], impl_code(prng),
-            int(db), variant=(prng, db))
-    return out
+            scale.data_ptr(), theta.data_ptr(), out.data_ptr(),
+            seeds.data_ptr(), size.data_ptr(), pdim.data_ptr(),
+            param_off.data_ptr(), coord_off.data_ptr(),
+            recon_blocks.data_ptr(), n_segments, blocks_per_shard, block0,
+            pos_block, max_ndb, dist, impl, db,
+            variant=(_IMPL_NAME[impl], bool(db)))
+
+
+@_reconstruct_apply_packed_sharded_op.register_fake
+def _(scale, theta, out, seeds, size, pdim, param_off, coord_off,
+      recon_blocks, n_segments, blocks_per_shard, block0, pos_block, max_ndb,
+      dist, impl, db):
+    return None
 
 
 def reconstruct_apply_packed_sharded_plain(seg_seeds,
@@ -859,17 +1008,37 @@ def reconstruct_apply_packed_workers_sharded(wseg_seeds,
     t = _device_tables(base, dev)
     seeds = _seeds_on(wseg_seeds, k_workers * base.n_segments, dev)
     db = resolve_double_buffer(double_buffer, prng, dev)
+    _reconstruct_apply_packed_workers_sharded_op(
+        scale_gathered, theta_slab, out, seeds, t["size"], t["pdim"],
+        t["param_off"], t["coord_off"], t["recon_blocks"], base.n_segments,
+        slayout.blocks_per_shard, int(shard) * slayout.blocks_per_shard,
+        base.pos_block, k_workers, base.d_packed, t["max_ndb"],
+        _DIST_CODE[distribution], impl_code(prng), int(db))
+    return out
+
+
+@kernel_op("reconstruct_apply_packed_workers_sharded", mutates=("out",))
+def _reconstruct_apply_packed_workers_sharded_op(
+        scale: Tensor, theta: Tensor, out: Tensor, seeds: Tensor,
+        size: Tensor, pdim: Tensor, param_off: Tensor, coord_off: Tensor,
+        recon_blocks: Tensor, n_segments: int, blocks_per_shard: int,
+        block0: int, pos_block: int, k_workers: int, d_packed: int,
+        max_ndb: int, dist: int, impl: int, db: int) -> None:
     _launch("reconstruct_apply_packed_workers_sharded",
             library().lib.rbd_reconstruct_apply_packed_workers_sharded,
-            scale_gathered.data_ptr(), theta_slab.data_ptr(),
-            out.data_ptr(), seeds.data_ptr(), t["size"].data_ptr(),
-            t["pdim"].data_ptr(), t["param_off"].data_ptr(),
-            t["coord_off"].data_ptr(), t["recon_blocks"].data_ptr(),
-            base.n_segments, slayout.blocks_per_shard,
-            int(shard) * slayout.blocks_per_shard, base.pos_block,
-            k_workers, base.d_packed, t["max_ndb"], _DIST_CODE[distribution],
-            impl_code(prng),             int(db), variant=(prng, db))
-    return out
+            scale.data_ptr(), theta.data_ptr(), out.data_ptr(),
+            seeds.data_ptr(), size.data_ptr(), pdim.data_ptr(),
+            param_off.data_ptr(), coord_off.data_ptr(),
+            recon_blocks.data_ptr(), n_segments, blocks_per_shard, block0,
+            pos_block, k_workers, d_packed, max_ndb, dist, impl, db,
+            variant=(_IMPL_NAME[impl], bool(db)))
+
+
+@_reconstruct_apply_packed_workers_sharded_op.register_fake
+def _(scale, theta, out, seeds, size, pdim, param_off, coord_off,
+      recon_blocks, n_segments, blocks_per_shard, block0, pos_block,
+      k_workers, d_packed, max_ndb, dist, impl, db):
+    return None
 
 
 def reconstruct_apply_packed_workers_sharded_plain(

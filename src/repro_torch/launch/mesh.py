@@ -67,6 +67,12 @@ def init_mesh(data: int, model: int, device) -> Mesh:
             raise ValueError("a group of several ranks needs torchrun (or "
                              "MASTER_ADDR/MASTER_PORT) to find its peers")
         created = True
+    return _mesh_groups(data, model, device, created)
+
+
+def _mesh_groups(data: int, model: int, device, created: bool) -> Mesh:
+    """This rank's :class:`Mesh` on the initialized default group."""
+    n = data * model
     d_idx, m_idx = divmod(dist.get_rank(), model)
     if model == 1:
         return Mesh(device, created, d_idx, m_idx, "data", None, data, model)
@@ -77,6 +83,48 @@ def init_mesh(data: int, model: int, device) -> Mesh:
                    for m in range(model)]
     return Mesh(device, created, d_idx, m_idx, data_groups[m_idx],
                 model_groups[d_idx], data, model)
+
+
+FAKE_BACKEND = "fake"
+
+
+def _register_fake_backend() -> None:
+    """The ``"fake"`` process-group backend: torch's ``FakeProcessGroup``,
+    whose collectives return at once and move nothing (as PyTorch's own
+    testing helper registers it)."""
+    from torch._C._distributed_c10d import FakeProcessGroup
+
+    if FAKE_BACKEND.upper() in dist.Backend._plugins:
+        return
+
+    def create(common_opts, backend_opts):
+        return FakeProcessGroup._create_internal(
+            common_opts.group_rank, common_opts.group_size, backend_opts)
+
+    dist.Backend.register_backend(FAKE_BACKEND, create, extended_api=True,
+                                  devices=["cpu", "cuda"])
+
+
+def init_fake_mesh(data: int, model: int, rank: int = 0,
+                   device="meta") -> Mesh:
+    """Join a fake default group of ``data * model`` ranks as ``rank`` and
+    build the same ``(data, model)`` groups as :func:`init_mesh`: the dry
+    run's world (:mod:`repro_torch.launch.dryrun`), one rank's step traced
+    with every other rank imagined.  No collective moves data, no device
+    is selected and no peer is needed.  The caller destroys it with
+    :func:`destroy_mesh`."""
+    if data < 1 or model < 1:
+        raise ValueError(f"--data {data} --model {model}: both must be >= 1")
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialized; the "
+                           "fake world must be the default group")
+    n = data * model
+    if not 0 <= rank < n:
+        raise ValueError(f"rank {rank} outside a world of {n}")
+    _register_fake_backend()
+    dist.init_process_group(FAKE_BACKEND, store=dist.HashStore(), rank=rank,
+                            world_size=n)
+    return _mesh_groups(data, model, torch.device(device), True)
 
 
 def destroy_mesh(mesh: Mesh) -> None:

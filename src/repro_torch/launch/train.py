@@ -311,6 +311,53 @@ def run_training(cfg, *, mode="sharedseed", rbd_mode="shared_basis", data=1,
         meshlib.destroy_mesh(mesh)
 
 
+def step_route(net, tcfg, transform, *, mode: str, mesh, device,
+               resilience=None) -> dict:
+    """The parallel layout of ``--mode`` on ``mesh`` (a
+    :class:`repro_torch.launch.mesh.Mesh`): the keyword arguments of
+    ``train.step.make_train_step`` that place the step -- ``axis_name``,
+    ``k_workers``, ``model_sharded``, ``model_axis``, ``leaf_shards`` and
+    ``dense_grad_axis`` -- as the launcher runs it (and the dry run
+    traces it)."""
+    from repro_torch.models import registry
+    from repro_torch.train import step as steplib
+
+    data, model = mesh.data_size, mesh.model_size
+    # sharedseed runs over the data group (as the reference's shard_map
+    # does, also on one device); the SGD baseline only with several data
+    # ranks, its one collective the full-D gradient mean.
+    # independent_bases needs the static worker count of its joint subspace
+    axis_name = ("data" if mode == "sharedseed" or (mode == "sgd"
+                                                     and data > 1)
+                 else None)
+    k_workers = data if axis_name is not None else 1
+    # --mode pjit, or a model axis: parameters sharded over the model group
+    model_sharded = mode == "pjit" or model > 1
+    # sharedseed + --model M > 1: probe whether the plan stays
+    # packed-resident with a declared model axis (slab-sharded packed
+    # theta); if it cannot, keep the pjit-style declaration: leaf shards
+    model_axis = None
+    if model > 1 and mode == "sharedseed":
+        probe = steplib.make_subspace_optimizer(
+            net, tcfg, transform, axis_name, k_workers=k_workers,
+            model_sharded=True, model_axis="model", model_shards=model,
+            device=device, resilience=resilience)
+        if probe.plan_execution().packed_resident:
+            model_axis = mesh.model_group
+    if axis_name is not None:
+        axis_name = mesh.data_group
+    leaf_shards = None
+    if model > 1 and model_axis is None:
+        leaf_shards = registry.leaf_shards(net, model, mesh.model_index,
+                                           mesh.model_group)
+    # pjit over several data ranks: the dense gradient's mean over data
+    dense_grad_axis = (mesh.data_group if mode == "pjit" and data > 1
+                       else None)
+    return dict(axis_name=axis_name, k_workers=k_workers,
+                model_sharded=model_sharded, model_axis=model_axis,
+                leaf_shards=leaf_shards, dense_grad_axis=dense_grad_axis)
+
+
 def _run(cfg, *, mode, rbd_mode, data, model, mesh, steps, batch, seq,
          grad_accum_steps, lr, rbd_dim, normalization, rbd_backend, packed,
          prng_impl, basis, basis_refresh_every, optimizer, weight_decay,
@@ -344,42 +391,13 @@ def _run(cfg, *, mode, rbd_mode, data, model, mesh, steps, batch, seq,
                        momentum_beta=momentum_beta, nesterov=nesterov,
                        adam_b1=adam_b1, adam_b2=adam_b2, adam_eps=adam_eps)
     transform = steplib.make_transform(net, rbd_cfg)
-    # sharedseed runs over the data group (as the reference's shard_map
-    # does, also on one device); the SGD baseline only with several data
-    # ranks, its one collective the full-D gradient mean.
-    # independent_bases needs the static worker count of its joint subspace
-    axis_name = ("data" if mode == "sharedseed" or (mode == "sgd"
-                                                     and data > 1)
-                 else None)
-    k_workers = data if axis_name is not None else 1
-    # --mode pjit, or a model axis: parameters sharded over the model group
-    model_sharded = mode == "pjit" or model > 1
-    # sharedseed + --model M > 1: probe whether the plan stays
-    # packed-resident with a declared model axis (slab-sharded packed
-    # theta); if it cannot, keep the pjit-style declaration: leaf shards
-    model_axis = None
-    if model > 1 and mode == "sharedseed":
-        probe = steplib.make_subspace_optimizer(
-            net, tcfg, transform, axis_name, k_workers=k_workers,
-            model_sharded=True, model_axis="model", model_shards=model,
-            device=device, resilience=resilience)
-        if probe.plan_execution().packed_resident:
-            model_axis = mesh.model_group
-    if axis_name is not None:
-        axis_name = mesh.data_group
-    leaf_shards = None
-    if model > 1 and model_axis is None:
-        leaf_shards = registry.leaf_shards(net, model, mesh.model_index,
-                                           mesh.model_group)
-    # pjit over several data ranks: the dense gradient's mean over data
-    dense_grad_axis = (mesh.data_group if mode == "pjit" and data > 1
-                       else None)
+    route = step_route(net, tcfg, transform, mode=mode, mesh=mesh,
+                       device=device, resilience=resilience)
+    axis_name, model_axis = route["axis_name"], route["model_axis"]
+    leaf_shards = route["leaf_shards"]
     init_state, train_step, sub_opt = steplib.make_train_step(
-        net, tcfg, transform, axis_name=axis_name, k_workers=k_workers,
-        model_sharded=model_sharded, model_axis=model_axis,
-        model_shards=model, leaf_shards=leaf_shards,
-        dense_grad_axis=dense_grad_axis, device=device,
-        return_optimizer=True, resilience=resilience)
+        net, tcfg, transform, model_shards=model, device=device,
+        return_optimizer=True, resilience=resilience, **route)
     eplan = sub_opt.plan_execution()
     n_accum = max(1, int(grad_accum_steps))
 

@@ -1639,3 +1639,50 @@ def test_encdec_on_the_card_matches_the_cpu(cuda):
         outs[str(dev)] = [cache["xk"].cpu(), torch.cat(logits, 1).cpu()]
     for a, b in zip(outs["cpu"], outs[str(cuda)]):
         assert float((a - b).abs().max()) <= 1e-4 * float(a.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the kernels as torch.library ops
+# ---------------------------------------------------------------------------
+
+
+def test_kernel_ops_launch_as_the_direct_launch(cuda):
+    """A kernel's op (the wrappers' path) and its launch function called
+    directly give the same bits and one launch each; the op on meta
+    tensors gives the shapes and dtypes and launches nothing; on a CPU
+    tensor it has no kernel."""
+    plan, lay = _layout("normal")
+    seeds = rbd_step._seeds_on(projector.segment_seeds(plan, rng.fold_seed(5)),
+                               lay.n_segments, cuda)
+    t = rbd_step._device_tables(lay, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    g = torch.randn(lay.q_packed, generator=gen, device=cuda)
+    scale = torch.randn(lay.d_packed, generator=gen, device=cuda)
+    pargs = (g, seeds, t["size"], t["param_off"], t["coord_off"],
+             t["n_chunk"], t["proj_blocks"], lay.n_segments,
+             t["n_proj_blocks"], lay.pos_block, lay.d_packed, 0, 0, 0)
+    before = rbd_step.LAUNCHES["project_packed"]
+    via_op = torch.ops.repro_torch.project_packed(*pargs)
+    direct = rbd_step.LAUNCH_FNS["project_packed"](*pargs)
+    assert rbd_step.LAUNCHES["project_packed"] == before + 2
+    for a, b in zip(via_op, direct):
+        assert torch.equal(a, b)
+    outs = []
+    for fn in (torch.ops.repro_torch.reconstruct_apply_packed,
+               rbd_step.LAUNCH_FNS["reconstruct_apply_packed"]):
+        out = torch.empty_like(g)
+        fn(scale, g, out, seeds, t["size"], t["pdim"], t["param_off"],
+           t["coord_off"], t["recon_blocks"], lay.n_segments,
+           t["n_recon_blocks"], lay.pos_block, t["max_ndb"], 0, 0, 0)
+        outs.append(out)
+    assert torch.equal(outs[0], outs[1])
+    meta = [x.to("meta") if isinstance(x, torch.Tensor) else x
+            for x in pargs]
+    n = rbd_step.LAUNCHES["project_packed"]
+    u, sq = torch.ops.repro_torch.project_packed(*meta)
+    assert rbd_step.LAUNCHES["project_packed"] == n
+    assert (u.device.type, tuple(u.shape), u.dtype) == (
+        "meta", tuple(via_op[0].shape), via_op[0].dtype)
+    cpu = [x.cpu() if isinstance(x, torch.Tensor) else x for x in pargs]
+    with pytest.raises(NotImplementedError):
+        torch.ops.repro_torch.project_packed(*cpu)
