@@ -325,6 +325,21 @@ result line:
                shapes and rows 8-9 at the FC image model's largest leaf,
                the wrappers' whole calls and FC's ``rbd_gradient``; (c)
                ``dryrun --all`` runs on the CPU outside the phase;
+25. slab resilience -- phase 18's run on the model-sharded slabs: m = 2
+               shards in turn (``SubspaceOptimizer.step_shards_in_turn``)
+               at full qwen2-0.5b width and depth, adam, rbd-dim 1024, 8
+               x 128, the guard, the sentinel every 2 steps, the replay
+               log and a snapshot every 3, a NaN gradient at step 1.  (a)
+               6 steps straight through: the reasons phase 18 (a)'s step
+               for step, the slabs concatenated and cut to q_packed within
+               THETA_RTOL of phase 18 (a)'s theta, the padding exactly 0,
+               rows 5 and 6 once a shard every step (the rejected step's
+               apply counted); (b) killed before step 4, the snapshot the
+               (q_padded,) buffer; (c) resumed from (b)'s directory: the
+               slabs, adam and guard state bit for bit (a)'s, the replay
+               one row-6 launch a shard and nothing else; the snapshot's
+               bytes, write, verified restore and replay seconds; the
+               directory (under ``build/``) removed at the end;
 then the ``kernels`` line (eleven rows, then the six tile-keyed rows
 ``[hw_emulated]``, ``[hw,db]`` and ``[hw]`` of rows 1-2, then the
 tensor-core flash kernel's rows at head sizes 80 and 256 (launches: the
@@ -335,8 +350,9 @@ the three shard instances of rows 8-10 (launches: phase 23 (b)'s path,
 ms its per-step sum over the 4 shards, plain ms on its window); rows
 1-2 count phase 19 (a)'s, phase 20's, phase 21's and phase 22's
 launches too, rows 8-9 phase 21's image models' and phase 22's, rows 8
-and 10 phase 23 (a)'s, rows 1-2 phase 24's, row 11 phase 20's at head
-size 128 and phase 21's encoder), the card line and the result line.
+and 10 phase 23 (a)'s, rows 1-2 phase 24's, rows 5-6 phase 25's, row 11
+phase 20's at head size 128 and phase 21's encoder), the card line and
+the result line.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -449,6 +465,7 @@ PREFILL_F32_RTOL = 2e-5
 # fault plan (a NaN gradient at step 1, a kill before step 4) and the
 # steps timed of each of the guarded and the unguarded train_step
 RES_STEPS, RES_LR, RES_TIMED = 6, 0.02, 4
+PHASE18 = {}   # (a)'s reasons step by step, losses, final theta (host)
 # phase 19: (a) the FPD + L-BFGS run's steps; (b) the depth-1 resident
 # basis's rbd-dim and steps, the column chunk of its Gram check; (c) the
 # reference's acceptance run and its gradient_informed check
@@ -4140,6 +4157,12 @@ def phase_resilience(dev):
               "(a): the guard did not count one rejected step")
         check(all(math.isfinite(x) for x in ref.losses),
               f"(a): losses {ref.losses}")
+        # phase 25 holds the slab run to (a): its reasons, theta on the host
+        rejected = dict((e.step, e.reason) for e in ref.monitor.events)
+        PHASE18.update(
+            reasons=[rejected.get(i, res.REASON_OK)
+                     for i in range(RES_STEPS)],
+            losses=list(ref.losses), theta=ref.state.params.cpu())
 
         log("  (b) the same with the replay log, a snapshot every 3 "
             "steps, killed before step 4")
@@ -6515,6 +6538,301 @@ def phase_dryrun(dev) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 25: resilience on the model-sharded slabs, the shards in turn
+# ---------------------------------------------------------------------------
+
+SLAB_RES_M = 2     # shards of phase 25's model group, run in turn
+
+
+def _slab_drive(model, tcfg, transform, rcfg, *, resume=False, ref=None):
+    """Phase 25's training loop on the slabs in turn, phase 18's arguments:
+    the forward and backward on the concatenated slabs (the all-gather of
+    one rank), then ``step_shards_in_turn`` with the guard, the sentinel
+    and the fault plan, the monitor fed what the launcher feeds it.  Every
+    step must launch rows 5 and 6 once a shard.  With ``ref`` (the
+    unsharded guarded optimizer) each accepted step is held to ``ref``'s
+    step from the same state and gradient within THETA_RTOL (phase 15's
+    gate), and a rejected step must leave the slabs bit for bit.  Returns
+    the final state, the reasons, losses and launches of the live steps,
+    the worst step against ``ref`` as a share of its tolerance, the kill
+    (if the plan fired one), the snapshot step's observe seconds and --
+    resumed -- the recovery's info, seconds and launches."""
+    import torch
+    from repro_torch.core import resilience as res
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import rbd_step
+    from repro_torch.train import step as steplib
+    from repro_torch.train.step import TrainState
+
+    m = SLAB_RES_M
+    sub = steplib.make_subspace_optimizer(
+        model, tcfg, transform, "data", model_sharded=True,
+        model_axis="model", model_shards=m, device="cuda", resilience=rcfg)
+    loss_fn = steplib.make_loss_fn(model, model.cfg.router_aux_coef)
+    padded = sub.padded_params(model.init(tcfg.seed, device="cuda"))
+    state = TrainState([sub.slab_of(padded, s).clone() for s in range(m)],
+                       sub.init_rbd_state(),
+                       sub.init_opt_state(device="cuda"), 0,
+                       res.guard_init("cuda"))
+    del padded
+    out = {"sub": sub, "reasons": [], "losses": [], "killed": None,
+           "launches": dict.fromkeys(rbd_step.KERNELS, 0), "worst": 0.0}
+    q = sub.transform.plan.packed().q_packed
+    if resume:
+        rbd_step.reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, info = res.recover(rcfg, sub, state)
+        torch.cuda.synchronize()
+        out["recovery"] = dict(
+            info, seconds=time.perf_counter() - t,
+            launches={k: v for k, v in rbd_step.LAUNCHES.items() if v})
+    monitor = res.ResilienceMonitor(rcfg, sub)
+    stream = synthetic.lm_batches(tcfg.seed, tcfg.batch_size, tcfg.seq_len,
+                                  model.cfg.vocab, device="cuda")
+    stream.skip(state.step)
+    want = {"project_packed_sharded": m,
+            "reconstruct_apply_packed_sharded": m}
+    try:
+        for i in range(state.step, RES_STEPS):
+            if monitor.should_kill(i):
+                out["killed"] = f"fault plan kills step {i}"
+                break
+            full = torch.cat(state.params).requires_grad_(True)
+            loss, _ = loss_fn(sub.materialize_params(full), next(stream))
+            (grad,) = torch.autograd.grad(loss, full)
+            full = full.detach()
+            before = state
+            rbd_step.reset_counts()
+            with torch.no_grad():
+                slabs, new_r, new_o, aux = sub.step_shards_in_turn(
+                    state.params, [sub.slab_of(grad, s) for s in range(m)],
+                    state.rbd_state, state.opt_state, state.guard)
+            got = {k: v for k, v in rbd_step.LAUNCHES.items() if v}
+            check(got == want, f"step {i}: expected rows 5-6 once a shard, "
+                  f"got {got}")
+            for k, v in got.items():
+                out["launches"][k] += v
+            new = torch.cat(slabs)
+            if ref is not None and int(aux.reason) == res.REASON_OK:
+                with torch.no_grad():
+                    theta = ref.step(full[:q].clone(), grad[:q],
+                                     before.rbd_state, before.opt_state,
+                                     before.guard)[0]
+                dt = float((new[:q] - theta).abs().max())
+                tol = (THETA_RTOL * float((theta - full[:q]).abs().max())
+                       + 2 * 2.0**-23 * float(full.abs().max()))
+                check(dt <= tol, f"step {i}: theta off the unsharded step "
+                      f"by {dt:.3g} (tol {tol:.3g})")
+                out["worst"] = max(out["worst"], dt / tol)
+                del theta
+            elif ref is not None:
+                check(torch.equal(new, full), f"step {i}: the rejected "
+                      "step moved the slabs")
+            del grad, full, new
+            state = TrainState(slabs, new_r, new_o, state.step + 1,
+                               aux.guard)
+            metrics = {"guard_reason": aux.reason,
+                       "guard_lr_scale": aux.guard.lr_scale,
+                       "sentinel_diverged": aux.diverged}
+            if sub.capture_coords:
+                metrics.update(replay_coords=aux.coords,
+                               replay_row_sq=aux.row_sq)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            monitor.observe(state, metrics)
+            torch.cuda.synchronize()
+            if rcfg.directory and (i + 1) % rcfg.snapshot_every == 0:
+                out["write_s"] = time.perf_counter() - t
+            out["reasons"].append(int(aux.reason))
+            out["losses"].append(float(loss.detach()))
+    finally:
+        if monitor.log is not None:
+            monitor.log.close()
+    out["state"] = state
+    return out
+
+
+def phase_slab_resilience(dev) -> dict:
+    """Returns the launches by kernel over the phase's main-path steps and
+    replay."""
+    import gc
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RBDConfig, TrainConfig
+    from repro_torch.core import resilience as res
+    from repro_torch.kernels import rbd_step
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models.registry import get_model
+    from repro_torch.train import step as steplib
+
+    smi = dev["smi"]
+    t_phase = time.perf_counter()
+    log(f"== phase 25: resilience on the model-sharded slabs, m = "
+        f"{SLAB_RES_M} shards in turn, qwen2-0.5b full width and depth "
+        "(phase 18's arguments)")
+    check(bool(PHASE18), "phase 18 left no uninterrupted run to hold to")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("qwen2-0.5b")
+    model = get_model(cfg)
+    rbd = RBDConfig(total_dim=1024, backend="cuda")
+    tcfg = TrainConfig(model=cfg, rbd=rbd, learning_rate=RES_LR,
+                       optimizer="adam", steps=RES_STEPS, batch_size=8,
+                       seq_len=128)
+    transform = steplib.make_transform(model, rbd)
+    plan = res.FaultPlan((res.FaultEvent(1, "nan_grad"),
+                          res.FaultEvent(4, "kill")))
+    directory = os.path.join(ROOT, "build", "slab_resilience_smoke")
+    snap_dir = os.path.join(directory, "snapshots")
+
+    def rcfg(d, faults):
+        return res.ResilienceConfig(directory=d, snapshot_every=3,
+                                    guard=res.GuardConfig(),
+                                    sentinel_every=2, fault_plan=faults)
+
+    launches = dict.fromkeys(rbd_step.KERNELS, 0)
+
+    def count(run):
+        for k, v in run["launches"].items():
+            launches[k] += v
+
+    mesh = meshlib.init_mesh(1, 1, "cuda")   # the one-rank data group
+    shutil.rmtree(directory, ignore_errors=True)
+    try:
+        log("  (a) 6 steps, a NaN gradient at step 1, no kill, no "
+            "directory; each step against the unsharded guarded step from "
+            "the same state and gradient")
+        ref = steplib.make_subspace_optimizer(
+            model, tcfg, transform, "data", device="cuda",
+            resilience=res.ResilienceConfig(guard=res.GuardConfig()))
+        t = time.perf_counter()
+        a = _slab_drive(model, tcfg, transform,
+                        rcfg(None, plan.without("kill")), ref=ref)
+        count(a)
+        sub = a["sub"]
+        q = sub.transform.plan.packed().q_packed
+        log(f"  (a) {time.perf_counter() - t:.1f} s: reasons "
+            f"{a['reasons']} (phase 18 (a) {PHASE18['reasons']}), losses "
+            f"{a['losses']} (phase 18 (a) {PHASE18['losses']})")
+        check(a["reasons"] == PHASE18["reasons"],
+              f"(a): reasons {a['reasons']} are not phase 18 (a)'s "
+              f"{PHASE18['reasons']}")
+        check(int(a["state"].guard.nonfinite_count) == 1,
+              "(a): the guard did not count one rejected step")
+        log(f"  (a) every accepted step within THETA_RTOL of the unsharded "
+            f"step from its state, the worst at {a['worst']:.3g} of its "
+            "tolerance; the rejected step left the slabs bit for bit")
+        # the whole trajectory against phase 18 (a)'s: reported, not
+        # gated -- the bf16 forward turns the slab sums' f32 order into
+        # bf16 noise in the next gradients, which adam's per-coordinate
+        # normalization carries into every later step
+        new = torch.cat(a["state"].params)
+        want = PHASE18["theta"].to("cuda")
+        theta0 = sub.padded_params(model.init(tcfg.seed, device="cuda"))
+        dt = float((new[:q] - want).abs().max())
+        upd = float((want - theta0[:q]).abs().max())
+        del want, theta0
+        log(f"  (a) final theta vs phase 18 (a)'s unsharded run: max "
+            f"{dt:.3g}, {dt / upd:.3g} of its largest cumulative update "
+            f"{upd:.3g}")
+        check(bool((new[q:] == 0).all()), "(a): padding is not exactly 0")
+        check(all(math.isfinite(x) for x in a["losses"]),
+              f"(a): losses {a['losses']}")
+        del new
+
+        log("  (b) the same with the replay log, a snapshot every 3 "
+            "steps, killed before step 4")
+        t = time.perf_counter()
+        b = _slab_drive(model, tcfg, transform, rcfg(directory, plan))
+        count(b)
+        check(b["killed"] == "fault plan kills step 4" and len(
+            b["reasons"]) == 4, f"(b): the kill did not fire before step "
+            f"4: {b['killed']}, {len(b['reasons'])} steps")
+        del b["state"]
+        snap = os.path.join(snap_dir, "ckpt_00000003")
+        snap_bytes = os.path.getsize(snap + ".npz")
+        with open(snap + ".json") as fh:
+            shapes = json.load(fh)["shapes"]
+        slayout = sub.sharded_layout()
+        log(f"  (b) {time.perf_counter() - t:.1f} s; snapshot "
+            f"{snap_bytes:,} B ({snap_bytes / 1e9:.3f} GB), .params "
+            f"{shapes['.params']} (q_padded {slayout.q_padded:,}); write "
+            f"(the slabs concatenated, device to host, npz, CRC32s, fsync) "
+            f"{b['write_s']:.3f} s [{smi}]")
+        check(shapes[".params"] == [slayout.q_padded],
+              f"(b): the snapshot's params are {shapes['.params']}, not "
+              f"the (q_padded,) buffer")
+
+        log("  (c) resumed from (b)'s directory, the kill dropped")
+        t = time.perf_counter()
+        c = _slab_drive(model, tcfg, transform,
+                        rcfg(directory, plan.without("kill")), resume=True)
+        count(c)
+        rec = c["recovery"]
+        for k, v in rec["launches"].items():
+            launches[k] += v
+        log(f"  (c) {time.perf_counter() - t:.1f} s: snapshot "
+            f"{rec['snapshot_step']}, replayed {rec['replayed']}, recover "
+            f"(verified restore + replay) {rec['seconds']:.3f} s, its "
+            f"launches {rec['launches']}; then reasons {c['reasons']} "
+            f"[{smi}]")
+        check(rec["snapshot_step"] == 3 and rec["replayed"] == 1,
+              f"(c): expected snapshot 3 and 1 record replayed: {rec}")
+        check(rec["launches"] == {"reconstruct_apply_packed_sharded":
+                                  SLAB_RES_M},
+              f"(c): the replay should be one slab apply a shard: "
+              f"{rec['launches']}")
+        check(c["reasons"] == PHASE18["reasons"][4:],
+              f"(c): reasons {c['reasons']}")
+        sa, sc = a["state"], c["state"]
+        same = {
+            "slabs": all(torch.equal(x, y) for x, y in zip(sa.params,
+                                                          sc.params)),
+            "adam": all(torch.equal(x, y) for x, y in zip(sa.opt_state,
+                                                          sc.opt_state)),
+            "guard": all(torch.equal(x, y) for x, y in zip(sa.guard,
+                                                          sc.guard)),
+            "step": sa.step == sc.step == RES_STEPS}
+        log(f"  resumed == uninterrupted, bit for bit: {same}")
+        check(all(same.values()), f"(c) is not (a) bit for bit: {same}")
+
+        # the recovery's pieces timed apart: the verified restore, the
+        # replay of one record on the slabs
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        restored = ckpt_io.restore(
+            snap_dir, res._restore_template(sub, sc), 3)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        restored = restored._replace(params=res._stored_like(
+            sub, restored.params, sc.params))
+        _, records, _ = res.ReplayLog.read(os.path.join(directory,
+                                                        "replay.log"))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res.replay_records(sub, restored, [r for r in records
+                                           if r.step == 3])
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t
+        log(f"  verified restore {restore_s:.3f} s for {snap_bytes / 1e9:.3f}"
+            f" GB; replay of one record ({SLAB_RES_M} slab applies) "
+            f"{replay_s * 1e3:.1f} ms [{smi}]")
+        del a, c, sa, sc, restored, ref
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+        meshlib.destroy_mesh(mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"  phase 25 {time.perf_counter() - t_phase:.1f} s; launches "
+        f"{ {k: v for k, v in launches.items() if v} } [{smi}]")
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -6617,6 +6935,9 @@ def main(argv=None) -> int:
     dry = phase_dryrun(dev)
     for row in rows:
         row["launches"] += dry["launches"].get(row["name"], 0)
+    slab = phase_slab_resilience(dev)
+    for row in rows:
+        row["launches"] += slab.get(row["name"], 0)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(dev["smi"], flush=True)

@@ -73,11 +73,16 @@ COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "scalar": 0,
                "model_all_gather": 0, "resync": 0,
                "basis_grad_all_reduce": 0, "leaf_all_gather": 0,
                "model_scalar": 0}
+# counted apart from the step's: the resilience snapshot's all-gather of
+# the slabs over the writer's model group (all_gather_slabs, at snapshot
+# steps only, outside the step)
+SNAPSHOT_COLLECTIVES = {"all_gather": 0}
 
 
 def reset_counts() -> None:
-    for k in COLLECTIVES:
-        COLLECTIVES[k] = 0
+    for counts in (COLLECTIVES, SNAPSHOT_COLLECTIVES):
+        for k in counts:
+            counts[k] = 0
 
 
 def process_group(axis_name):
@@ -134,7 +139,8 @@ def split_coord_buffer(buf, d_packed: int):
     return buf[..., :d_packed], buf[..., d_packed:]
 
 
-def complete_model_partials(u_partial, sq_partial, model_axis):
+def complete_model_partials(u_partial, sq_partial, model_axis, *,
+                            words=None):
     """Complete the model-sharded projection with ONE all-reduce SUM over
     the model group.
 
@@ -145,19 +151,26 @@ def complete_model_partials(u_partial, sq_partial, model_axis):
     slab-local.  ``sq_partial`` given ('exact'): the sum widens to the
     (2*d_packed,) u+sq buffer, one collective still.  Callers normalize
     the completed sums and hand them to the unchanged data-axis exchange:
-    one coordinate-sized collective per axis, nothing D-sized.  With
+    one coordinate-sized collective per axis, nothing D-sized.
+    ``words`` (the sentinel's (2,) share of this rank,
+    ``resilience.sentinel_words``) trail the payload, summed by the same
+    collective; the return then grows to ``(u, sq, words)``.  With
     ``model_axis=None`` the partials are returned untouched."""
     if model_axis is None:
-        return u_partial, sq_partial
+        out = u_partial, sq_partial
+        return out if words is None else out + (words,)
     group = process_group(model_axis)
     widened = sq_partial is not None
     buf = (widen_coord_buffer(u_partial, sq_partial) if widened
            else u_partial.to(torch.float32, copy=True))
+    if words is not None:
+        buf = torch.cat([buf, words.to(torch.float32)])
     dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
     COLLECTIVES["model_all_reduce"] += 1
-    if not widened:
-        return buf, None
-    return split_coord_buffer(buf, u_partial.shape[-1])
+    d = u_partial.shape[-1]
+    n = 2 * d if widened else d
+    out = (split_coord_buffer(buf[:n], d) if widened else (buf[:n], None))
+    return out if words is None else out + (buf[n:],)
 
 
 def model_sum_scalar(x: torch.Tensor, model_axis) -> torch.Tensor:
@@ -172,15 +185,27 @@ def model_sum_scalar(x: torch.Tensor, model_axis) -> torch.Tensor:
 
 
 def all_gather_slabs(out: torch.Tensor, slab: torch.Tensor,
-                     model_axis) -> torch.Tensor:
+                     model_axis, *, snapshot: bool = False) -> torch.Tensor:
     """Every rank's (q_slab,) slab, in rank order, into the (m * q_slab,)
     buffer ``out``: the forward's all-gather of the model-sharded
-    parameters."""
+    parameters (counted as ``model_all_gather``), or with ``snapshot`` a
+    resilience snapshot's (counted in ``SNAPSHOT_COLLECTIVES``)."""
     group = process_group(model_axis)
     rows = out.view(dist.get_world_size(group), -1)
     dist.all_gather(list(rows.unbind(0)), slab.contiguous(), group=group)
-    COLLECTIVES["model_all_gather"] += 1
+    if snapshot:
+        SNAPSHOT_COLLECTIVES["all_gather"] += 1
+    else:
+        COLLECTIVES["model_all_gather"] += 1
     return out
+
+
+def is_group(axis_name) -> bool:
+    """Whether ``axis_name`` names a process group of this process (the
+    shards in turn name their model axis with a plain string instead:
+    one process stands for the whole group)."""
+    return dist.is_initialized() and (
+        axis_name == "data" or isinstance(axis_name, dist.ProcessGroup))
 
 
 class PendingExchange(NamedTuple):

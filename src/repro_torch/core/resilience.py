@@ -31,6 +31,14 @@ post-exchange coordinate buffer)`` -- kilobytes, not gigabytes:
   a host-side kill (:class:`SimulatedWorkerKill`).  The step counter is a
   host integer in the port, so the injectors decide on the host which
   step they hit; the value they write is the reference's.
+
+On the model-sharded slabs (``SubspaceOptimizer.model_axis``) all of it
+runs on each rank's slab: the sentinel's share of the slab rides the
+model group's completion all-reduce (:func:`sentinel_words`), so every
+rank of the mesh folds one whole-buffer checksum; a snapshot holds the
+whole (q_padded,) buffer, gathered over the writer's model group
+(:func:`snapshot_params`); :func:`recover` hands each rank its own slab of
+it and replays the log on that slab.
 """
 
 from __future__ import annotations
@@ -48,7 +56,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.optim.transforms import _map
+from repro_torch.optim.transforms import _map, leaves
 
 # ---------------------------------------------------------------------------
 # reason codes (every recovery path is reason-coded)
@@ -203,6 +211,11 @@ def state_checksum(tree) -> torch.Tensor:
         total = s if total is None else total + s.to(total.device)
     if total is None:
         return torch.zeros((), dtype=torch.float32)
+    return _fold(total)
+
+
+def _fold(total: torch.Tensor) -> torch.Tensor:
+    """An int64 word sum -> its 16-bit wraparound fold, as float32."""
     total = total & 0xFFFFFFFF
     folded = (total ^ (total >> 16)) & 0xFFFF
     return folded.to(torch.float32)
@@ -216,6 +229,41 @@ def sentinel_rider(opt_state, packed_params) -> torch.Tensor:
     if _tree_leaves(opt_state):
         return state_checksum(opt_state)
     return state_checksum(packed_params)
+
+
+def sentinel_words(opt_state, slab) -> torch.Tensor:
+    """This rank's share of the sentinel on the model-sharded slabs: a
+    (2,) float32 tensor that rides the model group's completion
+    all-reduce (summed there, with the coordinates' partial sums).
+
+    sgd: the 32-bit word sum of this rank's slab modulo 2**32, as its low
+    and high 16-bit halves.  Each half summed over m <= 256 ranks stays
+    below 2**24, so the sum is exact in float32, and
+    :func:`sentinel_rider_of_words` reassembles the word sum of the whole
+    padded buffer -- whose padding words are zero, so its fold is the
+    unsharded step's rider.  momentum / adam: the replicated state's
+    checksum (:func:`state_checksum`) and a zero; the completed sum is m
+    times the checksum when the group agrees.  Either way every rank of
+    the model group folds the same rider, so a slab or a state that
+    diverges on one rank is seen by every data group: all ranks of the
+    mesh reach one verdict with no collective added."""
+    if _tree_leaves(opt_state):
+        c = state_checksum(opt_state)
+        return torch.stack([c, torch.zeros_like(c)])
+    w = _bits_sum(slab) & 0xFFFFFFFF
+    return torch.stack([w & 0xFFFF, w >> 16]).to(torch.float32)
+
+
+def sentinel_rider_of_words(words, m: int, opt_state) -> torch.Tensor:
+    """The rider every rank of a model group of ``m`` folds from the
+    group's summed :func:`sentinel_words`: the whole buffer's checksum
+    (sgd), or the mean of the ranks' state checksums (momentum / adam:
+    the reference's rider when the group agrees, a value off every
+    checksum's integer grid or off the other groups' when it does not)."""
+    if _tree_leaves(opt_state):
+        return words[0] / m
+    w = words.to(torch.int64)
+    return _fold(w[0] + (w[1] << 16))
 
 
 def sentinel_check(local, exchanged, step, every: int) -> torch.Tensor:
@@ -559,17 +607,65 @@ def replay_meta(sub_opt) -> dict:
 
 
 def _device_of(params) -> torch.device:
-    if isinstance(params, torch.Tensor):
-        return params.device
-    return next(iter(params.values())).device
+    return leaves(params)[0].device
+
+
+def _sharded(sub_opt, params) -> bool:
+    """Whether ``params`` is the stored form of the model-sharded slabs:
+    this rank's (q_slab,) slab, or the list of a group's slabs in turn."""
+    if isinstance(params, (list, tuple)):
+        return True
+    slayout = sub_opt.sharded_layout()
+    return (slayout is not None and isinstance(params, torch.Tensor)
+            and params.shape[-1] != slayout.q_padded)
+
+
+def snapshot_params(sub_opt, params):
+    """The stored parameters as a snapshot holds them: on the slabs the
+    whole (q_padded,) buffer, the reference's ``prepare_params`` shape --
+    a list of slabs (in turn) concatenated, this rank's slab all-gathered
+    over its model group (one D-sized collective, counted in
+    ``distributed.SNAPSHOT_COLLECTIVES``; every rank of the group calls
+    it at the same step); anything else as it is."""
+    from repro_torch.core import distributed
+
+    if not _sharded(sub_opt, params):
+        return params
+    if isinstance(params, (list, tuple)):
+        return torch.cat(list(params))
+    full = params.new_empty((sub_opt.sharded_layout().q_padded,))
+    return distributed.all_gather_slabs(full, params, sub_opt.model_axis,
+                                        snapshot=True)
+
+
+def _restore_template(sub_opt, state):
+    """``state`` with the params a snapshot holds (shape, dtype and device
+    only: no memory behind the (q_padded,) slab template)."""
+    if not _sharded(sub_opt, state.params):
+        return state
+    like = leaves(state.params)[0]
+    full = like.new_zeros(()).expand(sub_opt.sharded_layout().q_padded)
+    return state._replace(params=full)
+
+
+def _stored_like(sub_opt, full, like):
+    """A snapshot's (q_padded,) buffer -> the stored form of ``like``:
+    this rank's slab, or every slab of the group in turn."""
+    if not _sharded(sub_opt, like):
+        return full
+    if isinstance(like, (list, tuple)):
+        return [sub_opt.slab_of(full, s).clone() for s in range(len(like))]
+    return sub_opt.slab_of(full).clone()
 
 
 def replay_records(sub_opt, state, records):
     """Apply logged coordinate records on top of ``state`` through
     ``SubspaceOptimizer.apply_exchanged`` -- the post-exchange code the
     live step runs, so replay is bit-exact by construction: one
-    reconstruct-apply launch a record, no projection.  Returns
-    ``(new_state, n_applied)``."""
+    reconstruct-apply launch a record, no projection, no collective.  On
+    the model-sharded slabs each rank replays the records on its own slab
+    (the shards in turn: on each slab of the list), one slab apply a
+    record a slab.  Returns ``(new_state, n_applied)``."""
     if not records:
         return state, 0
     guarded = sub_opt.guard is not None
@@ -636,9 +732,12 @@ def recover(cfg, sub_opt, template_state):
     """Restore the newest VALID snapshot under ``cfg.directory`` and replay
     the coordinate log forward.  ``template_state`` is the fresh init state
     (the restore template, and the replay base when the log starts at step
-    0 and no snapshot exists yet).  Returns ``(state, info)``; ``state`` is
-    None when there is nothing to recover.  Every degraded path lands a
-    reason-coded :class:`RecoveryEvent` in ``info['events']``."""
+    0 and no snapshot exists yet).  On the model-sharded slabs every rank
+    reads the whole (q_padded,) buffer of the snapshot and keeps its own
+    slab (the shards in turn: every slab), then replays on it.  Returns
+    ``(state, info)``; ``state`` is None when there is nothing to recover.
+    Every degraded path lands a reason-coded :class:`RecoveryEvent` in
+    ``info['events']``."""
     from repro_torch.checkpoint import io as ckpt_io
 
     info = {
@@ -670,7 +769,10 @@ def recover(cfg, sub_opt, template_state):
         # payload/CRC verification is reason-coded and skipped -- the log
         # replays the extra distance from an older snapshot
         try:
-            state = ckpt_io.restore(snap_dir, template_state, s)
+            state = ckpt_io.restore(
+                snap_dir, _restore_template(sub_opt, template_state), s)
+            state = state._replace(params=_stored_like(
+                sub_opt, state.params, template_state.params))
         except (ValueError, OSError) as e:
             info["events"].append(
                 RecoveryEvent(
@@ -770,7 +872,10 @@ class ResilienceMonitor:
 
     Over a data group of several ranks only its rank 0 writes the log and
     the snapshots: the coordinate state and theta are replicated over the
-    group, so one writer is enough (every rank reads them on resume)."""
+    group, so one writer is enough (every rank reads them on resume).  On
+    the model-sharded slabs the writer is data index 0 and model index 0;
+    at a snapshot step every rank of its model group gathers its slab
+    into the whole buffer the writer saves (:func:`snapshot_params`)."""
 
     def __init__(self, cfg: ResilienceConfig, sub_opt):
         from repro_torch.core import distributed
@@ -779,9 +884,13 @@ class ResilienceMonitor:
         self.sub_opt = sub_opt
         self.events: list = []
         self.log: Optional[ReplayLog] = None
-        self.writer = (sub_opt.axis_name is None
-                       or not dist.is_initialized()
-                       or distributed.axis_index(sub_opt.axis_name) == 0)
+        first_data = (not distributed.is_group(sub_opt.axis_name)
+                      or distributed.axis_index(sub_opt.axis_name) == 0)
+        # the writer's model group gathers the slabs for a snapshot
+        self.gathers = bool(cfg.directory) and first_data
+        self.writer = first_data and (
+            not distributed.is_group(sub_opt.model_axis)
+            or distributed.axis_index(sub_opt.model_axis) == 0)
         if cfg.directory and self.writer:
             os.makedirs(self.snapshot_dir, exist_ok=True)
             self.log = ReplayLog(
@@ -800,11 +909,17 @@ class ResilienceMonitor:
             e.step == step for e in plan.of("kill")
         )
 
-    def snapshot(self, state) -> str:
+    def snapshot(self, state) -> Optional[str]:
         """RAW packed TrainState snapshot (params stay packed: replay
-        operates on the stored representation), copied to the host."""
+        operates on the stored representation; slabs are gathered into
+        the (q_padded,) buffer first), copied to the host.  Returns the
+        path, or None on a rank that only gathered."""
         from repro_torch.checkpoint import io as ckpt_io
 
+        state = state._replace(
+            params=snapshot_params(self.sub_opt, state.params))
+        if not self.writer:
+            return None
         return ckpt_io.save(
             self.snapshot_dir, _host_snapshot(state), int(state.step)
         )
@@ -837,9 +952,9 @@ class ResilienceMonitor:
                 )
             else:
                 self.log.append(step, reason, lr_scale)
-            every = self.cfg.snapshot_every
-            if every and (step + 1) % every == 0:
-                self.snapshot(state)
+        every = self.cfg.snapshot_every
+        if self.gathers and every and (step + 1) % every == 0:
+            self.snapshot(state)
         if bool(metrics.get("sentinel_diverged", False)):
             new.append(
                 RecoveryEvent(

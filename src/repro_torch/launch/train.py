@@ -40,6 +40,10 @@
     # restores the newest snapshot and replays the log before training
     ... --rbd-backend cuda --guard --sentinel-every 2 \
         --resilience-dir runs/res --snapshot-every 50 [--resume]
+    # ... and on the model-sharded slabs
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch qwen2-0.5b --reduced --device cpu --model 2 --rbd-backend cuda \
+        --guard --sentinel-every 2 --resilience-dir runs/res2 [--resume]
 
     # the basis layer: a materialized basis refreshed from the trajectory
     # (or the gradient history) every 3 steps, L-BFGS in its coordinates
@@ -73,7 +77,12 @@ token batches and the encoder-decoder also needs frames (the reference's
 launcher fails on the missing ``frames`` key).  Runs on the GPU (NCCL) unless ``--device cpu``
 (gloo).  The resilience flags (``--guard``, ``--resilience-dir``,
 ``--snapshot-every``, ``--sentinel-every``, ``--on-divergence``,
-``--resume``) are the reference's; they need the packed step.
+``--resume``) are the reference's; they need the packed step, and run on
+its model-sharded slabs too (``--model M``): one writer (data index 0,
+model index 0), a snapshot of the whole (q_padded,) buffer gathered over
+the writer's model group, and on ``--resume`` each rank's slab of it
+with the log replayed on the slab; ``repair`` re-broadcasts over this
+rank's data group.
 ``--checkpoint-dir`` saves the parameter map whole (gathered over the
 model group first).  ``--basis trajectory_pca | gradient_informed`` plans the
 materialized basis (``materialized_packed``: two matmuls a step, no kernel

@@ -76,8 +76,19 @@ completing every leaf's projection partials (``core.projector``), the
 (d,)-sized coordinate state replicated, a full-space state that mirrors
 the parameters (momentum's ``m``, adam's ``mu`` and ``nu``) sharded like
 them.  The update norm of the metrics sums its squares over the group
-(one scalar all-reduce).  Resilience on the model-sharded slabs raises
-``NotImplementedError`` naming ROADMAP.md Queue A 21.
+(one scalar all-reduce).
+
+The resilience hooks run on the model-sharded slabs too.  The sketch
+completes the coordinates over the model group, so the guard's decision
+(read from the completed coordinates) is the same on every rank of the
+group; the sentinel's share of each slab rides the completion all-reduce
+(``core.resilience.sentinel_words``), so every rank of the mesh folds the
+same whole-buffer checksum and reaches the same verdict; the finish chain
+-- fault injection on the received payload, the reason code, the
+sentinel check, the guard's transition -- is the unsharded step's, then
+the apply on the slab.  :meth:`SubspaceOptimizer.apply_exchanged` takes
+this rank's slab, or the list of a group's slabs in turn, which is how
+the coordinate replay runs on slabs: one slab apply a record.
 """
 
 from __future__ import annotations
@@ -568,12 +579,6 @@ class SubspaceOptimizer:
                 "the sequential K-worker simulation does not compose with "
                 "model_axis (the slab projection needs real groups); run "
                 "over a data group")
-        if self.resilience_active and self.model_axis is not None:
-            raise NotImplementedError(
-                "resilience (guard/sentinel/replay capture/fault injection) "
-                "on the model-sharded slabs is not ported yet (ROADMAP.md "
-                "Queue A 21): each rank holds its own slab, and a snapshot "
-                "would have to gather the whole padded buffer")
         return eplan
 
     @property
@@ -810,7 +815,7 @@ class SubspaceOptimizer:
         ``step() == step_finish(step_sketch())``."""
         eplan = self._check_split()
         if self.model_axis is not None:
-            return self._sharded_sketch(grads, rbd_state, eplan)
+            return self._sharded_sketch(params, grads, rbd_state, opt_state)
         t = self.transform
         plan = t.plan
         layout = plan.packed()
@@ -871,11 +876,11 @@ class SubspaceOptimizer:
         guard's reason code from the (d,)-sized buffers, the sentinel's
         verdict from the rider, and :meth:`apply_exchanged` (the
         coordinate-space optimizer and launch 2, on this rank's slab under
-        a declared ``model_axis``).  Still two launches and one collective
-        with every resilience hook on.  Functional: returns a new
-        parameter buffer unless ``log_update_norm`` is off, in which case
-        ``params`` is updated in place (the update norm needs the old
-        buffer)."""
+        a declared ``model_axis``, or on each slab of a list).  Still two
+        launches and one collective with every resilience hook on.
+        Functional: returns a new parameter buffer unless
+        ``log_update_norm`` is off, in which case ``params`` is updated in
+        place (the update norm needs the old buffer)."""
         eplan = self._check_split()
         guard_on = self.guard is not None
         joint = self.joint_subspace
@@ -938,6 +943,9 @@ class SubspaceOptimizer:
         (``core.resilience.replay_records``) both run this code, which is
         what makes restore + replay bit-exact by construction.
 
+        ``params``: the packed buffer, this rank's slab under a declared
+        ``model_axis``, or the list of a model group's slabs (the shards
+        in turn: the optimizer runs once, then one apply a slab).
         ``coords``/``sq``: the post-exchange buffers ((d_packed,) or the
         gathered (K, d_packed); ``sq`` may be None on the joint path under
         static-factor normalizations).  ``reason``: this step's REASON_*
@@ -983,9 +991,17 @@ class SubspaceOptimizer:
             # adam must not absorb the sanitized zeros' decay)
             new_opt = opt._map(lambda n, o: torch.where(ok, n, o), new_opt,
                                opt_state)
-        shard = self.model_index() if self.model_axis is not None else None
-        new_params, in_place = self._apply(params, coords_u, sq, rbd_state,
-                                           eplan, shard)
+        if isinstance(params, (list, tuple)):
+            # the shards in turn: one apply a slab, in shard order
+            outs = [self._apply(slab, coords_u, sq, rbd_state, eplan, shard)
+                    for shard, slab in enumerate(params)]
+            new_params = [out for out, _ in outs]
+            in_place = outs[0][1]
+        else:
+            shard = (self.model_index() if self.model_axis is not None
+                     else None)
+            new_params, in_place = self._apply(params, coords_u, sq,
+                                               rbd_state, eplan, shard)
         return (new_params, RBDState(step=rbd_state.step + 1), new_opt,
                 new_guard, in_place)
 
@@ -1021,73 +1037,92 @@ class SubspaceOptimizer:
             grads, t.plan, seed, shard, slayout=self.sharded_layout(),
             backend=t.backend, prng=eplan.prng_impl)
 
-    def sketch_from_sums(self, u, psq, csq) -> StepTicket:
+    def sketch_from_sums(self, u, psq, csq, words=None, opt_state=None
+                         ) -> StepTicket:
         """The completed sums -> normalized coordinates -> the unchanged
         data-axis exchange (issued at once under ``issue_early``).
         ``csq``: the completed norms ('exact'), else None; ``psq``: the
-        slab's own partial norms, passed through (unused by the
-        update)."""
+        slab's own partial norms, passed through (unused by the update).
+        ``words``: the sentinel's completed words
+        (``resilience.sentinel_words`` summed over the group), from which
+        every rank folds the same rider; ``opt_state`` says how they fold.
+        With the guard on, the ticket's ``local_ok`` reads the completed
+        coordinates, the same on every rank of the model group."""
         eplan = self._check_split()
         plan = self.transform.plan
         exact = plan.normalization == "exact"
         coords = u * projector.packed_norm_factor(
             plan, plan.packed(), csq, device=u.device)
+        rider = (None if words is None else resilience.sentinel_rider_of_words(
+            words, self.model_shards, opt_state))
         if self.joint_subspace:
             if eplan.overlap_exchange == "issue_early":
                 return StepTicket(pending=distributed.start_exchange(
                     coords, csq, self.axis_name, kind="all_gather",
-                    widened=exact))
-            return StepTicket(coords=coords, sq=csq)
+                    widened=exact, rider=rider), rider=rider)
+            return StepTicket(coords=coords, sq=csq, rider=rider)
         sq = csq if exact else psq
+        local_ok = (resilience.all_finite(coords, sq)
+                    if self.guard is not None else ())
         if self.axis_name is not None and eplan.overlap_exchange == "sync":
-            return StepTicket(coords=coords, sq=sq)
+            return StepTicket(coords=coords, sq=sq, rider=rider,
+                              local_ok=local_ok)
         return StepTicket(pending=distributed.start_exchange(
-            coords, sq, self.axis_name, kind="pmean", widened=exact))
+            coords, sq, self.axis_name, kind="pmean", widened=exact,
+            rider=rider), rider=rider, local_ok=local_ok)
 
-    def _sharded_sketch(self, grads, rbd_state, eplan) -> StepTicket:
+    def _sharded_sketch(self, params, grads, rbd_state, opt_state
+                        ) -> StepTicket:
         """Sketch half on this rank's slab: the slab's partial sums, ONE
-        all-reduce over the model group (widened to u+sq under 'exact'),
-        then :meth:`sketch_from_sums`.  One coordinate-sized collective
-        per group and step, nothing D-sized."""
+        all-reduce over the model group (widened to u+sq under 'exact',
+        and by the sentinel's two words when it is on), then
+        :meth:`sketch_from_sums`.  One coordinate-sized collective per
+        group and step, nothing D-sized."""
         exact = self.transform.plan.normalization == "exact"
         u, psq = self.slab_partials(grads, rbd_state, self.model_index())
-        u, csq = distributed.complete_model_partials(
-            u, psq if exact else None, self.model_axis)
-        return self.sketch_from_sums(u, psq, csq)
+        words = (resilience.sentinel_words(opt_state, params)
+                 if self.sentinel_every else None)
+        u, csq, *words = distributed.complete_model_partials(
+            u, psq if exact else None, self.model_axis, words=words)
+        return self.sketch_from_sums(u, psq, csq, words[0] if words else None,
+                                     opt_state)
 
-    def step_shards_in_turn(self, slabs, grads, rbd_state, opt_state):
+    def step_shards_in_turn(self, slabs, grads, rbd_state, opt_state,
+                            guard_state=()):
         """One optimizer step of a whole model group run in one process,
         the shards one after the other (one device standing in for m
-        ranks): the m slab projections, the completion -- the partials
-        summed in shard order -- the data-axis exchange and the
+        ranks): the fault plan's gradient faults on each slab's gradient
+        (every slab of the targeted data worker, as on the ranks), the m
+        slab projections, the completion -- the partials and the
+        sentinel's words summed in shard order -- then the finish chain
+        of :meth:`step_finish`: the data-axis exchange, collective-fault
+        injection, the reason code, the sentinel check, the guard and the
         coordinate optimizer once (the ranks' replicated copies would
         agree), then the m slab applies.  ``slabs``/``grads``: the m
         (q_slab,) slabs and their gradients.  Returns ``(new slabs,
-        new_rbd_state, new_opt_state, aux)``; ``aux.update_norm`` over
-        all slabs."""
-        eplan = self._check_split()
+        new_rbd_state, new_opt_state, aux)``, ``aux`` the fields
+        :meth:`step` fills; ``aux.update_norm`` over all slabs."""
+        self._check_split()
         exact = self.transform.plan.normalization == "exact"
         if len(slabs) != self.model_shards or len(grads) != len(slabs):
             raise ValueError(f"expected {self.model_shards} slabs and "
                              f"gradients, got {len(slabs)} and {len(grads)}")
-        u = psq = csq = None
-        for shard, g in enumerate(grads):
+        widx = (distributed.axis_index(self.axis_name)
+                if self.axis_name is not None else None)
+        u = psq = words = None
+        for shard, (slab, g) in enumerate(zip(slabs, grads)):
+            g = resilience.inject_grad_faults(
+                self.fault_plan, rbd_state.step, g, worker_index=widx)
             pu, ps = self.slab_partials(g, rbd_state, shard)
             u = pu if u is None else u + pu
             psq = ps if psq is None else psq + ps
-        if exact:
-            csq = psq
-        coords, sq, _ = self._finish_exchange(
-            self.sketch_from_sums(u, psq, csq))
-        coords_u, new_opt = self._update_coords(coords, rbd_state, opt_state)
-        new, in_place = [], False
-        for shard, slab in enumerate(slabs):
-            out, in_place = self._apply(slab, coords_u, sq, rbd_state, eplan,
-                                        shard)
-            new.append(out)
-        aux = self._delta_aux(torch.cat(list(slabs)), torch.cat(new),
-                              in_place)
-        return new, RBDState(step=rbd_state.step + 1), new_opt, aux
+            if self.sentinel_every:
+                w = resilience.sentinel_words(opt_state, slab)
+                words = w if words is None else words + w
+        ticket = self.sketch_from_sums(u, psq, psq if exact else None, words,
+                                       opt_state)
+        return self.step_finish(list(slabs), ticket, rbd_state, opt_state,
+                                guard_state)
 
     # -- microbatch accumulation --------------------------------------------
 
@@ -1108,12 +1143,6 @@ class SubspaceOptimizer:
             return acc
         inv = 1.0 / float(n_micro)
         return opt._map(lambda g: g * inv, acc)
-
-    def _update_coords(self, coords, rbd_state, opt_state):
-        """The coordinate-space optimizer on the exchanged (d_packed,) or
-        gathered (K, d_packed) buffer."""
-        opt_state = self._switch_opt_state(opt_state, rbd_state.step)
-        return self._optimizer().update(coords, opt_state)
 
     def _apply(self, params, coords_u, sq, rbd_state, eplan, shard):
         """Launch 2: the reconstruct-apply of the updated coordinates on

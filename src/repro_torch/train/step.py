@@ -181,10 +181,13 @@ def make_train_step(model: Model, tcfg: TrainConfig,
     ``resilience``: an optional ``ResilienceConfig`` (see
     :func:`make_subspace_optimizer`): ``TrainState.guard`` carries the
     guard state, gradient faults are injected after accumulation and
-    before the sketch, and the metrics gain ``guard_reason``,
-    ``guard_count``, ``guard_lr_scale``, ``sentinel_diverged``,
-    ``replay_coords`` and ``replay_row_sq`` -- each only when its feature
-    is on."""
+    before the sketch -- on the model-sharded slabs into this rank's slab
+    of the gradient, keyed on the data index as the reference keys its
+    ``shard_map``'d injection, so a ``nan_grad`` event writes element 0 of
+    every slab of the targeted data worker -- and the metrics gain
+    ``guard_reason``, ``guard_count``, ``guard_lr_scale``,
+    ``sentinel_diverged``, ``replay_coords`` and ``replay_row_sq`` -- each
+    only when its feature is on."""
     device = resolve_device(device)
     n_accum = int(tcfg.grad_accum_steps)
     if n_accum < 1:

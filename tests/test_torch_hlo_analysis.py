@@ -7,7 +7,8 @@ hlo_analysis``) and the kernels as ``torch.library`` ops.
   adam, 'exact', independent bases, the per-leaf route and the guard.
 * The paper's exchange contract (``assert_coordinate_exchange``) holds on
   the port's step for every listed plan, with the payload of the same
-  plan, and fails on a D-sized gradient mean.
+  plan -- the guarded, sentinelled slab step of a data 2 x model 2 world
+  too -- and fails on a D-sized gradient mean.
 * Every kernel op: the fake outputs of a meta call have the shapes and
   dtypes of the CPU plain version's; a CPU tensor dispatches no op and
   keeps its bits; an op has no CPU kernel.
@@ -222,6 +223,40 @@ def test_exchange_contract_model_axis_completion(normalization, rbd_mode):
             payload=d, n_params=plan.total_params, kinds=KINDS[rbd_mode],
             n_launches=2, widened=widened,
             model_axis=2 * d if widened else d)
+
+
+@pytest.mark.parametrize("planted", [False, True])
+def test_guarded_slab_step_contract(planted):
+    """The slab step with the guard and the sentinel on a fake data 2 x
+    model 2 world: two kernel op calls, one completion psum over the model
+    group (the d coordinates and the sentinel's two words) and one data
+    exchange widened by the rider's scalar -- and a D-sized mean planted
+    in the step fails the contract."""
+    from repro_torch.core import distributed
+
+    with fake_world(data=2, model=2) as mesh:
+        _, state, _, sub = _port_step(mesh, optimizer="adam", guard=True,
+                                      sentinel_every=2)
+        plan = sub.transform.plan
+        d = plan.packed().d_packed
+        assert sub.guard is not None and sub.model_axis is not None
+
+        def opt_step(slab, g_slab):
+            with torch.no_grad():
+                if planted:
+                    distributed.grad_mean(
+                        {"w": torch.empty(plan.total_params, device="meta")},
+                        mesh.data_group)
+                return sub.step(slab, g_slab, state.rbd_state,
+                                state.opt_state, state.guard)[0]
+
+        check = contextlib.nullcontext() if not planted else \
+            pytest.raises(AssertionError)
+        with check:
+            hlo_analysis.assert_coordinate_exchange(
+                opt_step, state.params, torch.empty_like(state.params),
+                payload=d, n_params=plan.total_params, n_launches=2,
+                extra=1, model_axis=d + 2)
 
 
 def test_exchange_contract_fails_on_d_sized_grad_mean():

@@ -849,3 +849,46 @@ def test_recover_empty_directory_returns_none(tmp_path):
         warnings.simplefilter("error")
         state, info = res.recover(cfg, _sub(), _init_state(_sub()))
     assert state is None and info["replayed"] == 0 and info["events"] == []
+
+
+def test_reference_replay_raises_on_slabs_where_the_port_replays():
+    """ROADMAP.md Queue C 32: the reference's ``replay_records`` calls
+    ``apply_exchanged`` outside any ``shard_map``, so on the model-sharded
+    slabs its ``axis_index('model')`` is unbound and the resume raises;
+    the port replays the same record on each slab -- one slab apply a
+    slab, no projection -- and lands on the unsharded replay's buffer."""
+    from repro_torch.kernels import rbd_step
+
+    m = 2
+    rec = res.ReplayRecord(
+        step=0, reason=res.REASON_OK, lr_scale=1.0,
+        coords=np.random.default_rng(4).standard_normal(
+            _plan().packed().d_packed).astype(np.float32),
+        row_sq=np.random.default_rng(5).random(
+            _plan().packed().d_packed).astype(np.float32) + 0.5)
+    ref = dataclasses.replace(_ref_sub(), model_sharded=True,
+                              model_axis="model", model_shards=m)
+    theta = jnp.asarray(ref.prepare_params(_ref_params()))
+    ref_state = _ref_init_state(ref)._replace(params=theta)
+    with pytest.raises(NameError, match="unbound axis name: model"):
+        ref_res.replay_records(ref, ref_state, [ref_res.ReplayRecord(*rec)])
+
+    single = _sub()
+    sharded = dataclasses.replace(single, model_sharded=True,
+                                  model_axis="model", model_shards=m)
+    assert np.asarray(theta).shape == (sharded.sharded_layout().q_padded,)
+    padded = torch.from_numpy(np.asarray(theta).copy())
+    state = _init_state(sharded)._replace(
+        params=[sharded.slab_of(padded, s).clone() for s in range(m)])
+    rbd_step.reset_counts()
+    out, n = res.replay_records(sharded, state, [rec])
+    assert n == 1 and out.step == 1
+    assert {k: v for k, v in rbd_step.CALLS.items() if v} == {
+        "reconstruct_apply_packed_sharded": m}
+    want, _ = res.replay_records(single, _init_state(single), [rec])
+    got = torch.cat(out.params)
+    q = single.transform.plan.packed().q_packed
+    assert torch.equal(got[:q], want.params)
+    assert bool((got[q:] == 0).all())
+    _assert_states_equal(out.opt_state, want.opt_state)
+    _assert_states_equal(out.guard, want.guard)

@@ -19,8 +19,8 @@
   ``on_divergence="fail"`` raises ``ReplicaDivergenceError``; under
   ``"repair"`` both ranks re-broadcast from rank 0, record
   ``REASON_RESYNC`` and end bit-identical;
-* the refusals: resilience on a plan that is not the packed two-launch
-  step, and on the model-sharded slabs (ROADMAP.md Queue A 21).
+* the refusal of resilience on a plan that is not the packed two-launch
+  step (the model-sharded slabs are tests/test_torch_resilience_slabs.py's).
 
 The spawned ranks import this file, so it imports jax and the reference
 package only inside the test that runs the reference.
@@ -240,16 +240,6 @@ def test_resilience_needs_the_packed_two_launch_step():
         launcher.run_training(_cfg(), steps=1, **dict(RUN, rbd_backend="torch"),
                               resilience=res.ResilienceConfig(
                                   guard=res.GuardConfig()))
-
-
-def test_resilience_on_the_slabs_names_its_item():
-    plan = compartments.make_plan({"w": (48, 20), "s": ()}, 16)
-    sub = subspace.SubspaceOptimizer(
-        transform=RandomBasesTransform(plan, base_seed=1, backend="cuda"),
-        use_packed=True, model_sharded=True, model_axis="model",
-        model_shards=2, sentinel_every=2)
-    with pytest.raises(NotImplementedError, match="Queue A 21"):
-        sub.init_opt_state(device="cpu")
 
 
 # ---------------------------------------------------------------------------
